@@ -1,0 +1,339 @@
+"""End-to-end pipeline: circuit → network → path → slicing → tuning →
+merging → lowering → sliced PyTorch contraction.  This is the public API
+the port's users and ``chip_smoke.py`` drive.
+
+``backend="gemm"`` (the default) compiles the planned tree through
+:mod:`repro_torch.lowering` into an explicit kernel schedule (the
+hand-written tiled, fused and chain kernels plus library fallbacks);
+``backend="einsum"`` is the oracle path, asked for by name.  Every entry
+point takes ``device`` (default ``"cuda"``); with no GPU it raises unless
+``device="cpu"`` is passed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+
+import numpy as np
+import torch
+
+from ..hardware import DEFAULT_HARDWARE, Hardware
+from .contraction_tree import ContractionTree
+from .executor import ContractionPlan, check_precision, simplify_network
+from .merging import modeled_tree_time
+from .tensor_network import popcount
+
+
+@dataclasses.dataclass
+class PlanReport:
+    """Planner metrics mirroring the paper's reported quantities (the
+    fields this port fills so far)."""
+
+    num_tensors: int
+    width_before: int
+    width_after: int
+    log2_cost: float
+    log2_sliced_cost: float
+    num_sliced: int
+    slicing_overhead: float  # Eq. 4
+    modeled_time_s: float  # Sec. V model, one card
+    plan_wall_s: float
+    backend: str = "gemm"
+    lowered_backends: dict | None = None  # node counts per kernel backend
+    pad_waste: float = 0.0  # FLOPs-weighted tile padding fraction
+    hoist: bool = True  # whether two-phase execution is enabled
+    invariant_fraction: float = 0.0  # share of C(B) hoisted out of slices
+    measured_overhead: float = 1.0  # executed-FLOPs overhead of the mode
+    modeled_time_hoisted_s: float = 0.0  # Sec. V model under hoisting
+    peak_bytes: int = 0  # exact live-set peak, naive subtask
+    peak_bytes_hoisted: int = 0  # live-set peak under two-phase execution
+    buffer_slots: int = 0  # linear-scan slot count (naive subtask)
+    transpose_bytes_saved: float = 0.0  # bytes the fused kernel avoids/slice
+    fused_chains: int = 0  # multi-step chains planned
+    max_chain_len: int = 0
+    chain_hbm_bytes_saved: float = 0.0  # modeled bytes chains avoid/slice
+    precision: str = "fp32"
+    hardware: str = DEFAULT_HARDWARE.name
+
+
+@dataclasses.dataclass
+class SimulationResult:
+    value: np.ndarray | complex
+    report: PlanReport
+    tree: ContractionTree
+    smask: int
+    plan: ContractionPlan | None = None  # carries the lowered schedule
+
+
+def plan_contraction(
+    tn,
+    target_dim: int,
+    method: str = "lifetime",
+    tune: bool = True,
+    merge: bool = True,
+    repeats: int = 8,
+    seed: int = 0,
+    slicing_mode: str = "width",
+    itemsize: int = 8,
+    budget_bytes: int | None = None,
+    hw: Hardware = DEFAULT_HARDWARE,
+):
+    """Full planning pipeline on a tensor network (the one-shot planner).
+
+    ``slicing_mode="peak"`` re-judges the final slicing mask against the
+    lifetime-based memory plan's live-set peak instead of the width
+    proxy.  ``hw`` prices branch merging and the modeled times."""
+    from ..lowering.memory import plan_memory  # lazy: avoid cycle
+    from ..lowering.partition import partition_tree  # lazy: cycle
+    from ..optimize import oneshot_plan
+
+    t0 = time.perf_counter()
+    shot = oneshot_plan(
+        tn, target_dim, method=method, tune=tune, merge=merge,
+        repeats=repeats, seed=seed, slicing_mode=slicing_mode,
+        itemsize=itemsize, budget_bytes=budget_bytes, hw=hw,
+    )
+    tree, smask, width0 = shot.tree, shot.smask, shot.width_before
+    wall = time.perf_counter() - t0
+    naive_overhead = tree.slicing_overhead(smask)
+    invariant_fraction = 0.0
+    hoisted_overhead = naive_overhead
+    part = None
+    if smask:
+        part = partition_tree(tree, smask)
+        invariant_fraction = part.invariant_fraction
+        hoisted_overhead = part.hoisted_overhead()
+    modeled = modeled_tree_time(tree, smask, hw)
+    mem = plan_memory(tree, smask, itemsize=itemsize, part=part)
+    report = PlanReport(
+        num_tensors=tn.num_tensors,
+        width_before=width0,
+        width_after=tree.sliced_width(smask),
+        log2_cost=tree.log2_total_cost(),
+        log2_sliced_cost=math.log2(tree.sliced_cost(smask)),
+        num_sliced=popcount(smask),
+        slicing_overhead=naive_overhead,
+        modeled_time_s=modeled,
+        plan_wall_s=wall,
+        invariant_fraction=invariant_fraction,
+        measured_overhead=hoisted_overhead,
+        modeled_time_hoisted_s=modeled * hoisted_overhead / naive_overhead,
+        peak_bytes=mem.peak_bytes,
+        peak_bytes_hoisted=mem.peak_bytes_hoisted,
+        buffer_slots=mem.buffer_slots,
+        hardware=hw.name,
+    )
+    return tree, smask, report
+
+
+def plan_compiled(
+    tn,
+    target_dim: int,
+    dtype=torch.complex64,
+    backend: str = "gemm",
+    device="cuda",
+    precision: str = "fp32",
+    hoist: bool = True,
+    hw: Hardware = DEFAULT_HARDWARE,
+    fused: bool = True,
+    **plan_kwargs,
+) -> tuple[ContractionPlan, PlanReport]:
+    """Plan + lower a network into an executable :class:`ContractionPlan`
+    on ``device``.  ``plan_kwargs`` go to :func:`plan_contraction`.
+    Only ``precision="fp32"`` runs in this port so far.  (The reference's
+    compiled-plan cache is not ported: every call plans afresh.)"""
+    check_precision(precision)
+    t0 = time.perf_counter()
+    tree, smask, report = plan_contraction(
+        tn, target_dim, itemsize=dtype.itemsize, hw=hw, **plan_kwargs
+    )
+    plan = ContractionPlan(
+        tree, smask, backend=backend, dtype=dtype, precision=precision,
+        device=device, hw=hw, fused=fused,
+    )
+    report.backend = plan.backend
+    report.hoist = bool(hoist and plan.can_hoist)
+    report.invariant_fraction = plan.invariant_fraction
+    report.measured_overhead = plan.executed_overhead(report.hoist)
+    if plan.schedule is not None:
+        sched = plan.schedule
+        report.modeled_time_s = sched.modeled_time_s * (1 << plan.num_sliced)
+        prologue_t = sum(
+            sched.specs[k].modeled_time_s for k in plan.prologue_idx
+        )
+        report.modeled_time_hoisted_s = prologue_t + (
+            sched.modeled_time_s - prologue_t
+        ) * (1 << plan.num_sliced)
+        report.lowered_backends = sched.backend_counts()
+        report.pad_waste = sched.pad_waste()
+        report.transpose_bytes_saved = sched.transpose_bytes_eliminated()
+    if plan.chain_plan is not None:
+        cp = plan.chain_plan
+        report.fused_chains = cp.num_multi
+        report.max_chain_len = max((c.n_steps for c in cp.chains), default=0)
+        seg = "epilogue" if report.hoist and plan.num_sliced else "naive"
+        report.chain_hbm_bytes_saved = cp.hbm_bytes_saved(seg)
+    report.plan_wall_s = time.perf_counter() - t0
+    return plan, report
+
+
+def _network(circuit, bitstring: str):
+    from ..quantum.circuits import circuit_to_network  # avoid import cycle
+
+    tn, arrays = circuit_to_network(circuit, bitstring=bitstring)
+    return simplify_network(tn, arrays)
+
+
+def simulate_amplitude(
+    circuit,
+    bitstring: str,
+    target_dim: int = 20,
+    backend: str = "gemm",
+    hoist: bool = True,
+    device="cuda",
+    **plan_kwargs,
+) -> SimulationResult:
+    """Amplitude <bitstring|C|0…0> via the full planner + executor stack
+    on ``device``.  ``plan_kwargs`` go to :func:`plan_compiled`."""
+    tn, arrays = _network(circuit, bitstring)
+    plan, report = plan_compiled(
+        tn, target_dim, backend=backend, device=device, hoist=hoist,
+        **plan_kwargs,
+    )
+    value = plan.contract_all(arrays, hoist=hoist)
+    return SimulationResult(
+        value.cpu().numpy(), report, plan.tree, plan.smask, plan
+    )
+
+
+def open_amplitude_batch(
+    circuit,
+    open_qubits=None,
+    base_bitstring: str | None = None,
+    target_dim: int = 20,
+    backend: str = "gemm",
+    hoist: bool = True,
+    device="cuda",
+    **plan_kwargs,
+):
+    """Contract one open-qubit batch: all ``2^k`` correlated amplitudes
+    sharing ``base_bitstring`` outside ``open_qubits`` (default: the last
+    ``min(6, n)`` qubits open, all-zeros base).
+
+    Returns ``(AmplitudeBatch, PlanReport)``."""
+    from ..sampling import AmplitudeBatch, batch as batch_mod
+
+    n = circuit.num_qubits
+    if open_qubits is None:
+        k = min(6, n)
+        open_qubits = tuple(range(n - k, n))
+    open_qubits = tuple(sorted(set(open_qubits)))
+    if not open_qubits:
+        raise ValueError("need at least one open qubit")
+    if base_bitstring is None:
+        base_bitstring = "0" * n
+    elif len(base_bitstring) != n or set(base_bitstring) - {"0", "1"}:
+        raise ValueError(
+            f"base_bitstring must be {n} chars of 0/1, got {base_bitstring!r}"
+        )
+    tn, arrays = batch_mod.open_batch_network(
+        circuit, base_bitstring, open_qubits
+    )
+    # open indices cannot be sliced: the width floor is the batch rank
+    plan, report = plan_compiled(
+        tn, max(target_dim, len(open_qubits) + 1), backend=backend,
+        device=device, hoist=hoist, **plan_kwargs,
+    )
+    amps = batch_mod.contract_amplitude_batch(plan, arrays, hoist=hoist)
+    return AmplitudeBatch(amps, open_qubits, base_bitstring, n), report
+
+
+def draw_from_batch(
+    batch,
+    num_samples: int,
+    sampler: str = "frequency",
+    seed: int = 0,
+    report: PlanReport | None = None,
+):
+    """Draw + score a sample set from an already-contracted
+    :class:`~repro_torch.sampling.AmplitudeBatch` (numpy
+    ``default_rng(seed)`` randomness, as in the reference)."""
+    from ..quantum import xeb as xeb_mod  # avoid import cycle
+    from ..sampling import samplers
+
+    if num_samples <= 0:
+        raise ValueError(f"num_samples must be positive, got {num_samples}")
+    if sampler not in ("frequency", "rejection", "topk"):
+        raise ValueError(f"unknown sampler {sampler!r}")
+    idx = samplers.draw(batch, num_samples, sampler=sampler, seed=seed)
+    sampled_amps = batch.flat()[idx]
+    probs = np.abs(sampled_amps) ** 2
+    return samplers.SamplingResult(
+        bitstrings=batch.bitstrings_for(idx),
+        amplitudes=sampled_amps,
+        probs=probs,
+        xeb=xeb_mod.linear_xeb(batch.num_qubits, probs),
+        batch=batch,
+        sampler=sampler,
+        report=report,
+    )
+
+
+def sample_bitstrings(
+    circuit,
+    num_samples: int = 1024,
+    open_qubits=None,
+    base_bitstring: str | None = None,
+    target_dim: int = 20,
+    seed: int = 0,
+    sampler: str = "frequency",
+    backend: str = "gemm",
+    hoist: bool = True,
+    device="cuda",
+    **plan_kwargs,
+):
+    """Draw correlated bitstring samples from one batched contraction —
+    the paper's flagship workload (Sec. VI).
+
+    ``open_qubits`` (default: the last ``min(6, n)`` qubits) stay open
+    through the contraction stem, so a single sliced contraction yields
+    all ``2^k`` amplitudes sharing the ``base_bitstring`` prefix; the
+    bitstrings are drawn from that batch with ``sampler`` and scored with
+    Linear XEB.  ``seed`` seeds both the planner and the sampler.
+    Returns a :class:`repro_torch.sampling.SamplingResult`."""
+    if num_samples <= 0:
+        raise ValueError(f"num_samples must be positive, got {num_samples}")
+    if sampler not in ("frequency", "rejection", "topk"):
+        raise ValueError(f"unknown sampler {sampler!r}")  # fail pre-contraction
+    batch, report = open_amplitude_batch(
+        circuit, open_qubits=open_qubits, base_bitstring=base_bitstring,
+        target_dim=target_dim, backend=backend, hoist=hoist, device=device,
+        seed=seed, **plan_kwargs,
+    )
+    return draw_from_batch(
+        batch, num_samples, sampler=sampler, seed=seed, report=report
+    )
+
+
+def open_session(
+    circuit,
+    bitstring: str,
+    target_dim: int = 20,
+    backend: str = "gemm",
+    hoist: bool = True,
+    device="cuda",
+    **plan_kwargs,
+):
+    """Plan a circuit amplitude and return a live
+    :class:`~repro_torch.engine.session.ContractionSession` plus its
+    report, ready for ``run_slice`` / ``run_slices`` / ``run_all``."""
+    from ..engine.session import ContractionSession
+
+    tn, arrays = _network(circuit, bitstring)
+    plan, report = plan_compiled(
+        tn, target_dim, backend=backend, device=device, hoist=hoist,
+        **plan_kwargs,
+    )
+    return ContractionSession(plan, arrays, hoist=hoist), report
