@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the contraction kernels from ``src/repro_torch/kernels/csrc`` and
-drives the simulator's main path through its public entry points at the
-full width of the circuits it supports:
+Builds the kernels from ``src/repro_torch/kernels/csrc`` and drives the
+simulator's main path and the LM serving path through their public entry
+points at full width:
 
-  1. build     — nvcc for sm_90a; build seconds and the card's name and
-                 power limit;
-  2. kernels   — each kernel (tiled_gemm, fused_gemm, chain_gemm) at the
-                 shapes of the 30-qubit plan (its largest tiled step,
-                 largest fused step, longest chain), held against its
-                 plain PyTorch version on the card (max error relative to
-                 max|plain| <= 1e-4: another summation order than the
-                 library's), timed with CUDA events beside its bound;
+  1. build     — one nvcc per source for sm_90a, all started together;
+                 build seconds and the card's name and power limit;
+  2. kernels   — each contraction kernel (tiled_gemm, fused_gemm,
+                 chain_gemm) at the shapes of the 30-qubit plan (its
+                 largest tiled step, largest fused step, longest chain),
+                 held against its plain PyTorch version on the card (max
+                 error relative to max|plain| <= 1e-4: another summation
+                 order than the library's), timed with CUDA events beside
+                 its bound (chain_gemm as the kernel alone, with its
+                 arguments built once, and as the whole wrapper); then
+                 flash_attention at qwen3-4b's prefill shapes (bf16,
+                 <= 1e-2: the output's bf16 rounding alone is 2^-8) and
+                 ssd_chunk at mamba2-130m's (fp32, <= 1e-4);
   3. amplitude — simulate_amplitude on sycamore_like(5, 6, 14), 30 qubits,
                  every slice, held against the port's statevector on the
                  card (relative error <= 1e-3: fp32 sums over ~150 steps
@@ -27,8 +32,20 @@ full width of the circuits it supports:
   5. share     — open_session on sycamore_like(6, 6, 14), 36 qubits (more
                  than any statevector on one card holds), run_slices on 2
                  slice ids against the einsum oracle on the same ids;
-  6. kernels   — one JSON line listing every kernel with its launches on
-                 phases 3-5 (each must be > 0).
+  6. serve     — for qwen3-4b and mamba2-130m: the full config (36 and
+                 24 layers) through repro_torch.launch.decode_demo.serve,
+                 batch 4, prompt 512, 32 tokens, finite logits; the
+                 card's prefill logits against the port's own CPU run on
+                 the same weights and tokens, at full width: in bf16 at 2
+                 layers <= 3e-2 of max|logit| (the bf16 attention
+                 tolerance of the JAX suite), in fp32 (qwen3-4b at 2
+                 layers, mamba2-130m whole) <= 1e-3; profiler traces of
+                 one prefill and one decode step at the serve shapes;
+                 the phase's flash_attention and ssd_chunk launches must
+                 be > 0;
+  7. kernels   — one JSON line listing every kernel with its launches on
+                 its path (phases 3-5 for the contraction kernels, the
+                 serve phase for the LM kernels; each must be > 0).
 
 Each phase prints one JSON line; any failed check raises, so the exit code
 is non-zero.  The last line is the device summary.  With no CUDA device,
@@ -48,15 +65,36 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
 FP32_PEAK = 67e12  # H100 SXM data sheet, FP32 on the CUDA cores
+BF16_PEAK = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 HBM_BW = 3.35e12  # H100 SXM data sheet, HBM3
 KERNEL_TOL = 1e-4
+FLASH_TOL = 1e-2  # bf16 output: its rounding alone is 2^-8 = 3.9e-3
 AMP_TOL = 1e-3
+# card against CPU prefill logits, relative to max|logit|.  bf16: the JAX
+# suite's bf16 attention tolerance.  Random weights amplify bf16 rounding
+# with depth (bf16 against fp32 logits differ 0.5% at 2 layers of
+# qwen3-4b, 14% at 24 of mamba2-130m, on the H100), so the bf16 check
+# runs 2 layers.  fp32: other summation orders only; the readings were
+# 1.9e-6 (qwen3-4b, 2 layers) and 3.1e-5 (mamba2-130m, 24 layers).
+SERVE_TOL = 3e-2
+SERVE_TOL_FP32 = 1e-3
+BF16_LAYERS = 2
 TPU_KERNELS = {
     "tiled_gemm": "src/repro/kernels/contract_gemm.py:45",
     "fused_gemm": "src/repro/kernels/contract_gemm.py:164",
     "chain_gemm": "src/repro/kernels/contract_gemm.py:421",
+    "flash_attention": "src/repro/kernels/flash_attention.py:71",
+    "ssd_chunk": "src/repro/kernels/mamba2_ssd.py:57",
 }
-SOURCE = "src/repro_torch/kernels/csrc/gemm.cu"
+SOURCES = {
+    "tiled_gemm": "src/repro_torch/kernels/csrc/gemm.cu",
+    "fused_gemm": "src/repro_torch/kernels/csrc/gemm.cu",
+    "chain_gemm": "src/repro_torch/kernels/csrc/gemm.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "ssd_chunk": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+}
+SERVE = dict(batch=4, prompt_len=512, gen_tokens=32, seed=0)
+AGREE = dict(batch=1, prompt_len=256)  # the CPU half of the agreement
 
 
 class SmokeFailure(RuntimeError):
@@ -101,8 +139,9 @@ def cuda_ms(torch, fn) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_mem = flops / FP32_PEAK, nbytes / HBM_BW
+def bound(flops: float, nbytes: float, peak: float = FP32_PEAK):
+    """(least ms for the work, what bounds it) on the data-sheet peaks."""
+    t_ops, t_mem = flops / peak, nbytes / HBM_BW
     return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes"
 
 
@@ -206,10 +245,20 @@ def phase_kernels(torch, plan, cg) -> dict:
         sum(c.numel() for c in comps) + sum(g.numel() for g in got)
     )
     b_ms, b_by = bound(flops, nbytes)
+    # the kernel alone: back-to-back launches with the tables, workspace,
+    # barrier and pointer arrays built once; the whole wrapper beside it
+    launch, outs = cg.chain_gemm_launcher(*args, complex_mode=True)
+    ms = cuda_ms(torch, launch)
+    torch.cuda.synchronize()
+    # what the timed relaunches left in their outputs is the wrapper's result
+    _, rel_relaunch = rel_err(torch, outs, got)
+    check(rel_relaunch <= KERNEL_TOL,
+          f"chain_gemm relaunches disagree: {rel_relaunch}")
     out["chain_gemm"] = dict(
         steps=ch.n_steps, shapes=[[fm.B, fm.M, fm.N, fm.K] for fm in forms],
-        max_abs_err=err, rel_err=rel,
-        ms=cuda_ms(torch, lambda: cg.chain_gemm(*args, complex_mode=True)),
+        max_abs_err=err, rel_err=rel, relaunch_rel_err=rel_relaunch,
+        ms=ms,
+        wrapper_ms=cuda_ms(torch, lambda: cg.chain_gemm(*args, complex_mode=True)),
         plain_ms=cuda_ms(
             torch, lambda: cg.chain_gemm_plain(comps, forms, ch.carry_side, True)
         ),
@@ -218,18 +267,187 @@ def phase_kernels(torch, plan, cg) -> dict:
     return out
 
 
-def trace_slice(torch, open_session, circ, n: int, target: int) -> dict:
-    """Profile one epilogue slice: wall time, summed device time, and the
-    kernels that take most of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def phase_lm_kernels(torch, fa, ssd) -> dict:
+    """flash_attention and ssd_chunk at the serve path's own shapes
+    (batch 4, prompt 512) against their plain versions."""
+    import torch.nn.functional as F
 
-    sess, _ = open_session(circ, "0" * n, target_dim=target, backend="gemm")
-    sess.run_slice(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda")
+    out = {}
+
+    # K4: qwen3-4b prefill, 32 query heads on 8 kv heads of 128, causal
+    B, H, KV, S, d = 4, 32, 8, 512, 128
+    q = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    err, rel = rel_err(torch, [got.float()], [want.float()])
+    check(bool(torch.isfinite(got).all()), "flash_attention: non-finite")
+    check(rel <= FLASH_TOL, f"flash_attention disagrees: {rel}")
+    pairs = S * (S + 1) // 2  # causal (q, k) pairs this input needs
+    flops = 4.0 * B * H * pairs * d  # q.k and p.v
+    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + got.numel())
+    b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
+    q4, k4, v4 = (t.view(B, -1, S, d) for t in (q, k, v))
+    out["flash_attention"] = dict(
+        shape=dict(bh=B * H, bh_kv=B * KV, sq=S, sk=S, d=d, dtype="bf16",
+                   causal=True),
+        max_abs_err=err, rel_err=rel,
+        ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True)),
+        plain_ms=cuda_ms(
+            torch, lambda: fa.flash_attention_plain(q, k, v, causal=True)),
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by,
+    )
+    del q, k, v, got, want, q4, k4, v4
+
+    # K5: mamba2-130m prefill, 24 heads of 64, state 128, chunks of 64,
+    # head-free B/C (one group per batch row)
+    B, H, C, L, D, N = 4, 24, 8, 64, 64, 128
+    x = torch.randn(B * H, C, L, D, generator=gen, device=dev)
+    dt = 0.1 + 0.9 * torch.rand(B * H, C, L, generator=gen, device=dev)
+    a = -(0.01 + 0.49 * torch.rand(B * H, C, L, generator=gen, device=dev))
+    b = torch.randn(B, C, L, N, generator=gen, device=dev)
+    c = torch.randn(B, C, L, N, generator=gen, device=dev)
+    got = ssd.ssd_intra_chunk(x, dt, a, b, c)
+    want = ssd.ssd_intra_chunk_plain(x, dt, a, b, c)
+    torch.cuda.synchronize()
+    err, rel = rel_err(torch, got, want)
+    check(all(bool(torch.isfinite(g).all()) for g in got), "ssd_chunk: non-finite")
+    check(rel <= KERNEL_TOL, f"ssd_chunk disagrees: {rel}")
+    cells = B * H * C
+    tri = L * (L + 1) // 2  # the lower triangle the decay mask keeps
+    flops = cells * (2.0 * tri * (N + D) + 2.0 * N * D * L + N * L + L * D)
+    nbytes = 4.0 * (x.numel() + dt.numel() + a.numel() + b.numel() + c.numel()
+                    + got[0].numel() + got[1].numel())
+    b_ms, b_by = bound(flops, nbytes)
+    out["ssd_chunk"] = dict(
+        shape=dict(BH=B * H, C=C, L=L, D=D, S=N, groups=B),
+        max_abs_err=err, rel_err=rel,
+        ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk(x, dt, a, b, c)),
+        plain_ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk_plain(x, dt, a, b, c)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    )
+    return out
+
+
+def _cpu_params(model) -> dict:
+    params = {k: t.detach().cpu() for k, t in model.top.tensors().items()}
+    params["layers"] = [
+        {k: t.detach().cpu() for k, t in lp.tensors().items()}
+        for lp in model.layers
+    ]
+    return params
+
+
+def _cast(params: dict, dtype, layers: int) -> dict:
+    """The first ``layers`` layers of ``params``, in ``dtype``."""
+    out = {k: v.to(dtype) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: v.to(dtype) for k, v in lp.items()}
+                     for lp in params["layers"][:layers]]
+    return out
+
+
+def phase_serve(torch, arch, serve, build_model, get_config, counts, reset):
+    """One served model: the full config through ``serve``, then the
+    card's prefill against the port's CPU run on the same weights."""
+    import dataclasses
+
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    r = serve(arch, smoke=False, device="cuda", **SERVE)
+    torch.cuda.synchronize()
+    launched = counts()
+    logits = r["prefill_logits"]
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    check(tuple(r["generated"].shape) == (SERVE["batch"], SERVE["gen_tokens"]),
+          f"{arch}: generated {r['generated'].shape}")
+    peak = torch.cuda.max_memory_allocated()
+    del r["prefill_logits"]
+    torch.cuda.empty_cache()
+
+    full = get_config(arch)
+    # the fp32 agreement and the traces: qwen3-4b at full width and 2
+    # layers (the CPU half holds its weights in fp32), mamba2-130m whole
+    deep = dataclasses.replace(full, num_layers=2) if full.family == "dense" else full
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, full.vocab_size,
+                           (AGREE["batch"], AGREE["prompt_len"]), generator=gen)
+    big = torch.randint(0, full.vocab_size, (SERVE["batch"], SERVE["prompt_len"]),
+                        generator=gen).cuda()
+    params = _cpu_params(build_model(deep, seed=1, device="cuda"))
+    runs = {}
+    for name, dtype, layers in (("bf16", torch.bfloat16, BF16_LAYERS),
+                                ("fp32", torch.float32, deep.num_layers)):
+        cfg = dataclasses.replace(full, num_layers=layers)
+        cast = _cast(params, dtype, layers)
+        model = build_model(cfg, cast, device="cuda")
+        _, card = model.prefill(tokens.cuda())
+        del model
+        torch.cuda.empty_cache()
+        cpu_model = build_model(cfg, cast, device="cpu")
         t0 = time.perf_counter()
-        sess.run_slice(1)
+        _, host = cpu_model.prefill(tokens)
+        runs[name] = dict(card=card.cpu(), host=host, layers=layers,
+                          cpu_s=time.perf_counter() - t0)
+        del cpu_model, cast
+
+    # where the time goes at the serve shapes (per layer the same as at
+    # full depth): one prefill, then one decode step, in bf16
+    model = build_model(deep, _cast(params, torch.bfloat16, deep.num_layers),
+                        device="cuda")
+    del params
+    model.prefill(big)
+    prefill_trace = profile(torch, lambda: model.prefill(big))
+    cache, logits = model.prefill(big, max_len=SERVE["prompt_len"] + 2)
+    nxt = logits.argmax(-1)[:, None]
+    model.decode_step(cache, nxt, SERVE["prompt_len"])
+    decode_trace = profile(
+        torch, lambda: model.decode_step(cache, nxt, SERVE["prompt_len"] + 1))
+    del cache, model, big
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    for name, run in runs.items():
+        check(bool(torch.isfinite(run["card"]).all()),
+              f"{arch}: non-finite {name} card logits")
+    err32 = rel(runs["fp32"]["card"], runs["fp32"]["host"])
+    err16 = rel(runs["bf16"]["card"], runs["bf16"]["host"])
+    check(err32 <= SERVE_TOL_FP32, f"{arch}: fp32 card vs CPU prefill {err32}")
+    check(err16 <= SERVE_TOL, f"{arch}: bf16 card vs CPU prefill {err16}")
+    return dict(
+        arch=arch, layers=full.num_layers, **SERVE,
+        prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+        decode_tok_per_s=r["decode_tok_per_s"],
+        first_tokens=r["generated"][0][:8].tolist(), peak_bytes=peak,
+        agreement=dict(**AGREE, layers_bf16=runs["bf16"]["layers"],
+                       layers_fp32=runs["fp32"]["layers"], rel_err_bf16=err16,
+                       rel_err_fp32=err32,
+                       cpu_prefill_s={k: v["cpu_s"] for k, v in runs.items()}),
+        prefill_trace=dict(layers=deep.num_layers, batch=SERVE["batch"],
+                           prompt_len=SERVE["prompt_len"], **prefill_trace),
+        decode_trace=dict(layers=deep.num_layers, batch=SERVE["batch"],
+                          **decode_trace),
+        launches=launched,
+    )
+
+
+def profile(torch, fn) -> dict:
+    """One warm call of ``fn`` under the profiler: wall time, summed
+    device time, busy share and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as _profile
+
+    torch.cuda.synchronize()
+    with _profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -244,6 +462,13 @@ def trace_slice(torch, open_session, circ, n: int, target: int) -> dict:
         device_busy_share=device_ms / (1e3 * wall),
         top=[dict(name=k[:80], ms=us / 1e3, calls=c) for us, k, c in rows[:8]],
     )
+
+
+def trace_slice(torch, open_session, circ, n: int, target: int) -> dict:
+    """Profile one epilogue slice."""
+    sess, _ = open_session(circ, "0" * n, target_dim=target, backend="gemm")
+    sess.run_slice(0)
+    return profile(torch, lambda: sess.run_slice(1))
 
 
 def main() -> int:
@@ -265,10 +490,21 @@ def main() -> int:
         sample_bitstrings,
         simulate_amplitude,
     )
+    from repro_torch.configs import get_config
     from repro_torch.core.executor import simplify_network
     from repro_torch.kernels import build, contract_gemm as cg
+    from repro_torch.kernels import flash_attention as fa, mamba2_ssd as ssd
+    from repro_torch.launch.decode_demo import serve
+    from repro_torch.models import build_model
     from repro_torch.quantum import circuits, statevector
     from repro_torch.sampling.batch import open_batch_network
+
+    def lm_counts() -> dict:
+        return {**fa.LAUNCHES, **ssd.LAUNCHES}
+
+    def lm_reset() -> None:
+        fa.reset_launches()
+        ssd.reset_launches()
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -276,9 +512,10 @@ def main() -> int:
 
     # 1. build --------------------------------------------------------
     t0 = time.perf_counter()
-    build.load_library()
+    info = build.build_all()
     emit(phase="build", seconds=time.perf_counter() - t0, card=smi,
-         torch=torch.__version__, cuda=torch.version.cuda, library=build.BUILD_INFO["path"])
+         torch=torch.__version__, cuda=torch.version.cuda,
+         libraries={k: v["path"] for k, v in info.items()})
     print(smi, flush=True)
 
     # 2. kernels against their plain versions at the main path's shapes
@@ -290,9 +527,11 @@ def main() -> int:
     plan, report = plan_compiled(tn, target)
     plan_s = time.perf_counter() - t0
     kern = phase_kernels(torch, plan, cg)
+    del plan
+    torch.cuda.empty_cache()
+    kern.update(phase_lm_kernels(torch, fa, ssd))
     for name, rec in kern.items():
         emit(phase="kernel", name=name, **rec)
-    del plan
     torch.cuda.empty_cache()
 
     # 3. amplitude, every slice, against the statevector --------------
@@ -414,15 +653,33 @@ def main() -> int:
          peak_bytes=peak, peak_bytes_planned=rep5.peak_bytes_hoisted,
          backends=rep5.lowered_backends, launches=launches["share"])
 
-    # 6. every kernel went through the main path -------------------
-    total = {k: sum(ph[k] for ph in launches.values()) for k in cg.LAUNCHES}
+    del ein_val, val
+    torch.cuda.empty_cache()
+
+    # 6. LM serving at full width, each model's own launches ----------
+    for arch in ("qwen3-4b", "mamba2-130m"):
+        rec = phase_serve(torch, arch, serve, build_model, get_config,
+                          lm_counts, lm_reset)
+        launches[f"serve:{arch}"] = rec["launches"]
+        emit(phase="serve", **rec)
+        torch.cuda.empty_cache()
+    check(launches["serve:qwen3-4b"]["flash_attention"] > 0,
+          "flash_attention was not launched serving qwen3-4b")
+    check(launches["serve:mamba2-130m"]["ssd_chunk"] > 0,
+          "ssd_chunk was not launched serving mamba2-130m")
+
+    # 7. every kernel went through its path ---------------------------
+    total = {k: sum(launches[ph][k] for ph in ("amplitude", "sampling", "share"))
+             for k in cg.LAUNCHES}
+    total["flash_attention"] = launches["serve:qwen3-4b"]["flash_attention"]
+    total["ssd_chunk"] = launches["serve:mamba2-130m"]["ssd_chunk"]
     for name, count in total.items():
-        check(count > 0, f"{name} was not launched on the main path")
+        check(count > 0, f"{name} was not launched on its path")
     records = []
-    for name in ("tiled_gemm", "fused_gemm", "chain_gemm"):
+    for name in TPU_KERNELS:
         rec = kern[name]
         records.append(dict(
-            name=name, route="cuda", source=SOURCE,
+            name=name, route="cuda", source=SOURCES[name],
             replaces=TPU_KERNELS[name], launches=total[name],
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],

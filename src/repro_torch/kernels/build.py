@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-``nvcc`` compiles ``csrc/gemm.cu`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers,
-so the build takes seconds).  The library goes to ``build/kernels/`` at
-the root of the checkout (listed in ``.gitignore``), under a name that
-carries a hash of the source, so an edited source is always rebuilt.
-Nothing here runs at import time.
+Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, loaded with
+:mod:`ctypes` (no PyTorch headers, so a build takes seconds).
+:func:`build_all` starts one ``nvcc`` per source, all at once, and waits
+for them together.  The libraries go to ``build/kernels/`` at the root of
+the checkout (listed in ``.gitignore``), under names that carry a hash of
+the source and the flags, so an edited source is always rebuilt.  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -19,8 +21,14 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "gemm.cu",)
+LIBRARIES = {
+    "gemm": CSRC / "gemm.cu",
+    "flash_attention": CSRC / "flash_attention.cu",
+    "mamba2_ssd": CSRC / "mamba2_ssd.cu",
+}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -28,12 +36,13 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-BUILD_INFO: dict = {}
+_libs: dict[str, ctypes.CDLL] = {}
+BUILD_INFO: dict[str, dict] = {}  # library name -> path, seconds, log
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -49,9 +58,7 @@ def _nvcc() -> str:
     )
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    lib.repro_error_string.argtypes = [_INT]
-    lib.repro_error_string.restype = ctypes.c_char_p
+def _declare_gemm(lib: ctypes.CDLL) -> None:
     lib.repro_tiled_gemm.argtypes = [_P, _P, _P, _I64, _I64, _I64, _I64, _P]
     lib.repro_tiled_gemm.restype = _INT
     lib.repro_fused_gemm.argtypes = [_P, _I64, _INT, _P, _P, _P, _P, _P, _P, _P]
@@ -64,36 +71,108 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_chain_gemm.restype = _INT
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first call."""
-    global _lib
+def _declare_flash_attention(lib: ctypes.CDLL) -> None:
+    lib.repro_flash_attention.argtypes = [
+        _P, _P, _P, _P, _INT, _I64, _INT, _INT, _INT, _INT, _INT, _F32,
+        _INT, _P,
+    ]
+    lib.repro_flash_attention.restype = _INT
+
+
+def _declare_mamba2_ssd(lib: ctypes.CDLL) -> None:
+    lib.repro_ssd_chunk_smem.argtypes = [_INT, _INT, _INT]
+    lib.repro_ssd_chunk_smem.restype = _I64
+    lib.repro_ssd_chunk.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _P,
+    ]
+    lib.repro_ssd_chunk.restype = _INT
+
+
+_DECLARE = {
+    "gemm": _declare_gemm,
+    "flash_attention": _declare_flash_attention,
+    "mamba2_ssd": _declare_mamba2_ssd,
+}
+
+
+def _out_path(name: str) -> Path:
+    digest = hashlib.sha256(LIBRARIES[name].read_bytes())
+    for flag in NVCC_FLAGS:
+        digest.update(flag.encode())
+    return BUILD_DIR / f"librepro_{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _load(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    lib.repro_error_string.argtypes = [_INT]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    _DECLARE[name](lib)
+    _libs[name] = lib
+    return lib
+
+
+def build_all(names=None) -> dict[str, dict]:
+    """Build (one ``nvcc`` per source, started together) and load the
+    libraries ``names`` (default: all); returns :data:`BUILD_INFO`."""
+    names = list(LIBRARIES) if names is None else list(names)
     with _lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256()
-        for src in SOURCES:
-            digest.update(src.read_bytes())
-        for flag in NVCC_FLAGS:
-            digest.update(flag.encode())
-        out = BUILD_DIR / f"libreprogemm_{digest.hexdigest()[:16]}.so"
+        todo = [n for n in names if n not in _libs]
         t0 = time.perf_counter()
-        log = ""
-        if not out.exists():
+        missing = [n for n in todo if not _out_path(n).exists()]
+        nvcc = _nvcc() if missing else ""
+        procs = {}
+        for name in missing:
+            out = _out_path(name)
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(LIBRARIES[name])]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ), tmp, out)
+        logs, failed = {}, []
+        for name, (proc, tmp, out) in procs.items():
+            logs[name] = proc.communicate()[0]
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        _declare(lib)
-        BUILD_INFO.update(
-            path=str(out), seconds=time.perf_counter() - t0, log=log
-        )
-        _lib = lib
-        return lib
+                failed.append(f"{name} ({proc.returncode}):\n{logs[name]}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        seconds = time.perf_counter() - t0
+        for name in todo:
+            out = _out_path(name)
+            _load(name, out)
+            BUILD_INFO[name] = dict(
+                path=str(out), seconds=seconds, log=logs.get(name, "")
+            )
+    return BUILD_INFO
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The shared library of kernel source ``name``, built on first call."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _libs[name]
+    return lib
+
+
+def on_cpu(*tensors) -> bool:
+    """True when every tensor is on the CPU (a wrapper then runs its
+    plain version), False when every tensor is on one CUDA device (it
+    launches its kernel); anything else is refused."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"tensors on unsupported devices: {sorted(kinds)}")
+
+
+def cuda_stream(device) -> int:
+    """PyTorch's current stream on ``device``, as the kernels take it."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

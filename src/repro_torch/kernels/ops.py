@@ -1,11 +1,18 @@
-"""Wrappers around the contraction kernels, as the lowering layer calls them.
+"""Wrappers around the kernels, as the lowering layer and the models call
+them.
 
-They handle the parts around the kernels: the complex 3-real-GEMM
-Karatsuba of :func:`matmul` (25% fewer real FLOPs than the naive 4-GEMM
-form), the library-matmul fallback below the kernels' tile size, and the
-complex split into separate fp32 re/im planes — once per call at the
-kernel boundary, never interleaved.  The tiled kernel masks its ragged
-edge itself, so unlike the reference's ``ops.matmul`` nothing is padded.
+For the contraction kernels they handle the parts around the kernels:
+the complex 3-real-GEMM Karatsuba of :func:`matmul` (25% fewer real FLOPs
+than the naive 4-GEMM form), the library-matmul fallback below the
+kernels' tile size, and the complex split into separate fp32 re/im
+planes — once per call at the kernel boundary, never interleaved.  The
+tiled kernel masks its ragged edge itself, so unlike the reference's
+``ops.matmul`` nothing is padded.
+
+For the LM side, :func:`attention` puts (b, s, h, d) heads into the flash
+kernel's (b·h, s, d) layout with the reference's dispatch rule, and
+:func:`ssd_scan` runs the SSD intra-chunk kernel and the inter-chunk
+state recurrence.
 """
 
 from __future__ import annotations
@@ -15,6 +22,10 @@ import torch
 from ..hardware import DEFAULT_HARDWARE
 from . import ref
 from .contract_gemm import chain_gemm, fused_gemm, tiled_gemm
+from .flash_attention import flash_attention
+from .mamba2_ssd import ssd_intra_chunk
+
+_DISPATCH_TILE = 128  # the reference's dispatch rule for attention
 
 
 def _planes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -92,3 +103,89 @@ def fused_chain(operands, *, forms, carry_side, slot_ids, slot_elems):
     if complex_mode:
         return torch.complex(*out)
     return out[0]
+
+
+def attention(
+    q: torch.Tensor,  # (batch, seq_q, n_heads, d)
+    k: torch.Tensor,  # (batch, seq_k, n_kv, d)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Multi-head attention with GQA, (b, s, h, d) layout.
+
+    The reference's dispatch rule, with its default tiles of 128: decode
+    and ragged shapes (``sq``, ``sk`` or ``q_offset`` not a multiple of
+    128, ``d % 8``) take the naive reference,
+    which the reference package runs in jnp too; the rest runs the flash
+    kernel, whose GQA reads kv head ``h // group`` instead of a
+    head-repeated copy."""
+    batch, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    group = hq // hkv
+    qf = q.transpose(1, 2).reshape(batch * hq, sq, d)
+    kf = k.transpose(1, 2).reshape(batch * hkv, sk, d)
+    vf = v.transpose(1, 2).reshape(batch * hkv, sk, d)
+    t = _DISPATCH_TILE
+    if sq % t or sk % t or q_offset % t or d % 8:
+        o = ref.attention_ref(
+            qf, kf.repeat_interleave(group, dim=0),
+            vf.repeat_interleave(group, dim=0),
+            causal=causal, q_offset=q_offset,
+        )
+    else:
+        o = flash_attention(qf, kf, vf, causal=causal, q_offset=q_offset)
+    return o.reshape(batch, hq, sq, d).transpose(1, 2)
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (BH, T, D)
+    dt: torch.Tensor,  # (BH, T)
+    a: torch.Tensor,  # (BH, T) per-step log decay
+    b: torch.Tensor,  # (G, T, S), G divides BH
+    c: torch.Tensor,  # (G, T, S)
+    *,
+    chunk: int = 64,
+    state0: torch.Tensor | None = None,  # (BH, S, D)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: the intra-chunk kernel, then the inter-chunk state
+    recurrence in plain PyTorch (O(T/chunk) steps of O(S·D) work; it is
+    not a kernel in the reference either).
+
+    ``b``/``c`` carry ``G`` groups, each shared by ``BH // G`` consecutive
+    rows of ``x`` (``G == BH`` is the reference's signature; the model
+    passes head-free B/C with one group per batch row).  A ``T`` that is
+    not a multiple of ``chunk`` takes the sequential reference.
+    Returns (y (BH, T, D) fp32, final_state (BH, S, D) fp32)."""
+    BH, T, D = x.shape
+    G, S = b.shape[0], b.shape[-1]
+    hpg = BH // G
+    if T % chunk:
+        return ref.ssd_scan_ref(
+            x, dt, a, b.repeat_interleave(hpg, dim=0),
+            c.repeat_interleave(hpg, dim=0), state0,
+        )
+    C = T // chunk
+    xr = x.float().reshape(BH, C, chunk, D)
+    dtr = dt.float().reshape(BH, C, chunk)
+    ar = a.float().reshape(BH, C, chunk)
+    br = b.float().reshape(G, C, chunk, S)
+    cr = c.float().reshape(G, C, chunk, S)
+    y_intra, chunk_states = ssd_intra_chunk(xr, dtr, ar, br, cr)
+    cum_a = torch.cumsum(ar, dim=2)  # (BH, C, L)
+    chunk_decay = torch.exp(cum_a[:, :, -1])  # (BH, C) total decay of chunk
+    h = (
+        torch.zeros((BH, S, D), dtype=torch.float32, device=x.device)
+        if state0 is None else state0.float()
+    )
+    h_ins = []  # the state entering each chunk
+    for ci in range(C):
+        h_ins.append(h)
+        h = chunk_decay[:, ci, None, None] * h + chunk_states[:, ci]
+    h_in = torch.stack(h_ins, dim=1).reshape(G, hpg, C, S, D)
+    # cross-chunk contribution: y_t += c_t · (decay_to_t · h_in)
+    y_cross = torch.einsum("gcls,ghcsd->ghcld", cr, h_in).reshape(
+        BH, C, chunk, D
+    ) * torch.exp(cum_a)[..., None]
+    return (y_intra + y_cross).reshape(BH, T, D), h

@@ -36,3 +36,57 @@ def permute_reshape(x: torch.Tensor, perm, shape) -> torch.Tensor:
     rank_of = {i: r for r, i in enumerate(order)}
     y = x.reshape(merged).permute([rank_of[i] for i in range(len(runs))])
     return y.reshape(shape)
+
+
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """q: (bh, sq, d), k/v: (bh, sk, d) — naive softmax attention in fp32
+    with scale 1/sqrt(d), ``q.dtype`` out (the reference's
+    ``attention_ref``)."""
+    sq, d = q.shape[1], q.shape[2]
+    sk = k.shape[1]
+    sm_scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
+    if causal:
+        qp = q_offset + torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(qp >= kp, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqk,bkd->bqd", p, v.float())
+    return o.to(q.dtype)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # (BH, T, D)
+    dt: torch.Tensor,  # (BH, T)
+    a: torch.Tensor,  # (BH, T) per-step log decay
+    b: torch.Tensor,  # (BH, T, S)
+    c: torch.Tensor,  # (BH, T, S)
+    state0: torch.Tensor | None = None,  # (BH, S, D)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (exact) selective scan, the reference's ``ssd_scan_ref``:
+
+        h_t = exp(a_t) h_{t-1} + b_t (dt_t x_t)ᵀ ;  y_t = c_t h_t
+
+    Returns (y (BH, T, D), h_T (BH, S, D)), fp32."""
+    BH, T, D = x.shape
+    S = b.shape[-1]
+    h = (
+        torch.zeros((BH, S, D), dtype=torch.float32, device=x.device)
+        if state0 is None else state0.float()
+    )
+    x, dt, a, b, c = (t.float() for t in (x, dt, a, b, c))
+    ys = []
+    for t in range(T):
+        h = torch.exp(a[:, t])[:, None, None] * h + torch.einsum(
+            "bs,bd->bsd", b[:, t], x[:, t] * dt[:, t, None]
+        )
+        ys.append(torch.einsum("bs,bsd->bd", c[:, t], h))
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros((BH, 0, D))
+    return y, h

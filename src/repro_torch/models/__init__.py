@@ -1,0 +1,60 @@
+"""The served LM architectures: ``build_model``.
+
+Only the dense (qwen3-4b) and SSM (mamba2-130m) families are ported;
+MoE, M-RoPE/VLM, the hybrid and the encoder-decoder wait in ROADMAP.md,
+queue 1 item 11.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.executor import resolve_device
+from . import lm, ssm_model
+from .lm import DecoderLM
+from .ssm_model import MambaLM
+
+
+def build_model(cfg: ArchConfig, params: dict | None = None, *,
+                seed: int = 0, device="cuda"):
+    """The model of ``cfg`` on ``device`` (default the card; raises
+    without one).  Without ``params`` its weights are drawn from a
+    ``torch.Generator`` seeded with ``seed`` on that device; ``params``
+    (a nested dict of tensors, see
+    :func:`repro_torch.interop.lm_params_from_numpy`) are moved there."""
+    dev = resolve_device(device)
+    if params is not None:
+        params = _to(params, dev)
+        gen = None
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "dense":
+        return DecoderLM(cfg, params, generator=gen)
+    if cfg.family == "ssm":
+        return MambaLM(cfg, params, generator=gen)
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item 11)"
+    )
+
+
+def param_defs(cfg: ArchConfig) -> dict:
+    """The parameter declarations of ``cfg``'s model (no weights)."""
+    if cfg.family == "dense":
+        return lm.param_defs(cfg)
+    if cfg.family == "ssm":
+        return ssm_model.param_defs(cfg)
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item 11)"
+    )
+
+
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return [_to(v, device) for v in tree]
+
+
+__all__ = ["build_model", "param_defs", "DecoderLM", "MambaLM"]

@@ -1,0 +1,104 @@
+"""Parameter declarations and their random initialisation.
+
+Counterpart of the reference's ``ParamDef``/``init_params``
+(``src/repro/parallel/sharding.py``) without the sharding: a declaration
+keeps the shape, the ``normal``/``zeros``/``ones`` rule, the default scale
+``1/sqrt(fan_in)`` (fan-in the second-to-last axis) and the bf16 default.
+Random values come from a :class:`torch.Generator` on the target device,
+so a model of billions of parameters is drawn on the card, not copied
+from the host.  Same seed, same weights on one device; the reference's
+``jax.random`` draws other numbers, so tests carry its weights across
+with :func:`repro_torch.interop.lm_params_from_numpy`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    init: str = "normal"  # normal | zeros | ones
+    scale: float | None = None  # stddev; default 1/sqrt(fan_in)
+    dtype: torch.dtype = torch.bfloat16
+
+    def initializer(self, generator: torch.Generator) -> torch.Tensor:
+        device = generator.device
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
+        if self.init != "normal":
+            raise ValueError(f"unknown init {self.init!r}")
+        scale = self.scale
+        if scale is None:
+            fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        w = torch.randn(self.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (w.mul_(scale)).to(self.dtype)
+
+
+def init_params(defs, generator: torch.Generator):
+    """Draw every :class:`ParamDef` of the nested dict/list ``defs`` (in
+    the order the structure lists them) on the generator's device."""
+    if isinstance(defs, ParamDef):
+        return defs.initializer(generator)
+    if isinstance(defs, dict):
+        return {k: init_params(v, generator) for k, v in defs.items()}
+    return [init_params(v, generator) for v in defs]
+
+
+def count_params(defs) -> int:
+    if isinstance(defs, ParamDef):
+        return math.prod(defs.shape)
+    vals = defs.values() if isinstance(defs, dict) else defs
+    return sum(count_params(v) for v in vals)
+
+
+class Params(nn.Module):
+    """A flat set of named, frozen tensors (one layer, or the model's top
+    level), readable as a dict through :meth:`tensors`."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+    def tensors(self) -> dict:
+        return dict(self.named_parameters(recurse=False))
+
+
+def _check(defs, params, where: str) -> None:
+    if set(defs) != set(params):
+        raise ValueError(f"{where}: parameters {sorted(params)} != "
+                         f"{sorted(defs)}")
+    for k, d in defs.items():
+        if tuple(params[k].shape) != d.shape:
+            raise ValueError(f"{where}.{k}: shape {tuple(params[k].shape)} "
+                             f"!= {d.shape}")
+
+
+def param_modules(defs: dict, params: dict | None,
+                  generator: torch.Generator | None):
+    """``(top, layers)`` modules holding a model's weights: ``params``
+    (``{..., "layers": [per-layer dict]}``) checked against the
+    declarations ``defs``, or, without them, drawn from ``generator``."""
+    if params is None:
+        if generator is None:
+            raise ValueError("pass params or a generator to draw them")
+        params = init_params(defs, generator)
+    top_defs = {k: v for k, v in defs.items() if k != "layers"}
+    top = {k: v for k, v in params.items() if k != "layers"}
+    _check(top_defs, top, "top")
+    if len(params["layers"]) != len(defs["layers"]):
+        raise ValueError(f"{len(params['layers'])} layers, config has "
+                         f"{len(defs['layers'])}")
+    for i, (d, lp) in enumerate(zip(defs["layers"], params["layers"])):
+        _check(d, lp, f"layers[{i}]")
+    return Params(top), nn.ModuleList(Params(lp) for lp in params["layers"])

@@ -1,0 +1,135 @@
+"""Mamba-2 (SSD) language model — attention-free, O(1)-state decode.
+
+Counterpart of the reference's ``MambaLM`` (``models/ssm_model.py``),
+serving path: prefill and ``decode_step`` with the SSM state and the two
+conv carries.  One module per layer (the reference scans stacked
+parameters).  The conv carries are stored in bf16, as the reference
+stores them, whatever the activation type.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from . import layers as L
+from .params import ParamDef, param_modules
+
+
+def mamba_defs(cfg: ArchConfig) -> dict:
+    D = cfg.d_model
+    d_inner = cfg.ssm_expand * D
+    nheads = d_inner // cfg.ssm_head_dim
+    N2 = 2 * cfg.ssm_state
+    return {
+        "w_z": ParamDef((D, d_inner)),
+        "w_x": ParamDef((D, d_inner)),
+        "w_bc": ParamDef((D, N2)),
+        "w_dt": ParamDef((D, nheads)),
+        "conv_x": ParamDef((d_inner, cfg.ssm_conv), scale=0.5),
+        "conv_bc": ParamDef((N2, cfg.ssm_conv), scale=0.5),
+        "dt_bias": ParamDef((nheads,), init="zeros"),
+        "a_log": ParamDef((nheads,), init="zeros"),
+        "norm": ParamDef((d_inner,), init="ones"),
+        "w_out": ParamDef((d_inner, D)),
+        "ln": ParamDef((D,), init="ones"),
+    }
+
+
+def param_defs(cfg: ArchConfig) -> dict:
+    """``{"embed", "final_norm", ["head"], "layers": [per-layer dict]}``
+    of :class:`ParamDef` (the reference's declarations, unstacked)."""
+    defs: dict = {
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), scale=0.02),
+        "final_norm": ParamDef((cfg.d_model,), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((cfg.d_model, cfg.vocab_size), scale=0.02)
+    defs["layers"] = [mamba_defs(cfg) for _ in range(cfg.num_layers)]
+    return defs
+
+
+class MambaLM(nn.Module):
+    """Mamba-2 LM.  ``params`` is ``{"embed", "final_norm", ["head"],
+    "layers": [per-layer dict]}``; without it the weights are drawn from
+    ``generator``."""
+
+    def __init__(self, cfg: ArchConfig, params: dict | None = None, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if cfg.family != "ssm":
+            raise ValueError(f"MambaLM serves family 'ssm', not {cfg.family!r}")
+        self.cfg = cfg
+        self.top, self.layers = param_modules(param_defs(cfg), params,
+                                              generator)
+
+    def head_weights(self, top: dict) -> torch.Tensor:
+        return top["embed"].T if self.cfg.tie_embeddings else top["head"]
+
+    def _mix(self, p, h, ssm_state=None, conv_state=None):
+        cfg = self.cfg
+        x = L.rms_norm(h, p["ln"], cfg.norm_eps)
+        y, (s2, c2) = L.mamba2_mix(
+            x, p, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+            expand=cfg.ssm_expand, ssm_state=ssm_state, conv_state=conv_state,
+        )
+        return h + y, s2, c2
+
+    # ------------------------------------------------------------- serve
+    def cache_spec(self, batch_size: int, max_len: int) -> dict:
+        """(shape, dtype) of each state buffer (independent of
+        ``max_len``: the state is O(1) in the sequence)."""
+        cfg = self.cfg
+        d_inner = cfg.ssm_expand * cfg.d_model
+        nheads = d_inner // cfg.ssm_head_dim
+        n, K = cfg.num_layers, cfg.ssm_conv
+        return {
+            "ssm": ((n, batch_size, nheads, cfg.ssm_state, cfg.ssm_head_dim),
+                    torch.float32),
+            "conv_x": ((n, batch_size, K - 1, d_inner), torch.bfloat16),
+            "conv_bc": ((n, batch_size, K - 1, 2 * cfg.ssm_state),
+                        torch.bfloat16),
+        }
+
+    def init_cache(self, batch_size: int, max_len: int) -> dict:
+        device = self.top.embed.device
+        return {
+            name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in self.cache_spec(batch_size, max_len).items()
+        }
+
+    def _store(self, cache, i, s2, c2) -> None:
+        cache["ssm"][i] = s2
+        cache["conv_x"][i] = c2[0].to(torch.bfloat16)
+        cache["conv_bc"][i] = c2[1].to(torch.bfloat16)
+
+    @torch.inference_mode()
+    def prefill(self, tokens: torch.Tensor, max_len: int | None = None):
+        """Run the prompt: returns (state cache, last-position logits
+        (B, V) fp32)."""
+        top = self.top.tensors()
+        h = top["embed"][tokens]
+        cache = self.init_cache(tokens.shape[0], max_len or tokens.shape[1])
+        for i, layer in enumerate(self.layers):
+            h, s2, c2 = self._mix(layer.tensors(), h)
+            self._store(cache, i, s2, c2)
+        h = L.rms_norm(h, top["final_norm"], self.cfg.norm_eps)
+        logits = h[:, -1] @ self.head_weights(top)
+        return cache, logits.float()
+
+    @torch.inference_mode()
+    def decode_step(self, cache: dict, tokens: torch.Tensor, pos: int):
+        """tokens (B, 1) → (logits (B, V) fp32, cache), the state carries
+        updated in place (``pos`` is unused: the state has no slots)."""
+        top = self.top.tensors()
+        h = top["embed"][tokens]
+        for i, layer in enumerate(self.layers):
+            h, s2, c2 = self._mix(
+                layer.tensors(), h, ssm_state=cache["ssm"][i],
+                conv_state=(cache["conv_x"][i], cache["conv_bc"][i]),
+            )
+            self._store(cache, i, s2, c2)
+        h = L.rms_norm(h, top["final_norm"], self.cfg.norm_eps)
+        logits = h[:, 0] @ self.head_weights(top)
+        return logits.float(), cache

@@ -104,6 +104,32 @@ def test_chain_gemm_on_card(dev):
             torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
 
 
+def test_chain_launcher_relaunches_the_same_chain(dev):
+    """The prebuilt launcher (the smoke's kernel-alone timing) launches
+    the chain again with the same arguments and gives chain_gemm's
+    result every time."""
+    tn, _ = simplify_network(*circuits.circuit_to_network(
+        circuits.sycamore_like(4, 4, 8), bitstring="0" * 16))
+    plan, _ = plan_compiled(tn, 10, hw=SMALL_HW, device=dev)
+    ch = max(plan.chain_plan.chains, key=lambda c: c.n_steps)
+    forms = tuple(plan.schedule.specs[p].form for p in ch.positions)
+    shapes = [forms[0].a_shape, forms[0].b_shape] + [
+        forms[t].b_shape if ch.carry_side[t] == "l" else forms[t].a_shape
+        for t in range(1, len(forms))
+    ]
+    g = torch.Generator().manual_seed(0)
+    comps = [torch.randn(s, generator=g).to(dev) for s in shapes for _ in range(2)]
+    args = (comps, forms, ch.carry_side, ch.slot_ids, ch.slot_elems)
+    want = cg.chain_gemm(*args, complex_mode=True)
+    launch, outs = cg.chain_gemm_launcher(*args, complex_mode=True)
+    before = cg.LAUNCHES["chain_gemm"]
+    for _ in range(3):
+        launch()
+        for x, y in zip(outs, want):
+            torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+    assert cg.LAUNCHES["chain_gemm"] > before
+
+
 @pytest.mark.parametrize("fused,chain_budget,kernel", [
     (True, 1 << 16, "chain_gemm"),
     (True, 1, "fused_gemm"),
@@ -120,3 +146,93 @@ def test_amplitude_on_card(dev, fused, chain_budget, kernel):
     assert cg.LAUNCHES[kernel] > 0
     want = statevector.amplitude(c, "0" * 16)
     np.testing.assert_allclose(res.value, want, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------------ LM kernels
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,group,sq,sk,d,causal,q_offset", [
+    (8, 1, 128, 128, 64, True, 0),
+    (16, 4, 256, 256, 128, True, 0),    # GQA by index
+    (4, 2, 128, 384, 32, True, 256),    # chunk with q_offset
+    (6, 3, 64, 192, 24, False, 0),      # head dim not a multiple of 16, full
+    (2, 1, 64, 64, 8, True, 0),         # the smallest head dim dispatched
+])
+def test_flash_attention_on_card(dev, dtype, bh, group, sq, sk, d, causal,
+                                 q_offset):
+    """K4 against its plain version.  fp32: 1e-4 relative to max|plain|
+    (another summation order); bf16: 1e-2 (the output's bf16 rounding
+    alone is 2^-8)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(bh + sq + sk + d)
+    q = torch.randn(bh, sq, d, generator=g).to(dev, dtype)
+    k = torch.randn(bh // group, sk, d, generator=g).to(dev, dtype)
+    v = torch.randn(bh // group, sk, d, generator=g).to(dev, dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("BH,G,C,L,D,S,lo,hi", [
+    (6, 6, 3, 64, 64, 128, 0.01, 0.5),   # mamba2-130m cell
+    (8, 2, 2, 32, 16, 8, 0.01, 0.5),     # head-free groups
+    (3, 3, 2, 32, 8, 4, 5.0, 10.0),      # decay overflow above the diagonal
+])
+def test_ssd_chunk_on_card(dev, BH, G, C, L, D, S, lo, hi):
+    """K5 against its plain version, 1e-4 relative (fp32, another
+    summation order)."""
+    from repro_torch.kernels import mamba2_ssd as ssd
+
+    rng = np.random.default_rng(BH + L)
+
+    def rnd(shape, sample=rng.standard_normal):
+        return torch.from_numpy(np.asarray(sample(size=shape), np.float32)).to(dev)
+
+    x = rnd((BH, C, L, D))
+    dt = rnd((BH, C, L), lambda size: rng.uniform(0.1, 1.0, size))
+    a = rnd((BH, C, L), lambda size: -rng.uniform(lo, hi, size))
+    b, c = rnd((G, C, L, S)), rnd((G, C, L, S))
+    before = ssd.LAUNCHES["ssd_chunk"]
+    got = ssd.ssd_intra_chunk(x, dt, a, b, c)
+    assert ssd.LAUNCHES["ssd_chunk"] == before + 1
+    want = ssd.ssd_intra_chunk_plain(x, dt, a, b, c)
+    torch.cuda.synchronize()
+    for g_, w in zip(got, want):
+        assert torch.isfinite(g_).all()
+        assert _rel(g_, w) <= 1e-4
+
+
+@pytest.mark.parametrize("arch,kernel", [
+    ("qwen3-4b", "flash_attention"), ("mamba2-130m", "ssd_chunk"),
+])
+def test_prefill_on_card_matches_cpu(dev, arch, kernel):
+    """The smoke model's prefill through the kernels against the same
+    weights and tokens on the CPU (plain versions), bf16: 3e-2 of
+    max|logit|."""
+    from repro_torch.configs import get_config, smoke_shrink
+    from repro_torch.kernels import flash_attention as fa, mamba2_ssd as ssd
+    from repro_torch.models import build_model
+
+    cfg = smoke_shrink(get_config(arch))
+    model = build_model(cfg, seed=0, device=dev)
+    params = {k: v.detach().cpu() for k, v in model.top.tensors().items()}
+    params["layers"] = [{k: v.detach().cpu() for k, v in lp.tensors().items()}
+                        for lp in model.layers]
+    cpu_model = build_model(cfg, params, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128),
+                           generator=torch.Generator().manual_seed(1))
+    mod = fa if kernel == "flash_attention" else ssd
+    mod.reset_launches()
+    _, logits = model.prefill(tokens.to(dev))
+    assert mod.LAUNCHES[kernel] == cfg.num_layers
+    _, want = cpu_model.prefill(tokens)
+    assert _rel(logits.cpu(), want) <= 3e-2

@@ -288,7 +288,7 @@ def test_cuda_call_without_library_raises(name, monkeypatch, tmp_path):
     build, the wrapper raises; it never runs the plain version."""
     call = _calls()[name]
     monkeypatch.setattr(cg, "_on_cpu", lambda *t: False)
-    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "_libs", {})
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
     monkeypatch.setattr(cg, "fused_gemm_plain", None)
@@ -317,3 +317,15 @@ def test_kernels_take_fp32_planes_only():
     with pytest.raises(TypeError):
         cg.tiled_gemm(torch.zeros(1, 2, 2, dtype=torch.float64),
                       torch.zeros(1, 2, 2, dtype=torch.float64))
+
+
+def test_chain_launcher_takes_cuda_planes_only():
+    """The launcher is the host half of the kernel path; CPU planes take
+    ``chain_gemm``'s plain version instead."""
+    ch = _REF_CHAINS[0]
+    forms = tuple(GemmForm(**dataclasses.asdict(_REF_PLAN.schedule.specs[p].form))
+                  for p in ch.positions)
+    ext = [torch.zeros(s) for s in _external_shapes(forms, ch.carry_side)]
+    with pytest.raises(ValueError, match="CUDA"):
+        cg.chain_gemm_launcher(ext, forms, ch.carry_side, ch.slot_ids,
+                               ch.slot_elems)

@@ -1,0 +1,331 @@
+"""The port's LM serving path (configs, parameters, layers, qwen3-4b and
+mamba2-130m prefill and decode) held against the JAX package.
+
+Both sides run the reference's smoke shrink of each architecture on the
+same weights: the JAX ``init_params`` pytree, carried across by
+``lm_params_from_numpy``, and the same numpy-drawn tokens.  In fp32 the
+point is the algorithm: prefill logits and caches, and four decode steps
+fed the same tokens, agree to rtol/atol 2e-3.  With the bf16 weights the
+point is where the casts sit: logits agree to 3e-2 of max|logit|, the
+JAX suite's bf16 attention tolerance.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.configs import smoke_shrink as ref_smoke_shrink  # noqa: E402
+from repro.models import build_model as ref_build_model  # noqa: E402
+from repro.models import layers as jL  # noqa: E402
+from repro.parallel.sharding import count_params as ref_count_params  # noqa: E402
+from repro.parallel.sharding import init_params as ref_init_params  # noqa: E402
+
+from repro_torch.configs import ARCHS, get_config, smoke_shrink  # noqa: E402
+from repro_torch.interop import lm_params_from_numpy  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
+from repro_torch.launch.decode_demo import serve  # noqa: E402
+from repro_torch.models import build_model, param_defs  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models.params import ParamDef, count_params, init_params  # noqa: E402
+
+MODELS = ("qwen3-4b", "mamba2-130m")
+TOL = 2e-3
+BF16_TOL = 3e-2
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x, np.float32))
+
+
+# --------------------------------------------------------------- configs
+@pytest.mark.parametrize("arch", MODELS)
+def test_config_matches_reference(arch):
+    ours, theirs = get_config(arch), ref_get_config(arch)
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    small, ref_small = smoke_shrink(ours), ref_smoke_shrink(theirs)
+    for f in dataclasses.fields(small):
+        assert getattr(small, f.name) == getattr(ref_small, f.name), f.name
+
+
+def test_only_served_models_are_registered():
+    assert set(ARCHS) == set(MODELS)
+    with pytest.raises(KeyError, match="ROADMAP"):
+        get_config("llama3-405b")
+
+
+@pytest.mark.parametrize("arch", MODELS)
+@pytest.mark.parametrize("smoke", [True, False])
+def test_param_defs_match_reference(arch, smoke):
+    """Every reference declaration, unstacked per layer, has the port's
+    shape, init rule and scale; the counts agree."""
+    cfg, ref_cfg = get_config(arch), ref_get_config(arch)
+    if smoke:
+        cfg, ref_cfg = smoke_shrink(cfg), ref_smoke_shrink(ref_cfg)
+    defs = param_defs(cfg)
+    ref_defs = ref_build_model(ref_cfg).param_defs()
+    stack = "dense_layers" if cfg.family == "dense" else "layers"
+    assert set(defs) == set(ref_defs) - {stack} | {"layers"}
+    for k, d in ref_defs.items():
+        mine = defs["layers"] if k == stack else [defs[k]]
+        for layer in mine:
+            pairs = (
+                [(layer[n], (ld.shape[1:], ld)) for n, ld in d.items()]
+                if k == stack else [(layer, (d.shape, d))]
+            )
+            for ours, (shape, theirs) in pairs:
+                assert ours.shape == shape
+                assert (ours.init, ours.scale) == (theirs.init, theirs.scale)
+    assert count_params(defs) == ref_count_params(ref_defs)
+
+
+def test_param_init_rules():
+    gen = torch.Generator().manual_seed(0)
+    p = init_params({"w": ParamDef((256, 512)), "z": ParamDef((3,), "zeros"),
+                     "o": ParamDef((3,), "ones"),
+                     "s": ParamDef((4096,), scale=0.02, dtype=torch.float32)},
+                    gen)
+    assert p["w"].dtype == torch.bfloat16 and p["s"].dtype == torch.float32
+    assert abs(float(p["w"].float().std()) - 256 ** -0.5) < 0.01
+    assert abs(float(p["s"].std()) - 0.02) < 0.002
+    assert p["z"].eq(0).all() and p["o"].eq(1).all()
+    again = init_params({"w": ParamDef((256, 512))},
+                        torch.Generator().manual_seed(0))
+    assert torch.equal(again["w"], p["w"])
+
+
+def test_entry_points_default_to_the_card():
+    cfg = smoke_shrink(get_config("qwen3-4b"))
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve("qwen3-4b")
+
+
+def test_unported_features_raise():
+    cfg = smoke_shrink(get_config("qwen3-4b"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(dataclasses.replace(cfg, family="moe"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(dataclasses.replace(cfg, mrope=True), device="cpu")
+    q = torch.zeros(1, 8, 2, 8)
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        L.blockwise_attention(q, q, q, window=4)
+
+
+# ---------------------------------------------------------------- layers
+def test_causal_conv1d_matches_reference():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 9, 6)).astype(np.float32)
+    w = rng.normal(size=(6, 4)).astype(np.float32)
+    st = rng.normal(size=(2, 3, 6)).astype(np.float32)
+    for state in (None, st):
+        want, want_st = jL.causal_conv1d(
+            jnp.asarray(x), jnp.asarray(w),
+            None if state is None else jnp.asarray(state))
+        got, got_st = L.causal_conv1d(_t(x), _t(w),
+                                      None if state is None else _t(state))
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(_np(got_st), np.asarray(want_st))
+
+
+def test_rope_norm_swiglu_decode_attention_match_reference():
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 5, 3, 8)).astype(np.float32)
+    pos = np.arange(5, dtype=np.int32)[None].repeat(2, 0) + 7
+    np.testing.assert_allclose(
+        _np(L.apply_rope(_t(x), torch.from_numpy(pos).long(), 1e6)),
+        np.asarray(jL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)),
+        rtol=1e-5, atol=1e-5)
+    scale = rng.normal(size=(8,)).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(L.rms_norm(_t(x), _t(scale))),
+        np.asarray(jL.rms_norm(jnp.asarray(x), jnp.asarray(scale))),
+        rtol=1e-5, atol=1e-5)
+    h = rng.normal(size=(2, 5, 8)).astype(np.float32)
+    wg, wu = (rng.normal(size=(8, 16)).astype(np.float32) for _ in range(2))
+    wd = rng.normal(size=(16, 8)).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(L.swiglu(_t(h), _t(wg), _t(wu), _t(wd))),
+        np.asarray(jL.swiglu(*map(jnp.asarray, (h, wg, wu, wd)))),
+        rtol=1e-4, atol=1e-4)
+    q = rng.normal(size=(2, 1, 4, 8)).astype(np.float32)
+    kc, vc = (rng.normal(size=(2, 12, 2, 8)).astype(np.float32)
+              for _ in range(2))
+    np.testing.assert_allclose(
+        _np(L.decode_attention(_t(q), _t(kc), _t(vc), 7)),
+        np.asarray(jL.decode_attention(*map(jnp.asarray, (q, kc, vc)),
+                                       jnp.int32(7))),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_prefill_attention_matches_reference_blockwise():
+    """The port's prefill attention (flash kernel path) against the
+    reference model's jnp blockwise attention, GQA, causal."""
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(2, 256, 4, 32)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 256, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    want = jL.blockwise_attention(*map(jnp.asarray, (q, k, v)), causal=True)
+    fa.reset_launches()
+    got = L.blockwise_attention(_t(q), _t(k), _t(v), causal=True)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+# ---------------------------------------------------------------- models
+def _pair(arch, dtype):
+    """(reference model, reference params, port model) on the reference's
+    smoke-shrink weights, in ``dtype``."""
+    ref_cfg = ref_smoke_shrink(ref_get_config(arch))
+    ref_model = ref_build_model(ref_cfg)
+    params = ref_init_params(ref_model.param_defs(), jax.random.PRNGKey(0))
+    if dtype == "float32":
+        params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+    cfg = smoke_shrink(get_config(arch))
+    tree = jax.tree.map(np.asarray, params)
+    model = build_model(cfg, lm_params_from_numpy(cfg, tree), device="cpu")
+    return ref_model, params, model
+
+
+def _tokens(vocab, shape, seed):
+    return np.random.default_rng(seed).integers(0, vocab, size=shape,
+                                                dtype=np.int32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _close_cache(got, want, tol):
+    for k, w in want.items():
+        if isinstance(w, dict):
+            _close_cache(got[k], w, tol)
+            continue
+        assert tuple(got[k].shape) == w.shape, k
+        if got[k].dtype == torch.bfloat16:
+            # the conv carries are stored in bf16 on both sides, whatever
+            # the activation type: an fp32 difference far below ``tol``
+            # can still round one element to the neighbouring bf16 value,
+            # so these are held to one bf16 step (2^-8 relative)
+            np.testing.assert_allclose(_np(got[k]), np.asarray(w, np.float32),
+                                       rtol=2 ** -7, atol=tol)
+        else:
+            _close(got[k], w, tol)
+
+
+@pytest.mark.parametrize("arch,S", [
+    ("qwen3-4b", 128),      # the flash kernel's path (S % 128 == 0)
+    ("qwen3-4b", 40),       # ragged: the naive reference's path
+    ("mamba2-130m", 128),   # chunked SSD (two chunks of 64)
+    ("mamba2-130m", 50),    # ragged: the sequential scan
+])
+def test_prefill_and_decode_match_reference_fp32(arch, S):
+    ref_model, params, model = _pair(arch, "float32")
+    B, steps = 2, 4
+    vocab = ref_model.cfg.vocab_size
+    prompts = _tokens(vocab, (B, S), seed=S)
+    max_len = S + steps
+    ref_cache, ref_logits = jax.jit(
+        lambda p, t: ref_model.prefill(p, {"tokens": t}, max_len=max_len)
+    )(params, jnp.asarray(prompts))
+    fa.reset_launches()
+    ssd.reset_launches()
+    cache, logits = model.prefill(torch.from_numpy(prompts).long(),
+                                  max_len=max_len)
+    assert fa.LAUNCHES["flash_attention"] == 0
+    assert ssd.LAUNCHES["ssd_chunk"] == 0
+    _close(logits, ref_logits, TOL)
+    _close_cache(cache, ref_cache, TOL)
+
+    # decode from the reference's prefill cache on both sides: the conv
+    # carries are bf16 whatever the activation type, and an fp32
+    # difference far below TOL can round one carry to its bf16 neighbour,
+    # which the recurrence then carries on at 2^-8 relative
+    cache = _cache_from(ref_cache)
+    ref_step = jax.jit(ref_model.decode_step)
+    fed = _tokens(vocab, (steps, B, 1), seed=S + 1)
+    for i in range(steps):
+        ref_logits, ref_cache = ref_step(params, ref_cache,
+                                         jnp.asarray(fed[i]),
+                                         jnp.int32(S + i))
+        logits, cache = model.decode_step(
+            cache, torch.from_numpy(fed[i]).long(), S + i)
+        _close(logits, ref_logits, TOL)
+    _close_cache(cache, ref_cache, TOL)
+
+
+def _cache_from(tree):
+    if isinstance(tree, dict):
+        return {k: _cache_from(v) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _exact_casts(fn, *args):
+    """``fn`` compiled by XLA with every bf16 cast rounded as written.
+    By default XLA's CPU backend may keep excess precision across a
+    cast to bf16 inside a fusion, which the port's eager PyTorch never
+    does; with it off the two differ only by summation order."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
+
+
+@pytest.mark.parametrize("arch", MODELS)
+def test_prefill_and_decode_match_reference_bf16(arch):
+    ref_model, params, model = _pair(arch, "bfloat16")
+    B, S = 2, 128
+    vocab = ref_model.cfg.vocab_size
+    prompts = _tokens(vocab, (B, S), seed=9)
+    ref_cache, ref_logits = _exact_casts(
+        lambda p, t: ref_model.prefill(p, {"tokens": t}, max_len=S + 2),
+        params, jnp.asarray(prompts))
+    cache, logits = model.prefill(torch.from_numpy(prompts).long(),
+                                  max_len=S + 2)
+    assert logits.dtype == torch.float32
+    scale = float(np.abs(np.asarray(ref_logits)).max())
+    err = float(np.abs(_np(logits) - np.asarray(ref_logits)).max())
+    assert err <= BF16_TOL * scale, (err, scale)
+    fed = _tokens(vocab, (B, 1), seed=10)
+    ref_logits, _ = _exact_casts(ref_model.decode_step, params, ref_cache,
+                                 jnp.asarray(fed), jnp.int32(S))
+    logits, _ = model.decode_step(cache, torch.from_numpy(fed).long(), S)
+    scale = float(np.abs(np.asarray(ref_logits)).max())
+    err = float(np.abs(_np(logits) - np.asarray(ref_logits)).max())
+    assert err <= BF16_TOL * scale, (err, scale)
+
+
+@pytest.mark.parametrize("arch", MODELS)
+def test_serve_on_cpu_returns_the_right_shapes(arch):
+    r = serve(arch, smoke=True, batch=3, prompt_len=64, gen_tokens=5,
+              seed=1, device="cpu")
+    vocab = smoke_shrink(get_config(arch)).vocab_size
+    assert r["generated"].shape == (3, 5)
+    assert ((r["generated"] >= 0) & (r["generated"] < vocab)).all()
+    assert tuple(r["prefill_logits"].shape) == (3, vocab)
+    assert torch.isfinite(r["prefill_logits"]).all()
+    assert r["prefill_s"] > 0 and r["decode_s"] > 0
+    assert r["decode_tok_per_s"] > 0
+    again = serve(arch, smoke=True, batch=3, prompt_len=64, gen_tokens=5,
+                  seed=1, device="cpu")
+    np.testing.assert_array_equal(again["generated"], r["generated"])

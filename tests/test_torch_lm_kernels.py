@@ -1,0 +1,305 @@
+"""The port's LM kernels (flash attention K4, Mamba-2 SSD chunk K5) and
+their ops wrappers, held against the JAX package on the same inputs.
+
+The CUDA kernels run only on the card; here the wrappers take their
+plain PyTorch versions (CPU tensors) and are held against the Pallas
+kernels in interpret mode, as ``tests/test_kernels.py`` runs them.
+Inputs are drawn with numpy from fixed seeds.  Tolerances are the JAX
+suite's: attention rtol/atol 2e-4 through ``ops.attention``, the bare
+kernel 1e-4 in fp32 and 3e-2 in bf16, the SSD scan 2e-3.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.mamba2_ssd import ssd_intra_chunk as jax_ssd_chunk  # noqa: E402
+
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+# ------------------------------------------------------------- attention
+@pytest.mark.parametrize("sq,sk,h,hkv,d", [
+    (256, 256, 4, 4, 64),
+    (256, 256, 8, 2, 64),   # GQA
+    (128, 512, 4, 1, 32),   # MQA chunk with q_offset
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_matches_reference(sq, sk, h, hkv, d, causal):
+    rng = np.random.default_rng(sq + sk + h + hkv + d + causal)
+    q = rng.normal(size=(2, sq, h, d)).astype(np.float32)
+    k = rng.normal(size=(2, sk, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(2, sk, hkv, d)).astype(np.float32)
+    off = sk - sq if causal and sk > sq else 0
+    want = ref_ops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, q_offset=off, bq=128, bk=128)
+    fa.reset_launches()
+    got = ops.attention(_t(q), _t(k), _t(v), causal=causal, q_offset=off)
+    assert fa.LAUNCHES["flash_attention"] == 0  # CPU: the plain version
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("sq,sk,off", [(1, 96, 95), (100, 100, 0), (64, 64, 0)])
+def test_attention_reference_dispatch(sq, sk, off):
+    """Decode and ragged shapes take the naive reference on both sides."""
+    rng = np.random.default_rng(sq)
+    q = rng.normal(size=(2, sq, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(2, sk, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(2, sk, 2, 16)).astype(np.float32)
+    want = ref_ops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, q_offset=off)
+    got = ops.attention(_t(q), _t(k), _t(v), causal=True, q_offset=off)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas_kernel(dtype, causal):
+    rng = np.random.default_rng(7)
+    shape = (16, 128, 32)  # kernel layout: (batch·heads, seq, head_dim)
+    q, k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = torch.float32 if dtype == "float32" else torch.bfloat16
+    want = jax_flash(jnp.asarray(q, jd), jnp.asarray(k, jd),
+                     jnp.asarray(v, jd), bq=128, bk=128, causal=causal,
+                     interpret=True)
+    got = fa.flash_attention_plain(_t(q, td), _t(k, td), _t(v, td),
+                                   causal=causal)
+    assert got.dtype == td
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("group,q_offset,sq,sk", [
+    (1, 0, 256, 256), (4, 0, 128, 128), (2, 128, 128, 256), (4, 256, 128, 384),
+])
+def test_flash_gqa_index_matches_head_repeat(group, q_offset, sq, sk):
+    """Query head bh reads kv head bh // group: the same function as the
+    Pallas kernel on head-repeated k/v, with its q_offset."""
+    rng = np.random.default_rng(group + q_offset)
+    bh, d = 8, 32
+    q = rng.normal(size=(bh, sq, d)).astype(np.float32)
+    k = rng.normal(size=(bh // group, sk, d)).astype(np.float32)
+    v = rng.normal(size=(bh // group, sk, d)).astype(np.float32)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(np.repeat(k, group, 0)),
+                     jnp.asarray(np.repeat(v, group, 0)), bq=128, bk=128,
+                     causal=True, q_offset=q_offset, interpret=True)
+    got = fa.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                             q_offset=q_offset)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_flash_ragged_lengths_match_naive_reference():
+    """Ragged lengths (sq, sk not tile multiples): the kernel's wrapper
+    refuses them on every device, and ``ops.attention`` sends them to the
+    naive reference, which matches the JAX package's."""
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(1, 70, 3, 24)).astype(np.float32)
+    k = rng.normal(size=(1, 150, 3, 24)).astype(np.float32)
+    v = rng.normal(size=(1, 150, 3, 24)).astype(np.float32)
+    for causal, off in ((True, 80), (False, 0)):
+        with pytest.raises(ValueError):
+            fa.flash_attention(*(_t(x[0].transpose(1, 0, 2)) for x in (q, k, v)),
+                               causal=causal, q_offset=off)
+        want = jref.attention_ref(
+            *(jnp.asarray(x[0].transpose(1, 0, 2)) for x in (q, k, v)),
+            causal=causal, q_offset=off)
+        fa.reset_launches()
+        got = ops.attention(_t(q), _t(k), _t(v), causal=causal, q_offset=off)
+        assert fa.LAUNCHES["flash_attention"] == 0
+        np.testing.assert_allclose(_np(got[0].transpose(0, 1)),
+                                   np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_attention_ref_matches_reference():
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.normal(size=(4, 40, 16)).astype(np.float32) for _ in range(3))
+    want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True)
+    got = ref.attention_ref(_t(q), _t(k), _t(v), causal=True)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+# ------------------------------------------------------------------- SSD
+def _ssd_inputs(rng, BH, T, D, S, groups=None):
+    G = groups or BH
+    x = rng.normal(size=(BH, T, D)).astype(np.float32)
+    dt = rng.uniform(0.1, 1.0, size=(BH, T)).astype(np.float32)
+    a = -rng.uniform(0.01, 0.5, size=(BH, T)).astype(np.float32)
+    b = rng.normal(size=(G, T, S)).astype(np.float32)
+    c = rng.normal(size=(G, T, S)).astype(np.float32)
+    return x, dt, a, b, c
+
+
+@pytest.mark.parametrize("T,D,S,chunk", [(64, 16, 8, 16), (128, 32, 16, 32),
+                                         (96, 8, 4, 32), (64, 16, 8, 64)])
+def test_ssd_scan_matches_reference(T, D, S, chunk):
+    rng = np.random.default_rng(T + D + S + chunk)
+    x, dt, a, b, c = _ssd_inputs(rng, 3, T, D, S)
+    want_y, want_h = ref_ops.ssd_scan(*map(jnp.asarray, (x, dt, a, b, c)),
+                                      chunk=chunk, interpret=True)
+    ssd.reset_launches()
+    y, h = ops.ssd_scan(*map(_t, (x, dt, a, b, c)), chunk=chunk)
+    assert ssd.LAUNCHES["ssd_chunk"] == 0
+    np.testing.assert_allclose(_np(y), np.asarray(want_y), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(_np(h), np.asarray(want_h), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("T,chunk", [(64, 16), (50, 16)])
+def test_ssd_scan_with_initial_state(T, chunk):
+    """``state0`` carried in, on the chunked path and on a ragged T (the
+    sequential reference)."""
+    rng = np.random.default_rng(T)
+    x, dt, a, b, c = _ssd_inputs(rng, 2, T, 8, 4)
+    h0 = rng.normal(size=(2, 4, 8)).astype(np.float32)
+    want_y, want_h = ref_ops.ssd_scan(*map(jnp.asarray, (x, dt, a, b, c)),
+                                      chunk=chunk, state0=jnp.asarray(h0),
+                                      interpret=True)
+    y, h = ops.ssd_scan(*map(_t, (x, dt, a, b, c)), chunk=chunk,
+                        state0=_t(h0))
+    np.testing.assert_allclose(_np(y), np.asarray(want_y), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(_np(h), np.asarray(want_h), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("T", [64, 40])
+def test_ssd_scan_head_free_groups(T):
+    """B/C with one group per batch row (the model's head-free B/C): the
+    reference's function on B/C repeated per head."""
+    rng = np.random.default_rng(5)
+    B, H = 2, 3
+    x, dt, a, b, c = _ssd_inputs(rng, B * H, T, 8, 4, groups=B)
+    want_y, want_h = ref_ops.ssd_scan(
+        *map(jnp.asarray, (x, dt, a, np.repeat(b, H, 0), np.repeat(c, H, 0))),
+        chunk=16, interpret=True)
+    y, h = ops.ssd_scan(*map(_t, (x, dt, a, b, c)), chunk=16)
+    np.testing.assert_allclose(_np(y), np.asarray(want_y), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(_np(h), np.asarray(want_h), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("lo,hi", [(0.01, 0.5), (5.0, 10.0)])
+def test_ssd_chunk_plain_matches_pallas_kernel(lo, hi):
+    """The intra-chunk function itself, also where exp(cum_a[i] - cum_a[j])
+    overflows above the diagonal (log decays of -5..-10 over 32 steps):
+    both mask with a select, so neither gives NaN."""
+    rng = np.random.default_rng(int(hi))
+    BH, C, L, D, S = 3, 2, 32, 8, 4
+    x = rng.normal(size=(BH, C, L, D)).astype(np.float32)
+    dt = rng.uniform(0.1, 1.0, size=(BH, C, L)).astype(np.float32)
+    a = -rng.uniform(lo, hi, size=(BH, C, L)).astype(np.float32)
+    b = rng.normal(size=(BH, C, L, S)).astype(np.float32)
+    c = rng.normal(size=(BH, C, L, S)).astype(np.float32)
+    want = jax_ssd_chunk(*map(jnp.asarray, (x, dt, a, b, c)), interpret=True)
+    got = ssd.ssd_intra_chunk(*map(_t, (x, dt, a, b, c)))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_scan_ref_matches_reference():
+    rng = np.random.default_rng(2)
+    x, dt, a, b, c = _ssd_inputs(rng, 2, 20, 4, 3)
+    want = jref.ssd_scan_ref(*map(jnp.asarray, (x, dt, a, b, c)))
+    got = ref.ssd_scan_ref(*map(_t, (x, dt, a, b, c)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------- wrapper contract
+def _lm_calls():
+    z = torch.zeros
+    return {
+        "flash_attention": (fa, lambda: fa.flash_attention(
+            z(4, 64, 16), z(2, 64, 16), z(2, 64, 16))),
+        "ssd_chunk": (ssd, lambda: ssd.ssd_intra_chunk(
+            z(4, 2, 16, 8), z(4, 2, 16), z(4, 2, 16), z(2, 2, 16, 4),
+            z(2, 2, 16, 4))),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_chunk"])
+def test_cuda_call_without_library_raises(name, monkeypatch, tmp_path):
+    """With the device check answering "CUDA" and no kernel library to
+    build, the wrapper raises; it never runs the plain version."""
+    mod, call = _lm_calls()[name]
+    monkeypatch.setattr(mod, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(fa, "flash_attention_plain", None)
+    monkeypatch.setattr(ssd, "ssd_intra_chunk_plain", None)
+    before = dict(mod.LAUNCHES)
+    with pytest.raises((RuntimeError, OSError)):
+        call()
+    assert mod.LAUNCHES == before
+
+
+def test_cpu_calls_launch_nothing():
+    for mod, call in _lm_calls().values():
+        mod.reset_launches()
+        call()
+        assert set(mod.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("bad", ["dtype", "heads", "rank", "ragged_q",
+                                 "ragged_k", "head_dim"])
+def test_flash_refuses_what_it_does_not_take(bad):
+    q = torch.zeros(4, 64, 16)
+    k = torch.zeros(2, 64, 16)
+    if bad == "dtype":
+        with pytest.raises(TypeError):
+            fa.flash_attention(q.double(), k.double(), k.double())
+    elif bad == "heads":
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, torch.zeros(3, 64, 16), torch.zeros(3, 64, 16))
+    elif bad == "ragged_q":
+        with pytest.raises(ValueError):
+            fa.flash_attention(q[:, :63], k, k)
+    elif bad == "ragged_k":
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, k[:, :40], k[:, :40])
+    elif bad == "head_dim":
+        with pytest.raises(ValueError):
+            fa.flash_attention(torch.zeros(4, 64, 136), torch.zeros(2, 64, 136),
+                               torch.zeros(2, 64, 136))
+    else:
+        with pytest.raises(ValueError):
+            fa.flash_attention(q[0], k[0], k[0])
+
+
+def test_ssd_chunk_refuses_mismatched_groups():
+    z = torch.zeros
+    with pytest.raises(ValueError):
+        ssd.ssd_intra_chunk(z(4, 2, 16, 8), z(4, 2, 16), z(4, 2, 16),
+                            z(3, 2, 16, 4), z(3, 2, 16, 4))
+    with pytest.raises(TypeError):
+        ssd.ssd_intra_chunk(z(4, 2, 16, 8).double(), z(4, 2, 16), z(4, 2, 16),
+                            z(2, 2, 16, 4), z(2, 2, 16, 4))
+
+
+def test_all_sources_have_a_library():
+    assert set(build.LIBRARIES) == {"gemm", "flash_attention", "mamba2_ssd"}
+    for src in build.LIBRARIES.values():
+        assert src.exists()
+        assert "repro_error_string" in src.read_text()
