@@ -9,6 +9,8 @@ points at full width:
 
   1. build     — one nvcc per source for sm_90a, all started together;
                  build seconds and the card's name and power limit;
+     sass      — the wgmma kernels (tiled_gemm, flash_attention's bf16
+                 kernel) must hold HGMMA in their SASS (cuobjdump);
   2. kernels   — each contraction kernel (tiled_gemm, fused_gemm,
                  chain_gemm) at the shapes of the 30-qubit plan (its
                  largest tiled step, largest fused step, longest chain),
@@ -16,7 +18,9 @@ points at full width:
                  error relative to max|plain| <= 1e-4: another summation
                  order than the library's), timed with CUDA events beside
                  its bound (chain_gemm as the kernel alone, with its
-                 arguments built once, and as the whole wrapper); then
+                 arguments built once, and as the whole wrapper;
+                 tiled_gemm, 3xTF32, against the TF32 rate / 3 and with
+                 its plane split timed alone); then
                  flash_attention at qwen3-4b's prefill shapes (bf16,
                  <= 1e-2: the output's bf16 rounding alone is 2^-8) and
                  ssd_chunk at mamba2-130m's (fp32, <= 1e-4);
@@ -45,7 +49,8 @@ points at full width:
                  be > 0;
   7. kernels   — one JSON line listing every kernel with its launches on
                  its path (phases 3-5 for the contraction kernels, the
-                 serve phase for the LM kernels; each must be > 0).
+                 serve phase for the LM kernels; each must be > 0) and
+                 its design (wgmma-bf16, 3xtf32-wgmma, simt-fp32).
 
 Each phase prints one JSON line; any failed check raises, so the exit code
 is non-zero.  The last line is the device summary.  With no CUDA device,
@@ -66,6 +71,7 @@ SRC = os.path.join(HERE, "src")
 
 FP32_PEAK = 67e12  # H100 SXM data sheet, FP32 on the CUDA cores
 BF16_PEAK = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+TF32_PEAK = 495e12  # H100 SXM data sheet, dense TF32 tensor cores
 HBM_BW = 3.35e12  # H100 SXM data sheet, HBM3
 KERNEL_TOL = 1e-4
 FLASH_TOL = 1e-2  # bf16 output: its rounding alone is 2^-8 = 3.9e-3
@@ -85,6 +91,19 @@ TPU_KERNELS = {
     "chain_gemm": "src/repro/kernels/contract_gemm.py:421",
     "flash_attention": "src/repro/kernels/flash_attention.py:71",
     "ssd_chunk": "src/repro/kernels/mamba2_ssd.py:57",
+}
+# how each kernel computes (the route of every kernel is CUDA C++)
+DESIGNS = {
+    "tiled_gemm": "3xtf32-wgmma",
+    "fused_gemm": "simt-fp32",
+    "chain_gemm": "simt-fp32",
+    "flash_attention": "wgmma-bf16",  # its fp32 inputs take simt-fp32
+    "ssd_chunk": "simt-fp32",
+}
+# the kernels that must run on the tensor cores: (library, CUDA kernel)
+WGMMA_KERNELS = {
+    "tiled_gemm": ("gemm", "tf32x3_gemm_kernel"),
+    "flash_attention": ("flash_attention", "flash_attention_wgmma_kernel"),
 }
 SOURCES = {
     "tiled_gemm": "src/repro_torch/kernels/csrc/gemm.cu",
@@ -183,13 +202,16 @@ def phase_kernels(torch, plan, cg) -> dict:
     check(rel <= KERNEL_TOL, f"tiled_gemm disagrees: {rel}")
     flops = 2.0 * f.B * f.M * f.N * f.K
     nbytes = 4.0 * f.B * (f.M * f.K + f.K * f.N + f.M * f.N)
-    b_ms, b_by = bound(flops, nbytes)
+    # 3xTF32: three TF32 products per fp32 product, at the TF32 rate
+    b_ms, b_by = bound(3.0 * flops, nbytes, TF32_PEAK)
+    ffma_ms, _ = bound(flops, nbytes)  # the FFMA route's bound
     out["tiled_gemm"] = dict(
         shape=[f.B, f.M, f.N, f.K], max_abs_err=err, rel_err=rel,
         ms=cuda_ms(torch, lambda: cg.tiled_gemm(a, b)),
+        split_ms=cuda_ms(torch, lambda: cg.tf32_planes(a, b)),
         plain_ms=cuda_ms(torch, lambda: cg.tiled_gemm_plain(a, b)),
         library_ms=cuda_ms(torch, lambda: torch.matmul(a, b)),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, ffma_bound_ms=ffma_ms,
     )
     del a, b, got, want
 
@@ -517,6 +539,12 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          libraries={k: v["path"] for k, v in info.items()})
     print(smi, flush=True)
+    hgmma = {name: build.kernels_with(lib, kernel, "HGMMA")
+             for name, (lib, kernel) in WGMMA_KERNELS.items()}
+    emit(phase="sass", hgmma=hgmma)
+    for name, found in hgmma.items():
+        check(bool(found) and all(found.values()),
+              f"{name}: no HGMMA in the SASS of {WGMMA_KERNELS[name][1]}")
 
     # 2. kernels against their plain versions at the main path's shapes
     rows, cols, cycles, target = 5, 6, 14, 28
@@ -679,7 +707,8 @@ def main() -> int:
     for name in TPU_KERNELS:
         rec = kern[name]
         records.append(dict(
-            name=name, route="cuda", source=SOURCES[name],
+            name=name, route="cuda", design=DESIGNS[name],
+            source=SOURCES[name],
             replaces=TPU_KERNELS[name], launches=total[name],
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],

@@ -6,8 +6,16 @@ shared library of its own with a plain C interface, loaded with
 :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
 for them together.  The libraries go to ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), under names that carry a hash of
-the source and the flags, so an edited source is always rebuilt.  Nothing
-here runs at import time.
+the source, every header it includes from ``csrc/`` and the flags, so
+an edited source or header is always rebuilt.  Nothing here runs at
+import time.
+
+The wgmma kernels encode TMA tensor maps with ``cuTensorMapEncodeTiled``,
+which lives in ``libcuda``, not in the CUDA runtime: ``csrc/hopper.cuh``
+fetches it at run time with ``cudaGetDriverEntryPoint``, so the libraries
+link the CUDA runtime only and the ``nvcc`` line carries no ``-lcuda``.
+:func:`kernels_with` reads a built library's SASS with ``cuobjdump`` and
+tells whether a kernel holds an instruction (``HGMMA`` for ``wgmma``).
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,21 +54,26 @@ _INT = ctypes.c_int
 _F32 = ctypes.c_float
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
-    default = Path("/usr/local/cuda/bin/nvcc")
+    default = Path("/usr/local/cuda/bin") / name
     if default.exists():
         return str(default)
     raise RuntimeError(
-        "nvcc not found: the CUDA kernels are built from source at first "
+        f"{name} not found: the CUDA kernels are built from source at first "
         "use and need the CUDA toolkit"
     )
 
 
+def _nvcc() -> str:
+    return _tool("nvcc")
+
+
 def _declare_gemm(lib: ctypes.CDLL) -> None:
-    lib.repro_tiled_gemm.argtypes = [_P, _P, _P, _I64, _I64, _I64, _I64, _P]
+    lib.repro_tiled_gemm.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                     _I64, _P]
     lib.repro_tiled_gemm.restype = _INT
     lib.repro_fused_gemm.argtypes = [_P, _I64, _INT, _P, _P, _P, _P, _P, _P, _P]
     lib.repro_fused_gemm.restype = _INT
@@ -95,8 +109,31 @@ _DECLARE = {
 }
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """The source of library ``name`` and every header it includes from
+    ``csrc/``, transitively, in first-include order."""
+    seen: list[Path] = []
+    todo = [LIBRARIES[name]]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = path.parent / inc
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def _out_path(name: str) -> Path:
-    digest = hashlib.sha256(LIBRARIES[name].read_bytes())
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
     for flag in NVCC_FLAGS:
         digest.update(flag.encode())
     return BUILD_DIR / f"librepro_{name}_{digest.hexdigest()[:16]}.so"
@@ -147,6 +184,29 @@ def build_all(names=None) -> dict[str, dict]:
                 path=str(out), seconds=seconds, log=logs.get(name, "")
             )
     return BUILD_INFO
+
+
+def kernels_with(name: str, kernel: str, opcode: str) -> dict[str, bool]:
+    """For each instantiation of CUDA kernel ``kernel`` in library
+    ``name`` (built on first call), keyed by its mangled name, whether
+    its SASS holds ``opcode``, as ``cuobjdump -sass`` prints it."""
+    load_library(name)
+    out = subprocess.run(
+        [_tool("cuobjdump"), "-sass", str(_out_path(name))],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    mangled = f"{len(kernel)}{kernel}"  # Itanium ABI: length, then name
+    found: dict[str, bool] = {}
+    fn = None
+    for line in out.splitlines():
+        head = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if head:
+            fn = head.group(1) if mangled in head.group(1) else None
+            if fn is not None:
+                found.setdefault(fn, False)
+        elif fn is not None and opcode in line:
+            found[fn] = True
+    return found
 
 
 def load_library(name: str) -> ctypes.CDLL:

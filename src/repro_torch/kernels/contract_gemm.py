@@ -4,8 +4,10 @@ Three hand-written CUDA kernels (``csrc/gemm.cu``) replace the three
 Pallas kernels of the reference's ``src/repro/kernels/contract_gemm.py``:
 
   * :func:`tiled_gemm` (K1) replaces ``tiled_matmul`` (``_matmul_kernel``):
-    ``C[b] = A[b] @ B[b]`` in exact fp32, masked at the ragged edge, so
-    the operands need no padding;
+    ``C[b] = A[b] @ B[b]`` in fp32 as 3xTF32 on the tensor cores
+    (``wgmma``): the wrapper writes each operand as TF32 hi and lo planes
+    in K-major order (:func:`tf32_planes`, plain tensor code), the kernel
+    sums ``a_hi.b_hi + a_hi.b_lo + a_lo.b_hi`` in fp32;
   * :func:`fused_gemm` (K2) replaces ``fused_transpose_matmul``
     (``_fused_kernel``): one contraction step on operands in their native
     tree layouts, gathered through per-role offset tables built once per
@@ -39,7 +41,7 @@ from .build import cuda_stream as _stream
 from .build import on_cpu as _on_cpu
 from .ref import permute_reshape
 
-TILE_M = TILE_N = 64  # the kernels' output tile (BM, BN in csrc/gemm.cu)
+TILE_M = TILE_N = 64  # K2/K3's output tile (BM, BN in csrc/gemm.cu)
 MAX_CHAIN = 32  # steps per chain launch (MAX_CHAIN in csrc/gemm.cu)
 # a role's flat index splits into (hi, lo) table lookups; the lo table
 # covers the longest axis suffix with at most this many entries
@@ -64,17 +66,52 @@ def _tiles(B: int, M: int, N: int) -> int:
 
 
 # ----------------------------------------------------------------------
-# K1: tiled GEMM
+# K1: tiled GEMM, 3xTF32 on wgmma
 # ----------------------------------------------------------------------
 def tiled_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: ``torch.matmul`` per batch cell."""
     return torch.matmul(a, b)
 
 
+_TF32_HALF = 1 << 12
+_TF32_MASK = -(1 << 13)  # 0xFFFFE000 as int32
+TF32_K_ALIGN = 4  # TMA's 16-byte row stride, in fp32
+
+
+def tf32_split(x: torch.Tensor) -> torch.Tensor:
+    """K1's operand planes: ``(2, *x.shape[:-1], Kp)`` holding
+    ``x_hi = tf32(x)`` and ``x_lo = tf32(x - x_hi)`` along the last axis
+    (K), zero-padded to ``Kp``, the next multiple of :data:`TF32_K_ALIGN`.
+    ``tf32`` rounds to 10 explicit mantissa bits, to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does: an integer add of half
+    the dropped field, then a mask of the 13 dropped bits.  ``x`` may be
+    a strided view; the planes are contiguous."""
+    *lead, k = x.shape
+    kp = -(-k // TF32_K_ALIGN) * TF32_K_ALIGN
+    out = torch.empty((2, *lead, kp), dtype=torch.float32, device=x.device)
+    if kp > k:
+        out[..., k:] = 0
+    hi, lo = out[0, ..., :k], out[1, ..., :k]
+    hi_bits, lo_bits = hi.view(torch.int32), lo.view(torch.int32)
+    torch.add(x.view(torch.int32), _TF32_HALF, out=hi_bits)
+    hi_bits.bitwise_and_(_TF32_MASK)
+    torch.sub(x, hi, out=lo)  # exact: hi holds x's leading 11 bits
+    lo_bits.add_(_TF32_HALF).bitwise_and_(_TF32_MASK)
+    return out
+
+
+def tf32_planes(a: torch.Tensor, b: torch.Tensor):
+    """The four K-major planes K1 reads: ``A_hi, A_lo`` of (B, M, Kp) as
+    ``tf32_split(a)`` and ``Bt_hi, Bt_lo`` of (B, N, Kp) as
+    ``tf32_split(b^T)`` (TF32 wgmma takes K-major operands only)."""
+    return tf32_split(a), tf32_split(b.transpose(1, 2))
+
+
 def tiled_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K1: ``C[i] = A[i] @ B[i]`` for fp32 ``a`` (B, M, K) and ``b``
-    (B, K, N), accumulated in fp32 with one ordered sum over K per
-    output element."""
+    (B, K, N), each product as three TF32 products (3xTF32, about 22 of
+    fp32's 24 mantissa bits), accumulated in fp32 with one ordered sum
+    over K per output element."""
     _check_fp32(a, b)
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or (
         a.shape[2] != b.shape[1]
@@ -84,14 +121,16 @@ def tiled_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return tiled_gemm_plain(a, b)
     B, M, K = a.shape
     N = b.shape[2]
-    a, b = a.contiguous(), b.contiguous()
     c = torch.empty((B, M, N), dtype=torch.float32, device=a.device)
     if c.numel() == 0:
+        return c
+    if K == 0:
         return c.zero_()
+    ap, bp = tf32_planes(a, b)
     lib = load_library("gemm")
     rc = lib.repro_tiled_gemm(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), B, M, N, K,
-        _stream(a.device),
+        ap[0].data_ptr(), ap[1].data_ptr(), bp[0].data_ptr(), bp[1].data_ptr(),
+        c.data_ptr(), B, M, N, ap.shape[-1], _stream(a.device),
     )
     check(lib, rc, "tiled_gemm")
     LAUNCHES["tiled_gemm"] += 1

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), FFMA on the CUDA cores.
+// Flash-attention forward for Hopper (sm_90a): bf16 on wgmma fed by TMA,
+// fp32 by FFMA on the CUDA cores.
 //
 // Replaces the TPU kernel flash_attention (_flash_kernel) of
 // src/repro/kernels/flash_attention.py: causal or full softmax attention
@@ -8,38 +9,69 @@
 //   kv = bh / group   (GQA: the kernel indexes the shared kv head, so the
 //                      wrapper makes no head-repeated copy of k and v)
 //
-// Numerics follow the TPU kernel exactly: q is scaled by sm_scale in fp32
-// before the dot, a causally masked score is -1e30 (not -inf), the
-// running max starts at -1e30, and the denominator is clamped at 1e-30.
-// Like the TPU kernel it takes whole tiles only: sq and sk multiples of
-// 64 (the wrapper's dispatch sends every other shape to the reference),
-// and head dims up to 128.
+// Like the TPU kernel it takes whole tiles only (sq and sk multiples of
+// 64; the wrapper's dispatch sends every other shape to the reference)
+// and head dims up to 128.  The route is chosen by dtype, not by
+// fallback:
 //
-// Grid: one block per (bh, q tile of 64 rows).  The TPU kernel holds the
-// whole K/V of a head in VMEM; a Hopper block has 227 KB of shared
-// memory, so K/V stream through it in tiles of 64 keys.  Causal blocks
-// stop at the last K tile their rows can see (n_kt_eff of the TPU
-// kernel).  256 threads, thread (ty, tx) of a 16x16 layout owns query
-// rows ty + 16i (i < 4), score columns tx + 16j (j < 4) and output
-// columns tx + 16c (c < FA_DC): the row statistics (running max,
-// denominator) of a row live in the 16 threads of one half-warp and are
-// combined with shuffles.  Q, K and P are kept transposed in shared
-// memory with a row stride of 65 floats, so the inner loops read without
-// bank conflicts.
+//   bf16 -> flash_attention_wgmma_kernel (below): tensor cores.
+//   fp32 -> flash_attention_kernel: FFMA.  fp32 on tensor cores would be
+//           TF32 and lose the 1e-4 agreement the fp32 serve check holds.
 //
 // What bounds it on the H100: at the serve shapes (qwen3-4b prefill,
 // bh 128, s 512, d 128, bf16) the function moves 42 MB and does 8.6e9
 // multiply-adds of the causal half, so the roofline bound is the bytes,
-// 12.5 us at 3.35 TB/s.  This kernel does its products as FFMA on the
-// CUDA cores (67 TFLOP/s peak, not the 989 of bf16 wgmma) with two
-// shared loads per two FFMA in the inner loops, so it is bound by
-// shared-memory bandwidth and the FFMA rate, far above the bound.  It is
-// the simple kernel that is right first: wgmma with the tiles in
-// registers, TMA loads of K/V and a producer warp come later.
+// 12.5 us at 3.35 TB/s; the operations take 8.7 us at 989 TFLOP/s.
+//
+// bf16 design.  One block per (bh, 128 query rows): two consumer
+// warpgroups of 64 rows and one producer warp (288 threads, 160 KB of
+// shared memory, one block per SM).  The producer TMA-loads the Q tile
+// once and streams K and V tiles of 128 keys through a ring of 2 stages
+// (mbarriers: full per stage for K and for V, empty per stage released by
+// both consumers).  The K/V of a kv head is read by `group` blocks that
+// run side by side (block index = q tile * bh + bh), so L2 serves the
+// repeats.  Tiles are 128-byte-swizzled panels of 64 head-dim columns (a
+// head dim of 128 is two panels; TMA zero-fills a narrower head).
+//   S = Q.K^T: wgmma m64n128k16, both operands K-major in shared memory.
+//   softmax:   in the registers of the S fragment; a row's 32 values per
+//              thread combine across the 4 threads of a quad (shuffles).
+//   O += P.V:  wgmma m64n64k16 per head-dim panel, P from registers (the
+//              S fragment cast to bf16 is the A fragment), V MN-major
+//              through the transpose bit.
+// Causal blocks stop at their last visible K tile; only a tile that
+// reaches past the first row of a warpgroup, or past sk, is masked.
+// Blocks are launched heaviest causal q tile first.  Tiles: 128 keys
+// fill one m64n128 product per k16 step and halve the per-tile softmax
+// and barrier work of 64; 2 stages of 128-key K and V (128 KB) beside
+// the 32 KB Q tile keep one tile in flight while one is consumed.
+//
+// bf16 numerics are the reference's (mask -1e30, running max from
+// -1e30, denominator clamped at 1e-30, l summed over fp32 p) apart from
+// two points that follow from bf16 tensor cores:
+//   1. sm_scale multiplies the fp32 S after the product, not q before it;
+//      a bf16.bf16 product is exact in fp32, so this is one fp32 rounding;
+//   2. P enters P.V rounded to bf16 (relative error 2^-9 per element),
+//      where the reference keeps fp32.
+// and one of evaluation: the scores are scaled by sm_scale * log2(e) and
+// p = 2^(x - m) is one SFU ex2.approx (relative error ~2^-22, with the
+// rounding of the folded scale), where expf spends several more FP32
+// instructions per element; the mask, the running max and the clamp
+// keep their values in that domain.
+//
+// fp32 design (unchanged): one block per (bh, q tile of 64 rows), K/V
+// streamed in tiles of 64 keys, 256 threads, thread (ty, tx) of a 16x16
+// layout owns query rows ty + 16i (i < 4), score columns tx + 16j
+// (j < 4) and output columns tx + 16c (c < FA_DC): the row statistics of
+// a row live in the 16 threads of one half-warp and are combined with
+// shuffles.  Q, K and P are kept transposed in shared memory with a row
+// stride of 65 floats.  q is scaled by sm_scale before the dot, as in
+// the reference.  Bound by the FFMA rate and shared-memory bandwidth.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 #define FA_BQ 64
 #define FA_BK 64
@@ -50,13 +82,7 @@
 #define FA_MASKED (-1e30f)
 
 __device__ __forceinline__ float fa_load(const float* p) { return *p; }
-__device__ __forceinline__ float fa_load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void fa_store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void fa_store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, as astype does
-}
 
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
@@ -222,6 +248,269 @@ static cudaError_t fa_launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- bf16
+#define FW_BQ 128                       // query rows per block
+#define FW_BKV 128                      // keys per K/V tile
+#define FW_THREADS 288                  // 2 consumer warpgroups + 1 warp
+#define FW_PANEL_Q (FW_BQ * 128)        // bytes of a 64-column Q panel
+#define FW_PANEL_KV (FW_BKV * 128)      // bytes of a 64-column K/V panel
+#define FW_STAGES 2                     // K/V ring depth
+
+static size_t fw_smem_bytes(int panels) {
+  // Q, then the stages of K, then those of V; + alignment slack
+  return (size_t)panels * (FW_PANEL_Q + 2 * FW_STAGES * FW_PANEL_KV) + 1024;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x by the SFU (relative error ~2^-22); scores are kept in the log2
+// domain, so this is the exp of the natural-domain score
+__device__ __forceinline__ float fw_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// DP: 64-column panels of the head dim (1 for d <= 64, else 2).
+template <int DP>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                             const __grid_constant__ CUtensorMap mk,
+                             const __grid_constant__ CUtensorMap mv,
+                             __nv_bfloat16* __restrict__ o, int bhq, int sq,
+                             int sk, int d, int group, int q_offset,
+                             float sm_scale, int causal) {
+  extern __shared__ uint8_t fw_smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, k_full[FW_STAGES],
+      v_full[FW_STAGES], kv_empty[FW_STAGES];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(fw_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = qs + DP * FW_PANEL_Q;       // stage s: ks + s*DP*FW_PANEL_KV
+  uint8_t* vs = ks + FW_STAGES * DP * FW_PANEL_KV;
+
+  const int nqb = (sq + FW_BQ - 1) / FW_BQ;
+  const int bh = blockIdx.x % bhq;
+  const int q0 = (nqb - 1 - (int)(blockIdx.x / bhq)) * FW_BQ;
+  const int rows = min(FW_BQ, sq - q0);  // 64 or 128
+  int n_kt = (sk + FW_BKV - 1) / FW_BKV;
+  if (causal) n_kt = min(n_kt, (q_offset + q0 + rows + FW_BKV - 1) / FW_BKV);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int s = 0; s < FW_STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&kv_empty[s], 2);  // one arrival per consumer
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer warp
+    if (threadIdx.x == 256) {
+      const int kvh = bh / group;
+      hopper::mbar_arrive_expect_tx(&q_full, DP * FW_PANEL_Q);
+      for (int p = 0; p < DP; ++p)
+        hopper::tma_load_3d(qs + p * FW_PANEL_Q, &mq, &q_full, 64 * p, q0, bh);
+      for (int t = 0; t < n_kt; ++t) {
+        const int s = t % FW_STAGES;
+        if (t >= FW_STAGES)
+          hopper::mbar_wait(&kv_empty[s], ((t / FW_STAGES) - 1) & 1);
+        uint8_t* kst = ks + s * DP * FW_PANEL_KV;
+        uint8_t* vst = vs + s * DP * FW_PANEL_KV;
+        hopper::mbar_arrive_expect_tx(&k_full[s], DP * FW_PANEL_KV);
+        for (int p = 0; p < DP; ++p)
+          hopper::tma_load_3d(kst + p * FW_PANEL_KV, &mk, &k_full[s], 64 * p,
+                              t * FW_BKV, kvh);
+        hopper::mbar_arrive_expect_tx(&v_full[s], DP * FW_PANEL_KV);
+        for (int p = 0; p < DP; ++p)
+          hopper::tma_load_3d(vst + p * FW_PANEL_KV, &mv, &v_full[s], 64 * p,
+                              t * FW_BKV, kvh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows q0 + 64*wg .. +63.  Fragment of a
+  // thread (warp w, lane l): rows 16w + l/4 (h = 0) and +8 (h = 1); in
+  // each n8 block j, columns 8j + 2(l%4) and +1; register 4j + 2h + c.
+  const int t128 = threadIdx.x % 128, w = t128 / 32, lane = t128 % 32;
+  const int r0 = 64 * wg + 16 * w + lane / 4;  // row in the block (h = 0)
+  const int qpos[2] = {q_offset + q0 + r0, q_offset + q0 + r0 + 8};
+  const int qmin = q_offset + q0 + 64 * wg;  // the warpgroup's first row
+
+  float m[2] = {FA_MASKED, FA_MASKED}, l[2] = {0.f, 0.f};
+  float sc[64], oacc[DP][32];
+#pragma unroll
+  for (int p = 0; p < DP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[p][i] = 0.f;
+
+  const float x_scale = sm_scale * 1.4426950408889634f;  // times log2(e)
+  hopper::mbar_wait(&q_full, 0);
+  const uint8_t* qw = qs + 64 * wg * 128;  // the warpgroup's 64 rows
+  for (int t = 0; t < n_kt; ++t) {
+    const int s = t % FW_STAGES;
+    const uint32_t parity = (t / FW_STAGES) & 1;
+    const uint8_t* kst = ks + s * DP * FW_PANEL_KV;
+    const uint8_t* vst = vs + s * DP * FW_PANEL_KV;
+
+    // S = Q.K^T over the head dim, k16 steps inside 64-column panels
+    // (sc starts from zero, which also ends the previous tile's values)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    hopper::mbar_wait(&k_full[s], parity);
+    hopper::wgmma_fence();
+    hopper::fence_regs(sc);
+#pragma unroll
+    for (int kk = 0; kk < 4 * DP; ++kk)
+      hopper::wgmma_m64n128k16_bf16_ss(
+          sc, hopper::desc_kmajor(qw + (kk / 4) * FW_PANEL_Q + 32 * (kk % 4)),
+          hopper::desc_kmajor(kst + (kk / 4) * FW_PANEL_KV + 32 * (kk % 4)),
+          kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    // scale (into the log2 domain), mask, online softmax over the
+    // quad's 128 columns
+    const int k0 = t * FW_BKV;
+    const bool edge =
+        (causal && k0 + FW_BKV - 1 > qmin) || k0 + FW_BKV > sk;
+    float mx[2] = {FA_MASKED, FA_MASKED};
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = sc[4 * j + 2 * h + c] * x_scale;
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * (lane % 4) + c;
+            if ((causal && key > qpos[h]) || key >= sk) x = FA_MASKED;
+          }
+          sc[4 * j + 2 * h + c] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = fw_exp2(sc[4 * j + 2 * h + c] - m_new);
+          sc[4 * j + 2 * h + c] = p;
+          sum += p;
+        }
+      alpha[h] = fw_exp2(m[h] - m_new);
+      l[h] = alpha[h] * l[h] + quad_sum(sum);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int p = 0; p < DP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) oacc[p][4 * j + 2 * h + c] *= alpha[h];
+
+    // P as bf16 A fragments: k16 slice kk is n8 blocks 2kk and 2kk+1
+    uint32_t pa[FW_BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < FW_BKV / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    // O += P.V, one m64n64 product per head-dim panel and k16 step
+    hopper::mbar_wait(&v_full[s], parity);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < DP; ++p) hopper::fence_regs(oacc[p]);
+#pragma unroll
+    for (int kk = 0; kk < FW_BKV / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < DP; ++p)
+        hopper::wgmma_m64n64k16_bf16_rs(
+            oacc[p], pa[kk],
+            hopper::desc_mnmajor(vst + p * FW_PANEL_KV + kk * 16 * 128), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < DP; ++p) hopper::fence_regs(oacc[p]);
+    if (t128 == 0) hopper::mbar_arrive(&kv_empty[s]);
+  }
+
+  // rows past sq (the second warpgroup of a 64-row last tile) store nothing
+  __nv_bfloat16* ob = o + (long long)bh * sq * d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + r0 + 8 * h;
+    if (r >= sq) continue;
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int p = 0; p < DP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * p + 8 * j + 2 * (lane % 4);
+        if (col < d)
+          *reinterpret_cast<uint32_t*>(ob + (long long)r * d + col) =
+              pack_bf16(oacc[p][4 * j + 2 * h] * inv,
+                        oacc[p][4 * j + 2 * h + 1] * inv);
+      }
+  }
+}
+
+template <int DP>
+static cudaError_t fw_launch(const void* q, const void* k, const void* v,
+                             void* o, long long bhq, int sq, int sk, int d,
+                             int group, int q_offset, float sm_scale,
+                             int causal, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* base[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const int rows = i == 0 ? sq : sk;
+    const uint64_t dims[3] = {(uint64_t)d, (uint64_t)rows,
+                              (uint64_t)(i == 0 ? bhq : bhq / group)};
+    const uint64_t strides[2] = {(uint64_t)d * 2, (uint64_t)rows * d * 2};
+    const uint32_t box[3] = {64, (uint32_t)(i == 0 ? FW_BQ : FW_BKV), 1};
+    cudaError_t err = hopper::make_tensor_map(
+        &maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base[i], dims, strides,
+        box);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = fw_smem_bytes(DP);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = bhq * ((sq + FW_BQ - 1) / FW_BQ);
+  flash_attention_wgmma_kernel<DP><<<(unsigned)blocks, FW_THREADS, smem,
+                                     stream>>>(
+      maps[0], maps[1], maps[2], (__nv_bfloat16*)o, (int)bhq, sq, sk, d, group,
+      q_offset, sm_scale, causal);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------- C interface
 // Launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() (0 on success).
@@ -241,10 +530,13 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
       q_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      bf16 ? fa_launch<__nv_bfloat16>(q, k, v, o, bhq, sq, sk, d, group,
-                                      q_offset, sm_scale, causal, st)
-           : fa_launch<float>(q, k, v, o, bhq, sq, sk, d, group, q_offset,
-                              sm_scale, causal, st);
-  return (int)err;
+  if (!bf16)
+    return (int)fa_launch<float>(q, k, v, o, bhq, sq, sk, d, group, q_offset,
+                                 sm_scale, causal, st);
+  // TMA reads rows of d bf16 values: 16-byte strides need d % 8 == 0
+  if (d % 8 || bhq > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return (int)(d > 64 ? fw_launch<2>(q, k, v, o, bhq, sq, sk, d, group,
+                                     q_offset, sm_scale, causal, st)
+                      : fw_launch<1>(q, k, v, o, bhq, sq, sk, d, group,
+                                     q_offset, sm_scale, causal, st));
 }

@@ -1,9 +1,13 @@
-// Contraction GEMM kernels for Hopper (sm_90a), exact fp32 on the CUDA cores.
+// Contraction GEMM kernels for Hopper (sm_90a), fp32 contract.
 //
 // Three kernels, one per TPU kernel of src/repro/kernels/contract_gemm.py:
 //
-//   tiled_gemm_kernel  <- tiled_matmul (_matmul_kernel)
-//       C[b] = A[b] @ B[b], row-major fp32, masked at the ragged edge.
+//   tf32x3_gemm_kernel <- tiled_matmul (_matmul_kernel)
+//       C[b] = A[b] @ B[b] in fp32, as 3xTF32 on wgmma fed by TMA: each
+//       product is split into TF32 hi and lo parts on the host side
+//       (a.b ~= a_hi.b_hi + a_hi.b_lo + a_lo.b_hi), which keeps about 22
+//       of fp32's 24 mantissa bits per product; see the note at the
+//       kernel.
 //   fused_gemm_kernel  <- fused_transpose_matmul (_fused_kernel)
 //       one contraction step on operands in their native tree layouts:
 //       every element address is a sum of per-role offsets read from
@@ -15,7 +19,7 @@
 //       the steps, and interior carries live in a device workspace laid
 //       out by the planner's slot assignment.
 //
-// All three share one tile routine: 64x64 output tile, K in slices of 16,
+// K2 and K3 share one tile routine: 64x64 output tile, K in slices of 16,
 // 256 threads each holding a 4x4 register block, FFMA only (no TF32 mma),
 // one ordered sum over K per output element (no split-K, no atomics), so
 // the result does not depend on the launch geometry.  Complex steps run
@@ -23,17 +27,24 @@
 //   P1 = Ar.Br, P2 = Ai.Bi, P3 = (Ar+Ai).(Br+Bi)
 //   C_re = P1 - P2, C_im = (P3 - P1) - P2.
 //
-// What bounds them on the H100: the tile loop issues 2 FFMA per 2 shared
-// loads, well short of the 67 TFLOP/s fp32 peak; the fused and chain
-// kernels also gather their operands element by element through the
+// What bounds them on the H100.  K1 does three TF32 products per fp32
+// product, so its least time is its operations at a third of the 495
+// TFLOP/s TF32 peak (165 TFLOP/s fp32-accurate); its operands are four
+// planes written by the wrapper (twice the bytes of A and B, read once by
+// TMA), and its tile loop issues three wgmmas per k8 step on 128x128
+// tiles and waits once per 32-wide k-tile to add that tile's sum in
+// fp32 while the other consumer warpgroup's products run.  K2 and K3
+// issue 2 FFMA per 2 shared loads, well short of the 67 TFLOP/s fp32
+// peak, and gather their operands element by element through the
 // offset tables, which costs uncoalesced loads when the native layout's
 // fastest axis is not the tile's fastest axis.  The chain steps are
 // mostly small GEMMs, so the chain kernel is bound by the grid barriers
-// and by too few tiles per step to fill 132 SMs.  These are simple
-// kernels that are right first; wgmma/TMA and speed come later.
+// and by too few tiles per step to fill 132 SMs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 typedef long long i64;
 
@@ -210,62 +221,143 @@ __device__ void gemm_tile(Smem& s, const i64* __restrict__ d, i64 tile,
 }
 
 // ---------------------------------------------------------------- K1
-__global__ void __launch_bounds__(NT)
-tiled_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                  float* __restrict__ C, i64 M, i64 N, i64 K) {
-  __shared__ float As[BK][BM + APAD];
-  __shared__ float Bs[BK][BN];
-  const i64 tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
-  const i64 tile = blockIdx.x;
-  const i64 nt = tile % tiles_n;
-  const i64 mt = (tile / tiles_n) % tiles_m;
-  const i64 bt = tile / (tiles_n * tiles_m);
-  const i64 m0 = mt * BM, n0 = nt * BN;
-  const float* Ab = A + bt * M * K;
-  const float* Bb = B + bt * K * N;
-  float* Cb = C + bt * M * N;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+// C[b] = A[b] @ B[b] as 3xTF32 on wgmma.  The wrapper hands over four
+// K-major planes, K padded to a multiple of 4 with zeros: A_hi, A_lo
+// (batch*M rows of Kp) and Bt_hi, Bt_lo (batch*N rows of Kp), where
+// x_hi = tf32(x) and x_lo = tf32(x - x_hi) (cvt.rna), and
+//   a.b ~= a_hi.b_hi + a_hi.b_lo + a_lo.b_hi
+// on the TF32 tensor cores, accumulated in fp32 (a_lo.b_lo, below 2^-22
+// of a.b, is dropped).  TF32 wgmma takes K-major operands only, hence Bt.
+//
+// Block: a 128x128 tile of C, K in steps of 32 fp32 (one 128-byte row of
+// each plane), three stages of four 16 KB tiles (192 KB).  Warp 8 is the
+// producer: its lane 0 TMA-loads the four tiles of a stage and waits for
+// a stage to be released before refilling it.  Warpgroups 0 and 1 are
+// the consumers, each owning 64 rows of the tile (a 64x128 fp32
+// accumulator, 64 registers a thread): per k8 step they issue three
+// m64n128k8 wgmmas into a fresh sum per k-tile, wait for them, release
+// the stage and add the sum into the fp32 accumulator (the other
+// consumer's products fill the tensor cores meanwhile).  TMA fills the
+// ragged M, N and K edges with zeros: a tile's rows past M (or N) read
+// the next batch cell's rows or zeros, and only ever reach output rows
+// (columns) that the epilogue masks.  One ordered sum over K per output,
+// no split-K, no atomics.
+#define G_BM 128
+#define G_BN 128
+#define G_BK 32
+#define G_STAGES 3
+#define G_THREADS 288                          // 2 consumer warpgroups + 1 warp
+#define G_TILE_BYTES (G_BM * G_BK * 4)         // 16 KB, one plane's tile
+#define G_STAGE_BYTES (4 * G_TILE_BYTES)
+#define G_SMEM (G_STAGES * G_STAGE_BYTES + 1024)  // + alignment slack
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+__global__ void __launch_bounds__(G_THREADS, 1)
+tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
+                   const __grid_constant__ CUtensorMap a_lo,
+                   const __grid_constant__ CUtensorMap b_hi,
+                   const __grid_constant__ CUtensorMap b_lo,
+                   float* __restrict__ C, int M, int N, int Kp) {
+  extern __shared__ uint8_t g_smem_raw[];
+  __shared__ __align__(8) uint64_t full[G_STAGES], empty[G_STAGES];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(g_smem_raw) + 1023) & ~uintptr_t(1023));
 
-  for (i64 k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < (BM * BK) / NT; ++r) {
-      const int e = tid + NT * r;
-      const int mi = e / BK, ki = e % BK;
-      const i64 m = m0 + mi, k = k0 + ki;
-      As[ki][mi] = (m < M && k < K) ? __ldg(Ab + m * K + k) : 0.f;
-      const int kj = e / BN, ni = e % BN;
-      const i64 kk = k0 + kj, n = n0 + ni;
-      Bs[kj][ni] = (kk < K && n < N) ? __ldg(Bb + kk * N + n) : 0.f;
+  const int tiles_m = (M + G_BM - 1) / G_BM, tiles_n = (N + G_BN - 1) / G_BN;
+  const int tile = blockIdx.x;
+  const int nt = tile % tiles_n;
+  const int mt = (tile / tiles_n) % tiles_m;
+  const int bt = tile / (tiles_n * tiles_m);
+  const int m0 = mt * G_BM, n0 = nt * G_BN;
+  const int nk = (Kp + G_BK - 1) / G_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
-    __syncthreads();
-#pragma unroll
-    for (int ki = 0; ki < BK; ++ki) {
-      float xa[4], yb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xa[i] = As[ki][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) yb[j] = Bs[ki][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], yb[j], acc[i][j]);
-    }
-    __syncthreads();
+    hopper::mbar_init_fence();
   }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer warp
+    if (threadIdx.x == 256) {
+      const int ra = bt * M + m0, rb = bt * N + n0;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % G_STAGES;
+        if (kt >= G_STAGES)
+          hopper::mbar_wait(&empty[s], ((kt / G_STAGES) - 1) & 1);
+        uint8_t* st = smem + s * G_STAGE_BYTES;
+        hopper::mbar_arrive_expect_tx(&full[s], G_STAGE_BYTES);
+        const int k0 = kt * G_BK;
+        hopper::tma_load_2d(st, &a_hi, &full[s], k0, ra);
+        hopper::tma_load_2d(st + G_TILE_BYTES, &a_lo, &full[s], k0, ra);
+        hopper::tma_load_2d(st + 2 * G_TILE_BYTES, &b_hi, &full[s], k0, rb);
+        hopper::tma_load_2d(st + 3 * G_TILE_BYTES, &b_lo, &full[s], k0, rb);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows 64*wg .. 64*wg+63 of the tile.  The
+  // tensor cores' fp32 accumulation is not rounded to nearest, and its
+  // error grows with the length of one wgmma sum (one sum over K = 1000
+  // was off by 1e-3 on outputs near 30 on the H100), so each k-tile's
+  // twelve products go to a fresh wgmma sum that is then added into the
+  // fp32 accumulator by FADD, rounded to nearest.
+  float acc[64], part[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const i64 m = m0 + ty + 16 * i;
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const int a_off = wg * 64 * (G_BK * 4);  // 64 rows of 128 bytes
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % G_STAGES;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) part[i] = 0.f;
+    hopper::mbar_wait(&full[s], (kt / G_STAGES) & 1);
+    const uint8_t* st = smem + s * G_STAGE_BYTES;
+    hopper::wgmma_fence();
+    hopper::fence_regs(part);
+#pragma unroll
+    for (int k = 0; k < G_BK / 8; ++k) {
+      const uint8_t* a = st + a_off + 32 * k;  // k8 step: 32 bytes along K
+      const uint8_t* b = st + 2 * G_TILE_BYTES + 32 * k;
+      const uint64_t ah = hopper::desc_kmajor(a);
+      const uint64_t al = hopper::desc_kmajor(a + G_TILE_BYTES);
+      const uint64_t bh = hopper::desc_kmajor(b);
+      const uint64_t bl = hopper::desc_kmajor(b + G_TILE_BYTES);
+      // the small products first, the large one last
+      hopper::wgmma_m64n128k8_tf32_ss(part, al, bh, k > 0);
+      hopper::wgmma_m64n128k8_tf32_ss(part, ah, bl, 1);
+      hopper::wgmma_m64n128k8_tf32_ss(part, ah, bh, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(part);
+    if (threadIdx.x % 128 == 0) hopper::mbar_arrive(&empty[s]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  }
+
+  // accumulator fragment: warp w, lane l holds rows 16w + l/4 (+8) and,
+  // for each n8 block j, columns 8j + 2(l%4) (+1)
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  float* Cb = C + (long long)bt * M * N;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + wg * 64 + 16 * w + lane / 4 + 8 * h;
     if (m >= M) continue;
+    float* row = Cb + (long long)m * N;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const i64 n = n0 + tx + 16 * j;
-      if (n < N) Cb[m * N + n] = acc[i][j];
+    for (int j = 0; j < G_BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane % 4);
+      const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
+      if (n + 1 < N && (N % 2) == 0) {
+        *reinterpret_cast<float2*>(row + n) = make_float2(x, y);
+      } else {
+        if (n < N) row[n] = x;
+        if (n + 1 < N) row[n + 1] = y;
+      }
     }
   }
 }
@@ -341,13 +433,34 @@ extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-extern "C" int repro_tiled_gemm(const float* A, const float* B, float* C,
-                                i64 batch, i64 M, i64 N, i64 K,
+// K1 on the four planes the wrapper wrote (see tf32x3_gemm_kernel).
+extern "C" int repro_tiled_gemm(const float* a_hi, const float* a_lo,
+                                const float* bt_hi, const float* bt_lo,
+                                float* C, i64 batch, i64 M, i64 N, i64 Kp,
                                 void* stream) {
-  const i64 tiles = batch * ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  if (tiles <= 0 || tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  tiled_gemm_kernel<<<(unsigned)tiles, NT, 0, (cudaStream_t)stream>>>(
-      A, B, C, M, N, K);
+  const i64 tiles = batch * ((M + G_BM - 1) / G_BM) * ((N + G_BN - 1) / G_BN);
+  if (tiles <= 0 || tiles > 0x7fffffffLL || Kp <= 0 || Kp % 4 ||
+      batch * M > 0x7fffffffLL || batch * N > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  const float* planes[4] = {a_hi, a_lo, bt_hi, bt_lo};
+  for (int i = 0; i < 4; ++i) {
+    const uint64_t rows = (uint64_t)(batch * (i < 2 ? M : N));
+    const uint64_t dims[2] = {(uint64_t)Kp, rows};
+    const uint64_t strides[1] = {(uint64_t)Kp * 4};
+    const uint32_t box[2] = {G_BK, (uint32_t)(i < 2 ? G_BM : G_BN)};
+    cudaError_t err = hopper::make_tensor_map(
+        &maps[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, planes[i], dims, strides,
+        box);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      tf32x3_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  tf32x3_gemm_kernel<<<(unsigned)tiles, G_THREADS, G_SMEM,
+                       (cudaStream_t)stream>>>(maps[0], maps[1], maps[2],
+                                               maps[3], C, (int)M, (int)N,
+                                               (int)Kp);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,18 @@
 """Flash-attention forward on Hopper (K4), with its plain version.
 
-:func:`flash_attention` launches the hand-written CUDA kernel of
+:func:`flash_attention` launches a hand-written CUDA kernel of
 ``csrc/flash_attention.cu``, which replaces the reference's Pallas kernel
 ``flash_attention`` (``_flash_kernel``, ``src/repro/kernels/
 flash_attention.py``): causal or full softmax attention with an online
 softmax, fp32 accumulation and ``q.dtype`` out, for bf16 or fp32 inputs.
+The kernel is chosen by dtype: bf16 runs on the tensor cores (``wgmma``
+fed by TMA; head dims a multiple of 8, for TMA's 16-byte row stride),
+fp32 on the CUDA cores (FFMA), because fp32 on tensor cores would be
+TF32.  The bf16 kernel differs from the reference's numerics in two
+points, both from bf16 tensor cores: the scale multiplies the fp32
+scores after the product, and the probabilities enter ``P @ V`` rounded
+to bf16; it also takes the exponential as ``2^x`` of log2-domain scores
+on the SFU (see the note in the CUDA source).
 
 GQA is an index, not a copy: ``k``/``v`` may carry fewer heads than ``q``
 (``q.shape[0]`` a multiple of ``k.shape[0]``), and query head ``bh``
@@ -30,7 +38,7 @@ import torch
 
 from .build import check, cuda_stream, load_library, on_cpu
 
-BQ = BK = 64  # the kernel's query and key tiles (FA_BQ, FA_BK)
+BQ = BK = 64  # the whole tiles taken; the fp32 kernel's tiles (FA_BQ, FA_BK)
 MAX_HEAD_DIM = 128  # the kernel's register budget (FA_MAX_D)
 NEG_INF = -1e30  # the reference kernel's mask value
 
@@ -57,6 +65,12 @@ def _check(q, k, v) -> int:
             f"q {tuple(q.shape)} does not match k {tuple(k.shape)}"
         )
     return q.shape[0] // k.shape[0]
+
+
+def _contiguous_aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and on the 16-byte boundary a TMA tensor map needs."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def flash_attention_plain(
@@ -126,11 +140,14 @@ def flash_attention(
     if q.shape[2] > MAX_HEAD_DIM:
         raise ValueError(f"head dim {q.shape[2]} > {MAX_HEAD_DIM}: the kernel "
                          "does not take it")
+    if q.dtype == torch.bfloat16 and q.shape[2] % 8:
+        raise ValueError(f"head dim {q.shape[2]}: the bf16 kernel takes "
+                         "multiples of 8 (TMA's 16-byte row stride)")
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
     bh, sq, d = q.shape
     sk = k.shape[1]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_contiguous_aligned(x) for x in (q, k, v))
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o

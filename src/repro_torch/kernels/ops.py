@@ -45,7 +45,7 @@ def matmul(
 
     ``a`` is (M, K) or (B, M, K), ``b`` (K, N) or (B, K, N).  Falls back
     to the library's matmul for shapes under ``min_kernel_dim`` where the
-    64-wide output tile would be mostly idle (the paper's Sec. V-A
+    kernel's output tile would be mostly idle (the paper's Sec. V-A
     pathology)."""
     if a.is_complex() or b.is_complex():
         return _complex_matmul(a, b, min_kernel_dim=min_kernel_dim)

@@ -50,7 +50,13 @@ def _random_form(rng, nb, nm, nn, nk, size):
     return lower_step(ia, ib, out, lambda _: size)
 
 
-@pytest.mark.parametrize("B,M,N,K", [(1, 100, 70, 33), (3, 64, 128, 16), (1, 1, 1, 1)])
+@pytest.mark.parametrize("B,M,N,K", [
+    (1, 100, 70, 33), (3, 64, 128, 16), (1, 1, 1, 1),
+    (2, 300, 130, 45),     # ragged M/N, K not a multiple of 32 (nor of 4)
+    (3, 129, 257, 1000),   # one row/column past a 128 tile, batch 3
+    (1, 256, 385, 1024),   # the path's K
+    (4, 64, 3, 7),         # odd N: the epilogue's scalar stores
+])
 def test_tiled_gemm_on_card(dev, B, M, N, K):
     g = torch.Generator().manual_seed(B + M + N + K)
     a = torch.randn(B, M, K, generator=g).to(dev)
@@ -161,6 +167,11 @@ def _rel(got, want) -> float:
     (4, 2, 128, 384, 32, True, 256),    # chunk with q_offset
     (6, 3, 64, 192, 24, False, 0),      # head dim not a multiple of 16, full
     (2, 1, 64, 64, 8, True, 0),         # the smallest head dim dispatched
+    (8, 4, 192, 448, 128, True, 256),   # 64-row tails of the 128 tiles
+    (4, 1, 320, 320, 128, True, 0),     # sq % 128 == 64, q_offset 0
+    (8, 4, 512, 512, 128, True, 0),     # qwen3-4b's group and head dim
+    (4, 1, 64, 1024, 96, True, 960),    # sq < sk, two partial d panels
+    (4, 4, 128, 256, 128, False, 0),    # full attention, group 4
 ])
 def test_flash_attention_on_card(dev, dtype, bh, group, sq, sk, d, causal,
                                  q_offset):
@@ -180,6 +191,21 @@ def test_flash_attention_on_card(dev, dtype, bh, group, sq, sk, d, causal,
     torch.cuda.synchronize()
     assert got.dtype == dtype
     assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("lib,kernel,hgmma", [
+    ("gemm", "tf32x3_gemm_kernel", True),
+    ("flash_attention", "flash_attention_wgmma_kernel", True),
+    ("flash_attention", "flash_attention_kernel", False),  # fp32: FFMA
+])
+def test_wgmma_kernels_issue_hgmma(dev, lib, kernel, hgmma):
+    """K1 and K4's bf16 kernel run on the tensor cores: their SASS holds
+    HGMMA (wgmma); K4's fp32 kernel stays on the CUDA cores."""
+    from repro_torch.kernels import build
+
+    found = build.kernels_with(lib, kernel, "HGMMA")
+    assert found, f"{kernel} not in the {lib} library"
+    assert set(found.values()) == {hgmma}, found
 
 
 @pytest.mark.parametrize("BH,G,C,L,D,S,lo,hi", [

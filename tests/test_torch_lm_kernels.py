@@ -263,7 +263,7 @@ def test_cpu_calls_launch_nothing():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "heads", "rank", "ragged_q",
-                                 "ragged_k", "head_dim"])
+                                 "ragged_k", "head_dim", "bf16_head_dim"])
 def test_flash_refuses_what_it_does_not_take(bad):
     q = torch.zeros(4, 64, 16)
     k = torch.zeros(2, 64, 16)
@@ -283,6 +283,10 @@ def test_flash_refuses_what_it_does_not_take(bad):
         with pytest.raises(ValueError):
             fa.flash_attention(torch.zeros(4, 64, 136), torch.zeros(2, 64, 136),
                                torch.zeros(2, 64, 136))
+    elif bad == "bf16_head_dim":  # TMA's 16-byte rows: d % 8 in bf16
+        z = torch.zeros(2, 64, 20, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            fa.flash_attention(torch.zeros(4, 64, 20, dtype=torch.bfloat16), z, z)
     else:
         with pytest.raises(ValueError):
             fa.flash_attention(q[0], k[0], k[0])
@@ -303,3 +307,34 @@ def test_all_sources_have_a_library():
     for src in build.LIBRARIES.values():
         assert src.exists()
         assert "repro_error_string" in src.read_text()
+
+
+@pytest.mark.parametrize("name,headers", [
+    ("gemm", ["hopper.cuh"]),
+    ("flash_attention", ["hopper.cuh"]),
+    ("mamba2_ssd", []),
+])
+def test_library_sources_list_included_headers(name, headers):
+    srcs = build.sources(name)
+    assert srcs[0] == build.LIBRARIES[name]
+    assert [p.name for p in srcs[1:]] == headers
+
+
+@pytest.mark.parametrize("name", ["gemm", "flash_attention"])
+def test_editing_a_header_renames_the_library(name, monkeypatch, tmp_path):
+    """The library's name hashes every header its source includes, so an
+    edited hopper.cuh is never served by a stale build."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(build, "LIBRARIES", {
+        n: csrc / p.name for n, p in build.LIBRARIES.items()})
+    before = build._out_path(name)
+    other = build._out_path("mamba2_ssd")  # includes no header
+    assert before == build._out_path(name)
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = build._out_path(name)
+    assert after != before and after.parent == before.parent
+    assert build._out_path("mamba2_ssd") == other
