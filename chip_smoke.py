@@ -9,18 +9,23 @@ points at full width:
 
   1. build     — one nvcc per source for sm_90a, all started together;
                  build seconds and the card's name and power limit;
-     sass      — the wgmma kernels (tiled_gemm, flash_attention's bf16
-                 kernel) must hold HGMMA in their SASS (cuobjdump);
+     sass      — the wgmma kernels (tiled_gemm, fused_gemm,
+                 flash_attention's bf16 kernel) must hold HGMMA in their
+                 SASS (cuobjdump);
   2. kernels   — each contraction kernel (tiled_gemm, fused_gemm,
                  chain_gemm) at the shapes of the 30-qubit plan (its
                  largest tiled step, largest fused step, longest chain),
                  held against its plain PyTorch version on the card (max
                  error relative to max|plain| <= 1e-4: another summation
                  order than the library's), timed with CUDA events beside
-                 its bound (chain_gemm as the kernel alone, with its
-                 arguments built once, and as the whole wrapper;
-                 tiled_gemm, 3xTF32, against the TF32 rate / 3 and with
-                 its plane split timed alone); then
+                 its bound (tiled_gemm and fused_gemm, 3xTF32, against
+                 the TF32 rate / 3, tiled_gemm with its plane split timed
+                 alone; fused_gemm on complex64 in place and through
+                 ops.fused_matmul, the path's call; chain_gemm as the
+                 kernel alone on the profiler's device clock, with its
+                 launch state built once, at each cluster size, for one
+                 step of the chain, beside an empty cluster launch, and
+                 through ops.fused_chain, the path's call); then
                  flash_attention at qwen3-4b's prefill shapes (bf16,
                  <= 1e-2: the output's bf16 rounding alone is 2^-8) and
                  ssd_chunk at mamba2-130m's (fp32, <= 1e-4);
@@ -50,7 +55,10 @@ points at full width:
   7. kernels   — one JSON line listing every kernel with its launches on
                  its path (phases 3-5 for the contraction kernels, the
                  serve phase for the LM kernels; each must be > 0) and
-                 its design (wgmma-bf16, 3xtf32-wgmma, simt-fp32).
+                 its design (wgmma-bf16, 3xtf32-wgmma, cluster-simt-fp32,
+                 simt-fp32); every fused_gemm launch of phases 3-5 must
+                 have taken the wgmma kernel with the coalesced (uniform)
+                 gather.
 
 Each phase prints one JSON line; any failed check raises, so the exit code
 is non-zero.  The last line is the device summary.  With no CUDA device,
@@ -95,14 +103,15 @@ TPU_KERNELS = {
 # how each kernel computes (the route of every kernel is CUDA C++)
 DESIGNS = {
     "tiled_gemm": "3xtf32-wgmma",
-    "fused_gemm": "simt-fp32",
-    "chain_gemm": "simt-fp32",
+    "fused_gemm": "3xtf32-wgmma",
+    "chain_gemm": "cluster-simt-fp32",
     "flash_attention": "wgmma-bf16",  # its fp32 inputs take simt-fp32
     "ssd_chunk": "simt-fp32",
 }
 # the kernels that must run on the tensor cores: (library, CUDA kernel)
 WGMMA_KERNELS = {
     "tiled_gemm": ("gemm", "tf32x3_gemm_kernel"),
+    "fused_gemm": ("gemm", "fused_gemm_kernel"),
     "flash_attention": ("flash_attention", "flash_attention_wgmma_kernel"),
 }
 SOURCES = {
@@ -112,6 +121,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "ssd_chunk": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
 }
+CHAIN_CLUSTERS = (1, 2, 4, 8, 16)  # K3's cluster sizes timed
 SERVE = dict(batch=4, prompt_len=512, gen_tokens=32, seed=0)
 AGREE = dict(batch=1, prompt_len=256)  # the CPU half of the agreement
 
@@ -158,6 +168,26 @@ def cuda_ms(torch, fn) -> float:
     return start.elapsed_time(end) / n
 
 
+def device_ms(torch, fn, name: str, n: int = 20) -> float:
+    """Mean milliseconds on the card's own clock of the kernels whose name
+    holds ``name``, over ``n`` calls of ``fn`` under the profiler (a
+    launch shorter than the host's issue time is not measured by events
+    around back-to-back calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as _profile
+
+    fn()
+    torch.cuda.synchronize()
+    with _profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    check(us > 0, f"no device time for {name}")
+    return us / 1e3 / n
+
+
 def bound(flops: float, nbytes: float, peak: float = FP32_PEAK):
     """(least ms for the work, what bounds it) on the data-sheet peaks."""
     t_ops, t_mem = flops / peak, nbytes / HBM_BW
@@ -178,7 +208,7 @@ def network(circuits, simplify_network, circ, bits, open_qubits=None):
     return simplify_network(*circuits.circuit_to_network(circ, **kw))
 
 
-def phase_kernels(torch, plan, cg) -> dict:
+def phase_kernels(torch, plan, cg, ops) -> dict:
     """Each kernel at the main path's own shapes against its plain
     version; returns per-kernel timing records."""
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -215,28 +245,35 @@ def phase_kernels(torch, plan, cg) -> dict:
     )
     del a, b, got, want
 
-    # K2: the largest fused step, complex (Karatsuba in the kernel)
+    # K2: the largest fused step, complex64 read and written in place
     fused = [s for s in specs if s.backend == "fused"]
     check(bool(fused), "the plan has no fused step")
     f = max(fused, key=lambda s: s.form.flops).form
     pa = (rnd(f.a_shape), rnd(f.a_shape))
     pb = (rnd(f.b_shape), rnd(f.b_shape))
-    got = cg.fused_gemm(pa, pb, f)
+    ac, bc = torch.complex(*pa), torch.complex(*pb)
+    before = cg.LAUNCHES["fused_gemm"]
+    got = cg.fused_gemm_c64(ac, bc, f)
+    check(cg.LAUNCHES["fused_gemm"] == before + 1, "fused_gemm: not one launch")
     want = cg.fused_gemm_plain(pa, pb, f)
     torch.cuda.synchronize()
-    err, rel = rel_err(torch, got, want)
+    err, rel = rel_err(torch, [got.real, got.imag], want)
     check(rel <= KERNEL_TOL, f"fused_gemm disagrees: {rel}")
-    ac, bc = torch.complex(*pa), torch.complex(*pb)
     B, M, N, K = f.B, f.M, f.N, f.K
-    flops = 6.0 * B * M * N * K + 2.0 * B * (M * K + K * N) + 3.0 * B * M * N
     nbytes = 8.0 * B * (M * K + K * N + M * N)
-    b_ms, b_by = bound(flops, nbytes)
+    # 3xTF32 on Karatsuba's three real products (3 x 6MNK) at the TF32
+    # rate; the kernel's direct form issues 4/3 of that
+    b_ms, b_by = bound(3.0 * 6.0 * B * M * N * K, nbytes, TF32_PEAK)
+    ffma = 6.0 * B * M * N * K + 2.0 * B * (M * K + K * N) + 3.0 * B * M * N
+    ffma_ms, _ = bound(ffma, nbytes)  # the FFMA kernel's bound (PR 11-13)
     out["fused_gemm"] = dict(
         shape=[B, M, N, K], max_abs_err=err, rel_err=rel,
-        ms=cuda_ms(torch, lambda: cg.fused_gemm(pa, pb, f)),
+        uniform=cg.fused_plan(f).uniform,
+        ms=cuda_ms(torch, lambda: cg.fused_gemm_c64(ac, bc, f)),
+        path_ms=cuda_ms(torch, lambda: ops.fused_matmul(ac, bc, f)),
         plain_ms=cuda_ms(torch, lambda: cg.fused_gemm_plain(pa, pb, f)),
         library_ms=cuda_ms(torch, lambda: torch.einsum(f.expr, ac, bc)),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, ffma_bound_ms=ffma_ms,
     )
     del pa, pb, ac, bc, got, want
 
@@ -253,34 +290,55 @@ def phase_kernels(torch, plan, cg) -> dict:
     ]
     scales = [forms[0].K ** -0.25] * 2 + [fm.K ** -0.5 for fm in forms[1:]]
     comps = [rnd(s, sc) for s, sc in zip(shapes, scales) for _ in range(2)]
-    args = (comps, forms, ch.carry_side, ch.slot_ids, ch.slot_elems)
-    got = cg.chain_gemm(*args, complex_mode=True)
+    ext = [torch.complex(comps[2 * i], comps[2 * i + 1]) for i in range(len(shapes))]
+    chain = dict(forms=forms, carry_side=ch.carry_side, slot_ids=ch.slot_ids,
+                 slot_elems=ch.slot_elems)
+    before = cg.LAUNCHES["chain_gemm"]
+    got = ops.fused_chain(ext, **chain)
+    check(cg.LAUNCHES["chain_gemm"] == before + 1, "fused_chain: not one launch")
     want = cg.chain_gemm_plain(comps, forms, ch.carry_side, True)
     torch.cuda.synchronize()
-    err, rel = rel_err(torch, got, want)
+    err, rel = rel_err(torch, [got.real, got.imag], want)
     check(rel <= KERNEL_TOL, f"chain_gemm disagrees: {rel}")
     flops = sum(
         6.0 * fm.B * fm.M * fm.N * fm.K + 2.0 * fm.B * (fm.M * fm.K + fm.K * fm.N)
         + 3.0 * fm.B * fm.M * fm.N for fm in forms
     )
-    nbytes = 4.0 * (
-        sum(c.numel() for c in comps) + sum(g.numel() for g in got)
-    )
+    nbytes = 8.0 * (sum(e.numel() for e in ext) + got.numel())
     b_ms, b_by = bound(flops, nbytes)
-    # the kernel alone: back-to-back launches with the tables, workspace,
-    # barrier and pointer arrays built once; the whole wrapper beside it
-    launch, outs = cg.chain_gemm_launcher(*args, complex_mode=True)
-    ms = cuda_ms(torch, launch)
-    torch.cuda.synchronize()
-    # what the timed relaunches left in their outputs is the wrapper's result
-    _, rel_relaunch = rel_err(torch, outs, got)
+    args = (comps, forms, ch.carry_side, ch.slot_ids, ch.slot_elems)
+    # the kernel alone, on the card's clock: relaunches of the cached
+    # launch state, at each cluster size; the default size's outputs are
+    # then the wrapper's result
+    by_cluster, rel_relaunch = {}, 0.0
+    for size in CHAIN_CLUSTERS:
+        launch, outs = cg.chain_gemm_launcher(*args, complex_mode=True,
+                                              cluster=size)
+        by_cluster[size] = device_ms(torch, launch, "chain_gemm")
+        torch.cuda.synchronize()
+        _, r = rel_err(torch, outs, want)
+        rel_relaunch = max(rel_relaunch, r)
     check(rel_relaunch <= KERNEL_TOL,
           f"chain_gemm relaunches disagree: {rel_relaunch}")
+    one, _ = cg.chain_gemm_launcher(comps[:4], forms[:1], ch.carry_side[:1],
+                                    (), (), complex_mode=True)
+    default = cg.chain_state(forms, ch.carry_side, ch.slot_ids, ch.slot_elems,
+                             True, ext[0].device).segments[0][3]
     out["chain_gemm"] = dict(
         steps=ch.n_steps, shapes=[[fm.B, fm.M, fm.N, fm.K] for fm in forms],
         max_abs_err=err, rel_err=rel, relaunch_rel_err=rel_relaunch,
-        ms=ms,
-        wrapper_ms=cuda_ms(torch, lambda: cg.chain_gemm(*args, complex_mode=True)),
+        cluster=default, ms=by_cluster[default],
+        ms_by_cluster=by_cluster,
+        one_step_ms=device_ms(torch, one, "chain_gemm"),
+        empty_launch_ms=device_ms(
+            torch, lambda: cg.empty_cluster_launch(default, dev), "empty_cluster"),
+        empty_launch_wall_ms=cuda_ms(
+            torch, lambda: cg.empty_cluster_launch(default, dev)),
+        # an empty launch that meets at the chain's barriers between steps
+        barriers_launch_ms=device_ms(
+            torch, lambda: cg.empty_cluster_launch(default, dev, ch.n_steps - 1),
+            "empty_cluster"),
+        path_ms=cuda_ms(torch, lambda: ops.fused_chain(ext, **chain)),
         plain_ms=cuda_ms(
             torch, lambda: cg.chain_gemm_plain(comps, forms, ch.carry_side, True)
         ),
@@ -516,6 +574,7 @@ def main() -> int:
     from repro_torch.core.executor import simplify_network
     from repro_torch.kernels import build, contract_gemm as cg
     from repro_torch.kernels import flash_attention as fa, mamba2_ssd as ssd
+    from repro_torch.kernels import ops
     from repro_torch.launch.decode_demo import serve
     from repro_torch.models import build_model
     from repro_torch.quantum import circuits, statevector
@@ -554,7 +613,7 @@ def main() -> int:
     t0 = time.perf_counter()
     plan, report = plan_compiled(tn, target)
     plan_s = time.perf_counter() - t0
-    kern = phase_kernels(torch, plan, cg)
+    kern = phase_kernels(torch, plan, cg, ops)
     del plan
     torch.cuda.empty_cache()
     kern.update(phase_lm_kernels(torch, fa, ssd))
@@ -564,13 +623,14 @@ def main() -> int:
 
     # 3. amplitude, every slice, against the statevector --------------
     cg.reset_launches()
-    launches = {}
+    launches, routes = {}, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = simulate_amplitude(circ, "0" * n, target_dim=target, backend="gemm")
     torch.cuda.synchronize()
     exec_s = time.perf_counter() - t0 - res.report.plan_wall_s
     launches["amplitude"] = dict(cg.LAUNCHES)
+    routes["amplitude"] = dict(cg.FUSED_ROUTES)
     if not launches["amplitude"]["tiled_gemm"]:
         # the card's refiner sent every large step to the fused kernel:
         # run once more with the fused backend off, the reference's own
@@ -624,6 +684,7 @@ def main() -> int:
     torch.cuda.synchronize()
     samp_s = time.perf_counter() - t0
     launches["sampling"] = dict(cg.LAUNCHES)
+    routes["sampling"] = dict(cg.FUSED_ROUTES)
     oracle, _ = open_amplitude_batch(circ, open_qubits=open_q,
                                      target_dim=target, backend="einsum",
                                      seed=seed4, repeats=32)
@@ -663,6 +724,7 @@ def main() -> int:
     slice_s = (time.perf_counter() - t0) / len(ids)
     peak = torch.cuda.max_memory_allocated()
     launches["share"] = dict(cg.LAUNCHES)
+    routes["share"] = dict(cg.FUSED_ROUTES)
     del sess
     torch.cuda.empty_cache()
     ein_sess, _ = open_session(circ5, "0" * n5, target_dim=target5,
@@ -703,6 +765,13 @@ def main() -> int:
     total["ssd_chunk"] = launches["serve:mamba2-130m"]["ssd_chunk"]
     for name, count in total.items():
         check(count > 0, f"{name} was not launched on its path")
+    # every fused_gemm launch of phases 3-5 took the wgmma kernel, with the
+    # coalesced gather of one map for every tile
+    fused_routes = {r: sum(routes[ph][r] for ph in routes) for r in cg.FUSED_ROUTES}
+    check(sum(fused_routes.values()) == total["fused_gemm"],
+          f"fused_gemm launches {total['fused_gemm']} vs routes {fused_routes}")
+    check(fused_routes["general"] == 0,
+          f"fused_gemm took the general gather on the path: {fused_routes}")
     records = []
     for name in TPU_KERNELS:
         rec = kern[name]
@@ -715,7 +784,7 @@ def main() -> int:
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
         ))
     emit(phase="done", seconds=time.perf_counter() - t_start,
-         launches_by_phase=launches)
+         launches_by_phase=launches, fused_routes_by_phase=routes)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

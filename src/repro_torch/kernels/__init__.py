@@ -1,14 +1,14 @@
 """Hand-written CUDA kernels for Hopper and their wrappers.
 
-contract_gemm — the three contraction kernels (tiled_gemm, fused_gemm,
-                chain_gemm), each with its plain PyTorch version and a
-                launch counter
-ops           — wrappers used by the lowering layer: complex Karatsuba,
-                the dot fallback below the tile size, the complex split
-                at the chain boundary
-ref           — plain PyTorch helpers
-build         — nvcc build of csrc/ at first use, loaded with ctypes
-
-The reference's two LM-side kernels (flash attention, Mamba-2 SSD) are
-not ported yet.
+contract_gemm   — the three contraction kernels (tiled_gemm,
+                  fused_gemm_c64, chain_gemm_c64), each with its plain
+                  PyTorch version and a launch counter
+flash_attention — causal GQA flash attention (bf16 on wgmma, fp32 FFMA)
+mamba2_ssd      — the Mamba-2 SSD intra-chunk kernel
+ops             — wrappers used by the lowering layer and the models:
+                  complex Karatsuba for the tiled kernel, the dot fallback
+                  below the tile size, complex64 in place for the fused
+                  and chain kernels, attention and the SSD scan
+ref             — plain PyTorch helpers
+build           — nvcc build of csrc/ at first use, loaded with ctypes
 """

@@ -75,14 +75,17 @@ def _declare_gemm(lib: ctypes.CDLL) -> None:
     lib.repro_tiled_gemm.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _I64,
                                      _I64, _P]
     lib.repro_tiled_gemm.restype = _INT
-    lib.repro_fused_gemm.argtypes = [_P, _I64, _INT, _P, _P, _P, _P, _P, _P, _P]
+    lib.repro_fused_gemm.argtypes = [_P, _P, _INT, _INT, _INT, _I64, _P, _P,
+                                     _P, _P]
     lib.repro_fused_gemm.restype = _INT
-    lib.repro_chain_grid.argtypes = [_INT, _I64, ctypes.POINTER(_INT)]
-    lib.repro_chain_grid.restype = _INT
-    lib.repro_chain_gemm.argtypes = [
-        _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _P,
-    ]
+    lib.repro_chain_smem.argtypes = [_INT]
+    lib.repro_chain_smem.restype = _INT
+    lib.repro_chain_gemm.argtypes = [_P, _INT, _INT, _P]
     lib.repro_chain_gemm.restype = _INT
+    lib.repro_chain_cluster_max.argtypes = [_INT, ctypes.POINTER(_INT)]
+    lib.repro_chain_cluster_max.restype = _INT
+    lib.repro_empty_cluster.argtypes = [_INT, _INT, _P]
+    lib.repro_empty_cluster.restype = _INT
 
 
 def _declare_flash_attention(lib: ctypes.CDLL) -> None:

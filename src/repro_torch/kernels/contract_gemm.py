@@ -8,20 +8,27 @@ Pallas kernels of the reference's ``src/repro/kernels/contract_gemm.py``:
     (``wgmma``): the wrapper writes each operand as TF32 hi and lo planes
     in K-major order (:func:`tf32_planes`, plain tensor code), the kernel
     sums ``a_hi.b_hi + a_hi.b_lo + a_lo.b_hi`` in fp32;
-  * :func:`fused_gemm` (K2) replaces ``fused_transpose_matmul``
+  * :func:`fused_gemm_c64` (K2) replaces ``fused_transpose_matmul``
     (``_fused_kernel``): one contraction step on operands in their native
-    tree layouts, gathered through per-role offset tables built once per
-    step form, with the output written straight into ``inds_out`` order;
-  * :func:`chain_gemm` (K3) replaces ``fused_chain_matmul``
+    tree layouts, complex64 read and written in place, as 3xTF32 on
+    ``wgmma``; producer warps gather each tile through a map of its
+    elements in ascending native offset (:func:`gather_map`, built once
+    per step form), and the output is written straight into ``inds_out``
+    order.  :func:`fused_gemm` is the same kernel on ``(re, im)`` planes;
+  * :func:`chain_gemm_c64` (K3) replaces ``fused_chain_matmul``
     (``_chain_kernel``/``_run_chain``): a run of adjacent steps in one
-    cooperative persistent launch, interior carries in a device
-    workspace laid out by the planner's ``slot_ids``/``slot_elems``.
+    thread-block cluster, interior carries in a device workspace laid out
+    by the planner's ``slot_ids``/``slot_elems``; its launch state is
+    built once per chain (:class:`ChainLaunch`).  :func:`chain_gemm` is
+    the same kernel on ``(re, im)`` planes.
 
 Each kernel has a plain PyTorch version of the same function in this
 module (permute + reshape + ``torch.matmul``; for K3 the port of
 ``chain_reference``).  A wrapper uses the plain version only when its
 tensors lie on the CPU; for CUDA tensors it launches its kernel or
-raises.  :data:`LAUNCHES` counts kernel launches, one per launch.
+raises.  :data:`LAUNCHES` counts kernel launches, one per launch;
+:data:`FUSED_ROUTES` splits K2's launches by gather (``uniform``: one
+map for every tile; ``general``: per-tile offset tables).
 
 What bounds each kernel on the H100, and why, is noted at the top of
 ``csrc/gemm.cu``.
@@ -30,6 +37,7 @@ What bounds each kernel on the H100, and why, is noted at the top of
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -41,28 +49,25 @@ from .build import cuda_stream as _stream
 from .build import on_cpu as _on_cpu
 from .ref import permute_reshape
 
-TILE_M = TILE_N = 64  # K2/K3's output tile (BM, BN in csrc/gemm.cu)
 MAX_CHAIN = 32  # steps per chain launch (MAX_CHAIN in csrc/gemm.cu)
 # a role's flat index splits into (hi, lo) table lookups; the lo table
 # covers the longest axis suffix with at most this many entries
 _LO_TARGET = 4096
 
 LAUNCHES = {"tiled_gemm": 0, "fused_gemm": 0, "chain_gemm": 0}
+FUSED_ROUTES = {"uniform": 0, "general": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, FUSED_ROUTES):
+        for k in d:
+            d[k] = 0
 
 
 def _check_fp32(*tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"kernel takes float32 planes, got {t.dtype}")
-
-
-def _tiles(B: int, M: int, N: int) -> int:
-    return B * -(-M // TILE_M) * -(-N // TILE_N)
 
 
 # ----------------------------------------------------------------------
@@ -140,6 +145,10 @@ def tiled_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------
 # K2: fused transpose-GEMM over native layouts
 # ----------------------------------------------------------------------
+FUSED_BK = 32  # k per stage (F_BK in csrc/gemm.cu)
+_INT32_MAX = 2**31 - 1
+
+
 def _strides(shape) -> list[int]:
     st, acc = [0] * len(shape), 1
     for i in range(len(shape) - 1, -1, -1):
@@ -165,16 +174,27 @@ def role_tables(dims, strides) -> tuple[np.ndarray, np.ndarray, int]:
     return _offsets(dims[:j], strides[:j]), _offsets(dims[j:], strides[j:]), lo_n
 
 
-def step_descriptor(form) -> np.ndarray:
-    """The kernel's step descriptor for one GEMM form (layout in
-    ``csrc/gemm.cu``): B, M, N, K, then (hi, lo, lo_n) for the nine
-    operand roles, then the tables.  The operands are contiguous in
-    their native layouts; the output is contiguous in ``inds_out``
-    order."""
+@dataclasses.dataclass(frozen=True)
+class Role:
+    """One GEMM role of an operand: its axes' sizes and element strides,
+    in role order."""
+
+    dims: tuple[int, ...]
+    strides: tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.dims)
+
+
+def step_roles(form) -> list[Role]:
+    """The nine roles of ``form`` in descriptor order: A's (batch, m, k),
+    B's (batch, k, n) and the output's (batch, m, n).  The operands are
+    contiguous in their native layouts; the output is contiguous in
+    ``inds_out`` order."""
     nb, nm = len(form.batch_shape), len(form.m_shape)
     nk = len(form.k_shape)
-    a_shape, b_shape = form.a_shape, form.b_shape
-    a_st, b_st = _strides(a_shape), _strides(b_shape)
+    a_st, b_st = _strides(form.a_shape), _strides(form.b_shape)
     natural = form.batch_shape + form.m_shape + form.n_shape
     o_st_perm = _strides(form.out_shape)
     o_st = [0] * len(natural)
@@ -182,42 +202,223 @@ def step_descriptor(form) -> np.ndarray:
         o_st[q] = o_st_perm[j]
 
     def role(shape, st, axes):
-        return role_tables([shape[p] for p in axes], [st[p] for p in axes])
+        return Role(tuple(shape[p] for p in axes), tuple(st[p] for p in axes))
 
     pa, pb = form.perm_a, form.perm_b
     nat = range(len(natural))
-    roles = [
-        role(a_shape, a_st, pa[:nb]),
-        role(a_shape, a_st, pa[nb:nb + nm]),
-        role(a_shape, a_st, pa[nb + nm:]),
-        role(b_shape, b_st, pb[:nb]),
-        role(b_shape, b_st, pb[nb:nb + nk]),
-        role(b_shape, b_st, pb[nb + nk:]),
+    return [
+        role(form.a_shape, a_st, pa[:nb]),
+        role(form.a_shape, a_st, pa[nb:nb + nm]),
+        role(form.a_shape, a_st, pa[nb + nm:]),
+        role(form.b_shape, b_st, pb[:nb]),
+        role(form.b_shape, b_st, pb[nb:nb + nk]),
+        role(form.b_shape, b_st, pb[nb + nk:]),
         role(natural, o_st, nat[:nb]),
         role(natural, o_st, nat[nb:nb + nm]),
         role(natural, o_st, nat[nb + nm:]),
     ]
-    words = [form.B, form.M, form.N, form.K]
+
+
+def _role_offsets_at(role: Role, idx) -> np.ndarray:
+    """Offsets of the flat role indices ``idx``."""
+    idx = np.asarray(idx, dtype=np.int64)
+    off = np.zeros(idx.shape, dtype=np.int64)
+    for d, s in zip(reversed(role.dims), reversed(role.strides)):
+        off += (idx % d) * s
+        idx = idx // d
+    return off
+
+
+def _descriptor(B: int, M: int, N: int, K: int, roles) -> np.ndarray:
+    words = [B, M, N, K]
     tables = []
-    pos = 31
-    for hi, lo, lo_n in roles:
+    pos = 33
+    for r in roles:
+        hi, lo, lo_n = role_tables(list(r.dims), list(r.strides))
         words += [pos, pos + hi.size, lo_n]
         tables += [hi, lo]
         pos += hi.size + lo.size
-    return np.concatenate([np.asarray(words, dtype=np.int64)] + tables)
+    # the k-tile starts of A's and B's k roles (D_KA, D_KB)
+    starts = np.arange(0, K, FUSED_BK)
+    ka, kb = _role_offsets_at(roles[2], starts), _role_offsets_at(roles[4], starts)
+    words += [pos, pos + ka.size]
+    return np.concatenate([np.asarray(words, dtype=np.int64), *tables, ka, kb])
 
 
-_DESCS: dict = {}
+def step_descriptor(form) -> np.ndarray:
+    """The step descriptor for one GEMM form (layout in
+    ``csrc/gemm.cu``): B, M, N, K, then (hi, lo, lo_n) for the nine
+    operand roles of :func:`step_roles`, the positions of A's and B's
+    k-tile offsets, then the tables and those offsets."""
+    return _descriptor(form.B, form.M, form.N, form.K, step_roles(form))
 
 
-def _device_descriptor(form, device: torch.device) -> torch.Tensor:
-    """Step descriptor on the device, built once per (form, device)."""
+def oriented_roles(form):
+    """``(swap, B, M, N, K, roles)`` as K2 runs ``form``: when N > M the
+    operands trade places (C^T = B^T A^T), so the larger side is the
+    wgmma M side; B's n role then gives the rows and the output's m and n
+    roles swap with it."""
+    r = step_roles(form)
+    if form.N <= form.M:
+        return False, form.B, form.M, form.N, form.K, r
+    ab, am, ak, bb, bk, bn, ob, om, on = r
+    return True, form.B, form.N, form.M, form.K, [bb, bn, bk, ab, ak, am, ob, on, om]
+
+
+def fused_tile(n: int) -> tuple[int, int]:
+    """K2's tile (rows, columns) for an oriented step with ``n`` columns:
+    128 x 64 up to 64 columns, else 64 x 128 (two consumer warpgroups
+    of 64 x 64 either way)."""
+    return (128, 64) if n <= 64 else (64, 128)
+
+
+def tile_uniform(dims, extent: int) -> bool:
+    """Whether every tile of ``extent`` consecutive role indices has the
+    offsets of the first tile, shifted: the role has at most ``extent``
+    indices, or ``extent`` is the product of a run of its trailing axes."""
+    if math.prod(dims) <= extent:
+        return True
+    p = 1
+    for d in reversed(dims):
+        if p == extent:
+            return True
+        p *= d
+    return p == extent
+
+
+def tile_offsets(rows: Role, ks: Role, R: int) -> np.ndarray:
+    """The native offsets of the first ``R x FUSED_BK`` tile of an
+    operand relative to its base, by (row, k); -1 outside the operand."""
+    nr, nk = min(rows.size, R), min(ks.size, FUSED_BK)
+    rel = np.full((R, FUSED_BK), -1, dtype=np.int64)
+    rel[:nr, :nk] = (_role_offsets_at(rows, np.arange(nr))[:, None]
+                     + _role_offsets_at(ks, np.arange(nk))[None, :])
+    return rel
+
+
+def gather_map(rows: Role, ks: Role, R: int):
+    """K2's gather map for one operand's ``R x FUSED_BK`` tile:
+    ``(rel, slot, uniform)``.  ``slot`` lists the tile's slots
+    (row * FUSED_BK + k) in ascending native offset relative to the
+    tile's base, the slots outside the operand last; ``rel`` is each
+    slot's offset (-1 outside).  ``uniform`` says every tile has these
+    offsets (:func:`tile_uniform` on both roles); otherwise the kernel
+    addresses each slot through per-tile tables and the map gives only
+    the order."""
+    rel = tile_offsets(rows, ks, R).reshape(-1)
+    slot = np.lexsort((rel, rel < 0))  # inside first, by offset
+    uniform = (tile_uniform(rows.dims, R) and tile_uniform(ks.dims, FUSED_BK)
+               and int(rel.max()) <= _INT32_MAX)
+    return rel[slot], slot, uniform
+
+
+def _tile_local(role: Role, R: int) -> np.ndarray:
+    """The first ``R`` offsets of a role, zero past its end."""
+    out = np.zeros(R, dtype=np.int64)
+    n = min(role.size, R)
+    out[:n] = _role_offsets_at(role, np.arange(n))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """K2's host state for one step form: orientation, tile shape,
+    descriptor and maps.  ``maps`` holds, for A then B, ``R * FUSED_BK``
+    offsets and as many slots (uniform: the :func:`chunk_map` lists,
+    zero-padded; general: the :func:`gather_map` slots, offsets unused),
+    then the output's tile-local row and column offsets, then A's and
+    B's chunk k offsets (4 each)."""
+
+    swap: bool
+    wide: bool  # the 64 x 128 tile
+    uniform: bool
+    tiles: int
+    desc: np.ndarray
+    maps: np.ndarray
+
+
+_GATHER_THREADS = 256  # K2's producer threads (F_PT): thread t takes t + 256 c
+
+
+def swizzle_offset(slot):
+    """Byte offset of slot ``row * 32 + k`` in a K-major TF32 plane with
+    the 128-byte swizzle: 16-byte chunk ``k // 4`` XOR ``row % 8``
+    (``swz`` in ``csrc/gemm.cu``)."""
+    slot = np.asarray(slot, dtype=np.int64)
+    row, k = slot >> 5, slot & 31
+    return row * 128 + ((((k >> 2) ^ row) & 7) << 4) + ((k & 3) << 2)
+
+
+def chunk_map(grid: np.ndarray):
+    """K2's uniform map of one operand's whole tile (``grid``: offsets by
+    (row, k), from :func:`tile_offsets`), in 16-byte chunks of four
+    consecutive k: ``(crel, csw, kj)`` with the chunks in ascending native
+    offset, ``crel`` each chunk's offset, ``csw`` its swizzled byte offset
+    and ``kj`` the offsets of its four k from its first; None unless every
+    chunk shares ``kj`` and both lists split as the producer reads them:
+    chunk ``t + 256 c`` at ``crel[t] + crel[256 c]`` and
+    ``csw[t] ^ csw[256 c]``."""
+    R = grid.shape[0]
+    if (grid < 0).any() or (R * FUSED_BK // 4) % _GATHER_THREADS:
+        return None
+    chunks = grid.reshape(R, FUSED_BK // 4, 4)
+    kj = chunks[0, 0] - chunks[0, 0, 0]
+    if not (chunks - chunks[:, :, :1] == kj).all():
+        return None
+    order = np.argsort(chunks[:, :, 0].reshape(-1), kind="stable")
+    crel = chunks[:, :, 0].reshape(-1)[order]
+    csw = swizzle_offset((order // (FUSED_BK // 4)) * FUSED_BK
+                         + (order % (FUSED_BK // 4)) * 4)
+    r = crel.reshape(-1, _GATHER_THREADS)
+    w = csw.reshape(-1, _GATHER_THREADS)
+    if not ((r == r[:1] + r[:, :1]).all() and (w == w[:1] ^ w[:, :1]).all()):
+        return None
+    return crel, csw, kj
+
+
+def fused_plan(form) -> FusedPlan:
+    """K2's plan for ``form``: uniform (every tile read through the same
+    chunk maps, output included) or general (per-tile tables)."""
+    swap, B, M, N, K, roles = oriented_roles(form)
+    BM, BN = fused_tile(N)
+    grids = (tile_offsets(roles[1], roles[2], BM), tile_offsets(roles[5], roles[4], BN))
+    maps_ab = [gather_map(roles[1], roles[2], BM), gather_map(roles[5], roles[4], BN)]
+    chunked = [chunk_map(g) for g in grids]
+    o_row, o_col = _tile_local(roles[7], BM), _tile_local(roles[8], BN)
+    uniform = (all(m[2] for m in maps_ab) and all(c is not None for c in chunked)
+               and tile_uniform(roles[7].dims, BM)
+               and tile_uniform(roles[8].dims, BN)
+               and int(o_row.max()) + int(o_col.max()) <= _INT32_MAX)
+    parts, kjs = [], []
+    for (_, slot, _), c in zip(maps_ab, chunked):
+        if uniform:
+            crel, csw, kj = c
+            pad = np.zeros(slot.size - crel.size, dtype=np.int64)
+            parts += [np.concatenate([crel, pad]), np.concatenate([csw, pad])]
+            kjs.append(kj)
+        else:
+            parts += [np.zeros_like(slot), slot]
+            kjs.append(np.zeros(4, dtype=np.int64))
+    maps = np.concatenate(parts + [o_row, o_col] + kjs).astype(np.int32)
+    tiles = B * -(-M // BM) * -(-N // BN)
+    return FusedPlan(swap, BN == 128, uniform, tiles,
+                     _descriptor(B, M, N, K, roles), maps)
+
+
+_FUSED: dict = {}
+
+
+def _device_plan(form, device: torch.device):
+    """``(plan, desc, maps)`` of K2 with the tables on ``device``, built
+    once per (form, device)."""
     key = (form, device)
-    d = _DESCS.get(key)
-    if d is None:
-        d = torch.from_numpy(step_descriptor(form)).to(device)
-        _DESCS[key] = d
-    return d
+    hit = _FUSED.get(key)
+    if hit is None:
+        plan = fused_plan(form)
+        hit = (plan, torch.from_numpy(plan.desc).to(device),
+               torch.from_numpy(plan.maps).to(device))
+        _FUSED[key] = hit
+    return hit
 
 
 def fused_gemm_plain(a, b, form) -> tuple[torch.Tensor, ...]:
@@ -244,48 +445,82 @@ def fused_gemm_plain(a, b, form) -> tuple[torch.Tensor, ...]:
     return (gemm(a[0], b[0]),)
 
 
+def _check_shape(x: torch.Tensor, want, what: str) -> None:
+    if tuple(x.shape) != want:
+        raise ValueError(f"{what} {tuple(x.shape)} != {want}")
+
+
+def fused_gemm_c64(a: torch.Tensor, b: torch.Tensor, form) -> torch.Tensor:
+    """K2: one contraction step ``form`` on ``a`` and ``b`` in their
+    native layouts, output in ``inds_out`` order.  Both complex64 (read
+    and written in place as (re, im) pairs) or both float32 (the real
+    route).  One kernel launch."""
+    if a.dtype != b.dtype or a.dtype not in (torch.complex64, torch.float32):
+        raise TypeError(f"kernel takes complex64 or float32, got {a.dtype}, {b.dtype}")
+    _check_shape(a, form.a_shape, "a")
+    _check_shape(b, form.b_shape, "b")
+    if _on_cpu(a, b):
+        if a.is_complex():
+            re, im = fused_gemm_plain((a.real, a.imag), (b.real, b.imag), form)
+            return torch.complex(re, im)
+        return fused_gemm_plain((a,), (b,), form)[0]
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty(form.out_shape, dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    if form.K == 0:
+        return out.zero_()
+    plan, desc, maps = _device_plan(form, a.device)
+    x, y = (b, a) if plan.swap else (a, b)
+    lib = load_library("gemm")
+    rc = lib.repro_fused_gemm(
+        desc.data_ptr(), maps.data_ptr(), int(plan.uniform), int(plan.wide),
+        int(a.is_complex()), plan.tiles, x.data_ptr(), y.data_ptr(),
+        out.data_ptr(), _stream(a.device),
+    )
+    check(lib, rc, "fused_gemm")
+    LAUNCHES["fused_gemm"] += 1
+    FUSED_ROUTES["uniform" if plan.uniform else "general"] += 1
+    return out
+
+
 def fused_gemm(a, b, form) -> tuple[torch.Tensor, ...]:
-    """K2: one contraction step ``form`` on fp32 planes in their native
-    layouts.  ``a`` and ``b`` are ``(re,)`` or ``(re, im)`` tuples; a
-    pair runs the 3-real-GEMM Karatsuba inside the kernel.  Returns the
-    output planes in ``inds_out`` order."""
+    """K2 on fp32 planes: ``a`` and ``b`` are ``(re,)`` or ``(re, im)``
+    tuples in their native layouts; returns the output planes in
+    ``inds_out`` order.  On the card a pair is joined into complex64 for
+    :func:`fused_gemm_c64` (the planes are views of its output)."""
     if len(a) != len(b) or len(a) not in (1, 2):
         raise ValueError("operands must both be (re,) or (re, im)")
     _check_fp32(*a, *b)
     for x in a:
-        if tuple(x.shape) != form.a_shape:
-            raise ValueError(f"a plane {tuple(x.shape)} != {form.a_shape}")
+        _check_shape(x, form.a_shape, "a plane")
     for y in b:
-        if tuple(y.shape) != form.b_shape:
-            raise ValueError(f"b plane {tuple(y.shape)} != {form.b_shape}")
+        _check_shape(y, form.b_shape, "b plane")
     if _on_cpu(*a, *b):
         return fused_gemm_plain(a, b, form)
-    device = a[0].device
-    a = tuple(x.contiguous() for x in a)
-    b = tuple(y.contiguous() for y in b)
-    outs = tuple(
-        torch.empty(form.out_shape, dtype=torch.float32, device=device)
-        for _ in a
-    )
-    tiles = _tiles(form.B, form.M, form.N)
-    if tiles == 0:
-        return outs
-    desc = _device_descriptor(form, device)
-    lib = load_library("gemm")
-    kara = len(a) == 2
-    rc = lib.repro_fused_gemm(
-        desc.data_ptr(), tiles, int(kara),
-        a[0].data_ptr(), a[-1].data_ptr(), b[0].data_ptr(), b[-1].data_ptr(),
-        outs[0].data_ptr(), outs[-1].data_ptr(), _stream(device),
-    )
-    check(lib, rc, "fused_gemm")
-    LAUNCHES["fused_gemm"] += 1
-    return outs
+    if len(a) == 1:
+        return (fused_gemm_c64(a[0], b[0], form),)
+    out = fused_gemm_c64(torch.complex(*a), torch.complex(*b), form)
+    return out.real, out.imag
 
 
 # ----------------------------------------------------------------------
-# K3: chain of adjacent steps in one persistent launch
+# K3: chain of adjacent steps in one thread-block cluster
 # ----------------------------------------------------------------------
+TILE_M = TILE_N = 64  # K3's output tile (C_BM, C_BN); K2's warpgroup block
+CHAIN_KC = 16  # K3's k chunk (C_KC in csrc/gemm.cu)
+CHAIN_CLUSTERS = (1, 2, 4, 8, 16)  # the cluster sizes K3 launches
+_C_HDR, _C_SWORDS = 4, 40  # words before the steps, words per step
+_C_SMEM_MAX = 227 * 1024  # shared memory one block can hold
+_C_TILE_SMEM = 4 * (4 * CHAIN_KC * TILE_M + 4 * TILE_M + 2 * CHAIN_KC)  # ChainSmem
+# each role's tile extent, in step_roles order
+_C_EXTENTS = (1, TILE_M, CHAIN_KC, 1, CHAIN_KC, TILE_N, 1, TILE_M, TILE_N)
+
+
+def _chain_tiles(form) -> int:
+    return form.B * -(-form.M // TILE_M) * -(-form.N // TILE_N)
+
+
 def chain_gemm_plain(components, forms, carry_side, complex_mode=False):
     """Plain version of K3, the port of the reference's
     ``chain_reference``: the same externals, the same per-step Karatsuba
@@ -324,7 +559,6 @@ def _check_chain(components, forms, carry_side, slot_ids, slot_elems,
         raise ValueError(f"{len(components)} planes for {n} steps")
     if len(slot_ids) != n - 1:
         raise ValueError(f"{len(slot_ids)} slots for {n} steps")
-    _check_fp32(*components)
     for i in range(n + 1):
         want = _external_shape(forms, carry_side, i)
         for c in components[i * ncomp:(i + 1) * ncomp]:
@@ -335,6 +569,240 @@ def _check_chain(components, forms, carry_side, slot_ids, slot_elems,
             raise ValueError(f"step {t} output overflows its slot")
 
 
+def chain_role_tables(role: Role, extent: int) -> tuple[list[np.ndarray], int]:
+    """K3's tables of one role: ``([hi, lo], 0)`` with offset(t, i) =
+    hi[t] + lo[i] for local index ``i`` of tile ``t`` of ``extent``
+    indices, when :func:`tile_uniform`; else ``([full], extent)`` with
+    offset(t, i) = full[t * extent + i]."""
+    off = _offsets(role.dims, role.strides)
+    if not tile_uniform(role.dims, extent):
+        return [off], extent
+    if off.size <= extent:
+        return [np.zeros(1, dtype=np.int64), off], 0
+    return [off[::extent], off[:extent]], 0
+
+
+def chain_sources(forms, carry_side, slot_ids, slot_elems):
+    """Per step, where its A, B and output live: ``("x", i)`` external
+    ``i``, ``("w", e)`` the workspace at element ``e`` (slot
+    ``slot_ids[t]`` of ``slot_elems``), ``("o",)`` the chain's output."""
+    base = np.cumsum([0, *slot_elems])
+    n = len(forms)
+    out = []
+    for t in range(n):
+        if t == 0:
+            a, b = ("x", 0), ("x", 1)
+        else:
+            carry, other = ("w", int(base[slot_ids[t - 1]])), ("x", t + 1)
+            a, b = (carry, other) if carry_side[t] == "l" else (other, carry)
+        c = ("w", int(base[slot_ids[t]])) if t < n - 1 else ("o",)
+        out.append((a, b, c))
+    return out
+
+
+def _step_tables(form):
+    return [chain_role_tables(r, e) for r, e in zip(step_roles(form), _C_EXTENTS)]
+
+
+def pack_chain(forms, sources, ext_index) -> np.ndarray:
+    """K3's words for one launch (layout in ``csrc/gemm.cu``): a header,
+    ``_C_SWORDS`` words per step (B, M, N, K, tiles_m, tiles_n, tiles,
+    a_src, b_src, c_dst, then (hi, lo, full) per role), then the tables,
+    padded to a multiple of 4 words.  ``ext_index`` maps an external's
+    chain index to its slot in the launch's pointer list."""
+    n = len(forms)
+    head = np.zeros(_C_HDR + n * _C_SWORDS, dtype=np.int64)
+    head[0] = n
+    tables, pos = [], head.size
+
+    def src(s):
+        return ext_index[s[1]] if s[0] == "x" else -1 - s[1]
+
+    for t, (form, (a, b, c)) in enumerate(zip(forms, sources)):
+        h = _C_HDR + t * _C_SWORDS
+        tm, tn = -(-form.M // TILE_M), -(-form.N // TILE_N)
+        head[h:h + 10] = [form.B, form.M, form.N, form.K, tm, tn,
+                          form.B * tm * tn, src(a), src(b),
+                          -1 if c[0] == "o" else c[1]]
+        for r, (tabs, full) in enumerate(_step_tables(form)):
+            hi = pos
+            lo = pos + tabs[0].size if len(tabs) == 2 else pos
+            head[h + 10 + 3 * r:h + 13 + 3 * r] = [hi, lo, full]
+            tables += tabs
+            pos += sum(x.size for x in tabs)
+    words = np.concatenate([head, *tables, np.zeros(-pos % 4, dtype=np.int64)])
+    if words.size and (np.abs(words).max() > _INT32_MAX):
+        raise ValueError("chain offsets exceed 32 bits")
+    return words.astype(np.int32)
+
+
+def chain_segments(forms) -> list[range]:
+    """The launches of one chain: runs of at most ``MAX_CHAIN`` steps
+    whose tables fit one block's shared memory beside its tiles."""
+    budget = (_C_SMEM_MAX - _C_TILE_SMEM) // 4 - _C_HDR - 3
+    segs, start, used = [], 0, 0
+    for t, form in enumerate(forms):
+        words = _C_SWORDS + sum(
+            sum(x.size for x in tabs) for tabs, _ in _step_tables(form))
+        if words > budget:
+            raise ValueError(f"chain step {t}: its tables exceed shared memory")
+        if t - start == MAX_CHAIN or used + words > budget:
+            segs.append(range(start, t))
+            start, used = t, 0
+        used += words
+    segs.append(range(start, len(forms)))
+    return segs
+
+
+_CLUSTER_MAX: dict = {}
+
+
+def chain_cluster_max(device) -> int:
+    """K3's default cluster: 16 blocks where the card schedules a
+    non-portable cluster of 16 (asked once per device), else 8; on the
+    CPU (the plain version runs there), 8."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 8
+    n = _CLUSTER_MAX.get(device)
+    if n is None:
+        lib = load_library("gemm")
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            check(lib, lib.repro_chain_cluster_max(lib.repro_chain_smem(0),
+                                                   ctypes.byref(out)),
+                  "chain cluster query")
+        n = _CLUSTER_MAX[device] = out.value
+    return n
+
+
+class _ChainParams(ctypes.Structure):
+    """``ChainParams`` of ``csrc/gemm.cu``."""
+
+    _fields_ = [
+        ("tab", ctypes.c_void_p),
+        ("ext", ctypes.c_void_p * (MAX_CHAIN + 1)),
+        ("out", ctypes.c_void_p),
+        ("work", ctypes.c_void_p),
+        ("tab_words", ctypes.c_int),
+        ("nsteps", ctypes.c_int),
+    ]
+
+
+class ChainLaunch:
+    """K3's launch state for one chain on one device, built once: per
+    launch (segment) the packed words on the device, the kernel's
+    argument block and the cluster size; the workspace of the carries.
+    :meth:`launch` fills in the externals' and the output's pointers and
+    launches, nothing else.  The workspace is shared by every call of
+    the chain, so its calls must be ordered on one stream, as the
+    executor's are."""
+
+    def __init__(self, forms, carry_side, slot_ids, slot_elems, complex_mode,
+                 device, cluster=None):
+        n = len(forms)
+        if len(slot_ids) != n - 1:
+            raise ValueError(f"{len(slot_ids)} slots for {n} steps")
+        for t in range(n - 1):
+            if math.prod(forms[t].out_shape) > slot_elems[slot_ids[t]]:
+                raise ValueError(f"step {t} output overflows its slot")
+        if cluster is not None and cluster not in CHAIN_CLUSTERS:
+            raise ValueError(f"cluster of {cluster} blocks")
+        self.dtype = torch.complex64 if complex_mode else torch.float32
+        self.shapes = [_external_shape(forms, carry_side, i) for i in range(n + 1)]
+        self.out_shape = forms[-1].out_shape
+        self.work = torch.empty(max(1, sum(slot_elems)), dtype=self.dtype,
+                                device=device)
+        sources = chain_sources(forms, carry_side, slot_ids, slot_elems)
+        self.segments = []
+        for steps in chain_segments(forms):
+            ext = sorted({s[1] for t in steps for s in sources[t][:2] if s[0] == "x"})
+            words = pack_chain([forms[t] for t in steps],
+                               [sources[t] for t in steps],
+                               {g: j for j, g in enumerate(ext)})
+            tab = torch.from_numpy(words).to(device)
+            p = _ChainParams()
+            p.tab, p.work = tab.data_ptr(), self.work.data_ptr()
+            p.tab_words, p.nsteps = words.size, len(steps)
+            most = max(_chain_tiles(forms[t]) for t in steps)
+            size = max(1, min(cluster or chain_cluster_max(device), most))
+            self.segments.append((p, tab, ext, size))
+
+    def check(self, externals) -> None:
+        if len(externals) != len(self.shapes):
+            raise ValueError(f"{len(externals)} externals for {len(self.shapes) - 1} steps")
+        for i, (x, want) in enumerate(zip(externals, self.shapes)):
+            if x.dtype != self.dtype or tuple(x.shape) != want:
+                raise ValueError(f"external {i}: {x.dtype} {tuple(x.shape)}, "
+                                 f"want {self.dtype} {want}")
+
+    def launch(self, externals, out: torch.Tensor) -> None:
+        """Run the chain on contiguous ``externals`` into ``out``."""
+        lib = load_library("gemm")
+        stream = _stream(out.device)
+        cplx = int(self.dtype == torch.complex64)
+        for p, _, ext, size in self.segments:
+            for j, g in enumerate(ext):
+                p.ext[j] = externals[g].data_ptr()
+            p.out = out.data_ptr()
+            check(lib, lib.repro_chain_gemm(ctypes.byref(p), cplx, size, stream),
+                  "chain_gemm")
+            LAUNCHES["chain_gemm"] += 1
+
+
+_CHAINS: dict = {}
+_CHAINS_MAX = 4096  # launch states kept; the cache starts over beyond
+
+
+def chain_state(forms, carry_side, slot_ids, slot_elems, complex_mode,
+                device, cluster=None) -> ChainLaunch:
+    """The cached :class:`ChainLaunch` of one chain on ``device``."""
+    key = (tuple(forms), tuple(carry_side), tuple(slot_ids),
+           tuple(slot_elems), bool(complex_mode), torch.device(device), cluster)
+    state = _CHAINS.get(key)
+    if state is None:
+        if len(_CHAINS) >= _CHAINS_MAX:
+            _CHAINS.clear()
+        state = ChainLaunch(*key)
+        _CHAINS[key] = state
+    return state
+
+
+def chain_gemm_c64(operands, forms, carry_side, slot_ids, slot_elems,
+                   cluster=None) -> torch.Tensor:
+    """K3: run the chain ``forms`` (step ``t``'s carry is step ``t-1``'s
+    output, on side ``carry_side[t]``) over its externals ``operands``,
+    all complex64 (read in place) or all float32.  Interior carries live
+    in one workspace, slot ``slot_ids[t]`` of ``slot_elems`` elements.
+    Returns the last step's output in its ``inds_out`` order, with one
+    kernel launch per ``MAX_CHAIN`` steps.  ``cluster`` overrides the
+    cluster's block count (the result does not depend on it)."""
+    cplx = operands[0].dtype == torch.complex64
+    if _on_cpu(*operands):
+        if any(o.dtype != operands[0].dtype for o in operands) or (
+                operands[0].dtype not in (torch.complex64, torch.float32)):
+            raise TypeError("chain externals must all be complex64 or float32")
+        comps = [c for o in operands for c in ((o.real, o.imag) if cplx else (o,))]
+        _check_chain(comps, forms, carry_side, slot_ids, slot_elems, 2 if cplx else 1)
+        out = chain_gemm_plain(comps, forms, carry_side, cplx)
+        return torch.complex(*out) if cplx else out[0]
+    device = operands[0].device
+    state = chain_state(forms, carry_side, slot_ids, slot_elems, cplx, device, cluster)
+    ext = [o if o.is_contiguous() else o.contiguous() for o in operands]
+    state.check(ext)
+    out = torch.empty(state.out_shape, dtype=state.dtype, device=device)
+    state.launch(ext, out)
+    return out
+
+
+def _joined(components, n: int, complex_mode: bool):
+    """The chain's externals from its fp32 planes."""
+    if complex_mode:
+        return [torch.complex(components[2 * i], components[2 * i + 1])
+                for i in range(n + 1)]
+    return [c.contiguous() for c in components]
+
+
 def chain_gemm(
     components,
     forms,
@@ -342,22 +810,21 @@ def chain_gemm(
     slot_ids,
     slot_elems,
     complex_mode: bool = False,
+    cluster=None,
 ):
-    """K3: run the chain ``forms`` (step ``t``'s carry is step ``t-1``'s
-    output, on side ``carry_side[t]``) over its external fp32 planes
-    ``components`` (``(re, im)`` per external when ``complex_mode``).
-    Interior carries live in one workspace, slot ``slot_ids[t]`` of
-    ``slot_elems`` elements per plane.  Returns the last step's output
-    planes in its ``inds_out`` order."""
+    """K3 on fp32 planes ``components`` (``(re, im)`` per external when
+    ``complex_mode``).  Returns the last step's output planes in its
+    ``inds_out`` order; on the card a complex chain's planes are joined
+    for :func:`chain_gemm_c64` and the returned planes are views of its
+    output."""
+    ncomp = 2 if complex_mode else 1
+    _check_chain(components, forms, carry_side, slot_ids, slot_elems, ncomp)
+    _check_fp32(*components)
     if _on_cpu(*components):
-        _check_chain(components, forms, carry_side, slot_ids, slot_elems,
-                     2 if complex_mode else 1)
         return chain_gemm_plain(components, forms, carry_side, complex_mode)
-    launch, outs = chain_gemm_launcher(
-        components, forms, carry_side, slot_ids, slot_elems, complex_mode
-    )
-    launch()
-    return outs
+    out = chain_gemm_c64(_joined(components, len(forms), complex_mode), forms,
+                         carry_side, slot_ids, slot_elems, cluster)
+    return (out.real, out.imag) if complex_mode else (out,)
 
 
 def chain_gemm_launcher(
@@ -367,83 +834,36 @@ def chain_gemm_launcher(
     slot_ids,
     slot_elems,
     complex_mode: bool = False,
+    cluster=None,
 ):
-    """The host half of :func:`chain_gemm` on CUDA planes: builds the
-    launch arguments (device tables, workspace, grid barrier, pointer
-    arrays) once and returns ``(launch, outs)``.  Each ``launch()`` runs
-    the chain's kernel launches into ``outs`` and nothing else, so a
-    timing loop over it measures the kernel without the host work."""
+    """The host half of :func:`chain_gemm` on CUDA planes: joins the
+    planes and takes the chain's cached launch state once, and returns
+    ``(launch, outs)``.  Each ``launch()`` runs the chain's kernel
+    launches into ``outs`` and nothing else, so a timing loop over it
+    measures the kernel without the host work."""
     ncomp = 2 if complex_mode else 1
-    n = len(forms)
     _check_chain(components, forms, carry_side, slot_ids, slot_elems, ncomp)
+    _check_fp32(*components)
     if _on_cpu(*components):
         raise ValueError("chain_gemm_launcher takes CUDA planes")
     device = components[0].device
-    comps = [c.contiguous() for c in components]
-    ext = [comps[i * ncomp:(i + 1) * ncomp] for i in range(n + 1)]
-    work = torch.empty(
-        max(1, sum(slot_elems) * ncomp), dtype=torch.float32, device=device
-    )
-    base, acc = [], 0
-    for e in slot_elems:
-        base.append(acc)
-        acc += e * ncomp
-    wp = work.data_ptr()
-
-    def slot(s: int) -> list[int]:
-        return [wp + 4 * (base[s] + c * slot_elems[s]) for c in range(ncomp)]
-
-    outs = tuple(
-        torch.empty(forms[-1].out_shape, dtype=torch.float32, device=device)
-        for _ in range(ncomp)
-    )
-    descs = [_device_descriptor(f, device) for f in forms]
-    tiles = [_tiles(f.B, f.M, f.N) for f in forms]
-    ptr_a, ptr_b, ptr_c = [], [], []
-    for t in range(n):
-        if t == 0:
-            a = [x.data_ptr() for x in ext[0]]
-            b = [x.data_ptr() for x in ext[1]]
-        else:
-            carry = slot(slot_ids[t - 1])
-            other = [x.data_ptr() for x in ext[t + 1]]
-            a, b = (carry, other) if carry_side[t] == "l" else (other, carry)
-        c = slot(slot_ids[t]) if t < n - 1 else [o.data_ptr() for o in outs]
-        ptr_a.append(a)
-        ptr_b.append(b)
-        ptr_c.append(c)
-    lib = load_library("gemm")
-    grid = ctypes.c_int(0)
-    check(lib, lib.repro_chain_grid(ncomp - 1, max(tiles), ctypes.byref(grid)),
-          "chain_gemm occupancy")
-    bar = torch.zeros(2, dtype=torch.int32, device=device)
-    stream = _stream(device)
-
-    def arr(ctype, vals):
-        return (ctype * len(vals))(*vals)
-
-    P = ctypes.c_void_p
-    segments = []
-    for s0 in range(0, n, MAX_CHAIN):
-        sl = range(s0, min(n, s0 + MAX_CHAIN))
-        segments.append((
-            len(sl), ncomp - 1,
-            arr(P, [descs[t].data_ptr() for t in sl]),
-            arr(ctypes.c_longlong, [tiles[t] for t in sl]),
-            arr(P, [ptr_a[t][0] for t in sl]),
-            arr(P, [ptr_a[t][-1] for t in sl]),
-            arr(P, [ptr_b[t][0] for t in sl]),
-            arr(P, [ptr_b[t][-1] for t in sl]),
-            arr(P, [ptr_c[t][0] for t in sl]),
-            arr(P, [ptr_c[t][-1] for t in sl]),
-            bar.data_ptr(), grid.value, stream,
-        ))
+    ext = _joined(components, len(forms), complex_mode)
+    state = chain_state(forms, carry_side, slot_ids, slot_elems, complex_mode,
+                        device, cluster)
+    state.check(ext)
+    out = torch.empty(state.out_shape, dtype=state.dtype, device=device)
 
     def launch() -> None:
-        for args in segments:
-            check(lib, lib.repro_chain_gemm(*args), "chain_gemm")
-            LAUNCHES["chain_gemm"] += 1
+        state.launch(ext, out)
 
-    # the device buffers the pointer arrays point into live with the launcher
-    launch.buffers = (comps, work, bar, descs)
-    return launch, outs
+    launch.buffers = (ext, state)
+    return launch, ((out.real, out.imag) if complex_mode else (out,))
+
+
+def empty_cluster_launch(cluster: int, device, barriers: int = 0) -> None:
+    """One launch of an empty kernel as a cluster of ``cluster`` blocks of
+    K3's size that meets at ``barriers`` cluster barriers: the floor of a
+    K3 launch and of its barriers between steps, for timing."""
+    lib = load_library("gemm")
+    check(lib, lib.repro_empty_cluster(cluster, barriers, _stream(device)),
+          "empty cluster")

@@ -85,6 +85,62 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Tiles stored into shared memory by threads (the generic proxy) and read
+// by wgmma (the async proxy): each storing thread fences before it
+// signals the tile's mbarrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15) over the first `count` threads that reach it, a
+// multiple of 32; id 0 is __syncthreads().
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Every thread of every block of the cluster: writes before the arrive
+// (global memory included) are visible to reads after the wait.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Plain loads and shared stores as volatile asm, so the compiler keeps
+// them in program order: a producer that issues a batch of loads before
+// its first store keeps them all in flight at once.  The loads go through
+// L1, where the other loads of the same sectors in the batch find them.
+__device__ __forceinline__ float2 ldg_f2(const float2* p) {
+  float2 v;
+  asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float ldg_f1(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts_v4(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties
+// away from zero, as an fp32 value: what cvt.rna.tf32.f32 gives for finite
+// x, by two integer operations at the full integer rate (half the dropped
+// field added to the magnitude bits, then the 13 dropped bits cleared).
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
 // ------------------------------------------------------------ TMA loads
 // Box at element coordinates (c0 innermost) of the tensor map into shared
 // memory at `dst`; completion is counted in bytes on `bar`.  Elements out
@@ -257,6 +313,36 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+
+}
+
+// D(64x64, fp32) (+)= SA * A(64x8, tf32, smem, K-major) . B(8x64, tf32,
+// smem, K-major), SA = +1 or -1 (the instruction's imm-scale-a, so a
+// negated product costs nothing).
+template <int SA>
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  static_assert(SA == 1 || SA == -1, "imm-scale-a is +1 or -1");
+  asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, %35, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(SA));
 
 }
 

@@ -3,11 +3,13 @@ them.
 
 For the contraction kernels they handle the parts around the kernels:
 the complex 3-real-GEMM Karatsuba of :func:`matmul` (25% fewer real FLOPs
-than the naive 4-GEMM form), the library-matmul fallback below the
-kernels' tile size, and the complex split into separate fp32 re/im
-planes — once per call at the kernel boundary, never interleaved.  The
-tiled kernel masks its ragged edge itself, so unlike the reference's
-``ops.matmul`` nothing is padded.
+than the naive 4-GEMM form) on separate fp32 re/im planes, and the
+library-matmul fallback below the kernels' tile size.  The tiled kernel
+masks its ragged edge itself, so unlike the reference's ``ops.matmul``
+nothing is padded.  :func:`fused_matmul` and :func:`fused_chain` hand
+complex64 tensors to their kernels as they are (the kernels read and
+write (re, im) pairs in place): one kernel launch per call, no plane
+copies.
 
 For the LM side, :func:`attention` puts (b, s, h, d) heads into the flash
 kernel's (b·h, s, d) layout with the reference's dispatch rule, and
@@ -21,7 +23,7 @@ import torch
 
 from ..hardware import DEFAULT_HARDWARE
 from . import ref
-from .contract_gemm import chain_gemm, fused_gemm, tiled_gemm
+from .contract_gemm import chain_gemm_c64, fused_gemm_c64, tiled_gemm
 from .flash_attention import flash_attention
 from .mamba2_ssd import ssd_intra_chunk
 
@@ -72,37 +74,28 @@ def _complex_matmul(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
     return torch.complex(p1 - p2, p3 - p1 - p2)
 
 
+def _kernel_dtype(*xs: torch.Tensor) -> torch.dtype:
+    return torch.complex64 if any(x.is_complex() for x in xs) else torch.float32
+
+
 def fused_matmul(a: torch.Tensor, b: torch.Tensor, form) -> torch.Tensor:
     """One contraction step ``form`` through the fused kernel, operands in
-    their tree-native layouts, output in ``inds_out`` order.  Complex
-    operands are split into planes here and the kernel runs the
-    Karatsuba products in one pass."""
-    if a.is_complex() or b.is_complex():
-        re, im = fused_gemm(_planes(a), _planes(b), form)
-        return torch.complex(re, im)
-    return fused_gemm((a.float(),), (b.float(),), form)[0]
+    their tree-native layouts, output in ``inds_out`` order: complex64
+    in place (one launch; a real operand beside a complex one is cast
+    first), or fp32."""
+    dt = _kernel_dtype(a, b)
+    return fused_gemm_c64(a.to(dt), b.to(dt), form)
 
 
 def fused_chain(operands, *, forms, carry_side, slot_ids, slot_elems):
     """Execute a fused GEMM chain (see :class:`repro_torch.lowering.
-    refiner.FusedChainSpec`) as one chain-kernel call, with complex
-    support.  Complex operands are split into fp32 ``(re, im)`` planes
-    here, once, at the chain boundary — the carry stays split through
-    every step (per-step Karatsuba)."""
-    complex_mode = any(o.is_complex() for o in operands)
-    comps = []
-    for o in operands:
-        if complex_mode:
-            comps.extend(_planes(o))
-        else:
-            comps.append(o.float().contiguous())
-    out = chain_gemm(
-        comps, tuple(forms), tuple(carry_side), tuple(slot_ids),
-        tuple(slot_elems), complex_mode=complex_mode,
+    refiner.FusedChainSpec`) as one chain-kernel call: complex64
+    externals in place (one launch), or fp32."""
+    dt = _kernel_dtype(*operands)
+    return chain_gemm_c64(
+        [o.to(dt) for o in operands], tuple(forms), tuple(carry_side),
+        tuple(slot_ids), tuple(slot_elems),
     )
-    if complex_mode:
-        return torch.complex(*out)
-    return out[0]
 
 
 def attention(

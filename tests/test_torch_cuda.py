@@ -136,6 +136,143 @@ def test_chain_launcher_relaunches_the_same_chain(dev):
     assert cg.LAUNCHES["chain_gemm"] > before
 
 
+K2_CARD_CASES = [
+    # seed, nb, nm, nn, nk, size
+    (20, 0, 3, 2, 2, 3),   # axes of 3: M 27, N 9, K 9 (general gather)
+    (21, 2, 2, 2, 3, 2),   # batch 4
+    (22, 0, 2, 4, 3, 3),   # N > M: the operands swap; K = 27
+    (23, 0, 9, 6, 6, 2),   # whole 128 x 64 tiles (uniform gather), 8 tiles
+    (24, 1, 8, 7, 5, 2),   # N = 128 (the 64 x 128 tile), batch 2, K = 32
+    (25, 0, 7, 8, 6, 2),   # N > M, whole tiles: swapped, 64 x 128, uniform
+    (26, 0, 5, 3, 2, 5),   # axes of 5: ragged M 3125, N 125, K 25
+]
+
+
+def _rand(rng, shape, dtype, dev):
+    x = rng.standard_normal(shape)
+    if dtype == torch.complex64:
+        x = x + 1j * rng.standard_normal(shape)
+    return torch.from_numpy(x.astype(np.complex64 if dtype == torch.complex64
+                                     else np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32])
+@pytest.mark.parametrize("seed,nb,nm,nn,nk,size", K2_CARD_CASES)
+def test_fused_gemm_c64_on_card(dev, seed, nb, nm, nn, nk, size, dtype):
+    """K2 on complex64 read in place (and on fp32, its real route), one
+    launch, against its plain version."""
+    rng = np.random.default_rng(seed)
+    f = _random_form(rng, nb, nm, nn, nk, size)
+    a, b = _rand(rng, f.a_shape, dtype, dev), _rand(rng, f.b_shape, dtype, dev)
+    before = cg.LAUNCHES["fused_gemm"]
+    got = cg.fused_gemm_c64(a, b, f)
+    assert cg.LAUNCHES["fused_gemm"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == f.out_shape
+    if dtype == torch.complex64:
+        re, im = cg.fused_gemm_plain((a.real, a.imag), (b.real, b.imag), f)
+        want = torch.complex(re, im)
+    else:
+        (want,) = cg.fused_gemm_plain((a,), (b,), f)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _amp30_plan(dev):
+    tn, _ = simplify_network(*circuits.circuit_to_network(
+        circuits.sycamore_like(5, 6, 14, seed=0), bitstring="0" * 30))
+    plan, _ = plan_compiled(tn, 28, device=dev)
+    return plan
+
+
+def test_fused_gemm_amp30_forms_on_card(dev):
+    """The three fused steps of the 30-qubit plan, complex64 in place,
+    each through the uniform (coalesced) gather."""
+    plan = _amp30_plan(dev)
+    forms = [s.form for s in plan.schedule.specs if s.backend == "fused"]
+    assert len(forms) == 3
+    g = torch.Generator().manual_seed(3)
+    for f in forms:
+        a = torch.complex(torch.randn(f.a_shape, generator=g),
+                          torch.randn(f.a_shape, generator=g)).to(dev)
+        b = torch.complex(torch.randn(f.b_shape, generator=g),
+                          torch.randn(f.b_shape, generator=g)).to(dev)
+        before = cg.FUSED_ROUTES["uniform"]
+        got = cg.fused_gemm_c64(a, b, f)
+        assert cg.FUSED_ROUTES["uniform"] == before + 1
+        re, im = cg.fused_gemm_plain((a.real, a.imag), (b.real, b.imag), f)
+        err = (got - torch.complex(re, im)).abs().max() / torch.complex(re, im).abs().max()
+        assert float(err) <= 1e-4
+        del a, b, got, re, im
+
+
+def _epilogue_chain(plan):
+    specs = plan.schedule.specs
+    chains = plan.chain_plan.segment_chains("epilogue") or list(plan.chain_plan.chains)
+    ch = max(chains, key=lambda c: (c.n_steps, sum(specs[p].form.flops for p in c.positions)))
+    return ch, tuple(specs[p].form for p in ch.positions)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_chain_amp30_chain_each_cluster_size(dev, cluster):
+    """The longest epilogue chain of the 30-qubit plan (the one the smoke
+    times) at every cluster size: the same result, within 1e-4 of the
+    plain chain, in one launch."""
+    ch, forms = _epilogue_chain(_amp30_plan(dev))
+    assert ch.n_steps >= 5
+    rng = np.random.default_rng(cluster)
+    shapes = [forms[0].a_shape, forms[0].b_shape] + [
+        forms[t].b_shape if ch.carry_side[t] == "l" else forms[t].a_shape
+        for t in range(1, len(forms))
+    ]
+    scales = [forms[0].K ** -0.25] * 2 + [f.K ** -0.5 for f in forms[1:]]
+    ext = [sc * _rand(rng, s, torch.complex64, dev) for s, sc in zip(shapes, scales)]
+    before = cg.LAUNCHES["chain_gemm"]
+    got = cg.chain_gemm_c64(ext, forms, ch.carry_side, ch.slot_ids, ch.slot_elems,
+                            cluster=cluster)
+    assert cg.LAUNCHES["chain_gemm"] == before + 1
+    comps = [c for e in ext for c in (e.real.contiguous(), e.imag.contiguous())]
+    re, im = cg.chain_gemm_plain(comps, forms, ch.carry_side, True)
+    want = torch.complex(re, im)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+def test_complex_wrappers_launch_one_kernel(dev):
+    """ops.fused_matmul and ops.fused_chain on complex64 each launch one
+    kernel and nothing else (no plane copies, no memsets)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(7)
+    f = _random_form(rng, 0, 9, 6, 6, 2)
+    a = _rand(rng, f.a_shape, torch.complex64, dev)
+    b = _rand(rng, f.b_shape, torch.complex64, dev)
+    tn, _ = simplify_network(*circuits.circuit_to_network(
+        circuits.sycamore_like(4, 4, 8), bitstring="0" * 16))
+    plan, _ = plan_compiled(tn, 10, hw=SMALL_HW, device=dev)
+    ch = max(plan.chain_plan.chains, key=lambda c: c.n_steps)
+    forms = tuple(plan.schedule.specs[p].form for p in ch.positions)
+    shapes = [forms[0].a_shape, forms[0].b_shape] + [
+        forms[t].b_shape if ch.carry_side[t] == "l" else forms[t].a_shape
+        for t in range(1, len(forms))
+    ]
+    ext = [_rand(rng, s, torch.complex64, dev) for s in shapes]
+    kw = dict(forms=forms, carry_side=ch.carry_side, slot_ids=ch.slot_ids,
+              slot_elems=ch.slot_elems)
+    calls = {"fused_gemm": lambda: ops.fused_matmul(a, b, f),
+             "chain_gemm": lambda: ops.fused_chain(ext, **kw)}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = call()
+            torch.cuda.synchronize()
+        assert out.dtype == torch.complex64
+        device_events = [e.name for e in prof.events()
+                         if e.device_type == DeviceType.CUDA]
+        assert len(device_events) == 1 and name in device_events[0], device_events
+
+
 @pytest.mark.parametrize("fused,chain_budget,kernel", [
     (True, 1 << 16, "chain_gemm"),
     (True, 1, "fused_gemm"),
@@ -195,12 +332,14 @@ def test_flash_attention_on_card(dev, dtype, bh, group, sq, sk, d, causal,
 
 @pytest.mark.parametrize("lib,kernel,hgmma", [
     ("gemm", "tf32x3_gemm_kernel", True),
+    ("gemm", "fused_gemm_kernel", True),
     ("flash_attention", "flash_attention_wgmma_kernel", True),
     ("flash_attention", "flash_attention_kernel", False),  # fp32: FFMA
 ])
 def test_wgmma_kernels_issue_hgmma(dev, lib, kernel, hgmma):
-    """K1 and K4's bf16 kernel run on the tensor cores: their SASS holds
-    HGMMA (wgmma); K4's fp32 kernel stays on the CUDA cores."""
+    """K1, K2 (each instantiation) and K4's bf16 kernel run on the tensor
+    cores: their SASS holds HGMMA (wgmma); K4's fp32 kernel stays on the
+    CUDA cores."""
     from repro_torch.kernels import build
 
     found = build.kernels_with(lib, kernel, "HGMMA")

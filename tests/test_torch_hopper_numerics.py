@@ -9,6 +9,15 @@ is exact in fp32, so ``torch.matmul`` on the planes is the kernel's
 arithmetic up to the order of the sum.  Held against ``tiled_matmul``
 (interpret mode) within the card's ``RTOL, ATOL = 1e-5, 1e-4``.
 
+K2 (``fused_gemm_c64``) gathers each tile of the oriented step through
+its map, splits every element into TF32 hi and lo parts, and sums
+each 32-wide k-tile's products (complex direct form, three TF32 products
+per real product) into a fresh partial that is added to the fp32
+accumulator; ``_k2_emulated`` does exactly that from the host's own
+descriptor and maps, and is held against the Pallas
+``fused_transpose_matmul`` (interpret mode; through the reference's
+``ops.fused_matmul`` for complex operands) within ``RTOL, ATOL``.
+
 K4's bf16 kernel (``flash_attention``) scales the fp32 scores after the
 product (into the log2 domain, with ``p = 2^(x - m)``) and rounds the
 probabilities to bf16 before ``P @ V``.  A test-only copy of the plain
@@ -17,6 +26,7 @@ Pallas ``flash_attention`` (interpret mode) within the card's
 ``FLASH_TOL = 1e-2`` of max|reference|.
 """
 
+import itertools
 import math
 
 import numpy as np
@@ -26,10 +36,15 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from repro.kernels.contract_gemm import tiled_matmul  # noqa: E402
+from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels.contract_gemm import (  # noqa: E402
+    fused_transpose_matmul,
+    tiled_matmul,
+)
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 
 from repro_torch.kernels import contract_gemm as cg  # noqa: E402
+from repro_torch.lowering.gemm_form import lower_step  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-4  # tests/test_torch_cuda.py, chip_smoke.KERNEL_TOL
 FLASH_TOL = 1e-2  # chip_smoke.FLASH_TOL: bf16 output rounding alone is 2^-8
@@ -118,6 +133,203 @@ def test_tf32_alone_misses_the_tolerance():
     want = (a.double() @ b.double()).float()
     assert not torch.allclose(one, want, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(three, want, rtol=RTOL, atol=ATOL)
+
+
+# ------------------------------------------------------------------- K2
+
+def _unswizzle(offsets: np.ndarray, n: int | None = None) -> np.ndarray:
+    """The slots of swizzled byte offsets (the inverse of
+    ``cg.swizzle_offset`` over a tile of ``n`` slots, default
+    ``offsets.size``)."""
+    n = offsets.size if n is None else n
+    inv = np.empty(n, dtype=np.int64)
+    inv[cg.swizzle_offset(np.arange(n)) // 4] = np.arange(n)
+    return inv[offsets // 4]
+
+
+def _uniform_reads(plan, BM, BN):
+    """Each operand's (rel, slot, rows) per element as K2's producers read
+    a uniform plan: chunk t + 256 c at crel[t] + crel[256 c], swizzled
+    offset csw[t] ^ csw[256 c], its four k at the chunk's kj offsets."""
+    bk = cg.FUSED_BK
+    m = plan.maps.astype(np.int64)
+    na, nb = BM * bk, BN * bk
+    kjs = m[2 * (na + nb) + BM + BN:]
+    out = []
+    for off, n, R, kj in ((0, na, BM, kjs[:4]), (2 * na, nb, BN, kjs[4:])):
+        nc = n // 4
+        crel = m[off:off + nc].reshape(-1, 256)
+        csw = m[off + n:off + n + nc].reshape(-1, 256)
+        rel = (crel[:1] + crel[:, :1]).reshape(-1)
+        first = _unswizzle((csw[:1] ^ csw[:, :1]).reshape(-1), n)
+        out.append(((rel[:, None] + kj[None, :]).reshape(-1),
+                    (first[:, None] + np.arange(4)).reshape(-1), R))
+    return out
+
+
+def _role_offsets(desc, r, size):
+    """Offsets of role word ``r`` of a K2 descriptor, as the kernel's
+    role_off computes them."""
+    hi, lo, lo_n = (int(x) for x in desc[r:r + 3])
+    i = np.arange(size)
+    return desc[hi + i // lo_n] + desc[lo + i % lo_n]
+
+
+def _split(x: np.ndarray):
+    """TF32 (hi, lo) of a real tile, as the producer's cvt.rna pair."""
+    hi, lo = cg.tf32_split(torch.from_numpy(np.ascontiguousarray(x, np.float32)))
+    return hi, lo
+
+
+def _k2_emulated(a: np.ndarray, b: np.ndarray, form) -> np.ndarray:
+    """K2's arithmetic on the CPU from the host's descriptor and maps:
+    the oriented operands (swapped when N > M), each tile gathered
+    through its map (or the per-tile tables of a general form), TF32
+    hi/lo parts, the complex direct form with three TF32 products per
+    real product, one fresh fp32 partial per 32-wide k-tile added to
+    the accumulator, the output scattered through its role tables."""
+    plan = cg.fused_plan(form)
+    d = plan.desc
+    B, M, N, K = (int(x) for x in d[:4])
+    BM, BN = cg.fused_tile(N)
+    bk = cg.FUSED_BK
+    x, y = (b, a) if plan.swap else (a, b)
+    xf, yf = x.reshape(-1), y.reshape(-1)
+    na, nb = BM * bk, BN * bk
+    mp = plan.maps.astype(np.int64)
+    if plan.uniform:  # the chunk maps, as the producers read them
+        maps = [(rel, slot) for rel, slot, _ in _uniform_reads(plan, BM, BN)]
+    else:
+        maps = ((mp[:na], mp[na:2 * na]),
+                (mp[2 * na:2 * na + nb], mp[2 * na + nb:2 * (na + nb)]))
+    o_row = mp[2 * (na + nb):2 * (na + nb) + BM]
+    o_col = mp[2 * (na + nb) + BM:2 * (na + nb) + BM + BN]
+    ab, am, ak, bb, bk_, bn, ob, om, on = (
+        _role_offsets(d, r, n) for r, n in zip(range(4, 31, 3), (B, M, K, B, K, N, B, M, N)))
+    cplx = np.iscomplexobj(a)
+    out = np.zeros(B * M * N, dtype=np.complex64 if cplx else np.float32)
+
+    def gather(src, rel, slot, R, rows, ks):
+        t = np.zeros(R * bk, dtype=src.dtype)
+        if plan.uniform:  # whole tiles: every entry inside the operand
+            t[slot] = src[rows[0] + ks[0] + rel]
+        else:
+            r, k = slot // bk, slot % bk
+            ok = (r < rows.size) & (k < ks.size)
+            t[slot[ok]] = src[rows[r[ok]] + ks[k[ok]]]
+        return t.reshape(R, bk)
+
+    def mm(p, q):  # p (R, bk) . q (C, bk)^T in fp32
+        return p @ q.T
+
+    for bt, mt, nt in itertools.product(range(B), range(-(-M // BM)), range(-(-N // BN))):
+        rows_a = ab[bt] + am[mt * BM:(mt + 1) * BM]
+        rows_b = bb[bt] + bn[nt * BN:(nt + 1) * BN]
+        acc_r = torch.zeros(BM, BN)
+        acc_i = torch.zeros(BM, BN)
+        for k0 in range(0, K, bk):
+            ta = gather(xf, *maps[0], BM, rows_a, ak[k0:k0 + bk])
+            tb = gather(yf, *maps[1], BN, rows_b, bk_[k0:k0 + bk])
+            arh, arl = _split(ta.real)
+            brh, brl = _split(tb.real)
+            if cplx:
+                aih, ail = _split(ta.imag)
+                bih, bil = _split(tb.imag)
+                pr = (mm(arl, brh) + mm(arh, brl) - mm(ail, bih) - mm(aih, bil)
+                      - mm(aih, bih) + mm(arh, brh))
+                pi = (mm(arl, bih) + mm(arh, bil) + mm(ail, brh) + mm(aih, brl)
+                      + mm(aih, brh) + mm(arh, bih))
+                acc_i += pi
+            else:
+                pr = mm(arl, brh) + mm(arh, brl) + mm(arh, brh)
+            acc_r += pr
+        m = np.arange(mt * BM, min((mt + 1) * BM, M))
+        n = np.arange(nt * BN, min((nt + 1) * BN, N))
+        if plan.uniform:  # the tile's base plus tile-local offsets
+            base = ob[bt] + om[mt * BM] + on[nt * BN]
+            where = base + o_row[m - mt * BM][:, None] + o_col[n - nt * BN][None, :]
+        else:
+            where = ob[bt] + om[m][:, None] + on[n][None, :]
+        val = acc_r[:m.size, :n.size].numpy()
+        if cplx:
+            val = val + 1j * acc_i[:m.size, :n.size].numpy()
+        out[where] = val
+    return out.reshape(form.out_shape)
+
+
+def _form(seed, nb, nm, nn, nk, size=2):
+    rng = np.random.default_rng(seed)
+    labels = [f"i{j}" for j in range(nb + nm + nn + nk)]
+    rng.shuffle(labels)
+    bt, m = labels[:nb], labels[nb:nb + nm]
+    n, k = labels[nb + nm:nb + nm + nn], labels[nb + nm + nn:]
+    ia = list(rng.permutation(bt + m + k))
+    ib = list(rng.permutation(bt + k + n))
+    out = [x for x in ia if x not in k] + [x for x in ib if x not in k and x not in ia]
+    return lower_step(ia, ib, out, lambda _: size)
+
+
+K2_CASES = [
+    # seed, nb, nm, nn, nk, size
+    (0, 0, 3, 2, 2, 2),    # one tile, K = 4
+    (1, 1, 2, 2, 3, 2),    # batch 2
+    (5, 0, 9, 3, 7, 2),    # 4 row tiles, 4 k-tiles
+    (6, 1, 3, 8, 6, 2),    # N > M: the operands swap
+    (7, 0, 8, 7, 6, 2),    # N = 128: the 64 x 128 tile (uniform gather)
+    (10, 0, 9, 6, 6, 2),   # whole 128 x 64 tiles (uniform gather)
+    (8, 0, 5, 2, 4, 3),    # axes of 3: per-tile tables, K = 81
+]
+
+
+@pytest.mark.parametrize("seed,nb,nm,nn,nk,size", K2_CASES)
+def test_k2_complex_arithmetic_matches_pallas(seed, nb, nm, nn, nk, size):
+    f = _form(seed, nb, nm, nn, nk, size)
+    rng = np.random.default_rng(seed + 100)
+
+    def cplx(shape):
+        return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    a, b = cplx(f.a_shape), cplx(f.b_shape)
+    got = _k2_emulated(a, b, f)
+    blk = dict(bm=128, bn=128, bk=32) if size == 2 else dict(bm=27, bn=9, bk=27)
+    natural = np.asarray(ref_ops.fused_matmul(
+        a, b, perm_a=f.perm_a, perm_b=f.perm_b, nb=nb, nm=nm, nn=nn, nk=nk,
+        interpret=True, **blk))
+    np.testing.assert_allclose(got, np.transpose(natural, f.out_perm), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, np.einsum(f.expr, a.astype(np.complex128),
+                                              b.astype(np.complex128)),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("seed,nb,nm,nn,nk,size", [K2_CASES[2], K2_CASES[3]])
+def test_k2_real_route_matches_pallas(seed, nb, nm, nn, nk, size):
+    f = _form(seed, nb, nm, nn, nk, size)
+    rng = np.random.default_rng(seed + 200)
+    a = rng.standard_normal(f.a_shape).astype(np.float32)
+    b = rng.standard_normal(f.b_shape).astype(np.float32)
+    got = _k2_emulated(a, b, f)
+    natural = np.asarray(fused_transpose_matmul(
+        a, b, perm_a=f.perm_a, perm_b=f.perm_b, nb=nb, nm=nm, nn=nn, nk=nk,
+        bm=128, bn=128, bk=32, interpret=True))
+    np.testing.assert_allclose(got, np.transpose(natural, f.out_perm), rtol=RTOL, atol=ATOL)
+
+
+def test_k2_single_tf32_product_misses_the_tolerance():
+    """The three-product split is what keeps fp32 accuracy in K2 too:
+    hi.hi alone leaves the tolerance at K = 1024."""
+    f = _form(9, 0, 6, 6, 10)
+    rng = np.random.default_rng(9)
+    a = rng.standard_normal(f.a_shape).astype(np.float32)
+    b = rng.standard_normal(f.b_shape).astype(np.float32)
+    a2 = torch.from_numpy(a).permute(f.perm_a).reshape(f.M, f.K)
+    b2 = torch.from_numpy(b).permute(f.perm_b).reshape(f.K, f.N)
+    hi = cg.tf32_split(a2)[0] @ cg.tf32_split(b2.T.contiguous())[0].T
+    want = (a2.double() @ b2.double()).numpy()
+    assert not np.allclose(hi.numpy(), want, rtol=RTOL, atol=ATOL)
+    natural = _k2_emulated(a, b, f)
+    got = torch.from_numpy(natural).permute(
+        [f.out_perm.index(i) for i in range(len(f.out_perm))]).reshape(f.M, f.N)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 # ------------------------------------------------------------------- K4
