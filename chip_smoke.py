@@ -10,8 +10,8 @@ points at full width:
   1. build     — one nvcc per source for sm_90a, all started together;
                  build seconds and the card's name and power limit;
      sass      — the wgmma kernels (tiled_gemm, fused_gemm,
-                 flash_attention's bf16 kernel) must hold HGMMA in their
-                 SASS (cuobjdump);
+                 flash_attention's bf16 kernel, ssd_chunk's wgmma kernel)
+                 must hold HGMMA in their SASS (cuobjdump);
   2. kernels   — each contraction kernel (tiled_gemm, fused_gemm,
                  chain_gemm) at the shapes of the 30-qubit plan (its
                  largest tiled step, largest fused step, longest chain),
@@ -28,7 +28,10 @@ points at full width:
                  through ops.fused_chain, the path's call); then
                  flash_attention at qwen3-4b's prefill shapes (bf16,
                  <= 1e-2: the output's bf16 rounding alone is 2^-8) and
-                 ssd_chunk at mamba2-130m's (fp32, <= 1e-4);
+                 ssd_chunk at mamba2-130m's (fp32, <= 1e-4; its wgmma
+                 route, the kernel alone on the profiler's device clock,
+                 beside its simt route at the same shape, and an
+                 overflowing decay through the wgmma route);
   3. amplitude — simulate_amplitude on sycamore_like(5, 6, 14), 30 qubits,
                  every slice, held against the port's statevector on the
                  card (relative error <= 1e-3: fp32 sums over ~150 steps
@@ -49,14 +52,16 @@ points at full width:
                  layers <= 3e-2 of max|logit| (the bf16 attention
                  tolerance of the JAX suite), in fp32 (qwen3-4b at 2
                  layers, mamba2-130m whole) <= 1e-3; profiler traces of
-                 one prefill and one decode step at the serve shapes;
-                 the phase's flash_attention and ssd_chunk launches must
-                 be > 0;
+                 one prefill and one decode step at the serve shapes,
+                 with each kernel's share of the device time; the
+                 phase's flash_attention and ssd_chunk launches must be
+                 > 0, and every ssd_chunk launch must take its wgmma
+                 route;
   7. kernels   — one JSON line listing every kernel with its launches on
                  its path (phases 3-5 for the contraction kernels, the
                  serve phase for the LM kernels; each must be > 0) and
-                 its design (wgmma-bf16, 3xtf32-wgmma, cluster-simt-fp32,
-                 simt-fp32); every fused_gemm launch of phases 3-5 must
+                 its design (wgmma-bf16, 3xtf32-wgmma, cluster-simt-fp32);
+                 every fused_gemm launch of phases 3-5 must
                  have taken the wgmma kernel with the coalesced (uniform)
                  gather.
 
@@ -106,14 +111,18 @@ DESIGNS = {
     "fused_gemm": "3xtf32-wgmma",
     "chain_gemm": "cluster-simt-fp32",
     "flash_attention": "wgmma-bf16",  # its fp32 inputs take simt-fp32
-    "ssd_chunk": "simt-fp32",
+    "ssd_chunk": "3xtf32-wgmma",  # shapes outside its rule take simt-fp32
 }
 # the kernels that must run on the tensor cores: (library, CUDA kernel)
 WGMMA_KERNELS = {
     "tiled_gemm": ("gemm", "tf32x3_gemm_kernel"),
     "fused_gemm": ("gemm", "fused_gemm_kernel"),
     "flash_attention": ("flash_attention", "flash_attention_wgmma_kernel"),
+    "ssd_chunk": ("mamba2_ssd", "ssd_chunk_wgmma_kernel"),
 }
+# kernels whose share of a trace's device time the traces report
+TRACED_KERNELS = ("tf32x3_gemm", "fused_gemm", "chain_gemm",
+                  "flash_attention", "ssd_chunk")
 SOURCES = {
     "tiled_gemm": "src/repro_torch/kernels/csrc/gemm.cu",
     "fused_gemm": "src/repro_torch/kernels/csrc/gemm.cu",
@@ -393,24 +402,57 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
     a = -(0.01 + 0.49 * torch.rand(B * H, C, L, generator=gen, device=dev))
     b = torch.randn(B, C, L, N, generator=gen, device=dev)
     c = torch.randn(B, C, L, N, generator=gen, device=dev)
+    check(ssd.ssd_route(L, D, N) == "wgmma", "ssd_chunk: serve shape not wgmma")
+    before = dict(ssd.SSD_ROUTES)
     got = ssd.ssd_intra_chunk(x, dt, a, b, c)
+    check(ssd.SSD_ROUTES["wgmma"] == before["wgmma"] + 1,
+          "ssd_chunk: the serve shape did not take the wgmma route")
     want = ssd.ssd_intra_chunk_plain(x, dt, a, b, c)
+    simt = ssd.ssd_intra_chunk(x, dt, a, b, c, route="simt")
     torch.cuda.synchronize()
     err, rel = rel_err(torch, got, want)
+    simt_err, simt_rel = rel_err(torch, simt, want)
     check(all(bool(torch.isfinite(g).all()) for g in got), "ssd_chunk: non-finite")
     check(rel <= KERNEL_TOL, f"ssd_chunk disagrees: {rel}")
+    check(simt_rel <= KERNEL_TOL, f"ssd_chunk (simt) disagrees: {simt_rel}")
+    # decays of -5..-10 a step: exp(cum_i - cum_j) overflows above the
+    # diagonal, where the kernel must select 0 before the TF32 split
+    a_big = -(5.0 + 5.0 * torch.rand(B * H, C, L, generator=gen, device=dev))
+    big = ssd.ssd_intra_chunk(x, dt, a_big, b, c)
+    big_want = ssd.ssd_intra_chunk_plain(x, dt, a_big, b, c)
+    torch.cuda.synchronize()
+    _, big_rel = rel_err(torch, big, big_want)
+    check(all(bool(torch.isfinite(g).all()) for g in big),
+          "ssd_chunk: non-finite with overflowing decays")
+    check(big_rel <= KERNEL_TOL, f"ssd_chunk disagrees on overflow: {big_rel}")
     cells = B * H * C
     tri = L * (L + 1) // 2  # the lower triangle the decay mask keeps
-    flops = cells * (2.0 * tri * (N + D) + 2.0 * N * D * L + N * L + L * D)
     nbytes = 4.0 * (x.numel() + dt.numel() + a.numel() + b.numel() + c.numel()
                     + got[0].numel() + got[1].numel())
-    b_ms, b_by = bound(flops, nbytes)
+    # the least arithmetic: C B^T once per (group, chunk), the masked y
+    # product and the state product per cell, each as three TF32 products
+    # (3xTF32) at the TF32 rate, against the bytes
+    flops = B * C * 2.0 * tri * N + cells * (2.0 * tri * D + 2.0 * N * D * L)
+    b_ms, b_by = bound(3.0 * flops, nbytes, TF32_PEAK)
+    # the simt kernel's bound: C B^T for every cell, fp32 on the CUDA cores
+    ffma = cells * (2.0 * tri * (N + D) + 2.0 * N * D * L + N * L + L * D)
+    ffma_ms, _ = bound(ffma, nbytes)
     out["ssd_chunk"] = dict(
-        shape=dict(BH=B * H, C=C, L=L, D=D, S=N, groups=B),
-        max_abs_err=err, rel_err=rel,
-        ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk(x, dt, a, b, c)),
+        shape=dict(BH=B * H, C=C, L=L, D=D, S=N, groups=B,
+                   heads_per_block=ssd.heads_per_block(
+                       H, B * C, torch.cuda.get_device_properties(
+                           dev).multi_processor_count)),
+        max_abs_err=err, rel_err=rel, simt_rel_err=simt_rel,
+        overflow_rel_err=big_rel,
+        # the kernels alone on the device clock; wrapper_ms: the call
+        ms=device_ms(torch, lambda: ssd.ssd_intra_chunk(x, dt, a, b, c),
+                     "ssd_chunk_wgmma"),
+        simt_ms=device_ms(
+            torch, lambda: ssd.ssd_intra_chunk(x, dt, a, b, c, route="simt"),
+            "ssd_chunk_kernel"),
+        wrapper_ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk(x, dt, a, b, c)),
         plain_ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk_plain(x, dt, a, b, c)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, ffma_bound_ms=ffma_ms,
     )
     return out
 
@@ -537,10 +579,16 @@ def profile(torch, fn) -> dict:
             rows.append((e.self_device_time_total, e.key, e.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
+    kernels = {}
+    for name in TRACED_KERNELS:
+        ms = sum(us for us, k, _ in rows if name in k) / 1e3
+        if ms > 0:
+            kernels[name] = dict(ms=ms, share=ms / max(device_ms, 1e-9))
     return dict(
         wall_ms=1e3 * wall, device_ms=device_ms,
         device_busy_share=device_ms / (1e3 * wall),
         top=[dict(name=k[:80], ms=us / 1e3, calls=c) for us, k, c in rows[:8]],
+        kernels=kernels,
     )
 
 
@@ -581,7 +629,8 @@ def main() -> int:
     from repro_torch.sampling.batch import open_batch_network
 
     def lm_counts() -> dict:
-        return {**fa.LAUNCHES, **ssd.LAUNCHES}
+        return {**fa.LAUNCHES, **ssd.LAUNCHES,
+                "ssd_routes": dict(ssd.SSD_ROUTES)}
 
     def lm_reset() -> None:
         fa.reset_launches()
@@ -757,6 +806,10 @@ def main() -> int:
           "flash_attention was not launched serving qwen3-4b")
     check(launches["serve:mamba2-130m"]["ssd_chunk"] > 0,
           "ssd_chunk was not launched serving mamba2-130m")
+    ssd_routes = launches["serve:mamba2-130m"]["ssd_routes"]
+    check(ssd_routes["simt"] == 0
+          and ssd_routes["wgmma"] == launches["serve:mamba2-130m"]["ssd_chunk"],
+          f"ssd_chunk took the simt route serving mamba2-130m: {ssd_routes}")
 
     # 7. every kernel went through its path ---------------------------
     total = {k: sum(launches[ph][k] for ph in ("amplitude", "sampling", "share"))
@@ -782,6 +835,7 @@ def main() -> int:
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            **{k: rec[k] for k in ("simt_ms",) if k in rec},
         ))
     emit(phase="done", seconds=time.perf_counter() - t_start,
          launches_by_phase=launches, fused_routes_by_phase=routes)

@@ -103,6 +103,11 @@ def _declare_mamba2_ssd(lib: ctypes.CDLL) -> None:
         _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _P,
     ]
     lib.repro_ssd_chunk.restype = _INT
+    lib.repro_ssd_chunk_wgmma.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _I64, _INT,
+        _P,
+    ]
+    lib.repro_ssd_chunk_wgmma.restype = _INT
 
 
 _DECLARE = {

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels of this
-// directory: mbarriers, TMA tile loads, wgmma shared-memory descriptors and
-// the three wgmma shapes the kernels issue, and the host-side encoding of
-// a TMA tensor map.
+// directory: mbarriers, TMA tile loads and bulk copies, wgmma
+// shared-memory descriptors and the wgmma shapes the kernels use, and
+// the host-side encoding of a TMA tensor map.
 //
 // Conventions.  Every tile a wgmma reads from shared memory is written by
 // TMA with CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes, groups of 8 rows
@@ -166,6 +166,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from device memory to shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ------------------------------------------------------------ wgmma
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile: start
 // address, leading and stride byte offsets (16-byte units), layout type 1
@@ -208,6 +219,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // D(64x128, fp32) (+)= A(64x16, bf16, smem, K-major) . B(16x128, bf16,
@@ -343,6 +360,37 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(SA));
+
+}
+
+// D(64x64, fp32) (+)= A(64x8, tf32, registers) . B(8x64, tf32, smem,
+// K-major).  A's four registers per thread hold the fragment of
+// mma.sync's m16n8k8 tf32 A operand for the thread's warp rows: with
+// g = lane / 4 and q = lane % 4, a0 = (g, q), a1 = (g + 8, q),
+// a2 = (g, q + 4), a3 = (g + 8, q + 4).  The registers are read while
+// the wgmma runs: keep them alive (fence_regs) until its wait.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 
 }
 

@@ -1,6 +1,6 @@
-// Mamba-2 SSD intra-chunk kernel for Hopper (sm_90a), fp32 FFMA.
+// Mamba-2 SSD intra-chunk kernels for Hopper (sm_90a).
 //
-// Replaces the TPU kernel ssd_intra_chunk (_ssd_chunk_kernel) of
+// Replace the TPU kernel ssd_intra_chunk (_ssd_chunk_kernel) of
 // src/repro/kernels/mamba2_ssd.py.  For one (bh, chunk) cell with chunk
 // length L, head dim D and state size S:
 //
@@ -14,30 +14,42 @@
 // overflow, and inf * 0 would give NaN.
 //
 // Head-free B/C: in the model B and C have no head axis (ngroups = 1).
-// The kernel takes them with a leading group axis G that divides BH and
-// reads group bh / (BH / G), so the wrapper never materialises one copy
+// The kernels take them with a leading group axis G that divides BH and
+// read group bh / (BH / G), so the wrapper never materialises one copy
 // per head.  With G = BH this is the TPU kernel's function exactly.
 //
-// Grid: one block per (bh, chunk), 256 threads.  The cell's B, C, dt*X
-// and the L x L score tile sit in shared memory (at mamba2-130m, L = 64,
-// D = 64, S = 128: about 100 KB in fp32), rows padded to S + 1 and L + 1
-// floats so the dot products read without bank conflicts.  The cumsum is
-// one ordered sum by one thread (64 adds).
+// Two kernels, chosen by shape in the wrapper (mamba2_ssd.ssd_route):
 //
-// What bounds it on the H100: at the serve shapes (BH 96, 8 chunks of 64,
-// D 64, S 128, head-free B/C) the function needs 1.4e9 fp32 operations
-// (the lower triangle of C B^T and of the y product, the full state
-// product) and moves 53 MB (x, y and the chunk states dominate), so the
-// bound is the operations, 21 us at 67 TFLOP/s, just above the bytes'
-// 16 us.  Each output element here is one dot product read from shared
-// memory (one shared load per FFMA, half the score threads idle above
-// the diagonal), so the kernel is bound by shared-memory bandwidth.
-// Simple and right first: register tiles and wgmma for the three
-// products come later.
+//   ssd_chunk_wgmma_kernel  L = 64, D a multiple of 64, S = 64 or 128
+//       (the model's shapes): 3xTF32 on wgmma fed by TMA, one block per
+//       (group, chunk, block of heads of that group); see its note.
+//   ssd_chunk_kernel        every other shape (the tests' small ones):
+//       fp32 FFMA, one block per (bh, chunk).
+//
+// What bounds K5 on the H100: at the serve shape (BH 96, 8 chunks of 64,
+// D 64, S 128, 4 head-free B/C groups) the function moves 52.8 MB (x, y
+// and the chunk states dominate): 15.8 us at 3.35 TB/s.  With C B^T once
+// per (group, chunk) its products are ~1.0 GFLOP, 6.3 us as 3xTF32 at a
+// third of the 495 TFLOP/s TF32 peak, so the bound is the bytes.  The
+// FFMA kernel recomputes C B^T for every head and reads every operand of
+// each product from shared memory, so it is bound by shared-memory
+// bandwidth far above that.  The wgmma kernel runs at about twice the
+// bound; launch/ssd_variants.py times it with its parts taken out (no
+// one part holds it: each block works through its heads one after the
+// other, and a head's planes, products and stores each cost about the
+// same).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
+// ---------------------------------------------------------------- simt
+// One block per (bh, chunk), 256 threads.  The cell's B, C, dt*X and the
+// L x L score tile sit in shared memory, rows padded to S + 1 and L + 1
+// floats so the dot products read without bank conflicts; the cumsum is
+// one ordered sum by one thread.  Each output element is one dot product
+// read from shared memory.
 #define SSD_NT 256
 
 static size_t ssd_smem_bytes(int L, int D, int S) {
@@ -127,6 +139,413 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// ---------------------------------------------------------------- wgmma
+// One block per work item (group g, chunk c, a block of up to `hb`
+// heads of g), 384 threads in three warpgroups:
+//
+//   WG2, producers.  Thread 0 TMA-loads the chunk's C and B (64 x S fp32,
+//     128-byte-swizzled K-major tiles of 32 floats) and keeps the loads
+//     of the next two units in flight (a unit is one head and one 64-wide
+//     tile of its head dim: x's 64 x 64 tile by TMA, dt and a by bulk
+//     copy).  The warpgroup splits C and B into TF32 hi/lo planes (hi
+//     over the raw values, in place) and, after a barrier of the
+//     warpgroup (each thread's B^T column crosses every other warp's
+//     split), writes B^T's planes (the state product's A operand, M = S,
+//     K = j), shared by every head of the item.  Per unit: warp 0 takes the cumsum as a warp scan and dec_j
+//     = exp(cum[L-1] - cum[j]); all write the K-major planes of
+//     xdt^T[d][j] and (dec * xdt)^T[d][j], hi and lo, into one stage of a
+//     two-stage ring (folding dec_j into xdt's rows is exact algebra and
+//     keeps B^T head-free).  Stores are fenced (fence.proxy.async)
+//     before a stage is signalled.
+//   WG0, y.  Once per item, C B^T (M = N = L, K = S) as 3xTF32 into
+//     registers, where it stays.  Per unit the masked scores are taken by
+//     select from those registers (exp(cum_i - cum_j) if i >= j, else 0;
+//     the select comes before the hi/lo split, as inf - inf is NaN) and
+//     fed to wgmma as A from registers.  The accumulator holds columns
+//     2q, 2q+1 of each 8-block where the A fragment holds k slots q, q+4,
+//     so k is permuted: slot p of every 8-block of k holds j = 2p (p < 4)
+//     or 2(p - 4) + 1, and the producers write their planes in that
+//     order.
+//   WG1, state.  Per unit, for each 64-row tile of S: B^T . (dec xdt),
+//     3xTF32 from shared memory.
+//
+// As in K1 and K2 each 32-wide k-tile's products go to a fresh wgmma
+// partial added by FADD: the tensor cores' accumulation does not round
+// to nearest.  setmaxnreg gives the producers 72 registers and the
+// consumers 216.  Every mbarrier wait traps after ~8.7 s.
+//
+// Shared memory (S = 128): B^T planes 64 KB, two stages of four 16 KB
+// planes (128 KB; C's and B's planes occupy them before the first unit),
+// the x ring 2 x 16 KB, the dt/a ring, cum, dec and the barriers:
+// 232,320 bytes of the 232,448 a block may use.
+#define W_THREADS 384
+// registers a thread after setmaxnreg: ptxas gives a kernel that uses it
+// the launch bound's 168, and 128 x 72 + 256 x 216 = 384 x 168
+#define W_PREG 72
+#define W_CREG 216
+#define W_SUB 8192                  // 64 rows x 128 bytes, one k-subtile
+#define W_PLANE (2 * W_SUB)         // 64 rows x 64 k
+#define W_STAGE (4 * W_PLANE)       // xdt^T hi, lo, (dec xdt)^T hi, lo
+#define W_XTILE (2 * W_SUB)         // x: 64 rows x 64 floats
+
+enum { B_CB_FULL, B_CB_READY, B_CB_DONE, B_BT_READY, B_XFULL, B_FULL = 6,
+       B_EMPTY = 8, B_COUNT = 10 };
+
+struct WgmmaSmem {
+  int bt, stg, xr, da, cum, dec, bar, total;
+  __host__ __device__ explicit WgmmaSmem(int S) {
+    bt = 0;                        // B^T hi, lo: S rows x 64 k each
+    stg = S * 512;
+    xr = stg + 2 * W_STAGE;
+    da = xr + 2 * W_XTILE;         // per stage: dt[64], a[64]
+    cum = da + 2 * 512;            // per stage: cum[64]
+    dec = cum + 2 * 256;
+    bar = dec + 256;
+    total = bar + 8 * B_COUNT + 1024;  // + alignment slack
+  }
+};
+
+// Byte offset of element (row, k) in a 128-byte-swizzled K-major tile of
+// fp32 with 32 k per row (the layout TMA's SWIZZLE_128B writes).
+__device__ __forceinline__ int swz(int row, int k) {
+  return row * 128 + ((((k >> 2) ^ row) & 7) << 4) + ((k & 3) << 2);
+}
+
+// Byte offset of 16-byte chunk c (k slots 4c .. 4c+3, c < 16) of row
+// `row` in a K-major operand of 64 k: two subtiles of `rows` rows.
+__device__ __forceinline__ int chunk_off(int row, int c, int rows) {
+  return (c >> 3) * rows * 128 + row * 128 + ((((c & 7) ^ row) & 7) << 4);
+}
+
+// The j held by k slot 4 (c & 1) + k of 8-block c >> 1 (k < 4).
+__device__ __forceinline__ int slot_j(int c, int k) {
+  return 8 * (c >> 1) + (c & 1) + 2 * k;
+}
+
+__device__ __forceinline__ void split4(const float (&x)[4], float4& hi,
+                                       float4& lo) {
+  hi = make_float4(hopper::tf32_rna(x[0]), hopper::tf32_rna(x[1]),
+                   hopper::tf32_rna(x[2]), hopper::tf32_rna(x[3]));
+  lo = make_float4(hopper::tf32_rna(x[0] - hi.x), hopper::tf32_rna(x[1] - hi.y),
+                   hopper::tf32_rna(x[2] - hi.z), hopper::tf32_rna(x[3] - hi.w));
+}
+
+// One 32-wide k-tile (four k8 steps) as three TF32 products from shared
+// memory into a fresh sum: d = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi.  a, b:
+// the k-tile's hi planes; their lo planes lie a_lo, b_lo bytes further.
+__device__ __forceinline__ void ktile_ss(float (&d)[32], const uint8_t* a,
+                                         int a_lo, const uint8_t* b,
+                                         int b_lo) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t ah = hopper::desc_kmajor(a + 32 * k);
+    const uint64_t al = hopper::desc_kmajor(a + a_lo + 32 * k);
+    const uint64_t bh = hopper::desc_kmajor(b + 32 * k);
+    const uint64_t bl = hopper::desc_kmajor(b + b_lo + 32 * k);
+    hopper::wgmma_m64n64k8_tf32_ss<1>(d, al, bh, k > 0 ? 1 : 0);
+    hopper::wgmma_m64n64k8_tf32_ss<1>(d, ah, bl, 1);
+    hopper::wgmma_m64n64k8_tf32_ss<1>(d, ah, bh, 1);
+  }
+}
+
+// The same with A from registers: four k8 steps' hi and lo fragments.
+__device__ __forceinline__ void ktile_rs(float (&d)[32],
+                                         const uint32_t (&ah)[4][4],
+                                         const uint32_t (&al)[4][4],
+                                         const uint8_t* b, int b_lo) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t bh = hopper::desc_kmajor(b + 32 * k);
+    const uint64_t bl = hopper::desc_kmajor(b + b_lo + 32 * k);
+    hopper::wgmma_m64n64k8_tf32_rs(d, al[k], bh, k > 0 ? 1 : 0);
+    hopper::wgmma_m64n64k8_tf32_rs(d, ah[k], bl, 1);
+    hopper::wgmma_m64n64k8_tf32_rs(d, ah[k], bh, 1);
+  }
+}
+
+// A 64 x 64 accumulator (this thread: rows r0 and r0 + 8, columns 2q and
+// 2q + 1 of each n8 block) into `out` (row stride ld floats).
+__device__ __forceinline__ void store_tile(float* out, long long ld,
+                                           const float (&acc)[32], int r0,
+                                           int q) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* row = out + (long long)(r0 + 8 * h) * ld + 2 * q;
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb)
+      *reinterpret_cast<float2*>(row + 8 * jb) =
+          make_float2(acc[4 * jb + 2 * h], acc[4 * jb + 2 * h + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(W_THREADS, 1)
+ssd_chunk_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap cmap,
+                       const __grid_constant__ CUtensorMap bmap,
+                       const float* __restrict__ dt,
+                       const float* __restrict__ a, float* __restrict__ y,
+                       float* __restrict__ st, int C, int D, int S, int hpg,
+                       int hb) {
+  extern __shared__ uint8_t w_smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(w_smem_raw) + 1023) & ~uintptr_t(1023));
+  const WgmmaSmem lay(S);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  float* cums = reinterpret_cast<float*>(smem + lay.cum);
+  float* decs = reinterpret_cast<float*>(smem + lay.dec);
+  uint8_t* stg = smem + lay.stg;
+
+  const int nhb = (hpg + hb - 1) / hb;
+  const int gc = blockIdx.x / nhb;  // g * C + c
+  const int c = gc % C, g = gc / C;
+  const int h0 = (blockIdx.x % nhb) * hb;
+  const int dtiles = D / 64;
+  const int units = min(hb, hpg - h0) * dtiles;
+  const int plane_c = S * 256;  // C's (and B's) hi plane; lo follows
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bars[B_CB_FULL], 1);
+    hopper::mbar_init(&bars[B_CB_READY], 128);  // every producer thread
+    hopper::mbar_init(&bars[B_CB_DONE], 1);
+    hopper::mbar_init(&bars[B_BT_READY], 128);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&bars[B_XFULL + s], 1);
+      hopper::mbar_init(&bars[B_FULL + s], 128);
+      hopper::mbar_init(&bars[B_EMPTY + s], 2);  // each consumer warpgroup
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  // unit u: head h0 + u / dtiles, head-dim tile u % dtiles, ring slot u & 1
+  auto cell_of = [&](int u) {
+    return (long long)(g * hpg + h0 + u / dtiles) * C + c;
+  };
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PREG));
+    auto load_unit = [&](int u) {
+      const int s = u & 1;
+      const long long cell = cell_of(u);
+      const int d0 = 64 * (u % dtiles);
+      uint64_t* bar = &bars[B_XFULL + s];
+      uint8_t* xs = smem + lay.xr + s * W_XTILE;
+      uint8_t* da = smem + lay.da + s * 512;
+      hopper::mbar_arrive_expect_tx(bar, W_XTILE + 512);
+      hopper::tma_load_2d(xs, &xmap, bar, d0, (int)(cell * 64));
+      hopper::tma_load_2d(xs + W_SUB, &xmap, bar, d0 + 32, (int)(cell * 64));
+      hopper::bulk_load(da, dt + cell * 64, 256, bar);
+      hopper::bulk_load(da + 256, a + cell * 64, 256, bar);
+    };
+    if (t == 0) {
+      uint64_t* bar = &bars[B_CB_FULL];
+      hopper::mbar_arrive_expect_tx(bar, 2 * plane_c);
+      for (int k = 0; k < S / 32; ++k) {
+        hopper::tma_load_2d(stg + k * W_SUB, &cmap, bar, 32 * k, gc * 64);
+        hopper::tma_load_2d(stg + 2 * plane_c + k * W_SUB, &bmap, bar, 32 * k,
+                            gc * 64);
+      }
+      for (int u = 0; u < 2 && u < units; ++u) load_unit(u);
+    }
+    // C and B into TF32 hi (in place) and lo planes
+    hopper::mbar_wait(&bars[B_CB_FULL], 0);
+    for (int e = t; e < 2 * S * 16; e += 128) {
+      const int m = e / (S * 16), f = e % (S * 16);  // matrix, float4
+      uint8_t* p = stg + 2 * m * plane_c + 16 * f;
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      const float x[4] = {v.x, v.y, v.z, v.w};
+      float4 hi, lo;
+      split4(x, hi, lo);
+      hopper::sts_v4(hopper::smem_u32(p), hi);
+      hopper::sts_v4(hopper::smem_u32(p + plane_c), lo);
+    }
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive(&bars[B_CB_READY]);
+    // a thread's B^T column reads elements other warps split
+    hopper::named_barrier(1, 128);
+    // B^T planes: row s of S, k slots in the permuted j order
+    const uint8_t* bpl = stg + 2 * plane_c;
+    for (int e = t; e < S * 16; e += 128) {
+      const int sr = e % S, ch = e / S;
+      float xh[4], xl[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int off = (sr >> 5) * W_SUB + swz(slot_j(ch, k), sr & 31);
+        xh[k] = *reinterpret_cast<const float*>(bpl + off);
+        xl[k] = *reinterpret_cast<const float*>(bpl + plane_c + off);
+      }
+      const uint32_t o = hopper::smem_u32(smem + lay.bt + chunk_off(sr, ch, S));
+      hopper::sts_v4(o, make_float4(xh[0], xh[1], xh[2], xh[3]));
+      hopper::sts_v4(o + S * 256, make_float4(xl[0], xl[1], xl[2], xl[3]));
+    }
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive(&bars[B_BT_READY]);
+    // the stages overwrite C's and B's planes once C B^T is done
+    hopper::mbar_wait(&bars[B_CB_DONE], 0);
+    for (int u = 0; u < units; ++u) {
+      const int s = u & 1;
+      hopper::mbar_wait(&bars[B_XFULL + s], (u >> 1) & 1);
+      if (u >= 2) hopper::mbar_wait(&bars[B_EMPTY + s], ((u >> 1) - 1) & 1);
+      const float* dts = reinterpret_cast<const float*>(smem + lay.da + s * 512);
+      if (w == 0) {
+        // cumsum as a warp scan: lane l holds a[2l] and a[2l+1]
+        const float a0 = dts[64 + 2 * lane], a1 = dts[64 + 2 * lane + 1];
+        float run = a0 + a1;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float n = __shfl_up_sync(0xffffffffu, run, off);
+          if (lane >= off) run += n;
+        }
+        float excl = __shfl_up_sync(0xffffffffu, run, 1);
+        if (lane == 0) excl = 0.f;
+        const float c0 = excl + a0, c1 = c0 + a1;
+        const float last = __shfl_sync(0xffffffffu, c1, 31);
+        cums[64 * s + 2 * lane] = c0;
+        cums[64 * s + 2 * lane + 1] = c1;
+        decs[2 * lane] = expf(last - c0);
+        decs[2 * lane + 1] = expf(last - c1);
+      }
+      hopper::named_barrier(1, 128);
+      // xdt^T and (dec xdt)^T: chunk (d, ch) reads x[j][d] down a column;
+      // a warp's lanes take 32 consecutive d (one row of x, no conflicts)
+      const uint8_t* xs = smem + lay.xr + s * W_XTILE;
+      uint8_t* sp = stg + s * W_STAGE;
+#pragma unroll 2
+      for (int r = 0; r < 8; ++r) {
+        const int e = t + 128 * r;
+        const int d = e & 63, ch = e >> 6;
+        const uint8_t* xb = xs + (d >> 5) * W_SUB;
+        float xv[4], vv[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int j = slot_j(ch, k);
+          xv[k] = *reinterpret_cast<const float*>(xb + swz(j, d & 31)) * dts[j];
+          vv[k] = xv[k] * decs[j];
+        }
+        const uint32_t o = hopper::smem_u32(sp + chunk_off(d, ch, 64));
+        float4 hi, lo;
+        split4(xv, hi, lo);
+        hopper::sts_v4(o, hi);
+        hopper::sts_v4(o + W_PLANE, lo);
+        split4(vv, hi, lo);
+        hopper::sts_v4(o + 2 * W_PLANE, hi);
+        hopper::sts_v4(o + 3 * W_PLANE, lo);
+      }
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(&bars[B_FULL + s]);
+      hopper::named_barrier(1, 128);  // x, dt and a of slot s are read
+      if (t == 0 && u + 2 < units) load_unit(u + 2);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CREG));
+  const int q = lane % 4;
+  const int r0 = 16 * w + lane / 4;  // this thread's rows: r0 and r0 + 8
+  float acc[32], part[32];
+  if (wg == 0) {
+    // C B^T, a fresh partial per 32-wide k-tile of S
+    float cbt[32];
+    hopper::mbar_wait(&bars[B_CB_READY], 0);
+    hopper::wgmma_fence();
+    hopper::fence_regs(cbt);
+    ktile_ss(cbt, stg, plane_c, stg + 2 * plane_c, plane_c);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(cbt);
+    for (int kt = 1; kt < S / 32; ++kt) {
+      hopper::wgmma_fence();
+      hopper::fence_regs(part);
+      ktile_ss(part, stg + kt * W_SUB, plane_c, stg + 2 * plane_c + kt * W_SUB,
+               plane_c);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) cbt[i] += part[i];
+    }
+    if (t == 0) hopper::mbar_arrive(&bars[B_CB_DONE]);
+
+    for (int u = 0; u < units; ++u) {
+      const int s = u & 1;
+      hopper::mbar_wait(&bars[B_FULL + s], (u >> 1) & 1);
+      const float* cum = cums + 64 * s;
+      const float ci[2] = {cum[r0], cum[r0 + 8]};
+      // masked scores as A fragments: the accumulator's n8 block kk is k8
+      // step kk, its columns (2q, 2q + 1) the slots (q, q + 4)
+      uint32_t ah[2][4][4], al[2][4][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int j = 8 * kk + 2 * q;
+        const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+        float v[4];  // a0..a3: (r0, j), (r0 + 8, j), (r0, j+1), (r0 + 8, j+1)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = r0 + 8 * h;
+          v[h] = i >= j ? cbt[4 * kk + 2 * h] * expf(ci[h] - cj.x) : 0.f;
+          v[2 + h] =
+              i > j ? cbt[4 * kk + 2 * h + 1] * expf(ci[h] - cj.y) : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float hi = hopper::tf32_rna(v[r]);
+          ah[kk >> 2][kk & 3][r] = __float_as_uint(hi);
+          al[kk >> 2][kk & 3][r] = __float_as_uint(hopper::tf32_rna(v[r] - hi));
+        }
+      }
+      const uint8_t* xp = stg + s * W_STAGE;  // xdt^T hi; lo a plane further
+      hopper::wgmma_fence();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(part);
+      ktile_rs(acc, ah[0], al[0], xp, W_PLANE);
+      ktile_rs(part, ah[1], al[1], xp + W_SUB, W_PLANE);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(part);
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          hopper::fence_regs(ah[kt][kk]);
+          hopper::fence_regs(al[kt][kk]);
+        }
+      if (t == 0) hopper::mbar_arrive(&bars[B_EMPTY + s]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += part[i];
+      store_tile(y + cell_of(u) * 64 * D + 64 * (u % dtiles), D, acc, r0, q);
+    }
+    return;
+  }
+
+  // WG1: chunk states, B^T . (dec xdt) per 64-row tile of S
+  hopper::mbar_wait(&bars[B_BT_READY], 0);
+  const uint8_t* bt = smem + lay.bt;
+  for (int u = 0; u < units; ++u) {
+    const int s = u & 1;
+    hopper::mbar_wait(&bars[B_FULL + s], (u >> 1) & 1);
+    const uint8_t* vp = stg + s * W_STAGE + 2 * W_PLANE;  // (dec xdt)^T hi
+    float* out = st + cell_of(u) * S * D + 64 * (u % dtiles);
+    for (int mt = 0; mt < S / 64; ++mt) {
+      const uint8_t* am = bt + mt * W_SUB;
+      hopper::wgmma_fence();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(part);
+      ktile_ss(acc, am, S * 256, vp, W_PLANE);
+      ktile_ss(part, am + S * 128, S * 256, vp + W_SUB, W_PLANE);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(part);
+      if (t == 0 && mt == S / 64 - 1) hopper::mbar_arrive(&bars[B_EMPTY + s]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += part[i];
+      store_tile(out + (long long)64 * mt * D, D, acc, r0, q);
+    }
+  }
+}
+
 // ---------------------------------------------------------- C interface
 // Launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() (0 on success).
@@ -154,5 +573,49 @@ extern "C" int repro_ssd_chunk(const float* x, const float* dt,
   if (err != cudaSuccess) return (int)err;
   ssd_chunk_kernel<<<(unsigned)cells, SSD_NT, smem, (cudaStream_t)stream>>>(
       x, dt, a, b, c, y, st, C, L, D, S, heads_per_group);
+  return (int)cudaGetLastError();
+}
+
+// The wgmma kernel: L = 64, D a multiple of 64, S = 64 or 128, x/b/c/dt/a
+// 16-byte aligned; G groups of BH / G heads, up to hb heads a block.
+extern "C" int repro_ssd_chunk_wgmma(const float* x, const float* dt,
+                                     const float* a, const float* b,
+                                     const float* c, float* y, float* st,
+                                     long long BH, int C, int L, int D, int S,
+                                     long long G, int hb, void* stream) {
+  if (L != 64 || D < 64 || D % 64 || (S != 64 && S != 128) || C < 1 ||
+      G < 1 || BH % G || hb < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long hpg = BH / G;
+  const long long blocks = G * C * ((hpg + hb - 1) / hb);
+  if (blocks > 0x7fffffffLL || BH * C * 64 > 0x7fffffffLL ||
+      G * C * 64 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {(const void*)dt, (const void*)a})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const float* srcs[3] = {x, c, b};
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t cols = i == 0 ? D : S;
+    const uint64_t dims[2] = {cols, (uint64_t)((i == 0 ? BH : G) * C * 64)};
+    const uint64_t strides[1] = {cols * 4};
+    const uint32_t box[2] = {32, 64};
+    cudaError_t err = hopper::make_tensor_map(
+        &maps[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, srcs[i], dims, strides,
+        box);
+    if (err != cudaSuccess) return (int)err;
+  }
+  static bool ready = false;  // the attribute, once, for the largest S
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ssd_chunk_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        WgmmaSmem(128).total);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  const int smem = WgmmaSmem(S).total;
+  ssd_chunk_wgmma_kernel<<<(unsigned)blocks, W_THREADS, smem,
+                           (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], dt, a, y, st, C, D, S, (int)hpg, hb);
   return (int)cudaGetLastError();
 }

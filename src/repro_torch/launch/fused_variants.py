@@ -1,7 +1,7 @@
 """Time variants of the fused kernel's source (K2) on the card: where its
 time goes.
 
-    python3 src/repro_torch/launch/fused_variants.py [variant ...]
+    PYTHONPATH=src python3 -m repro_torch.launch.fused_variants [variant ...]
 
 Builds ``kernels/csrc/gemm.cu`` as it is (``base``) and with named edits,
 each with ``nvcc`` into its own library under ``build/kernels/variants/``
@@ -23,24 +23,15 @@ Needs a CUDA device and ``nvcc``.
 
 from __future__ import annotations
 
-import hashlib
 import json
-import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.normpath(os.path.join(HERE, "..", "..")))
+from .variants import build_variants, card, edit, use
 
 _GATHER_A = "        gather_tile<CPLX, BM>(st, p.a, a_base,"
 _GATHER_B = "        gather_tile<CPLX, BN>(st + 4 * A_PLANE,"
 _MMA_LOOP = "      for (int k = 0; k < F_BK / 8; ++k) {"
-
-
-def _edit(src: str, old: str, new: str) -> str:
-    if old not in src:
-        raise RuntimeError(f"variant edit does not apply: {old!r}")
-    return src.replace(old, new)
+VARIANTS = ("base", "pwg1", "pwg4", "stream", "noproducer", "noproducer_nomma")
 
 
 def variant_source(name: str, src: str) -> str:
@@ -48,15 +39,15 @@ def variant_source(name: str, src: str) -> str:
     if name == "base":
         return src
     if name == "pwg1":
-        src = _edit(src, "#define F_PWG 2 ", "#define F_PWG 1 ")
-        src = _edit(src, 'asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" '
+        src = edit(src, "#define F_PWG 2 ", "#define F_PWG 1 ")
+        src = edit(src, 'asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" '
                     '::"n"(F_PREG));', "")
-        return _edit(src, 'asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" '
+        return edit(src, 'asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" '
                      '::"n"(F_CREG));', "")
     if name == "stream":
-        src = _edit(src, "hopper::ldg_f2(", "hopper::ldg_stream_f2(")
-        src = _edit(src, "hopper::ldg_f1(", "hopper::ldg_stream_f1(")
-        return _edit(src, '#include "hopper.cuh"', """#include "hopper.cuh"
+        src = edit(src, "hopper::ldg_f2(", "hopper::ldg_stream_f2(")
+        src = edit(src, "hopper::ldg_f1(", "hopper::ldg_stream_f1(")
+        return edit(src, '#include "hopper.cuh"', """#include "hopper.cuh"
 namespace hopper {
 __device__ __forceinline__ float2 ldg_stream_f2(const float2* p) {
   float2 v;
@@ -72,13 +63,13 @@ __device__ __forceinline__ float ldg_stream_f1(const float* p) {
 }
 }  // namespace hopper""")
     if name == "pwg4":
-        src = _edit(src, "#define F_PWG 2 ", "#define F_PWG 4 ")
-        return _edit(src, "#define F_PREG 96", "#define F_PREG 40")
+        src = edit(src, "#define F_PWG 2 ", "#define F_PWG 4 ")
+        return edit(src, "#define F_PREG 96", "#define F_PREG 40")
     if name in ("noproducer", "noproducer_nomma"):
-        src = _edit(src, _GATHER_A, "        if (M < 0) " + _GATHER_A.lstrip())
-        src = _edit(src, _GATHER_B, "        if (M < 0) " + _GATHER_B.lstrip())
+        src = edit(src, _GATHER_A, "        if (M < 0) " + _GATHER_A.lstrip())
+        src = edit(src, _GATHER_B, "        if (M < 0) " + _GATHER_B.lstrip())
         if name == "noproducer_nomma":
-            src = _edit(src, _MMA_LOOP, "      for (int k = 0; k < 0; ++k) {")
+            src = edit(src, _MMA_LOOP, "      for (int k = 0; k < 0; ++k) {")
         return src
     raise ValueError(f"unknown variant {name!r}")
 
@@ -91,34 +82,12 @@ def main(argv: list[str]) -> int:
         return 2
     from repro_torch.core import plan_compiled
     from repro_torch.core.executor import simplify_network
-    from repro_torch.kernels import build, contract_gemm as cg
+    from repro_torch.kernels import contract_gemm as cg
     from repro_torch.quantum import circuits
 
-    names = argv or ["base", "pwg1", "pwg4", "stream", "noproducer",
-                     "noproducer_nomma"]
-    src = (build.CSRC / "gemm.cu").read_text()
-    out_dir = build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        text = variant_source(name, src)
-        tag = hashlib.sha256(text.encode()).hexdigest()[:12]
-        cu = out_dir / f"gemm_{name}_{tag}.cu"
-        cu.write_text(text)
-        lib = cu.with_suffix(".so")
-        procs[name] = (subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(lib),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        libs[name] = lib
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    names = argv or list(VARIANTS)
+    libs = build_variants("gemm", names, variant_source)
+    name_power = card()
     circ = circuits.sycamore_like(5, 6, 14, seed=0)
     tn, _ = simplify_network(*circuits.circuit_to_network(circ, bitstring="0" * 30))
     plan, _ = plan_compiled(tn, 28)
@@ -135,7 +104,7 @@ def main(argv: list[str]) -> int:
                           torch.randn(f.b_shape, generator=gen)).cuda()
         row = dict(shape=[f.B, f.M, f.N, f.K])
         for name, lib in libs.items():
-            build._load("gemm", lib)  # the wrapper launches this library now
+            use("gemm", lib)  # the wrapper launches this library now
             cg.fused_gemm_c64(a, b, f)
             torch.cuda.synchronize()
             start.record()
@@ -146,8 +115,8 @@ def main(argv: list[str]) -> int:
             row[name] = start.elapsed_time(end) / 10
         rows.append(row)
         del a, b
-    build._libs.pop("gemm", None)
-    print(json.dumps(dict(card=card, ms=rows)), flush=True)
+    use("gemm", None)
+    print(json.dumps(dict(card=name_power, ms=rows)), flush=True)
     return 0
 
 

@@ -335,11 +335,13 @@ def test_flash_attention_on_card(dev, dtype, bh, group, sq, sk, d, causal,
     ("gemm", "fused_gemm_kernel", True),
     ("flash_attention", "flash_attention_wgmma_kernel", True),
     ("flash_attention", "flash_attention_kernel", False),  # fp32: FFMA
+    ("mamba2_ssd", "ssd_chunk_wgmma_kernel", True),
+    ("mamba2_ssd", "ssd_chunk_kernel", False),  # the simt route: FFMA
 ])
 def test_wgmma_kernels_issue_hgmma(dev, lib, kernel, hgmma):
-    """K1, K2 (each instantiation) and K4's bf16 kernel run on the tensor
-    cores: their SASS holds HGMMA (wgmma); K4's fp32 kernel stays on the
-    CUDA cores."""
+    """K1, K2 (each instantiation), K4's bf16 kernel and K5's wgmma
+    kernel run on the tensor cores: their SASS holds HGMMA (wgmma); K4's
+    fp32 kernel and K5's simt kernel stay on the CUDA cores."""
     from repro_torch.kernels import build
 
     found = build.kernels_with(lib, kernel, "HGMMA")
@@ -347,14 +349,20 @@ def test_wgmma_kernels_issue_hgmma(dev, lib, kernel, hgmma):
     assert set(found.values()) == {hgmma}, found
 
 
-@pytest.mark.parametrize("BH,G,C,L,D,S,lo,hi", [
-    (6, 6, 3, 64, 64, 128, 0.01, 0.5),   # mamba2-130m cell
-    (8, 2, 2, 32, 16, 8, 0.01, 0.5),     # head-free groups
-    (3, 3, 2, 32, 8, 4, 5.0, 10.0),      # decay overflow above the diagonal
+@pytest.mark.parametrize("BH,G,C,L,D,S,lo,hi,route,force", [
+    (6, 6, 3, 64, 64, 128, 0.01, 0.5, "wgmma", None),  # mamba2-130m cell, G == BH
+    (8, 2, 2, 32, 16, 8, 0.01, 0.5, "simt", None),     # head-free groups
+    (3, 3, 2, 32, 8, 4, 5.0, 10.0, "simt", None),      # decay overflow above the diagonal
+    (24, 1, 8, 64, 64, 128, 0.01, 0.5, "wgmma", None),  # the serve cell: 24 heads, one group
+    (40, 4, 8, 64, 64, 128, 0.01, 0.5, "wgmma", None),  # 10 heads a group, 3 a block
+    (4, 2, 2, 64, 64, 64, 5.0, 10.0, "wgmma", None),    # overflow at L = 64, S = 64
+    (8, 2, 2, 64, 128, 128, 0.01, 0.5, "wgmma", None),  # two head-dim tiles
+    (6, 6, 3, 64, 64, 128, 0.01, 0.5, "simt", "simt"),  # the serve shape, forced
 ])
-def test_ssd_chunk_on_card(dev, BH, G, C, L, D, S, lo, hi):
+def test_ssd_chunk_on_card(dev, BH, G, C, L, D, S, lo, hi, route, force):
     """K5 against its plain version, 1e-4 relative (fp32, another
-    summation order)."""
+    summation order; 3xTF32 on the wgmma route), through the route the
+    shape rule (or ``force``) gives."""
     from repro_torch.kernels import mamba2_ssd as ssd
 
     rng = np.random.default_rng(BH + L)
@@ -366,9 +374,10 @@ def test_ssd_chunk_on_card(dev, BH, G, C, L, D, S, lo, hi):
     dt = rnd((BH, C, L), lambda size: rng.uniform(0.1, 1.0, size))
     a = rnd((BH, C, L), lambda size: -rng.uniform(lo, hi, size))
     b, c = rnd((G, C, L, S)), rnd((G, C, L, S))
-    before = ssd.LAUNCHES["ssd_chunk"]
-    got = ssd.ssd_intra_chunk(x, dt, a, b, c)
+    before, routes = ssd.LAUNCHES["ssd_chunk"], dict(ssd.SSD_ROUTES)
+    got = ssd.ssd_intra_chunk(x, dt, a, b, c, route=force)
     assert ssd.LAUNCHES["ssd_chunk"] == before + 1
+    assert ssd.SSD_ROUTES[route] == routes[route] + 1
     want = ssd.ssd_intra_chunk_plain(x, dt, a, b, c)
     torch.cuda.synchronize()
     for g_, w in zip(got, want):

@@ -24,6 +24,16 @@ probabilities to bf16 before ``P @ V``.  A test-only copy of the plain
 loop does the same and is held against the
 Pallas ``flash_attention`` (interpret mode) within the card's
 ``FLASH_TOL = 1e-2`` of max|reference|.
+
+K5's wgmma route (``ssd_intra_chunk``) computes C·Bᵀ once per (group,
+chunk) as 3xTF32, takes the masked scores from it by select before the
+hi/lo split, folds ``dec_j`` into xdt's rows so that Bᵀ serves every
+head, takes the cumsum as a warp scan, and sums each 32-wide k-tile into
+a fresh partial; ``_k5_emulated`` does the same and is held against the
+Pallas ``ssd_intra_chunk`` (interpret mode) within ``K5_TOL = 1e-5`` of
+max|reference| (3xTF32 keeps ~22 bits a product; the rest is summation
+order).  The permuted k order that lets the scores go to ``wgmma`` as
+register A fragments is checked slot by slot.
 """
 
 import itertools
@@ -42,12 +52,14 @@ from repro.kernels.contract_gemm import (  # noqa: E402
     tiled_matmul,
 )
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.mamba2_ssd import ssd_intra_chunk as jax_ssd_chunk  # noqa: E402
 
 from repro_torch.kernels import contract_gemm as cg  # noqa: E402
 from repro_torch.lowering.gemm_form import lower_step  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-4  # tests/test_torch_cuda.py, chip_smoke.KERNEL_TOL
 FLASH_TOL = 1e-2  # chip_smoke.FLASH_TOL: bf16 output rounding alone is 2^-8
+K5_TOL = 1e-5  # of max|reference|: 3xTF32 and another summation order
 
 
 def _rna_tf32(x: np.ndarray) -> np.ndarray:
@@ -392,3 +404,122 @@ def test_flash_bf16_numerics_match_pallas(bh, group, sq, sk, q_offset, causal):
     err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
     assert got.dtype == torch.bfloat16
     assert err <= FLASH_TOL
+
+
+# ------------------------------------------------------------------- K5
+def _prod3(a: torch.Tensor, b: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """a @ b as the wgmma kernels sum it: per 32-wide k-tile a fresh
+    partial of three TF32 products (lo.hi + hi.lo + hi.hi), the partials
+    added in fp32; ``split=False`` keeps hi.hi alone."""
+    out = None
+    for k0 in range(0, a.shape[-1], 32):
+        ah, al = cg.tf32_split(a[..., k0:k0 + 32])
+        bh, bl = cg.tf32_split(b[..., k0:k0 + 32, :].transpose(-1, -2))
+        bh, bl = bh.transpose(-1, -2), bl.transpose(-1, -2)
+        part = (al @ bh + ah @ bl) + ah @ bh if split else ah @ bh
+        out = part if out is None else out + part
+    return out
+
+
+def _warp_cumsum(a: np.ndarray) -> np.ndarray:
+    """The kernel's cumsum over L = 64: lane l holds a[2l], a[2l+1]; a
+    Hillis-Steele scan of the pair sums over 32 lanes, in fp32."""
+    a0, a1 = a[..., 0::2], a[..., 1::2]
+    run = a0 + a1
+    for off in (1, 2, 4, 8, 16):
+        shifted = np.zeros_like(run)
+        shifted[..., off:] = run[..., :-off]
+        run = run + shifted
+    excl = np.zeros_like(run)
+    excl[..., 1:] = run[..., :-1]
+    c0 = excl + a0
+    out = np.empty_like(a)
+    out[..., 0::2], out[..., 1::2] = c0, c0 + a1
+    return out
+
+
+def _k5_emulated(x, dt, a, b, c, split=True):
+    """The wgmma route's dataflow on the CPU: x (BH, C, L, D), b and c
+    (G, C, L, S), numpy fp32."""
+    hpg = x.shape[0] // b.shape[0]
+    L = x.shape[2]
+    tb, tc = torch.from_numpy(b), torch.from_numpy(c)
+    cbt = _prod3(tc, tb.transpose(-1, -2), split)  # once per (group, chunk)
+    cum = torch.from_numpy(_warp_cumsum(a))
+    dec = torch.exp(cum[..., -1:] - cum)
+    lower = torch.ones(L, L, dtype=torch.bool).tril()
+    # the select comes before the split: exp may be inf above the diagonal
+    scores = torch.where(
+        lower, cbt.repeat_interleave(hpg, 0) * torch.exp(
+            cum[..., :, None] - cum[..., None, :]), torch.zeros(()))
+    xdt = torch.from_numpy(x) * torch.from_numpy(dt)[..., None]
+    y = _prod3(scores, xdt, split)
+    bt = tb.transpose(-1, -2).repeat_interleave(hpg, 0)  # shared by heads
+    st = _prod3(bt, dec[..., None] * xdt, split)  # dec folded into xdt
+    return y, st
+
+
+def _k5_inputs(seed, BH, G, C, D, S, lo, hi):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((BH, C, 64, D)).astype(np.float32)
+    dt = rng.uniform(0.1, 1.0, (BH, C, 64)).astype(np.float32)
+    a = -rng.uniform(lo, hi, (BH, C, 64)).astype(np.float32)
+    b = rng.standard_normal((G, C, 64, S)).astype(np.float32)
+    c = rng.standard_normal((G, C, 64, S)).astype(np.float32)
+    return x, dt, a, b, c
+
+
+def _k5_reference(x, dt, a, b, c):
+    hpg = x.shape[0] // b.shape[0]
+    rep = (np.repeat(b, hpg, 0), np.repeat(c, hpg, 0))
+    return [np.asarray(t) for t in jax_ssd_chunk(
+        *map(jnp.asarray, (x, dt, a, *rep)), interpret=True)]
+
+
+@pytest.mark.parametrize("BH,G,C,D,S,lo,hi", [
+    (24, 1, 2, 64, 128, 0.01, 0.5),   # the mamba2-130m cell: 24 heads, one group
+    (4, 2, 2, 64, 64, 5.0, 10.0),     # decay overflow above the diagonal
+])
+def test_k5_wgmma_arithmetic_matches_pallas(BH, G, C, D, S, lo, hi):
+    x, dt, a, b, c = _k5_inputs(BH + S, BH, G, C, D, S, lo, hi)
+    got = _k5_emulated(x, dt, a, b, c)
+    for g, w in zip(got, _k5_reference(x, dt, a, b, c)):
+        assert torch.isfinite(g).all()
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        assert err <= K5_TOL, err
+
+
+def test_k5_single_tf32_product_misses_the_tolerance():
+    """Without the lo planes the route would leave K5_TOL by far."""
+    x, dt, a, b, c = _k5_inputs(7, 24, 1, 1, 64, 128, 0.01, 0.5)
+    want = _k5_reference(x, dt, a, b, c)
+    one = _k5_emulated(x, dt, a, b, c, split=False)
+    err = max(np.abs(g.numpy() - w).max() / np.abs(w).max()
+              for g, w in zip(one, want))
+    assert err > 10 * K5_TOL
+
+
+def test_k5_register_fragments_follow_the_permuted_k():
+    """The y warpgroup builds wgmma's A fragment from the C·Bᵀ
+    accumulator: for thread (warp w, lane) and k8 step kk it holds v[r] =
+    score(row r0 + 8 (r % 2), j + r // 2), j = 8 kk + 2 (lane % 4).  A
+    fragment register r is (row r0 + 8 (r % 2), k slot lane % 4 + 4 (r //
+    2)) of mma's m16n8k8 tf32 layout, and the producers store j at slot p
+    of each 8-block as 2 p (p < 4) or 2 (p - 4) + 1 (slot_j in the
+    source): the two must name the same j, every slot exactly once."""
+    def slot_j(ch, k):  # csrc/mamba2_ssd.cu: chunk ch of 4 slots, k < 4
+        return 8 * (ch >> 1) + (ch & 1) + 2 * k
+
+    for kk in range(8):
+        seen = set()
+        for w, lane in itertools.product(range(4), range(32)):
+            q, r0 = lane % 4, 16 * w + lane // 4
+            j = 8 * kk + 2 * q
+            for r in range(4):
+                row_v, j_v = r0 + 8 * (r % 2), j + r // 2  # what v[r] holds
+                row_a, slot = r0 + 8 * (r % 2), q + 4 * (r // 2)  # A's reg r
+                p = 8 * kk + slot
+                assert row_v == row_a
+                assert slot_j(p // 4, p % 4) == j_v
+                seen.add((row_a, p))
+        assert len(seen) == 64 * 8

@@ -302,6 +302,58 @@ def test_ssd_chunk_refuses_mismatched_groups():
                             z(2, 2, 16, 4), z(2, 2, 16, 4))
 
 
+@pytest.mark.parametrize("L,D,S,route", [
+    (64, 64, 128, "wgmma"),   # mamba2-130m
+    (64, 128, 64, "wgmma"),
+    (64, 192, 128, "wgmma"),
+    (32, 64, 128, "simt"),    # another chunk length
+    (128, 64, 128, "simt"),
+    (64, 32, 128, "simt"),    # head dim not a multiple of 64
+    (64, 64, 256, "simt"),    # state beyond two 64-row tiles
+    (64, 64, 32, "simt"),
+    (32, 16, 8, "simt"),      # the tests' small cells
+])
+def test_ssd_route_rule(L, D, S, route):
+    assert ssd.ssd_route(L, D, S) == route
+
+
+@pytest.mark.parametrize("heads,chunks,sms,hb", [
+    (24, 32, 132, 6),     # serve: 4 groups x 8 chunks, 24 heads -> 128 blocks
+    (1, 768, 132, 1),     # G == BH: one head a group
+    (10, 32, 132, 3),     # 3 does not divide 10: blocks of 3, 3, 3, 1
+    (24, 200, 132, 24),   # the pairs alone fill a wave: all heads a block
+    (3, 1, 132, 1),
+    (24, 32, 66, 12),
+])
+def test_ssd_heads_per_block(heads, chunks, sms, hb):
+    assert ssd.heads_per_block(heads, chunks, sms) == hb
+    blocks = chunks * -(-heads // hb)
+    assert blocks <= max(sms, chunks)
+    if hb > 1:  # one head fewer a block would leave the wave
+        assert chunks * -(-heads // (hb - 1)) > sms
+
+
+def test_ssd_chunk_route_argument():
+    """``route=`` forces a kernel; the wgmma kernel refuses shapes outside
+    its rule, an unknown route is refused, and on the CPU the plain
+    version runs whatever the route and launches nothing."""
+    z = torch.zeros
+    small = (z(4, 2, 16, 8), z(4, 2, 16), z(4, 2, 16), z(2, 2, 16, 4),
+             z(2, 2, 16, 4))
+    with pytest.raises(ValueError):
+        ssd.ssd_intra_chunk(*small, route="wgmma")
+    with pytest.raises(ValueError):
+        ssd.ssd_intra_chunk(*small, route="tensor")
+    ssd.reset_launches()
+    cell = (z(2, 1, 64, 64), z(2, 1, 64), z(2, 1, 64), z(1, 1, 64, 128),
+            z(1, 1, 64, 128))
+    for route in (None, "wgmma", "simt"):
+        y, st = ssd.ssd_intra_chunk(*cell, route=route)
+        assert y.shape == (2, 1, 64, 64) and st.shape == (2, 1, 128, 64)
+    assert ssd.LAUNCHES["ssd_chunk"] == 0
+    assert set(ssd.SSD_ROUTES.values()) == {0}
+
+
 def test_all_sources_have_a_library():
     assert set(build.LIBRARIES) == {"gemm", "flash_attention", "mamba2_ssd"}
     for src in build.LIBRARIES.values():
@@ -312,7 +364,7 @@ def test_all_sources_have_a_library():
 @pytest.mark.parametrize("name,headers", [
     ("gemm", ["hopper.cuh"]),
     ("flash_attention", ["hopper.cuh"]),
-    ("mamba2_ssd", []),
+    ("mamba2_ssd", ["hopper.cuh"]),
 ])
 def test_library_sources_list_included_headers(name, headers):
     srcs = build.sources(name)
@@ -320,10 +372,11 @@ def test_library_sources_list_included_headers(name, headers):
     assert [p.name for p in srcs[1:]] == headers
 
 
-@pytest.mark.parametrize("name", ["gemm", "flash_attention"])
+@pytest.mark.parametrize("name", ["gemm", "flash_attention", "mamba2_ssd"])
 def test_editing_a_header_renames_the_library(name, monkeypatch, tmp_path):
     """The library's name hashes every header its source includes, so an
-    edited hopper.cuh is never served by a stale build."""
+    edited hopper.cuh is never served by a stale build; a header it does
+    not include leaves the name alone."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for p in build.CSRC.iterdir():
@@ -331,10 +384,12 @@ def test_editing_a_header_renames_the_library(name, monkeypatch, tmp_path):
     monkeypatch.setattr(build, "LIBRARIES", {
         n: csrc / p.name for n, p in build.LIBRARIES.items()})
     before = build._out_path(name)
-    other = build._out_path("mamba2_ssd")  # includes no header
+    unused = csrc / "unused.cuh"  # included by no source
+    unused.write_text("#pragma once\n")
+    assert before == build._out_path(name)
+    unused.write_text("#pragma once\n// edited\n")
     assert before == build._out_path(name)
     header = csrc / "hopper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = build._out_path(name)
     assert after != before and after.parent == before.parent
-    assert build._out_path("mamba2_ssd") == other
