@@ -9,9 +9,11 @@ points at full width:
 
   1. build     — one nvcc per source for sm_90a, all started together;
                  build seconds and the card's name and power limit;
-     sass      — the wgmma kernels (tiled_gemm, fused_gemm,
-                 flash_attention's bf16 kernel, ssd_chunk's wgmma kernel)
-                 must hold HGMMA in their SASS (cuobjdump);
+     sass      — the wgmma kernels (tiled_gemm's TMA and in-place
+                 kernels, fused_gemm, flash_attention's bf16 kernel,
+                 ssd_chunk's wgmma kernel) must hold HGMMA in their SASS
+                 (cuobjdump), the four bf16 instantiations of tiled_gemm's
+                 in-place kernel and of fused_gemm among them;
   2. kernels   — each contraction kernel (tiled_gemm, fused_gemm,
                  chain_gemm) at the shapes of the 30-qubit plan (its
                  largest tiled step, largest fused step, longest chain),
@@ -19,13 +21,23 @@ points at full width:
                  error relative to max|plain| <= 1e-4: another summation
                  order than the library's), timed with CUDA events beside
                  its bound (tiled_gemm and fused_gemm, 3xTF32, against
-                 the TF32 rate / 3, tiled_gemm with its plane split timed
-                 alone; fused_gemm on complex64 in place and through
+                 the TF32 rate / 3; tiled_gemm on complex64 in place in
+                 GEMM order and through ops.tiled_step, the path's call
+                 on the step's native layouts, beside its real TMA route
+                 and that route's plane split;
+                 fused_gemm on complex64 in place and through
                  ops.fused_matmul, the path's call; chain_gemm as the
                  kernel alone on the profiler's device clock, with its
                  launch state built once, at each cluster size, for one
                  step of the chain, beside an empty cluster launch, and
-                 through ops.fused_chain, the path's call); then
+                 through ops.fused_chain, the path's call); the bf16
+                 routes of the three (bf16 inputs, fp32 accumulation; the
+                 chain with every step bf16) at the same shapes, each
+                 within 1e-5 of max|plain| of its plain twin (round to
+                 bf16, then the fp32 product: only the order of the sum
+                 differs; the chain step by step on its own carries, and
+                 whole within 2^-8, a carry's bf16 rounding apart),
+                 bounded at the bf16 rate; then
                  flash_attention at qwen3-4b's prefill shapes (bf16,
                  <= 1e-2: the output's bf16 rounding alone is 2^-8) and
                  ssd_chunk at mamba2-130m's (fp32, <= 1e-4; its wgmma
@@ -36,6 +48,17 @@ points at full width:
                  every slice, held against the port's statevector on the
                  card (relative error <= 1e-3: fp32 sums over ~150 steps
                  and 2^|S| slices against ~600 fp32 gate applications);
+                 its measured peak device memory against the planner's
+                 certified peak (<= planned x 1.10 + 256 MiB: allocator
+                 rounding, the kernels' launch tables and the dot
+                 backend's blocks of at most 64 MiB);
+     precision — the same circuit in peak-mode slicing at precision="fp32"
+                 and at precision="auto", fidelity_tol=0.05: the auto plan
+                 must demote steps to bf16, keep |S| <= the fp32 plan's,
+                 stay within 0.05 of the statevector and within its
+                 certified peak (as above), and launch every bf16 step
+                 through a bf16 route (the counted bf16 launches equal
+                 those its schedule asks for);
      trace     — a profiler trace of one slice of that plan: device busy
                  share and the kernels that take the time;
   4. sampling  — sample_bitstrings with the last 4 qubits open, 1000
@@ -43,7 +66,8 @@ points at full width:
                  the statevector;
   5. share     — open_session on sycamore_like(6, 6, 14), 36 qubits (more
                  than any statevector on one card holds), run_slices on 2
-                 slice ids against the einsum oracle on the same ids;
+                 slice ids against the einsum oracle on the same ids; its
+                 measured peak against the certified peak (as above);
   6. serve     — for qwen3-4b and mamba2-130m: the full config (36 and
                  24 layers) through repro_torch.launch.decode_demo.serve,
                  batch 4, prompt 512, 32 tokens, finite logits; the
@@ -60,7 +84,9 @@ points at full width:
   7. kernels   — one JSON line listing every kernel with its launches on
                  its path (phases 3-5 for the contraction kernels, the
                  serve phase for the LM kernels; each must be > 0) and
-                 its design (wgmma-bf16, 3xtf32-wgmma, cluster-simt-fp32);
+                 its design (wgmma-bf16, 3xtf32-wgmma, cluster-simt-fp32),
+                 and the bf16 routes of tiled_gemm and fused_gemm
+                 with their launches in the precision phase;
                  every fused_gemm launch of phases 3-5 must
                  have taken the wgmma kernel with the coalesced (uniform)
                  gather.
@@ -87,6 +113,19 @@ BF16_PEAK = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 TF32_PEAK = 495e12  # H100 SXM data sheet, dense TF32 tensor cores
 HBM_BW = 3.35e12  # H100 SXM data sheet, HBM3
 KERNEL_TOL = 1e-4
+BF16_ROUTE_TOL = 1e-5  # bf16 products are exact in fp32: sum order only
+# a chain of bf16 steps against the plain chain: a carry rounded to bf16
+# from two fp32 sums of another order may land one bf16 ulp apart, which
+# read 5.04e-5 on the H100.  The same chain with its carries left
+# unrounded (bf16 externals, fp32 steps) must read above this limit: the
+# smoke checks that too (readings in PERF.md §6).
+BF16_CHAIN_TOL = 5e-4
+PRECISION_TOL = 0.05  # the auto plan's XEB budget, against the statevector
+# measured peak device memory <= planned x PEAK_MARGIN + PEAK_SLACK: the
+# slack covers the allocator's rounding, the kernels' launch tables and
+# the dot backend's blocks (lowering/gemm_form._dot, 64 MiB each)
+PEAK_MARGIN = 1.10
+PEAK_SLACK = 256 << 20
 FLASH_TOL = 1e-2  # bf16 output: its rounding alone is 2^-8 = 3.9e-3
 AMP_TOL = 1e-3
 # card against CPU prefill logits, relative to max|logit|.  bf16: the JAX
@@ -113,16 +152,28 @@ DESIGNS = {
     "flash_attention": "wgmma-bf16",  # its fp32 inputs take simt-fp32
     "ssd_chunk": "3xtf32-wgmma",  # shapes outside its rule take simt-fp32
 }
+# how each bf16 route computes
+BF16_DESIGNS = {"tiled_gemm": "bf16-wgmma", "fused_gemm": "bf16-wgmma"}
 # the kernels that must run on the tensor cores: (library, CUDA kernel)
 WGMMA_KERNELS = {
-    "tiled_gemm": ("gemm", "tf32x3_gemm_kernel"),
+    "tiled_gemm": ("gemm", "tiled_gemm_kernel"),
     "fused_gemm": ("gemm", "fused_gemm_kernel"),
     "flash_attention": ("flash_attention", "flash_attention_wgmma_kernel"),
     "ssd_chunk": ("mamba2_ssd", "ssd_chunk_wgmma_kernel"),
 }
+# the kernels whose bf16 instantiations (the third template argument
+# true) must hold HGMMA: 4 each (complex or real, 64- or 128-wide tile)
+BF16_INSTANCES = ("tiled_gemm", "fused_gemm")
 # kernels whose share of a trace's device time the traces report
-TRACED_KERNELS = ("tf32x3_gemm", "fused_gemm", "chain_gemm",
+TRACED_KERNELS = ("tiled_gemm", "fused_gemm", "chain_gemm",
                   "flash_attention", "ssd_chunk")
+# the bf16 routes the precision phase launches: their records in the
+# kernels line.  chain_gemm's bf16 route (per-step precisions) is held
+# against its plain twin in the kernels phase, but no plan of this
+# script's circuits puts a bf16 step in a chain: the steps demoted to
+# bf16 run on tiled_gemm and fused_gemm, whose operands exceed a chain's
+# workspace budget.
+BF16_ROUTES = ("tiled_gemm", "fused_gemm")
 SOURCES = {
     "tiled_gemm": "src/repro_torch/kernels/csrc/gemm.cu",
     "fused_gemm": "src/repro_torch/kernels/csrc/gemm.cu",
@@ -217,9 +268,11 @@ def network(circuits, simplify_network, circ, bits, open_qubits=None):
     return simplify_network(*circuits.circuit_to_network(circ, **kw))
 
 
-def phase_kernels(torch, plan, cg, ops) -> dict:
+def phase_kernels(torch, plan, cg, ops, hw) -> dict:
     """Each kernel at the main path's own shapes against its plain
     version; returns per-kernel timing records."""
+    from repro_torch.kernels.ref import round16
+
     gen = torch.Generator(device="cpu").manual_seed(0)
     dev = torch.device("cuda")
 
@@ -229,30 +282,57 @@ def phase_kernels(torch, plan, cg, ops) -> dict:
     specs = plan.schedule.specs
     out = {}
 
-    # K1: the largest tiled step, one real GEMM of its Karatsuba
+    # K1: the largest tiled step, complex64 read in place, in GEMM order
+    # and (the path's call) in the step's native layouts
     tiled = [s for s in specs if s.backend == "tiled"]
     check(bool(tiled), "the plan has no tiled step")
     f = max(tiled, key=lambda s: s.form.flops).form
-    a, b = rnd((f.B, f.M, f.K)), rnd((f.B, f.K, f.N))
-    got = cg.tiled_gemm(a, b)
-    want = cg.tiled_gemm_plain(a, b)
+    B, M, N, K = f.B, f.M, f.N, f.K
+    a, b = rnd((B, M, K)), rnd((B, K, N))
+    ac = torch.complex(a, rnd((B, M, K)))
+    bc = torch.complex(b, rnd((B, K, N)))
+    before = cg.LAUNCHES["tiled_gemm"]
+    got = cg.tiled_gemm(ac, bc)
+    check(cg.LAUNCHES["tiled_gemm"] == before + 1, "tiled_gemm: not one launch")
+    want = cg.tiled_gemm_plain(ac, bc)
     torch.cuda.synchronize()
     err, rel = rel_err(torch, [got], [want])
     check(rel <= KERNEL_TOL, f"tiled_gemm disagrees: {rel}")
-    flops = 2.0 * f.B * f.M * f.N * f.K
-    nbytes = 4.0 * f.B * (f.M * f.K + f.K * f.N + f.M * f.N)
-    # 3xTF32: three TF32 products per fp32 product, at the TF32 rate
-    b_ms, b_by = bound(3.0 * flops, nbytes, TF32_PEAK)
-    ffma_ms, _ = bound(flops, nbytes)  # the FFMA route's bound
+    nbytes = 8.0 * B * (M * K + K * N + M * N)
+    # 3xTF32 on Karatsuba's three real products (3 x 6MNK) at the TF32
+    # rate; the kernel's direct form issues 4/3 of that
+    b_ms, b_by = bound(3.0 * 6.0 * B * M * N * K, nbytes, TF32_PEAK)
+    # the path's call: the step's operands in their native layouts
+    an = torch.complex(rnd(f.a_shape), rnd(f.a_shape))
+    bn = torch.complex(rnd(f.b_shape), rnd(f.b_shape))
     out["tiled_gemm"] = dict(
-        shape=[f.B, f.M, f.N, f.K], max_abs_err=err, rel_err=rel,
-        ms=cuda_ms(torch, lambda: cg.tiled_gemm(a, b)),
-        split_ms=cuda_ms(torch, lambda: cg.tf32_planes(a, b)),
-        plain_ms=cuda_ms(torch, lambda: cg.tiled_gemm_plain(a, b)),
-        library_ms=cuda_ms(torch, lambda: torch.matmul(a, b)),
-        bound_ms=b_ms, bound_by=b_by, ffma_bound_ms=ffma_ms,
+        shape=[B, M, N, K], dtype="complex64", max_abs_err=err, rel_err=rel,
+        ms=cuda_ms(torch, lambda: cg.tiled_gemm(ac, bc)),
+        path_ms=cuda_ms(torch, lambda: ops.tiled_step(an, bn, f)),
+        plain_ms=cuda_ms(torch, lambda: cg.tiled_gemm_plain(ac, bc)),
+        library_ms=cuda_ms(torch, lambda: torch.matmul(ac, bc)),
+        bound_ms=b_ms, bound_by=b_by,
     )
-    del a, b, got, want
+    # its bf16 route: Karatsuba's three real products (6MNK), as the fp32
+    # bound counts them, at the bf16 rate
+    got = cg.tiled_gemm(ac, bc, precision="bf16")
+    want = cg.tiled_gemm_plain(ac, bc, "bf16")
+    torch.cuda.synchronize()
+    err, rel = rel_err(torch, [got], [want])
+    check(rel <= BF16_ROUTE_TOL, f"tiled_gemm bf16 route disagrees: {rel}")
+    flops16 = 6.0 * B * M * N * K
+    b_ms, b_by = bound(flops16, nbytes, BF16_PEAK)
+    out["tiled_gemm:bf16"] = dict(
+        shape=[B, M, N, K], dtype="complex64", max_abs_err=err, rel_err=rel,
+        ms=cuda_ms(torch, lambda: cg.tiled_gemm(ac, bc, precision="bf16")),
+        plain_ms=cuda_ms(torch, lambda: cg.tiled_gemm_plain(ac, bc, "bf16")),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        path_ms=cuda_ms(torch, lambda: ops.tiled_step(an, bn, f, precision="bf16")),
+        # hw.bf16_peak_flops was measured counting four real products
+        measured_rate_bound_ms=bound(
+            8.0 * B * M * N * K, nbytes, hw.bf16_peak_flops)[0],
+    )
+    del a, b, ac, bc, an, bn, got, want
 
     # K2: the largest fused step, complex64 read and written in place
     fused = [s for s in specs if s.backend == "fused"]
@@ -283,6 +363,23 @@ def phase_kernels(torch, plan, cg, ops) -> dict:
         plain_ms=cuda_ms(torch, lambda: cg.fused_gemm_plain(pa, pb, f)),
         library_ms=cuda_ms(torch, lambda: torch.einsum(f.expr, ac, bc)),
         bound_ms=b_ms, bound_by=b_by, ffma_bound_ms=ffma_ms,
+    )
+    # its bf16 route on the same operands
+    got = cg.fused_gemm_c64(ac, bc, f, precision="bf16")
+    want = cg.fused_gemm_plain(pa, pb, f, "bf16")
+    torch.cuda.synchronize()
+    err, rel = rel_err(torch, [got.real, got.imag], want)
+    check(rel <= BF16_ROUTE_TOL, f"fused_gemm bf16 route disagrees: {rel}")
+    flops16 = 6.0 * B * M * N * K
+    b_ms, b_by = bound(flops16, nbytes, BF16_PEAK)
+    out["fused_gemm:bf16"] = dict(
+        shape=[B, M, N, K], dtype="complex64", max_abs_err=err, rel_err=rel,
+        ms=cuda_ms(torch, lambda: cg.fused_gemm_c64(ac, bc, f, precision="bf16")),
+        plain_ms=cuda_ms(torch, lambda: cg.fused_gemm_plain(pa, pb, f, "bf16")),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        # hw.bf16_peak_flops was measured counting four real products
+        measured_rate_bound_ms=bound(
+            8.0 * B * M * N * K, nbytes, hw.bf16_peak_flops)[0],
     )
     del pa, pb, ac, bc, got, want
 
@@ -351,6 +448,63 @@ def phase_kernels(torch, plan, cg, ops) -> dict:
         plain_ms=cuda_ms(
             torch, lambda: cg.chain_gemm_plain(comps, forms, ch.carry_side, True)
         ),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    )
+    # its bf16 route: every step bf16, every slot held as bf16.  Step by
+    # step against the plain step on the kernel's own carry (the chain's
+    # first t steps, one launch): bf16 products are exact, so only the
+    # order of the sum differs.  The whole chain against the plain chain
+    # differs by more: a carry rounded to bf16 from two fp32 sums of
+    # another order can land one bf16 ulp apart, so that is held at
+    # BF16_CHAIN_TOL, which the same chain with unrounded carries must
+    # exceed.
+    prec = ("bf16",) * len(forms)
+    sp = ("bf16",) * len(ch.slot_elems)
+    err = rel = 0.0
+    carry = None
+    for t, fm in enumerate(forms):
+        got = cg.chain_gemm_c64(ext[:t + 2], forms[:t + 1], ch.carry_side[:t + 1],
+                                ch.slot_ids[:t], ch.slot_elems,
+                                precisions=prec[:t + 1], slot_prec=sp)
+        if t == 0:
+            a_, b_ = ext[0], ext[1]
+        else:
+            a_, b_ = ((carry, ext[t + 1]) if ch.carry_side[t] == "l"
+                      else (ext[t + 1], carry))
+        want = cg.fused_gemm_plain((a_.real, a_.imag), (b_.real, b_.imag), fm, "bf16")
+        torch.cuda.synchronize()
+        e, r = rel_err(torch, [got.real, got.imag], want)
+        err, rel, carry = max(err, e), max(rel, r), got
+    check(rel <= BF16_ROUTE_TOL, f"chain_gemm bf16 route disagrees: {rel}")
+    got = ops.fused_chain(ext, **chain, precisions=prec, slot_prec=sp)
+    want = cg.chain_gemm_plain(comps, forms, ch.carry_side, True, prec)
+    torch.cuda.synchronize()
+    _, chain_rel = rel_err(torch, [got.real, got.imag], want)
+    check(chain_rel <= BF16_CHAIN_TOL, f"chain_gemm bf16 chain disagrees: {chain_rel}")
+    # the control: bf16 externals through the fp32 route (a product of
+    # bf16 values is exact in fp32), so only the carries go unrounded
+    ext16 = [round16(e) for e in ext]
+    ctrl = ops.fused_chain(ext16, **chain)
+    torch.cuda.synchronize()
+    _, unrounded_rel = rel_err(torch, [ctrl.real, ctrl.imag], want)
+    check(unrounded_rel > BF16_CHAIN_TOL,
+          f"chain_gemm: unrounded carries pass the bf16 chain limit: {unrounded_rel}")
+    del ext16, ctrl
+    launch, outs = cg.chain_gemm_launcher(*args, complex_mode=True,
+                                          precisions=prec, slot_prec=sp)
+    ms16 = device_ms(torch, launch, "chain_gemm")
+    torch.cuda.synchronize()
+    _, r = rel_err(torch, outs, [got.real, got.imag])
+    check(r == 0.0, f"chain_gemm bf16 relaunch disagrees: {r}")
+    out["chain_gemm:bf16"] = dict(
+        steps=ch.n_steps, max_abs_err=err, rel_err=rel, chain_rel_err=chain_rel,
+        unrounded_chain_rel_err=unrounded_rel,
+        ms=ms16,
+        path_ms=cuda_ms(torch, lambda: ops.fused_chain(
+            ext, **chain, precisions=prec, slot_prec=sp)),
+        plain_ms=cuda_ms(torch, lambda: cg.chain_gemm_plain(
+            comps, forms, ch.carry_side, True, prec)),
+        # FFMA on bf16-rounded values: the fp32 rate, as the fp32 route
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
     )
     return out
@@ -592,6 +746,91 @@ def profile(torch, fn) -> dict:
     )
 
 
+def check_peak(phase: str, measured: int, planned: int) -> None:
+    """The certified peak holds on the card: the bytes allocated over
+    the phase at most ``planned * PEAK_MARGIN + PEAK_SLACK``."""
+    limit = planned * PEAK_MARGIN + PEAK_SLACK
+    check(measured <= limit,
+          f"{phase}: peak {measured} B over the certified {planned} B "
+          f"(limit {limit:.0f} B)")
+
+
+def expected_bf16_launches(plan, cg) -> dict:
+    """The bf16-route launches one hoisted run of ``plan`` asks for: its
+    bf16 tiled and fused steps outside chains, and its chain launches
+    that hold a bf16 step, the prologue's once and the epilogue's once
+    per slice."""
+    specs = plan.schedule.specs
+    want = {"tiled_gemm": 0, "fused_gemm": 0, "chain_gemm": 0}
+    segments = (("prologue", plan.prologue_idx, 1),
+                ("epilogue", plan.epilogue_idx, 1 << plan.num_sliced))
+    for seg, ids, times in segments:
+        chains = plan.chain_plan.by_segment(seg)
+        i, ids = 0, list(ids)
+        while i < len(ids):
+            ch = chains.get(ids[i])
+            if ch is not None:
+                forms = [specs[p].form for p in ch.positions]
+                for launch in cg.chain_segments(forms):
+                    if any(specs[ch.positions[t]].precision == "bf16"
+                           for t in launch):
+                        want["chain_gemm"] += times
+                i += ch.n_steps
+                continue
+            spec = specs[ids[i]]
+            if spec.precision == "bf16":
+                want[{"tiled": "tiled_gemm", "fused": "fused_gemm"}[spec.backend]] += times
+            i += 1
+    return want
+
+
+def phase_precision(torch, simulate_amplitude, cg, circ, n, target, sv_amp) -> dict:
+    """The amplitude at precision="fp32" and at "auto" (tol 0.05), both in
+    peak-mode slicing: bf16 steps, |S|, error against the statevector,
+    measured against certified peak, and the bf16-route launches."""
+    runs = {}
+    for mode, tol in (("fp32", None), ("auto", PRECISION_TOL)):
+        cg.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = simulate_amplitude(circ, "0" * n, target_dim=target,
+                                 slicing_mode="peak", precision=mode,
+                                 fidelity_tol=tol)
+        torch.cuda.synchronize()
+        exec_s = time.perf_counter() - t0 - res.report.plan_wall_s
+        peak = torch.cuda.max_memory_allocated() - base
+        amp = complex(res.value)
+        rep = res.report
+        runs[mode] = dict(
+            precision_counts=rep.precision_counts, num_sliced=rep.num_sliced,
+            predicted_amp_error=rep.predicted_amp_error, exec_s=exec_s,
+            rel_err=abs(amp - sv_amp) / abs(sv_amp), peak_bytes=peak,
+            peak_bytes_planned=rep.peak_bytes_hoisted,
+            stored_bf16_nodes=len(res.plan.store16),
+            backends=rep.lowered_backends, launches=dict(cg.LAUNCHES),
+            bf16_launches=dict(cg.BF16_LAUNCHES),
+            bf16_launches_planned=expected_bf16_launches(res.plan, cg),
+        )
+        check_peak(f"precision {mode}", peak, rep.peak_bytes_hoisted)
+        del res
+        torch.cuda.empty_cache()
+    fp32, auto = runs["fp32"], runs["auto"]
+    check(fp32["rel_err"] <= AMP_TOL, f"fp32 peak-mode amplitude: {fp32['rel_err']}")
+    check(not fp32["precision_counts"].get("bf16"), "the fp32 plan has bf16 steps")
+    check(auto["precision_counts"].get("bf16", 0) > 0, "the auto plan demoted nothing")
+    check(auto["num_sliced"] <= fp32["num_sliced"],
+          f"|S| grew under auto: {auto['num_sliced']} > {fp32['num_sliced']}")
+    check(auto["rel_err"] <= PRECISION_TOL, f"auto amplitude: {auto['rel_err']}")
+    check(auto["bf16_launches"] == auto["bf16_launches_planned"],
+          f"bf16 steps vs bf16-route launches: {auto['bf16_launches']} vs "
+          f"{auto['bf16_launches_planned']}")
+    return dict(qubits=n, target_dim=target, slicing_mode="peak",
+                fidelity_tol=PRECISION_TOL, fp32=fp32, auto=auto,
+                bf16_launches=auto["bf16_launches"])
+
+
 def trace_slice(torch, open_session, circ, n: int, target: int) -> dict:
     """Profile one epilogue slice."""
     sess, _ = open_session(circ, "0" * n, target_dim=target, backend="gemm")
@@ -625,6 +864,8 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.launch.decode_demo import serve
     from repro_torch.models import build_model
+    from repro_torch.core.executor import exact_fp32_matmul
+    from repro_torch.hardware import H100_SXM
     from repro_torch.quantum import circuits, statevector
     from repro_torch.sampling.batch import open_batch_network
 
@@ -637,6 +878,7 @@ def main() -> int:
         ssd.reset_launches()
 
     t_start = time.perf_counter()
+    exact_fp32_matmul()  # the plain versions' and the library's fp32 products
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
 
@@ -653,6 +895,9 @@ def main() -> int:
     for name, found in hgmma.items():
         check(bool(found) and all(found.values()),
               f"{name}: no HGMMA in the SASS of {WGMMA_KERNELS[name][1]}")
+    for name in BF16_INSTANCES:
+        bf16 = [k for k in hgmma[name] if k.endswith("Lb1EEv9FusedArgs")]
+        check(len(bf16) == 4, f"{name}: bf16 instantiations {bf16}")
 
     # 2. kernels against their plain versions at the main path's shapes
     rows, cols, cycles, target = 5, 6, 14, 28
@@ -662,7 +907,7 @@ def main() -> int:
     t0 = time.perf_counter()
     plan, report = plan_compiled(tn, target)
     plan_s = time.perf_counter() - t0
-    kern = phase_kernels(torch, plan, cg, ops)
+    kern = phase_kernels(torch, plan, cg, ops, H100_SXM)
     del plan
     torch.cuda.empty_cache()
     kern.update(phase_lm_kernels(torch, fa, ssd))
@@ -674,10 +919,14 @@ def main() -> int:
     cg.reset_launches()
     launches, routes = {}, {}
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     res = simulate_amplitude(circ, "0" * n, target_dim=target, backend="gemm")
     torch.cuda.synchronize()
     exec_s = time.perf_counter() - t0 - res.report.plan_wall_s
+    amp_peak = torch.cuda.max_memory_allocated() - base
+    check_peak("amplitude", amp_peak, res.report.peak_bytes_hoisted)
     launches["amplitude"] = dict(cg.LAUNCHES)
     routes["amplitude"] = dict(cg.FUSED_ROUTES)
     if not launches["amplitude"]["tiled_gemm"]:
@@ -706,8 +955,15 @@ def main() -> int:
          amplitude=[amp.real, amp.imag], statevector=[sv_amp.real, sv_amp.imag],
          rel_err=amp_err, backends=res.report.lowered_backends,
          chains=res.report.fused_chains, max_chain_len=res.report.max_chain_len,
-         peak_bytes_planned=res.report.peak_bytes_hoisted,
+         peak_bytes=amp_peak, peak_bytes_planned=res.report.peak_bytes_hoisted,
          launches=launches["amplitude"], first_plan_s=plan_s)
+    del res
+    torch.cuda.empty_cache()
+
+    # 3a. mixed precision under the XEB budget: fp32 and auto, peak mode
+    prec = phase_precision(torch, simulate_amplitude, cg, circ, n, target, sv_amp)
+    emit(phase="precision", **prec)
+    torch.cuda.empty_cache()
 
     # 3b. where one slice's time goes: a profiler trace of one slice of
     # the same plan (device busy share, time by kernel)
@@ -758,7 +1014,9 @@ def main() -> int:
     circ5 = circuits.sycamore_like(rows5, cols5, cycles, seed=0)
     ids = [0, 1]
     cg.reset_launches()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sess, rep5 = open_session(circ5, "0" * n5, target_dim=target5,
                               backend="gemm")
@@ -771,7 +1029,8 @@ def main() -> int:
     val = sess.run_slices(ids)
     torch.cuda.synchronize()
     slice_s = (time.perf_counter() - t0) / len(ids)
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
+    check_peak("share", peak, rep5.peak_bytes_hoisted)
     launches["share"] = dict(cg.LAUNCHES)
     routes["share"] = dict(cg.FUSED_ROUTES)
     del sess
@@ -825,6 +1084,9 @@ def main() -> int:
           f"fused_gemm launches {total['fused_gemm']} vs routes {fused_routes}")
     check(fused_routes["general"] == 0,
           f"fused_gemm took the general gather on the path: {fused_routes}")
+    for name in BF16_ROUTES:
+        check(prec["bf16_launches"][name] > 0,
+              f"{name}'s bf16 route was not launched in the precision phase")
     records = []
     for name in TPU_KERNELS:
         rec = kern[name]
@@ -837,8 +1099,19 @@ def main() -> int:
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             **{k: rec[k] for k in ("simt_ms",) if k in rec},
         ))
+    for name in BF16_ROUTES:
+        rec = kern[f"{name}:bf16"]
+        records.append(dict(
+            name=f"{name}:bf16", route="cuda", design=BF16_DESIGNS[name],
+            source=SOURCES[name], replaces=TPU_KERNELS[name],
+            launches=prec["bf16_launches"][name],
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+        ))
     emit(phase="done", seconds=time.perf_counter() - t_start,
-         launches_by_phase=launches, fused_routes_by_phase=routes)
+         launches_by_phase=launches, fused_routes_by_phase=routes,
+         bf16_launches_precision_phase=prec["bf16_launches"])
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

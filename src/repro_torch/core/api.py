@@ -21,7 +21,7 @@ import torch
 
 from ..hardware import DEFAULT_HARDWARE, Hardware
 from .contraction_tree import ContractionTree
-from .executor import ContractionPlan, check_precision, simplify_network
+from .executor import ContractionPlan, simplify_network
 from .merging import modeled_tree_time
 from .tensor_network import popcount
 
@@ -54,7 +54,11 @@ class PlanReport:
     fused_chains: int = 0  # multi-step chains planned
     max_chain_len: int = 0
     chain_hbm_bytes_saved: float = 0.0  # modeled bytes chains avoid/slice
-    precision: str = "fp32"
+    # mixed precision under an XEB error budget
+    precision: str = "fp32"  # fp32 | bf16 | auto
+    fidelity_tol: float = 0.0  # the XEB budget the plan was certified at
+    precision_counts: dict | None = None  # step counts per precision
+    predicted_amp_error: float = 0.0  # error model's relative amplitude error
     hardware: str = DEFAULT_HARDWARE.name
 
 
@@ -79,12 +83,16 @@ def plan_contraction(
     itemsize: int = 8,
     budget_bytes: int | None = None,
     hw: Hardware = DEFAULT_HARDWARE,
+    precision: str = "fp32",
+    fidelity_tol: float | None = None,
 ):
     """Full planning pipeline on a tensor network (the one-shot planner).
 
     ``slicing_mode="peak"`` re-judges the final slicing mask against the
     lifetime-based memory plan's live-set peak instead of the width
-    proxy.  ``hw`` prices branch merging and the modeled times."""
+    proxy; under ``precision="auto"`` (or ``"bf16"``) a second,
+    prune-only pass counts the bf16-stored nodes at half width.  ``hw``
+    prices branch merging and the modeled times."""
     from ..lowering.memory import plan_memory  # lazy: avoid cycle
     from ..lowering.partition import partition_tree  # lazy: cycle
     from ..optimize import oneshot_plan
@@ -94,6 +102,7 @@ def plan_contraction(
         tn, target_dim, method=method, tune=tune, merge=merge,
         repeats=repeats, seed=seed, slicing_mode=slicing_mode,
         itemsize=itemsize, budget_bytes=budget_bytes, hw=hw,
+        precision=precision, fidelity_tol=fidelity_tol,
     )
     tree, smask, width0 = shot.tree, shot.smask, shot.width_before
     wall = time.perf_counter() - t0
@@ -138,22 +147,28 @@ def plan_compiled(
     hoist: bool = True,
     hw: Hardware = DEFAULT_HARDWARE,
     fused: bool = True,
+    fidelity_tol: float | None = None,
     **plan_kwargs,
 ) -> tuple[ContractionPlan, PlanReport]:
     """Plan + lower a network into an executable :class:`ContractionPlan`
     on ``device``.  ``plan_kwargs`` go to :func:`plan_contraction`.
-    Only ``precision="fp32"`` runs in this port so far.  (The reference's
-    compiled-plan cache is not ported: every call plans afresh.)"""
-    check_precision(precision)
+    ``precision`` (``"fp32"``, ``"bf16"`` or ``"auto"``) and
+    ``fidelity_tol`` select the mixed-precision schedule (see
+    :class:`ContractionPlan`).  (The reference's compiled-plan cache is
+    not ported: every call plans afresh.)"""
     t0 = time.perf_counter()
     tree, smask, report = plan_contraction(
-        tn, target_dim, itemsize=dtype.itemsize, hw=hw, **plan_kwargs
+        tn, target_dim, itemsize=dtype.itemsize, hw=hw, precision=precision,
+        fidelity_tol=fidelity_tol, **plan_kwargs
     )
     plan = ContractionPlan(
         tree, smask, backend=backend, dtype=dtype, precision=precision,
-        device=device, hw=hw, fused=fused,
+        device=device, hw=hw, fused=fused, fidelity_tol=fidelity_tol,
     )
     report.backend = plan.backend
+    report.precision = plan.precision_mode
+    if plan.precision_mode != "fp32":
+        report.fidelity_tol = plan.fidelity_tol
     report.hoist = bool(hoist and plan.can_hoist)
     report.invariant_fraction = plan.invariant_fraction
     report.measured_overhead = plan.executed_overhead(report.hoist)
@@ -169,6 +184,16 @@ def plan_compiled(
         report.lowered_backends = sched.backend_counts()
         report.pad_waste = sched.pad_waste()
         report.transpose_bytes_saved = sched.transpose_bytes_eliminated()
+        report.precision_counts = sched.precision_counts()
+        report.predicted_amp_error = sched.predicted_amp_error
+        if plan._itemsize_of:
+            # bf16-stored nodes shrink the live-set peak: the memory
+            # fields follow the plan's own dtype-true memory plan
+            # (plan_contraction counted full-width storage)
+            mem = plan.memory_plan()
+            report.peak_bytes = mem.peak_bytes
+            report.peak_bytes_hoisted = mem.peak_bytes_hoisted
+            report.buffer_slots = mem.buffer_slots
     if plan.chain_plan is not None:
         cp = plan.chain_plan
         report.fused_chains = cp.num_multi
@@ -193,14 +218,18 @@ def simulate_amplitude(
     backend: str = "gemm",
     hoist: bool = True,
     device="cuda",
+    precision: str = "fp32",
+    fidelity_tol: float | None = None,
     **plan_kwargs,
 ) -> SimulationResult:
     """Amplitude <bitstring|C|0…0> via the full planner + executor stack
-    on ``device``.  ``plan_kwargs`` go to :func:`plan_compiled`."""
+    on ``device``.  ``precision``/``fidelity_tol`` select the
+    mixed-precision schedule; ``plan_kwargs`` go to
+    :func:`plan_compiled`."""
     tn, arrays = _network(circuit, bitstring)
     plan, report = plan_compiled(
         tn, target_dim, backend=backend, device=device, hoist=hoist,
-        **plan_kwargs,
+        precision=precision, fidelity_tol=fidelity_tol, **plan_kwargs,
     )
     value = plan.contract_all(arrays, hoist=hoist)
     return SimulationResult(
@@ -216,6 +245,8 @@ def open_amplitude_batch(
     backend: str = "gemm",
     hoist: bool = True,
     device="cuda",
+    precision: str = "fp32",
+    fidelity_tol: float | None = None,
     **plan_kwargs,
 ):
     """Contract one open-qubit batch: all ``2^k`` correlated amplitudes
@@ -244,7 +275,8 @@ def open_amplitude_batch(
     # open indices cannot be sliced: the width floor is the batch rank
     plan, report = plan_compiled(
         tn, max(target_dim, len(open_qubits) + 1), backend=backend,
-        device=device, hoist=hoist, **plan_kwargs,
+        device=device, hoist=hoist, precision=precision,
+        fidelity_tol=fidelity_tol, **plan_kwargs,
     )
     amps = batch_mod.contract_amplitude_batch(plan, arrays, hoist=hoist)
     return AmplitudeBatch(amps, open_qubits, base_bitstring, n), report
@@ -292,6 +324,8 @@ def sample_bitstrings(
     backend: str = "gemm",
     hoist: bool = True,
     device="cuda",
+    precision: str = "fp32",
+    fidelity_tol: float | None = None,
     **plan_kwargs,
 ):
     """Draw correlated bitstring samples from one batched contraction —
@@ -310,7 +344,8 @@ def sample_bitstrings(
     batch, report = open_amplitude_batch(
         circuit, open_qubits=open_qubits, base_bitstring=base_bitstring,
         target_dim=target_dim, backend=backend, hoist=hoist, device=device,
-        seed=seed, **plan_kwargs,
+        seed=seed, precision=precision, fidelity_tol=fidelity_tol,
+        **plan_kwargs,
     )
     return draw_from_batch(
         batch, num_samples, sampler=sampler, seed=seed, report=report
@@ -324,6 +359,8 @@ def open_session(
     backend: str = "gemm",
     hoist: bool = True,
     device="cuda",
+    precision: str = "fp32",
+    fidelity_tol: float | None = None,
     **plan_kwargs,
 ):
     """Plan a circuit amplitude and return a live
@@ -334,6 +371,6 @@ def open_session(
     tn, arrays = _network(circuit, bitstring)
     plan, report = plan_compiled(
         tn, target_dim, backend=backend, device=device, hoist=hoist,
-        **plan_kwargs,
+        precision=precision, fidelity_tol=fidelity_tol, **plan_kwargs,
     )
     return ContractionSession(plan, arrays, hoist=hoist), report

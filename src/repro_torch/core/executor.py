@@ -67,19 +67,11 @@ def resolve_device(device) -> torch.device:
 def exact_fp32_matmul() -> None:
     """Keep library float32 products in full fp32 on the card: no TF32
     in ``torch.matmul`` (the ``dot`` steps) nor in cuDNN.  The reference's
-    fp32 path is exact fp32; the kernels use FFMA (K2, K3) or 3xTF32
-    (K1), which keeps about 22 of fp32's 24 mantissa bits per product."""
+    fp32 path is exact fp32; the tiled and fused kernels (K1, K2) run
+    3xTF32 on the tensor cores, which keeps about 22 of fp32's 24
+    mantissa bits per product, and the chain kernel (K3) fp32 FFMA."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-def check_precision(precision: str) -> None:
-    if precision != "fp32":
-        raise NotImplementedError(
-            f"precision {precision!r} needs the mixed-precision planner "
-            "(lowering/precision.py), which is not ported yet; only "
-            "'fp32' runs"
-        )
 
 
 def pair_contract_inds(
@@ -175,6 +167,17 @@ class ContractionPlan:
     refiner prices against; ``fused=False`` keeps the refiner off the
     fused kernel (every kernel-sized step then goes to the tiled
     kernel).  Tensors are executed on ``device`` (default ``"cuda"``).
+
+    ``precision`` selects the mixed-precision mode of the schedule
+    (:mod:`repro_torch.lowering.precision`): ``"auto"`` demotes kernel
+    steps to bf16 inputs with fp32 accumulation while the predicted
+    Linear-XEB fidelity loss stays within ``fidelity_tol`` (default
+    0.05); ``"bf16"`` demotes every eligible step; ``"fp32"`` (the
+    default) leaves the plan as refined.  ``precisions`` (one per step)
+    carries another plan's assignment instead.  A node whose every
+    consumer reads bf16 is stored as bf16 (re, im) pairs: a ``torch.bfloat16``
+    tensor with a trailing axis of 2 (see :func:`repro_torch.kernels.
+    ref.to_pairs16`).  Only ``backend="gemm"`` carries a precision.
     """
 
     def __init__(
@@ -187,8 +190,15 @@ class ContractionPlan:
         device="cuda",
         hw: Hardware = DEFAULT_HARDWARE,
         fused: bool = True,
+        fidelity_tol: float | None = None,
+        precisions=None,
     ):
-        check_precision(precision)
+        from ..lowering.precision import DEFAULT_FIDELITY_TOL, check_mode
+
+        self.precision_mode = check_mode(precision)
+        self.fidelity_tol = (
+            DEFAULT_FIDELITY_TOL if fidelity_tol is None else float(fidelity_tol)
+        )
         self.device = resolve_device(device)
         self.tree = tree
         tn = tree.tn
@@ -236,7 +246,6 @@ class ContractionPlan:
         self.backend = backend
         self.dtype = dtype
         self.hw = hw
-        self.precision_mode = precision
         self.schedule = None
         if self.backend == "gemm":
             from ..lowering import refine_schedule  # lazy: avoid cycle
@@ -268,6 +277,53 @@ class ContractionPlan:
             self.hoisted_nodes = part.hoisted_nodes
             self.prologue_leaves = part.prologue_leaves
             self.epilogue_leaves = part.epilogue_leaves
+        # mixed-precision assignment: after the partition (epilogue steps
+        # weigh 2^|S| in the greedy order) and before the memory and
+        # chain plans (their bytes must see the storage precision)
+        self._itemsize_of: dict[int, int] | None = None
+        self.store16: frozenset[int] = frozenset()
+        if self.schedule is not None and (
+            self.precision_mode != "fp32" or precisions is not None
+        ):
+            from ..lowering.precision import (  # lazy: avoid cycle
+                assign_precision,
+                carry_precisions,
+                storage_itemsizes,
+            )
+
+            if precisions is not None:
+                self.schedule = carry_precisions(
+                    self.schedule, tuple(precisions),
+                    mode=self.precision_mode, fidelity_tol=self.fidelity_tol,
+                    fused=fused, hw=hw,
+                )
+            else:
+                self.schedule = assign_precision(
+                    self.schedule,
+                    mode=self.precision_mode,
+                    fidelity_tol=self.fidelity_tol,
+                    epilogue_positions=(
+                        self.epilogue_idx if self.num_sliced else None
+                    ),
+                    n_slices=1 << self.num_sliced,
+                    fused=fused,
+                    hw=hw,
+                )
+            if self.schedule.precision_counts().get("bf16"):
+                self._itemsize_of = storage_itemsizes(
+                    [(s.lhs, s.rhs, s.out) for s in self.steps],
+                    self.schedule.specs,
+                    dtype,
+                    tree.emask,
+                )
+                full = dtype.itemsize
+                # the step outputs held at half width (leaves stay as
+                # the caller gave them; the planner counts them at half
+                # width, a rounding their consumers apply anyway)
+                self.store16 = frozenset(
+                    s.out for s in self.steps
+                    if self._itemsize_of.get(s.out, full) < full
+                )
         self._memory_plan = None
         # fusion-boundary pass: runs of adjacent schedule steps whose
         # certified live set fits the chain budget execute as single
@@ -287,6 +343,7 @@ class ContractionPlan:
             step_nodes = tuple((s.lhs, s.rhs, s.out) for s in self.steps)
             self.chain_plan = plan_chains(
                 self.schedule, step_nodes, segments, mem.naive.nbytes, hw=hw,
+                itemsize_of=self._itemsize_of,
             )
             self._chain_dispatch = {
                 name: self.chain_plan.by_segment(name) for name in segments
@@ -333,7 +390,7 @@ class ContractionPlan:
 
             self._memory_plan = plan_memory(
                 self.tree, self.smask, itemsize=self.dtype.itemsize,
-                part=self.partition,
+                part=self.partition, itemsize_of=self._itemsize_of,
             )
         return self._memory_plan
 
@@ -373,6 +430,7 @@ class ContractionPlan:
                     ch,
                     [self.schedule.specs[p] for p in ch.positions],
                     [env[n] for n in ch.external_nodes],
+                    out16=ch.out_node in self.store16,
                 )
                 interior = {n[2] for n in ch.nodes[:-1]}
                 for p in ch.positions:
@@ -392,7 +450,8 @@ class ContractionPlan:
                 env[st.out] = torch.einsum(st.expr, env[st.lhs], env[st.rhs])
             else:
                 env[st.out] = gemm_form.apply(
-                    self.schedule.specs[k], env[st.lhs], env[st.rhs]
+                    self.schedule.specs[k], env[st.lhs], env[st.rhs],
+                    out16=st.out in self.store16,
                 )
             dead = frees[st.out] if frees is not None else (st.lhs, st.rhs)
             for u in dead:

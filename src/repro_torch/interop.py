@@ -56,11 +56,16 @@ def plan_from_reference(
     device="cuda",
     hw: Hardware = DEFAULT_HARDWARE,
     fused: bool = True,
+    precisions=None,
 ) -> ContractionPlan:
-    """A :class:`ContractionPlan` for the reference's ``(tree, S)``."""
+    """A :class:`ContractionPlan` for the reference's ``(tree, S)``.
+    ``precisions`` carries the reference schedule's per-step precisions
+    (``"fp32"``/``"bf16"``, in step order) across, so that the two
+    schedules can be compared step by step."""
     return ContractionPlan(
         tree, int(smask), backend=backend, dtype=dtype, device=device,
-        hw=hw, fused=fused,
+        hw=hw, fused=fused, precisions=precisions,
+        precision="fp32" if precisions is None else "auto",
     )
 
 

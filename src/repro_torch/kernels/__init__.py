@@ -2,13 +2,14 @@
 
 contract_gemm   — the three contraction kernels (tiled_gemm,
                   fused_gemm_c64, chain_gemm_c64), each with its plain
-                  PyTorch version and a launch counter
+                  PyTorch version, its bf16 route and launch counters
 flash_attention — causal GQA flash attention (bf16 on wgmma, fp32 FFMA)
 mamba2_ssd      — the Mamba-2 SSD intra-chunk kernel
 ops             — wrappers used by the lowering layer and the models:
-                  complex Karatsuba for the tiled kernel, the dot fallback
-                  below the tile size, complex64 in place for the fused
-                  and chain kernels, attention and the SSD scan
+                  complex64 in place for the tiled, fused and chain
+                  kernels (fp32 or bf16 routes, half-width outputs), the
+                  dot fallback below the tile size, attention and the SSD
+                  scan
 ref             — plain PyTorch helpers
 build           — nvcc build of csrc/ at first use, loaded with ctypes
 """

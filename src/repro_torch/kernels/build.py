@@ -72,15 +72,12 @@ def _nvcc() -> str:
 
 
 def _declare_gemm(lib: ctypes.CDLL) -> None:
-    lib.repro_tiled_gemm.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _I64,
-                                     _I64, _P]
-    lib.repro_tiled_gemm.restype = _INT
     lib.repro_fused_gemm.argtypes = [_P, _P, _INT, _INT, _INT, _I64, _P, _P,
-                                     _P, _P]
+                                     _P, _INT, _INT, _P]
     lib.repro_fused_gemm.restype = _INT
     lib.repro_chain_smem.argtypes = [_INT]
     lib.repro_chain_smem.restype = _INT
-    lib.repro_chain_gemm.argtypes = [_P, _INT, _INT, _P]
+    lib.repro_chain_gemm.argtypes = [_P, _INT, _INT, _INT, _P]
     lib.repro_chain_gemm.restype = _INT
     lib.repro_chain_cluster_max.argtypes = [_INT, ctypes.POINTER(_INT)]
     lib.repro_chain_cluster_max.restype = _INT

@@ -4,31 +4,42 @@ Three hand-written CUDA kernels (``csrc/gemm.cu``) replace the three
 Pallas kernels of the reference's ``src/repro/kernels/contract_gemm.py``:
 
   * :func:`tiled_gemm` (K1) replaces ``tiled_matmul`` (``_matmul_kernel``):
-    ``C[b] = A[b] @ B[b]`` in fp32 as 3xTF32 on the tensor cores
-    (``wgmma``): the wrapper writes each operand as TF32 hi and lo planes
-    in K-major order (:func:`tf32_planes`, plain tensor code), the kernel
-    sums ``a_hi.b_hi + a_hi.b_lo + a_lo.b_hi`` in fp32;
+    ``C[b] = A[b] @ B[b]`` with fp32 accumulation, as 3xTF32 or bf16 on
+    the tensor cores (``wgmma``): K2's kernel body on the step in GEMM
+    order (:func:`gemm_form`), real or complex64 operands read in place,
+    its producer warps splitting each element to TF32 hi/lo, or rounding
+    it to bf16, themselves;
   * :func:`fused_gemm_c64` (K2) replaces ``fused_transpose_matmul``
     (``_fused_kernel``): one contraction step on operands in their native
-    tree layouts, complex64 read and written in place, as 3xTF32 on
+    tree layouts, read and written in place, as 3xTF32 or bf16 on
     ``wgmma``; producer warps gather each tile through a map of its
     elements in ascending native offset (:func:`gather_map`, built once
     per step form), and the output is written straight into ``inds_out``
-    order.  :func:`fused_gemm` is the same kernel on ``(re, im)`` planes;
+    order.  :func:`fused_gemm` is the same kernel on planes;
   * :func:`chain_gemm_c64` (K3) replaces ``fused_chain_matmul``
     (``_chain_kernel``/``_run_chain``): a run of adjacent steps in one
     thread-block cluster, interior carries in a device workspace laid out
-    by the planner's ``slot_ids``/``slot_elems``; its launch state is
-    built once per chain (:class:`ChainLaunch`).  :func:`chain_gemm` is
-    the same kernel on ``(re, im)`` planes.
+    by the planner's ``slot_ids``/``slot_elems`` (bf16 slots at half
+    width), each step fp32 or bf16 inputs; its launch state is built once
+    per chain (:class:`ChainLaunch`).  :func:`chain_gemm` is the same
+    kernel on planes.
+
+The bf16 routes (``precision="bf16"``) round every real component of
+their operands to bf16 at the kernel's load and accumulate in fp32.
+Any operand may be held at half width (bf16, or bf16 (re, im) pairs: a
+``torch.bfloat16`` tensor with a trailing axis of 2; see
+:func:`operand_kind`), and ``out16`` writes the output so: the format in
+which the executor stores a node that only bf16 steps read.
 
 Each kernel has a plain PyTorch version of the same function in this
-module (permute + reshape + ``torch.matmul``; for K3 the port of
-``chain_reference``).  A wrapper uses the plain version only when its
-tensors lie on the CPU; for CUDA tensors it launches its kernel or
-raises.  :data:`LAUNCHES` counts kernel launches, one per launch;
-:data:`FUSED_ROUTES` splits K2's launches by gather (``uniform``: one
-map for every tile; ``general``: per-tile offset tables).
+module (round to bf16 where the route does, then permute + reshape +
+``torch.matmul``; for K3 the port of ``chain_reference``).  A wrapper
+uses the plain version only when its tensors lie on the CPU; for CUDA
+tensors it launches its kernel or raises.  :data:`LAUNCHES` counts
+kernel launches, one per launch, and :data:`BF16_LAUNCHES` those that
+ran a bf16 route; :data:`FUSED_ROUTES` splits K2's launches by gather
+(``uniform``: one map for every tile; ``general``: per-tile offset
+tables).
 
 What bounds each kernel on the H100, and why, is noted at the top of
 ``csrc/gemm.cu``.
@@ -47,7 +58,7 @@ from ..lowering.refiner import suffix_tile_split
 from .build import check, load_library
 from .build import cuda_stream as _stream
 from .build import on_cpu as _on_cpu
-from .ref import permute_reshape
+from .ref import permute_reshape, round16, to_pairs16, widen
 
 MAX_CHAIN = 32  # steps per chain launch (MAX_CHAIN in csrc/gemm.cu)
 # a role's flat index splits into (hi, lo) table lookups; the lo table
@@ -56,90 +67,158 @@ _LO_TARGET = 4096
 
 LAUNCHES = {"tiled_gemm": 0, "fused_gemm": 0, "chain_gemm": 0}
 FUSED_ROUTES = {"uniform": 0, "general": 0}
+# the launches of LAUNCHES that ran a bf16 route (K3: a launch with a
+# bf16 step)
+BF16_LAUNCHES = {"tiled_gemm": 0, "fused_gemm": 0, "chain_gemm": 0}
 
 
 def reset_launches() -> None:
-    for d in (LAUNCHES, FUSED_ROUTES):
+    for d in (LAUNCHES, FUSED_ROUTES, BF16_LAUNCHES):
         for k in d:
             d[k] = 0
 
 
-def _check_fp32(*tensors: torch.Tensor) -> None:
+PRECISIONS = ("fp32", "bf16")  # the routes: 3xTF32, or bf16 in / fp32 out
+
+
+def _check_planes(*tensors: torch.Tensor) -> None:
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel takes float32 planes, got {t.dtype}")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"kernel takes float32 or bfloat16 planes, got {t.dtype}")
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
+
+
+def operand_kind(x: torch.Tensor, shape) -> tuple[bool, bool]:
+    """``(complex, half)`` of a kernel operand of logical ``shape``:
+    float32 or complex64 at full width, bfloat16 (real) or bf16 (re, im)
+    pairs (``shape + (2,)``) at half width.  Raises on anything else."""
+    shape = tuple(shape)
+    if x.dtype == torch.bfloat16 and tuple(x.shape) == shape + (2,):
+        return True, True
+    if tuple(x.shape) != shape:
+        raise ValueError(f"operand {tuple(x.shape)} != {shape}")
+    if x.dtype == torch.complex64:
+        return True, False
+    if x.dtype in (torch.float32, torch.bfloat16):
+        return False, x.dtype == torch.bfloat16
+    raise TypeError(f"kernel takes float32, complex64 or bfloat16, got {x.dtype}")
+
+
+def _plain_result(out: torch.Tensor, out16: bool) -> torch.Tensor:
+    return to_pairs16(out) if out16 else out
+
+
+def _empty_out(shape, cplx: bool, out16: bool, device) -> torch.Tensor:
+    if out16:
+        return torch.empty(tuple(shape) + ((2,) if cplx else ()),
+                           dtype=torch.bfloat16, device=device)
+    return torch.empty(tuple(shape), dtype=torch.complex64 if cplx else torch.float32,
+                       device=device)
 
 
 # ----------------------------------------------------------------------
-# K1: tiled GEMM, 3xTF32 on wgmma
+# K1: tiled GEMM: 3xTF32 or bf16 on wgmma
 # ----------------------------------------------------------------------
-def tiled_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: ``torch.matmul`` per batch cell."""
+def tiled_gemm_plain(a: torch.Tensor, b: torch.Tensor,
+                     precision: str = "fp32") -> torch.Tensor:
+    """Plain version of K1: ``torch.matmul`` per batch cell, on the
+    operands rounded to bf16 first when ``precision`` is bf16 (bf16
+    products are exact in fp32, so only the summation order differs
+    from the kernel's)."""
+    if precision == "bf16":
+        a, b = round16(a), round16(b)
     return torch.matmul(a, b)
 
 
-_TF32_HALF = 1 << 12
-_TF32_MASK = -(1 << 13)  # 0xFFFFE000 as int32
-TF32_K_ALIGN = 4  # TMA's 16-byte row stride, in fp32
+def gemm_form(B: int, M: int, N: int, K: int):
+    """K1's step ``(B, M, K) @ (B, K, N)`` in GEMM order as a form of the
+    in-place kernels' gather: each of M, N and K split at the tile extent
+    the kernel takes it in (where that divides it), so every tile has the
+    first tile's offsets and the maps are uniform."""
+    from ..lowering.gemm_form import lower_step
+
+    swap = N > M
+    R, C = fused_tile(M if swap else N)
+    m_ext, n_ext = (C, R) if swap else (R, C)
+
+    def split(name, d, e):
+        return ((f"{name}1", d // e), (f"{name}0", e)) if d > e and d % e == 0 \
+            else ((name, d),)
+
+    ms, ns, ks = split("m", M, m_ext), split("n", N, n_ext), split("k", K, FUSED_BK)
+    size = dict((("b", B),) + ms + ns + ks)
+    m, n, k = [x for x, _ in ms], [x for x, _ in ns], [x for x, _ in ks]
+    return lower_step(["b"] + m + k, ["b"] + k + n, ["b"] + m + n, size.__getitem__)
 
 
-def tf32_split(x: torch.Tensor) -> torch.Tensor:
-    """K1's operand planes: ``(2, *x.shape[:-1], Kp)`` holding
-    ``x_hi = tf32(x)`` and ``x_lo = tf32(x - x_hi)`` along the last axis
-    (K), zero-padded to ``Kp``, the next multiple of :data:`TF32_K_ALIGN`.
-    ``tf32`` rounds to 10 explicit mantissa bits, to nearest with ties
-    away from zero, as ``cvt.rna.tf32.f32`` does: an integer add of half
-    the dropped field, then a mask of the 13 dropped bits.  ``x`` may be
-    a strided view; the planes are contiguous."""
-    *lead, k = x.shape
-    kp = -(-k // TF32_K_ALIGN) * TF32_K_ALIGN
-    out = torch.empty((2, *lead, kp), dtype=torch.float32, device=x.device)
-    if kp > k:
-        out[..., k:] = 0
-    hi, lo = out[0, ..., :k], out[1, ..., :k]
-    hi_bits, lo_bits = hi.view(torch.int32), lo.view(torch.int32)
-    torch.add(x.view(torch.int32), _TF32_HALF, out=hi_bits)
-    hi_bits.bitwise_and_(_TF32_MASK)
-    torch.sub(x, hi, out=lo)  # exact: hi holds x's leading 11 bits
-    lo_bits.add_(_TF32_HALF).bitwise_and_(_TF32_MASK)
-    return out
+def tiled_gemm(a: torch.Tensor, b: torch.Tensor, *, precision: str = "fp32",
+               out16: bool = False) -> torch.Tensor:
+    """K1: ``C[i] = A[i] @ B[i]`` for ``a`` (B, M, K) and ``b`` (B, K, N),
+    both real or both complex, each at full width (float32, complex64) or
+    half (bf16, bf16 (re, im) pairs with a trailing 2).  One ordered sum
+    over K per output element, accumulated in fp32.
 
-
-def tf32_planes(a: torch.Tensor, b: torch.Tensor):
-    """The four K-major planes K1 reads: ``A_hi, A_lo`` of (B, M, Kp) as
-    ``tf32_split(a)`` and ``Bt_hi, Bt_lo`` of (B, N, Kp) as
-    ``tf32_split(b^T)`` (TF32 wgmma takes K-major operands only)."""
-    return tf32_split(a), tf32_split(b.transpose(1, 2))
-
-
-def tiled_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K1: ``C[i] = A[i] @ B[i]`` for fp32 ``a`` (B, M, K) and ``b``
-    (B, K, N), each product as three TF32 products (3xTF32, about 22 of
-    fp32's 24 mantissa bits), accumulated in fp32 with one ordered sum
-    over K per output element."""
-    _check_fp32(a, b)
-    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or (
-        a.shape[2] != b.shape[1]
-    ):
+    ``precision="fp32"`` runs each real product as three TF32 products
+    (3xTF32, about 22 of fp32's 24 mantissa bits): the operands are read
+    in place by the producer warps, which split each element into TF32
+    hi/lo themselves.  ``precision="bf16"`` rounds every component to
+    bf16 at that load and runs bf16 ``wgmma``.  A complex product takes
+    the direct form (four real products).  ``out16`` writes C at half
+    width."""
+    _check_precision(precision)
+    if a.dim() not in (3, 4) or b.dim() not in (3, 4) or a.shape[0] != b.shape[0]:
         raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)}")
-    if _on_cpu(a, b):
-        return tiled_gemm_plain(a, b)
-    B, M, K = a.shape
+    Bt, M, K = a.shape[:3]
     N = b.shape[2]
-    c = torch.empty((B, M, N), dtype=torch.float32, device=a.device)
-    if c.numel() == 0:
-        return c
-    if K == 0:
-        return c.zero_()
-    ap, bp = tf32_planes(a, b)
-    lib = load_library("gemm")
-    rc = lib.repro_tiled_gemm(
-        ap[0].data_ptr(), ap[1].data_ptr(), bp[0].data_ptr(), bp[1].data_ptr(),
-        c.data_ptr(), B, M, N, ap.shape[-1], _stream(a.device),
+    ca, ha = operand_kind(a, (Bt, M, K))
+    cb, hb = operand_kind(b, (Bt, K, N))
+    if ca != cb:
+        raise TypeError("operands must both be real or both complex")
+    if _on_cpu(a, b):
+        out = tiled_gemm_plain(widen(a, (Bt, M, K)), widen(b, (Bt, K, N)), precision)
+        return _plain_result(out, out16)
+    form = gemm_form(Bt, M, N, K)
+    pair = (2,) if ca else ()
+    out = tiled_gemm_step(
+        a.reshape(form.a_shape + pair * ha), b.reshape(form.b_shape + pair * hb),
+        form, precision=precision, out16=out16)
+    return out.reshape((Bt, M, N) + pair * out16)
+
+
+def tiled_gemm_step(a: torch.Tensor, b: torch.Tensor, form, *,
+                    precision: str = "fp32", out16: bool = False) -> torch.Tensor:
+    """K1's in-place kernel on one step ``form``: the operands read where
+    they lie, in their native layouts (the kernel's maps describe them
+    as K2's do), the output written in ``inds_out`` order, so the tiled
+    backend makes no copy of its operands in GEMM order.  Operand kinds,
+    ``precision`` and ``out16`` as in :func:`fused_gemm_c64`; on the CPU
+    the plain version is K2's (permute + reshape + ``torch.matmul``).
+    One kernel launch."""
+    return _step(1, a, b, form, precision, out16)
+
+
+def _launch_inplace(lib, tiled: int, form, a, b, c, precision, cplx, a16, b16,
+                    c16) -> int:
+    """Launch K1's in-place kernel (``tiled``) or K2's on ``form``:
+    operands read in place at their widths, the step oriented by its
+    plan (the operands and their width flags trade places when it
+    swaps)."""
+    plan, desc, maps = _device_plan(form, a.device)
+    x, y, fx, fy = (b, a, b16, a16) if plan.swap else (a, b, a16, b16)
+    flags = (int(precision == "bf16") | (int(fx) << 1) | (int(fy) << 2)
+             | (int(c16) << 3))
+    rc = lib.repro_fused_gemm(
+        desc.data_ptr(), maps.data_ptr(), int(plan.uniform), int(plan.wide),
+        int(cplx), plan.tiles, x.data_ptr(), y.data_ptr(), c.data_ptr(),
+        flags, tiled, _stream(a.device),
     )
-    check(lib, rc, "tiled_gemm")
-    LAUNCHES["tiled_gemm"] += 1
-    return c
+    if rc == 0 and not tiled:
+        FUSED_ROUTES["uniform" if plan.uniform else "general"] += 1
+    return rc
 
 
 # ----------------------------------------------------------------------
@@ -421,11 +500,16 @@ def _device_plan(form, device: torch.device):
     return hit
 
 
-def fused_gemm_plain(a, b, form) -> tuple[torch.Tensor, ...]:
+def fused_gemm_plain(a, b, form, precision: str = "fp32") -> tuple[torch.Tensor, ...]:
     """Plain version of K2 (and of one chain step, the reference's
     ``_chain_step_math``): permute + reshape + ``torch.matmul`` on each
     plane, Karatsuba when ``a``/``b`` are ``(re, im)`` pairs, output in
-    ``inds_out`` order."""
+    ``inds_out`` order.  ``precision="bf16"`` rounds every plane to bf16
+    first (the kernel's rounding at its loads); the Karatsuba sums of
+    rounded planes and the products are then exact in fp32, so only the
+    summation order differs from the kernel's direct form."""
+    if precision == "bf16":
+        a, b = tuple(map(round16, a)), tuple(map(round16, b))
 
     def gemm(x, y):
         x2 = permute_reshape(x, form.perm_a, (form.B, form.M, form.K))
@@ -450,58 +534,78 @@ def _check_shape(x: torch.Tensor, want, what: str) -> None:
         raise ValueError(f"{what} {tuple(x.shape)} != {want}")
 
 
-def fused_gemm_c64(a: torch.Tensor, b: torch.Tensor, form) -> torch.Tensor:
+def _planes_of(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    return (x.real, x.imag) if x.is_complex() else (x,)
+
+
+def fused_gemm_c64(a: torch.Tensor, b: torch.Tensor, form, *,
+                   precision: str = "fp32", out16: bool = False) -> torch.Tensor:
     """K2: one contraction step ``form`` on ``a`` and ``b`` in their
-    native layouts, output in ``inds_out`` order.  Both complex64 (read
-    and written in place as (re, im) pairs) or both float32 (the real
-    route).  One kernel launch."""
-    if a.dtype != b.dtype or a.dtype not in (torch.complex64, torch.float32):
-        raise TypeError(f"kernel takes complex64 or float32, got {a.dtype}, {b.dtype}")
-    _check_shape(a, form.a_shape, "a")
-    _check_shape(b, form.b_shape, "b")
+    native layouts, output in ``inds_out`` order.  Both complex (read and
+    written in place as (re, im) pairs) or both real, each at full width
+    (complex64, float32) or half (bf16 pairs, bf16).  ``precision``
+    picks the route (3xTF32, or bf16 inputs with fp32 accumulation);
+    ``out16`` writes the output at half width.  One kernel launch."""
+    return _step(0, a, b, form, precision, out16)
+
+
+def _step(tiled: int, a, b, form, precision: str, out16: bool) -> torch.Tensor:
+    """One step on K2's kernel body: K1's kernel (``tiled``) or K2's."""
+    _check_precision(precision)
+    ca, ha = operand_kind(a, form.a_shape)
+    cb, hb = operand_kind(b, form.b_shape)
+    if ca != cb:
+        raise TypeError("operands must both be real or both complex")
     if _on_cpu(a, b):
-        if a.is_complex():
-            re, im = fused_gemm_plain((a.real, a.imag), (b.real, b.imag), form)
-            return torch.complex(re, im)
-        return fused_gemm_plain((a,), (b,), form)[0]
+        out = fused_gemm_plain(_planes_of(widen(a, form.a_shape)),
+                               _planes_of(widen(b, form.b_shape)), form, precision)
+        return _plain_result(torch.complex(*out) if ca else out[0], out16)
     a, b = a.contiguous(), b.contiguous()
-    out = torch.empty(form.out_shape, dtype=a.dtype, device=a.device)
+    out = _empty_out(form.out_shape, ca, out16, a.device)
     if out.numel() == 0:
         return out
     if form.K == 0:
         return out.zero_()
-    plan, desc, maps = _device_plan(form, a.device)
-    x, y = (b, a) if plan.swap else (a, b)
     lib = load_library("gemm")
-    rc = lib.repro_fused_gemm(
-        desc.data_ptr(), maps.data_ptr(), int(plan.uniform), int(plan.wide),
-        int(a.is_complex()), plan.tiles, x.data_ptr(), y.data_ptr(),
-        out.data_ptr(), _stream(a.device),
-    )
-    check(lib, rc, "fused_gemm")
-    LAUNCHES["fused_gemm"] += 1
-    FUSED_ROUTES["uniform" if plan.uniform else "general"] += 1
+    name = "tiled_gemm" if tiled else "fused_gemm"
+    rc = _launch_inplace(lib, tiled, form, a, b, out, precision, ca, ha, hb, out16)
+    check(lib, rc, name)
+    LAUNCHES[name] += 1
+    BF16_LAUNCHES[name] += precision == "bf16"
     return out
 
 
+def _join(planes) -> torch.Tensor:
+    """One operand from its planes: ``(re,)`` as it is; ``(re, im)`` as
+    complex64, or as bf16 pairs when the planes are bf16."""
+    if len(planes) == 1:
+        return planes[0]
+    if planes[0].dtype == torch.bfloat16:
+        return torch.stack(planes, dim=-1)
+    return torch.complex(*planes)
+
+
+def _split(x: torch.Tensor, cplx: bool) -> tuple[torch.Tensor, ...]:
+    return (x.real, x.imag) if cplx else (x,)
+
+
 def fused_gemm(a, b, form) -> tuple[torch.Tensor, ...]:
-    """K2 on fp32 planes: ``a`` and ``b`` are ``(re,)`` or ``(re, im)``
-    tuples in their native layouts; returns the output planes in
-    ``inds_out`` order.  On the card a pair is joined into complex64 for
-    :func:`fused_gemm_c64` (the planes are views of its output)."""
+    """K2 on planes: ``a`` and ``b`` are ``(re,)`` or ``(re, im)`` tuples
+    of fp32 (or, held at half width, bf16) planes in their native
+    layouts; returns the fp32 output planes in ``inds_out`` order.  On
+    the card a pair is joined for :func:`fused_gemm_c64` (the planes are
+    views of its output)."""
     if len(a) != len(b) or len(a) not in (1, 2):
         raise ValueError("operands must both be (re,) or (re, im)")
-    _check_fp32(*a, *b)
+    _check_planes(*a, *b)
     for x in a:
         _check_shape(x, form.a_shape, "a plane")
     for y in b:
         _check_shape(y, form.b_shape, "b plane")
     if _on_cpu(*a, *b):
-        return fused_gemm_plain(a, b, form)
-    if len(a) == 1:
-        return (fused_gemm_c64(a[0], b[0], form),)
-    out = fused_gemm_c64(torch.complex(*a), torch.complex(*b), form)
-    return out.real, out.imag
+        return fused_gemm_plain(tuple(x.float() for x in a),
+                                tuple(y.float() for y in b), form)
+    return _split(fused_gemm_c64(_join(a), _join(b), form), len(a) == 2)
 
 
 # ----------------------------------------------------------------------
@@ -511,6 +615,7 @@ TILE_M = TILE_N = 64  # K3's output tile (C_BM, C_BN); K2's warpgroup block
 CHAIN_KC = 16  # K3's k chunk (C_KC in csrc/gemm.cu)
 CHAIN_CLUSTERS = (1, 2, 4, 8, 16)  # the cluster sizes K3 launches
 _C_HDR, _C_SWORDS = 4, 40  # words before the steps, words per step
+_C_FLAGS = 37  # the step word holding its precision and width flags
 _C_SMEM_MAX = 227 * 1024  # shared memory one block can hold
 _C_TILE_SMEM = 4 * (4 * CHAIN_KC * TILE_M + 4 * TILE_M + 2 * CHAIN_KC)  # ChainSmem
 # each role's tile extent, in step_roles order
@@ -521,10 +626,14 @@ def _chain_tiles(form) -> int:
     return form.B * -(-form.M // TILE_M) * -(-form.N // TILE_N)
 
 
-def chain_gemm_plain(components, forms, carry_side, complex_mode=False):
+def chain_gemm_plain(components, forms, carry_side, complex_mode=False,
+                     precisions=None):
     """Plain version of K3, the port of the reference's
     ``chain_reference``: the same externals, the same per-step Karatsuba
-    on split fp32 planes, the same step order."""
+    on split fp32 planes, the same step order.  ``precisions[t]`` is step
+    ``t``'s input precision; a bf16 step rounds its operands, the carry
+    included, so rounding an interior carry at its store (as the kernel
+    does into a bf16 slot) changes nothing."""
     ncomp = 2 if complex_mode else 1
     ext = [
         tuple(components[i * ncomp:(i + 1) * ncomp])
@@ -539,7 +648,8 @@ def chain_gemm_plain(components, forms, carry_side, complex_mode=False):
                 (carry, ext[t + 1]) if carry_side[t] == "l"
                 else (ext[t + 1], carry)
             )
-        carry = fused_gemm_plain(a, b, form)
+        carry = fused_gemm_plain(a, b, form,
+                                 precisions[t] if precisions else "fp32")
     return carry
 
 
@@ -582,11 +692,19 @@ def chain_role_tables(role: Role, extent: int) -> tuple[list[np.ndarray], int]:
     return [off[::extent], off[:extent]], 0
 
 
-def chain_sources(forms, carry_side, slot_ids, slot_elems):
+def slot_widths(slot_elems, slot_prec=()) -> list[int]:
+    """Each slot's extent in the workspace, in full-width elements: a bf16
+    slot holds its elements as bf16 (re, im) pairs, half the bytes."""
+    return [-(-e // 2) if i < len(slot_prec) and slot_prec[i] == "bf16" else e
+            for i, e in enumerate(slot_elems)]
+
+
+def chain_sources(forms, carry_side, slot_ids, slot_elems, slot_prec=()):
     """Per step, where its A, B and output live: ``("x", i)`` external
-    ``i``, ``("w", e)`` the workspace at element ``e`` (slot
-    ``slot_ids[t]`` of ``slot_elems``), ``("o",)`` the chain's output."""
-    base = np.cumsum([0, *slot_elems])
+    ``i``, ``("w", e)`` the workspace at full-width element ``e`` (slot
+    ``slot_ids[t]``, laid out by :func:`slot_widths`), ``("o",)`` the
+    chain's output."""
+    base = np.cumsum([0, *slot_widths(slot_elems, slot_prec)])
     n = len(forms)
     out = []
     for t in range(n):
@@ -604,12 +722,13 @@ def _step_tables(form):
     return [chain_role_tables(r, e) for r, e in zip(step_roles(form), _C_EXTENTS)]
 
 
-def pack_chain(forms, sources, ext_index) -> np.ndarray:
+def pack_chain(forms, sources, ext_index, flags=None) -> np.ndarray:
     """K3's words for one launch (layout in ``csrc/gemm.cu``): a header,
     ``_C_SWORDS`` words per step (B, M, N, K, tiles_m, tiles_n, tiles,
-    a_src, b_src, c_dst, then (hi, lo, full) per role), then the tables,
-    padded to a multiple of 4 words.  ``ext_index`` maps an external's
-    chain index to its slot in the launch's pointer list."""
+    a_src, b_src, c_dst, then (hi, lo, full) per role, then the step's
+    flags: 1 bf16 inputs, 2 / 4 / 8 A / B / output held as bf16), then
+    the tables, padded to a multiple of 4 words.  ``ext_index`` maps an
+    external's chain index to its slot in the launch's pointer list."""
     n = len(forms)
     head = np.zeros(_C_HDR + n * _C_SWORDS, dtype=np.int64)
     head[0] = n
@@ -624,6 +743,7 @@ def pack_chain(forms, sources, ext_index) -> np.ndarray:
         head[h:h + 10] = [form.B, form.M, form.N, form.K, tm, tn,
                           form.B * tm * tn, src(a), src(b),
                           -1 if c[0] == "o" else c[1]]
+        head[h + _C_FLAGS] = flags[t] if flags else 0
         for r, (tabs, full) in enumerate(_step_tables(form)):
             hi = pos
             lo = pos + tabs[0].size if len(tabs) == 2 else pos
@@ -689,6 +809,33 @@ class _ChainParams(ctypes.Structure):
     ]
 
 
+def chain_flags(forms, carry_side, slot_ids, precisions=None, slot_prec=(),
+                ext16=(), out16=False) -> list[int]:
+    """Each step's flags word: 1 when it reads bf16 (``precisions``), 2
+    and 4 when its A and B are held as bf16 (an external in ``ext16``, or
+    a carry in a bf16 slot), 8 when it writes bf16 (its slot, or the
+    chain's output with ``out16``)."""
+    n = len(forms)
+
+    def half_slot(t):
+        return bool(slot_prec) and slot_prec[slot_ids[t]] == "bf16"
+
+    def half_ext(i):
+        return bool(ext16) and bool(ext16[i])
+
+    out = []
+    for t in range(n):
+        if t == 0:
+            a16, b16 = half_ext(0), half_ext(1)
+        else:
+            carry, other = half_slot(t - 1), half_ext(t + 1)
+            a16, b16 = (carry, other) if carry_side[t] == "l" else (other, carry)
+        c16 = half_slot(t) if t < n - 1 else bool(out16)
+        bf = bool(precisions) and precisions[t] == "bf16"
+        out.append(int(bf) | int(a16) << 1 | int(b16) << 2 | int(c16) << 3)
+    return out
+
+
 class ChainLaunch:
     """K3's launch state for one chain on one device, built once: per
     launch (segment) the packed words on the device, the kernel's
@@ -696,10 +843,13 @@ class ChainLaunch:
     :meth:`launch` fills in the externals' and the output's pointers and
     launches, nothing else.  The workspace is shared by every call of
     the chain, so its calls must be ordered on one stream, as the
-    executor's are."""
+    executor's are.  ``precisions``, ``slot_prec``, ``ext16`` and
+    ``out16`` fix the steps' routes and the widths the chain reads and
+    writes (all fp32 and full width by default)."""
 
     def __init__(self, forms, carry_side, slot_ids, slot_elems, complex_mode,
-                 device, cluster=None):
+                 device, cluster=None, precisions=None, slot_prec=(), ext16=(),
+                 out16=False):
         n = len(forms)
         if len(slot_ids) != n - 1:
             raise ValueError(f"{len(slot_ids)} slots for {n} steps")
@@ -708,18 +858,28 @@ class ChainLaunch:
                 raise ValueError(f"step {t} output overflows its slot")
         if cluster is not None and cluster not in CHAIN_CLUSTERS:
             raise ValueError(f"cluster of {cluster} blocks")
+        if precisions is not None and len(precisions) != n:
+            raise ValueError(f"{len(precisions)} precisions for {n} steps")
         self.dtype = torch.complex64 if complex_mode else torch.float32
+        self.complex_mode = bool(complex_mode)
+        self.ext16 = tuple(bool(x) for x in ext16) or (False,) * (n + 1)
+        self.out16 = bool(out16)
         self.shapes = [_external_shape(forms, carry_side, i) for i in range(n + 1)]
         self.out_shape = forms[-1].out_shape
-        self.work = torch.empty(max(1, sum(slot_elems)), dtype=self.dtype,
-                                device=device)
-        sources = chain_sources(forms, carry_side, slot_ids, slot_elems)
+        self.work = torch.empty(max(1, sum(slot_widths(slot_elems, slot_prec))),
+                                dtype=self.dtype, device=device)
+        sources = chain_sources(forms, carry_side, slot_ids, slot_elems, slot_prec)
+        flags = chain_flags(forms, carry_side, slot_ids, precisions, slot_prec,
+                            self.ext16, out16)
         self.segments = []
+        self.bf16 = []  # per segment: whether it runs a bf16 step
+        self.mixed = []  # per segment: whether a step has flags
         for steps in chain_segments(forms):
             ext = sorted({s[1] for t in steps for s in sources[t][:2] if s[0] == "x"})
             words = pack_chain([forms[t] for t in steps],
                                [sources[t] for t in steps],
-                               {g: j for j, g in enumerate(ext)})
+                               {g: j for j, g in enumerate(ext)},
+                               [flags[t] for t in steps])
             tab = torch.from_numpy(words).to(device)
             p = _ChainParams()
             p.tab, p.work = tab.data_ptr(), self.work.data_ptr()
@@ -727,27 +887,42 @@ class ChainLaunch:
             most = max(_chain_tiles(forms[t]) for t in steps)
             size = max(1, min(cluster or chain_cluster_max(device), most))
             self.segments.append((p, tab, ext, size))
+            self.bf16.append(any(flags[t] & 1 for t in steps))
+            self.mixed.append(any(flags[t] for t in steps))
+
+    def _want(self, i: int) -> tuple[torch.dtype, tuple[int, ...]]:
+        shape = tuple(self.shapes[i])
+        if not self.ext16[i]:
+            return self.dtype, shape
+        return torch.bfloat16, shape + ((2,) if self.complex_mode else ())
 
     def check(self, externals) -> None:
         if len(externals) != len(self.shapes):
             raise ValueError(f"{len(externals)} externals for {len(self.shapes) - 1} steps")
-        for i, (x, want) in enumerate(zip(externals, self.shapes)):
-            if x.dtype != self.dtype or tuple(x.shape) != want:
+        for i, x in enumerate(externals):
+            dtype, shape = self._want(i)
+            if x.dtype != dtype or tuple(x.shape) != shape:
                 raise ValueError(f"external {i}: {x.dtype} {tuple(x.shape)}, "
-                                 f"want {self.dtype} {want}")
+                                 f"want {dtype} {shape}")
+
+    def empty_out(self) -> torch.Tensor:
+        return _empty_out(self.out_shape, self.complex_mode, self.out16,
+                          self.work.device)
 
     def launch(self, externals, out: torch.Tensor) -> None:
         """Run the chain on contiguous ``externals`` into ``out``."""
         lib = load_library("gemm")
         stream = _stream(out.device)
-        cplx = int(self.dtype == torch.complex64)
-        for p, _, ext, size in self.segments:
+        cplx = int(self.complex_mode)
+        for (p, _, ext, size), bf16, mixed in zip(self.segments, self.bf16,
+                                                   self.mixed):
             for j, g in enumerate(ext):
                 p.ext[j] = externals[g].data_ptr()
             p.out = out.data_ptr()
-            check(lib, lib.repro_chain_gemm(ctypes.byref(p), cplx, size, stream),
-                  "chain_gemm")
+            check(lib, lib.repro_chain_gemm(ctypes.byref(p), cplx, int(mixed),
+                                            size, stream), "chain_gemm")
             LAUNCHES["chain_gemm"] += 1
+            BF16_LAUNCHES["chain_gemm"] += bf16
 
 
 _CHAINS: dict = {}
@@ -755,10 +930,13 @@ _CHAINS_MAX = 4096  # launch states kept; the cache starts over beyond
 
 
 def chain_state(forms, carry_side, slot_ids, slot_elems, complex_mode,
-                device, cluster=None) -> ChainLaunch:
+                device, cluster=None, *, precisions=None, slot_prec=(),
+                ext16=(), out16=False) -> ChainLaunch:
     """The cached :class:`ChainLaunch` of one chain on ``device``."""
     key = (tuple(forms), tuple(carry_side), tuple(slot_ids),
-           tuple(slot_elems), bool(complex_mode), torch.device(device), cluster)
+           tuple(slot_elems), bool(complex_mode), torch.device(device), cluster,
+           tuple(precisions) if precisions else None, tuple(slot_prec),
+           tuple(bool(x) for x in ext16), bool(out16))
     state = _CHAINS.get(key)
     if state is None:
         if len(_CHAINS) >= _CHAINS_MAX:
@@ -769,36 +947,48 @@ def chain_state(forms, carry_side, slot_ids, slot_elems, complex_mode,
 
 
 def chain_gemm_c64(operands, forms, carry_side, slot_ids, slot_elems,
-                   cluster=None) -> torch.Tensor:
+                   cluster=None, *, precisions=None, slot_prec=(),
+                   out16=False) -> torch.Tensor:
     """K3: run the chain ``forms`` (step ``t``'s carry is step ``t-1``'s
     output, on side ``carry_side[t]``) over its externals ``operands``,
-    all complex64 (read in place) or all float32.  Interior carries live
-    in one workspace, slot ``slot_ids[t]`` of ``slot_elems`` elements.
-    Returns the last step's output in its ``inds_out`` order, with one
+    all complex (complex64 or bf16 pairs, read in place) or all real
+    (float32 or bf16).  Interior carries live in one workspace, slot
+    ``slot_ids[t]`` of ``slot_elems`` elements, held as bf16 where
+    ``slot_prec`` says so.  ``precisions[t]`` is step ``t``'s route (fp32
+    FFMA, or bf16 inputs with fp32 accumulation); ``out16`` writes the
+    last step's output, in its ``inds_out`` order, at half width.  One
     kernel launch per ``MAX_CHAIN`` steps.  ``cluster`` overrides the
     cluster's block count (the result does not depend on it)."""
-    cplx = operands[0].dtype == torch.complex64
+    n = len(forms)
+    kinds = [operand_kind(o, _external_shape(forms, carry_side, i))
+             for i, o in enumerate(operands)]
+    cplx = kinds[0][0]
+    if any(k[0] != cplx for k in kinds):
+        raise TypeError("chain externals must all be real or all complex")
+    if len(operands) != n + 1:
+        raise ValueError(f"{len(operands)} externals for {n} steps")
     if _on_cpu(*operands):
-        if any(o.dtype != operands[0].dtype for o in operands) or (
-                operands[0].dtype not in (torch.complex64, torch.float32)):
-            raise TypeError("chain externals must all be complex64 or float32")
-        comps = [c for o in operands for c in ((o.real, o.imag) if cplx else (o,))]
+        wide = [widen(o, _external_shape(forms, carry_side, i))
+                for i, o in enumerate(operands)]
+        comps = [c for o in wide for c in _planes_of(o)]
         _check_chain(comps, forms, carry_side, slot_ids, slot_elems, 2 if cplx else 1)
-        out = chain_gemm_plain(comps, forms, carry_side, cplx)
-        return torch.complex(*out) if cplx else out[0]
+        out = chain_gemm_plain(comps, forms, carry_side, cplx, precisions)
+        return _plain_result(torch.complex(*out) if cplx else out[0], out16)
     device = operands[0].device
-    state = chain_state(forms, carry_side, slot_ids, slot_elems, cplx, device, cluster)
+    state = chain_state(forms, carry_side, slot_ids, slot_elems, cplx, device,
+                        cluster, precisions=precisions, slot_prec=slot_prec,
+                        ext16=[k[1] for k in kinds], out16=out16)
     ext = [o if o.is_contiguous() else o.contiguous() for o in operands]
     state.check(ext)
-    out = torch.empty(state.out_shape, dtype=state.dtype, device=device)
+    out = state.empty_out()
     state.launch(ext, out)
     return out
 
 
 def _joined(components, n: int, complex_mode: bool):
-    """The chain's externals from its fp32 planes."""
+    """The chain's externals from its planes (fp32 or bf16)."""
     if complex_mode:
-        return [torch.complex(components[2 * i], components[2 * i + 1])
+        return [_join((components[2 * i], components[2 * i + 1]))
                 for i in range(n + 1)]
     return [c.contiguous() for c in components]
 
@@ -812,19 +1002,21 @@ def chain_gemm(
     complex_mode: bool = False,
     cluster=None,
 ):
-    """K3 on fp32 planes ``components`` (``(re, im)`` per external when
-    ``complex_mode``).  Returns the last step's output planes in its
-    ``inds_out`` order; on the card a complex chain's planes are joined
-    for :func:`chain_gemm_c64` and the returned planes are views of its
+    """K3 on planes ``components`` (``(re, im)`` per external when
+    ``complex_mode``; fp32, or bf16 for externals held at half width).
+    Returns the last step's fp32 output planes in its ``inds_out`` order;
+    on the card a complex chain's planes are joined for
+    :func:`chain_gemm_c64` and the returned planes are views of its
     output."""
     ncomp = 2 if complex_mode else 1
     _check_chain(components, forms, carry_side, slot_ids, slot_elems, ncomp)
-    _check_fp32(*components)
+    _check_planes(*components)
     if _on_cpu(*components):
-        return chain_gemm_plain(components, forms, carry_side, complex_mode)
+        return chain_gemm_plain([c.float() for c in components], forms,
+                                carry_side, complex_mode)
     out = chain_gemm_c64(_joined(components, len(forms), complex_mode), forms,
                          carry_side, slot_ids, slot_elems, cluster)
-    return (out.real, out.imag) if complex_mode else (out,)
+    return _split(out, complex_mode)
 
 
 def chain_gemm_launcher(
@@ -835,6 +1027,8 @@ def chain_gemm_launcher(
     slot_elems,
     complex_mode: bool = False,
     cluster=None,
+    precisions=None,
+    slot_prec=(),
 ):
     """The host half of :func:`chain_gemm` on CUDA planes: joins the
     planes and takes the chain's cached launch state once, and returns
@@ -843,21 +1037,23 @@ def chain_gemm_launcher(
     measures the kernel without the host work."""
     ncomp = 2 if complex_mode else 1
     _check_chain(components, forms, carry_side, slot_ids, slot_elems, ncomp)
-    _check_fp32(*components)
+    _check_planes(*components)
     if _on_cpu(*components):
         raise ValueError("chain_gemm_launcher takes CUDA planes")
     device = components[0].device
     ext = _joined(components, len(forms), complex_mode)
     state = chain_state(forms, carry_side, slot_ids, slot_elems, complex_mode,
-                        device, cluster)
+                        device, cluster, precisions=precisions,
+                        slot_prec=tuple(slot_prec),
+                        ext16=[x.dtype == torch.bfloat16 for x in ext])
     state.check(ext)
-    out = torch.empty(state.out_shape, dtype=state.dtype, device=device)
+    out = state.empty_out()
 
     def launch() -> None:
         state.launch(ext, out)
 
     launch.buffers = (ext, state)
-    return launch, ((out.real, out.imag) if complex_mode else (out,))
+    return launch, _split(out, complex_mode)
 
 
 def empty_cluster_launch(cluster: int, device, barriers: int = 0) -> None:

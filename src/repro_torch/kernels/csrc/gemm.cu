@@ -1,43 +1,48 @@
-// Contraction GEMM kernels for Hopper (sm_90a), fp32 contract.
+// Contraction GEMM kernels for Hopper (sm_90a): fp32 (3xTF32) and bf16
+// routes.
 //
 // Three kernels, one per TPU kernel of src/repro/kernels/contract_gemm.py:
 //
-//   tf32x3_gemm_kernel <- tiled_matmul (_matmul_kernel)
-//       C[b] = A[b] @ B[b] in fp32, as 3xTF32 on wgmma fed by TMA: each
-//       product is split into TF32 hi and lo parts on the host side
-//       (a.b ~= a_hi.b_hi + a_hi.b_lo + a_lo.b_hi), which keeps about 22
-//       of fp32's 24 mantissa bits per product; see the note at the
-//       kernel.
+//   tiled_gemm_kernel  <- tiled_matmul (_matmul_kernel)
+//       C[b] = A[b] @ B[b]: K2's body (below) on the step in GEMM order,
+//       real or complex64 operands read in place and split to TF32 hi/lo
+//       (a.b ~= a_hi.b_hi + a_hi.b_lo + a_lo.b_hi, about 22 of fp32's 24
+//       mantissa bits per product), or rounded to bf16, in its producer
+//       warps.
 //   fused_gemm_kernel  <- fused_transpose_matmul (_fused_kernel)
 //       one contraction step on operands in their native tree layouts,
 //       complex64 read and written in place: producer warps gather each
 //       tile through a map of its elements in ascending native offset
-//       (coalesced), split them into TF32 hi/lo planes in shared memory,
-//       and two consumer warpgroups run 3xTF32 wgmma on them; the output
-//       is written straight into the step's inds_out layout.
+//       (coalesced), split them into TF32 hi/lo planes (or round them to
+//       bf16) in shared memory, and two consumer warpgroups run 3xTF32 (or
+//       bf16) wgmma on them; the output is written straight into the
+//       step's inds_out layout, at full width or as bf16.
 //   chain_gemm_kernel  <- fused_chain_matmul (_chain_kernel, _run_chain)
 //       a run of adjacent steps in one thread-block cluster: the blocks
 //       share each step's output tiles, a cluster barrier separates the
 //       steps, and interior carries live in a device workspace laid out
-//       by the planner's slot assignment.
+//       by the planner's slot assignment; each step fp32, or bf16 inputs.
 //
 // Every kernel keeps one ordered sum over K per output element (no
 // split-K, no atomics), so its result does not depend on the launch
-// geometry.
+// geometry.  The bf16 routes round each operand component to bf16 at the
+// kernel's load (round to nearest even) and accumulate in fp32; a bf16
+// product is exact in fp32, so they match their plain versions (round,
+// then the fp32 product) up to the order of the sum.
 //
 // What bounds them on the H100.  K1 does three TF32 products per fp32
 // product, so its least time is its operations at a third of the 495
-// TFLOP/s TF32 peak (165 TFLOP/s fp32-accurate).  K2 on the path's steps
-// (M up to 2^20 rows, N <= 128, K = 64..1024) reads its large operand
-// once: its bytes (8 per complex element of A, B and C) at 3.35 TB/s and
-// its 3xTF32 operations take about the same time, so the gather must keep
-// enough loads in flight to stream A at the HBM rate while the tensor
-// cores run; the gather and the TF32 split cost shared-memory bandwidth
-// beside wgmma's own reads (see the note at the kernel).  K3's steps are
-// tiny (a few thousand outputs, K = 1..16 on most), so it is bound by
-// latency: the launch, one barrier per step, and the dependent loads of
-// each step's addressing, which it stages in shared memory before the
-// first step.
+// TFLOP/s TF32 peak (165 TFLOP/s fp32-accurate); its bf16 route runs at
+// the bf16 rate.  K2 on the path's steps (M up to 2^20 rows, N <= 128, K
+// = 64..1024) reads its large operand once: its bytes (8 per complex
+// element of A, B and C) at 3.35 TB/s and its 3xTF32 operations take
+// about the same time, so the gather must keep enough loads in flight to
+// stream A at the HBM rate while the tensor cores run; the gather and the
+// TF32 split cost shared-memory bandwidth beside wgmma's own reads (see
+// the note at the kernel).  K3's steps are tiny (a few thousand outputs,
+// K = 1..16 on most), so it is bound by latency: the launch, one barrier
+// per step, and the dependent loads of each step's addressing, which it
+// stages in shared memory before the first step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,148 +79,6 @@ __device__ __forceinline__ i64 role_off(const i64* __restrict__ d, int r,
                                         i64 i) {
   const i64 lo_n = d[r + 2];
   return __ldg(d + d[r] + i / lo_n) + __ldg(d + d[r + 1] + i % lo_n);
-}
-
-// ---------------------------------------------------------------- K1
-// C[b] = A[b] @ B[b] as 3xTF32 on wgmma.  The wrapper hands over four
-// K-major planes, K padded to a multiple of 4 with zeros: A_hi, A_lo
-// (batch*M rows of Kp) and Bt_hi, Bt_lo (batch*N rows of Kp), where
-// x_hi = tf32(x) and x_lo = tf32(x - x_hi) (cvt.rna), and
-//   a.b ~= a_hi.b_hi + a_hi.b_lo + a_lo.b_hi
-// on the TF32 tensor cores, accumulated in fp32 (a_lo.b_lo, below 2^-22
-// of a.b, is dropped).  TF32 wgmma takes K-major operands only, hence Bt.
-//
-// Block: a 128x128 tile of C, K in steps of 32 fp32 (one 128-byte row of
-// each plane), three stages of four 16 KB tiles (192 KB).  Warp 8 is the
-// producer: its lane 0 TMA-loads the four tiles of a stage and waits for
-// a stage to be released before refilling it.  Warpgroups 0 and 1 are
-// the consumers, each owning 64 rows of the tile (a 64x128 fp32
-// accumulator, 64 registers a thread): per k8 step they issue three
-// m64n128k8 wgmmas into a fresh sum per k-tile, wait for them, release
-// the stage and add the sum into the fp32 accumulator (the other
-// consumer's products fill the tensor cores meanwhile).  TMA fills the
-// ragged M, N and K edges with zeros: a tile's rows past M (or N) read
-// the next batch cell's rows or zeros, and only ever reach output rows
-// (columns) that the epilogue masks.  One ordered sum over K per output,
-// no split-K, no atomics.
-#define G_BM 128
-#define G_BN 128
-#define G_BK 32
-#define G_STAGES 3
-#define G_THREADS 288                          // 2 consumer warpgroups + 1 warp
-#define G_TILE_BYTES (G_BM * G_BK * 4)         // 16 KB, one plane's tile
-#define G_STAGE_BYTES (4 * G_TILE_BYTES)
-#define G_SMEM (G_STAGES * G_STAGE_BYTES + 1024)  // + alignment slack
-
-__global__ void __launch_bounds__(G_THREADS, 1)
-tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
-                   const __grid_constant__ CUtensorMap a_lo,
-                   const __grid_constant__ CUtensorMap b_hi,
-                   const __grid_constant__ CUtensorMap b_lo,
-                   float* __restrict__ C, int M, int N, int Kp) {
-  extern __shared__ uint8_t g_smem_raw[];
-  __shared__ __align__(8) uint64_t full[G_STAGES], empty[G_STAGES];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(g_smem_raw) + 1023) & ~uintptr_t(1023));
-
-  const int tiles_m = (M + G_BM - 1) / G_BM, tiles_n = (N + G_BN - 1) / G_BN;
-  const int tile = blockIdx.x;
-  const int nt = tile % tiles_n;
-  const int mt = (tile / tiles_n) % tiles_m;
-  const int bt = tile / (tiles_n * tiles_m);
-  const int m0 = mt * G_BM, n0 = nt * G_BN;
-  const int nk = (Kp + G_BK - 1) / G_BK;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < G_STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
-    }
-    hopper::mbar_init_fence();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {
-    // producer warp
-    if (threadIdx.x == 256) {
-      const int ra = bt * M + m0, rb = bt * N + n0;
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % G_STAGES;
-        if (kt >= G_STAGES)
-          hopper::mbar_wait(&empty[s], ((kt / G_STAGES) - 1) & 1);
-        uint8_t* st = smem + s * G_STAGE_BYTES;
-        hopper::mbar_arrive_expect_tx(&full[s], G_STAGE_BYTES);
-        const int k0 = kt * G_BK;
-        hopper::tma_load_2d(st, &a_hi, &full[s], k0, ra);
-        hopper::tma_load_2d(st + G_TILE_BYTES, &a_lo, &full[s], k0, ra);
-        hopper::tma_load_2d(st + 2 * G_TILE_BYTES, &b_hi, &full[s], k0, rb);
-        hopper::tma_load_2d(st + 3 * G_TILE_BYTES, &b_lo, &full[s], k0, rb);
-      }
-    }
-    return;
-  }
-
-  // consumer warpgroup wg: rows 64*wg .. 64*wg+63 of the tile.  The
-  // tensor cores' fp32 accumulation is not rounded to nearest, and its
-  // error grows with the length of one wgmma sum (one sum over K = 1000
-  // was off by 1e-3 on outputs near 30 on the H100), so each k-tile's
-  // twelve products go to a fresh wgmma sum that is then added into the
-  // fp32 accumulator by FADD, rounded to nearest.
-  float acc[64], part[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  const int a_off = wg * 64 * (G_BK * 4);  // 64 rows of 128 bytes
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % G_STAGES;
-#pragma unroll
-    for (int i = 0; i < 64; ++i) part[i] = 0.f;
-    hopper::mbar_wait(&full[s], (kt / G_STAGES) & 1);
-    const uint8_t* st = smem + s * G_STAGE_BYTES;
-    hopper::wgmma_fence();
-    hopper::fence_regs(part);
-#pragma unroll
-    for (int k = 0; k < G_BK / 8; ++k) {
-      const uint8_t* a = st + a_off + 32 * k;  // k8 step: 32 bytes along K
-      const uint8_t* b = st + 2 * G_TILE_BYTES + 32 * k;
-      const uint64_t ah = hopper::desc_kmajor(a);
-      const uint64_t al = hopper::desc_kmajor(a + G_TILE_BYTES);
-      const uint64_t bh = hopper::desc_kmajor(b);
-      const uint64_t bl = hopper::desc_kmajor(b + G_TILE_BYTES);
-      // the small products first, the large one last
-      hopper::wgmma_m64n128k8_tf32_ss(part, al, bh, k > 0);
-      hopper::wgmma_m64n128k8_tf32_ss(part, ah, bl, 1);
-      hopper::wgmma_m64n128k8_tf32_ss(part, ah, bh, 1);
-    }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(part);
-    if (threadIdx.x % 128 == 0) hopper::mbar_arrive(&empty[s]);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += part[i];
-  }
-
-  // accumulator fragment: warp w, lane l holds rows 16w + l/4 (+8) and,
-  // for each n8 block j, columns 8j + 2(l%4) (+1)
-  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
-  float* Cb = C + (long long)bt * M * N;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = m0 + wg * 64 + 16 * w + lane / 4 + 8 * h;
-    if (m >= M) continue;
-    float* row = Cb + (long long)m * N;
-#pragma unroll
-    for (int j = 0; j < G_BN / 8; ++j) {
-      const int n = n0 + 8 * j + 2 * (lane % 4);
-      const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
-      if (n + 1 < N && (N % 2) == 0) {
-        *reinterpret_cast<float2*>(row + n) = make_float2(x, y);
-      } else {
-        if (n < N) row[n] = x;
-        if (n + 1 < N) row[n + 1] = y;
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------- K2
@@ -258,7 +121,9 @@ tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
 // 32-register accumulators and two partial sums a thread (Karatsuba's
 // three of each would not fit beside them).  Each k-tile's products go to
 // fresh wgmma partial sums that are added into the fp32 accumulators by
-// FADD, as in K1.  The epilogue writes (re, im) pairs straight into the
+// FADD, rounded to nearest: the tensor cores' own fp32 accumulation is
+// not, and its error grows with the length of one wgmma sum (one sum over
+// K = 1000 was off by 1e-3 on outputs near 30 on the H100).  The epilogue writes (re, im) pairs straight into the
 // output's inds_out layout through its role tables.
 #define F_BK 32            // k per stage: one 128-byte row of a TF32 plane
 #define F_ROWS 192         // rows of A and B in a stage, either tile shape
@@ -284,18 +149,47 @@ struct FusedArgs {
                     // chunk, slots as swizzled byte offsets), B's (BN*F_BK
                     // each), the output's tile-local row (BM) and column
                     // (BN) offsets, then A's and B's k-run offsets (4 each)
-  const float* a;
-  const float* b;
-  float* c;
+  const void* a;
+  const void* b;
+  void* c;
   i64 tiles;
   int uniform;      // the maps hold every tile's offsets, output included
+  int flags;        // F_A16 | F_B16 | F_C16: operands and output held as
+                    // bf16 (bf16 (re, im) pairs when complex)
 };
+
+enum { F_A16 = 2, F_B16 = 4, F_C16 = 8 };
 
 // Byte offset of element (row, k) in a 128-byte-swizzled K-major plane of
 // fp32: rows of 32 values, 16-byte chunks permuted by the row's index
 // within its 8-row group (the layout TMA's SWIZZLE_128B writes).
 __device__ __forceinline__ int swz(int row, int k) {
   return row * 128 + ((((k >> 2) ^ row) & 7) << 4) + ((k & 3) << 2);
+}
+
+// The same for a plane of bf16: rows of 64 values (k in 0..63), 16-byte
+// chunks of eight, permuted the same way.
+__device__ __forceinline__ int swz16(int row, int k) {
+  return row * 128 + ((((k >> 3) ^ row) & 7) << 4) + ((k & 7) << 1);
+}
+
+// One element (re, im) of an operand at element offset `off`: fp32 or
+// complex64 (re, im) floats, or bf16 / bf16 (re, im) pairs (IN16).
+template <bool CPLX, bool IN16>
+__device__ __forceinline__ float2 ld_val(const void* src, i64 off) {
+  if (IN16) {
+    if (CPLX)
+      return hopper::bf16x2_float2(
+          hopper::ldg_b32(static_cast<const uint32_t*>(src) + off));
+    return make_float2(
+        __uint_as_float(
+            hopper::ldg_b16(static_cast<const unsigned short*>(src) + off)
+            << 16),
+        0.f);
+  }
+  if (CPLX) return hopper::ldg_f2(static_cast<const float2*>(src) + off);
+  return make_float2(hopper::ldg_f1(static_cast<const float*>(src) + off),
+                     0.f);
 }
 
 // Producer half of K2: one operand's R x F_BK tile into its planes.
@@ -310,6 +204,11 @@ __device__ __forceinline__ int swz(int row, int k) {
 // 16-byte store per plane.  General maps give each element's slot, read
 // through the per-tile row and k offset tables; elements outside the
 // operand are stored as zeros.
+//
+// The bf16 route (BF) stores each element rounded to bf16 into one plane
+// per component (re, im) of rows of 64 k, two 32-wide k-tiles a stage:
+// `half` says which 32 k of the row this tile fills.  A tile past the
+// operand's K (`valid` false) is stored as zeros.
 template <bool CPLX>
 __device__ __forceinline__ void store_split(uint32_t planes, int plane, int o,
                                             float x, float y) {
@@ -331,13 +230,13 @@ __device__ __forceinline__ void split4(const float (&x)[4], float4& hi,
                    hopper::tf32_rna(x[2] - hi.z), hopper::tf32_rna(x[3] - hi.w));
 }
 
-template <bool CPLX, int R>
+template <bool CPLX, int R, bool BF, bool IN16>
 __device__ __forceinline__ void gather_tile(
-    uint8_t* planes, const float* __restrict__ src, i64 base, bool uniform,
-    int rel_t, int sw_t, const int (&kj)[4], const int* drel, const int* dsw,
-    const int* __restrict__ slot, const i64* rows, const i64* ks, int t) {
+    uint8_t* planes, const void* src, i64 base, bool uniform, int rel_t,
+    int sw_t, const int (&kj)[4], const int* drel, const int* dsw,
+    const int* __restrict__ slot, const i64* rows, const i64* ks, int t,
+    int half, bool valid) {
   constexpr int PLANE = R * 128;
-  const float2* src2 = reinterpret_cast<const float2*>(src);
   const uint32_t dst = hopper::smem_u32(planes);
   if (uniform) {
     constexpr int CPER = R * (F_BK / 4) / F_PT;  // chunks a thread
@@ -347,23 +246,34 @@ __device__ __forceinline__ void gather_tile(
     for (int c = 0; c < CPER; ++c)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        v[c][j] = CPLX ? hopper::ldg_f2(src2 + b + drel[c] + kj[j])
-                       : make_float2(
-                             hopper::ldg_f1(src + b + drel[c] + kj[j]),
-                             0.f);
+        v[c][j] = valid ? ld_val<CPLX, IN16>(src, b + drel[c] + kj[j])
+                        : make_float2(0.f, 0.f);
 #pragma unroll
     for (int c = 0; c < CPER; ++c) {
-      const uint32_t o = dst + (sw_t ^ dsw[c]);
-      float4 hi, lo;
+      const int o32 = sw_t ^ dsw[c];
       const float re[4] = {v[c][0].x, v[c][1].x, v[c][2].x, v[c][3].x};
-      split4(re, hi, lo);
-      hopper::sts_v4(o, hi);
-      hopper::sts_v4(o + PLANE, lo);
-      if (CPLX) {
-        const float im[4] = {v[c][0].y, v[c][1].y, v[c][2].y, v[c][3].y};
-        split4(im, hi, lo);
-        hopper::sts_v4(o + 2 * PLANE, hi);
-        hopper::sts_v4(o + 3 * PLANE, lo);
+      const float im[4] = {v[c][0].y, v[c][1].y, v[c][2].y, v[c][3].y};
+      if (BF) {
+        // the chunk's row and first k, from its fp32-plane offset
+        const int row = o32 >> 7;
+        const int k0 = ((((o32 >> 4) ^ row) & 7) << 2) + 32 * half;
+        const uint32_t o = dst + swz16(row, k0);
+        hopper::sts_v2(o, hopper::bf16x2_bits(re[0], re[1]),
+                       hopper::bf16x2_bits(re[2], re[3]));
+        if (CPLX)
+          hopper::sts_v2(o + PLANE, hopper::bf16x2_bits(im[0], im[1]),
+                         hopper::bf16x2_bits(im[2], im[3]));
+      } else {
+        const uint32_t o = dst + o32;
+        float4 hi, lo;
+        split4(re, hi, lo);
+        hopper::sts_v4(o, hi);
+        hopper::sts_v4(o + PLANE, lo);
+        if (CPLX) {
+          split4(im, hi, lo);
+          hopper::sts_v4(o + 2 * PLANE, hi);
+          hopper::sts_v4(o + 3 * PLANE, lo);
+        }
       }
     }
     return;
@@ -376,22 +286,51 @@ __device__ __forceinline__ void gather_tile(
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const i64 ro = rows[sl[i] >> 5], ko = ks[sl[i] & 31];
-    const bool ok = ro >= 0 && ko >= 0;
-    v[i] = CPLX ? __ldg(src2 + (ok ? ro + ko : 0))
-                : make_float2(__ldg(src + (ok ? ro + ko : 0)), 0.f);
+    const bool ok = valid && ro >= 0 && ko >= 0;
+    v[i] = ld_val<CPLX, IN16>(src, ok ? ro + ko : 0);
     if (!ok) v[i] = make_float2(0.f, 0.f);
   }
 #pragma unroll
-  for (int i = 0; i < PER; ++i)
-    store_split<CPLX>(dst, PLANE, swz(sl[i] >> 5, sl[i] & 31), v[i].x,
-                      v[i].y);
+  for (int i = 0; i < PER; ++i) {
+    if (BF) {
+      const uint32_t o = dst + swz16(sl[i] >> 5, (sl[i] & 31) + 32 * half);
+      hopper::sts_b16(o, hopper::bf16_bits(v[i].x));
+      if (CPLX) hopper::sts_b16(o + PLANE, hopper::bf16_bits(v[i].y));
+    } else {
+      store_split<CPLX>(dst, PLANE, swz(sl[i] >> 5, sl[i] & 31), v[i].x,
+                        v[i].y);
+    }
+  }
 }
 
-template <bool CPLX, bool WIDE>
-__global__ void __launch_bounds__(F_THREADS, 1)
-fused_gemm_kernel(const __grid_constant__ FusedArgs p) {
+template <bool CPLX, int R, bool BF>
+__device__ __forceinline__ void gather_operand(
+    bool in16, uint8_t* planes, const void* src, i64 base, bool uniform,
+    int rel_t, int sw_t, const int (&kj)[4], const int* drel, const int* dsw,
+    const int* __restrict__ slot, const i64* rows, const i64* ks, int t,
+    int half, bool valid) {
+  if (in16)
+    gather_tile<CPLX, R, BF, true>(planes, src, base, uniform, rel_t, sw_t, kj,
+                                   drel, dsw, slot, rows, ks, t, half, valid);
+  else
+    gather_tile<CPLX, R, BF, false>(planes, src, base, uniform, rel_t, sw_t,
+                                    kj, drel, dsw, slot, rows, ks, t, half,
+                                    valid);
+}
+
+// The kernel body, shared by K2 (fused_gemm_kernel: a tree step in its
+// native layouts) and K1's in-place route (tiled_gemm_kernel: the step in
+// GEMM order, whose maps describe plain row-major operands).  BF: the
+// bf16 route, each stage two 32-wide k-tiles as bf16 planes (re, im) of
+// 64 k a row, read by bf16 wgmma m64n64k16 (four k16 steps a stage);
+// otherwise 3xTF32 on four TF32 planes a complex operand, one k-tile a
+// stage.  Either way each stage's products go to fresh partial sums
+// added into the fp32 accumulators.
+template <bool CPLX, bool WIDE, bool BF>
+__device__ __forceinline__ void fused_body(const FusedArgs& p) {
   constexpr int BM = FusedTile<WIDE>::BM, BN = FusedTile<WIDE>::BN;
   constexpr int A_PLANE = BM * 128, B_PLANE = BN * 128;
+  constexpr int HALVES = BF ? 2 : 1;  // 32-wide k-tiles a stage
   extern __shared__ uint8_t f_smem_raw[];
   __shared__ __align__(8) uint64_t full[F_STAGES], empty[F_STAGES];
   __shared__ i64 rows_a[BM], rows_b[BN], ks_a[F_BK], ks_b[F_BK];
@@ -402,7 +341,8 @@ fused_gemm_kernel(const __grid_constant__ FusedArgs p) {
   const i64* d = p.desc;
   const i64 M = __ldg(d + D_M), N = __ldg(d + D_N), K = __ldg(d + D_K);
   const i64 tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
-  const int nk = (int)((K + F_BK - 1) / F_BK);
+  const int nk = (int)((K + F_BK - 1) / F_BK);     // 32-wide k-tiles
+  const int nst = (nk + HALVES - 1) / HALVES;      // stages a tile
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < F_STAGES; ++s) {
@@ -418,6 +358,7 @@ fused_gemm_kernel(const __grid_constant__ FusedArgs p) {
     // producer warpgroups
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F_PREG));
     const int t = threadIdx.x - 256;
+    const bool a16 = p.flags & F_A16, b16 = p.flags & F_B16;
     const int* a_rel = p.maps;
     const int* a_slot = a_rel + BM * F_BK;
     const int* b_rel = a_slot + BM * F_BK;
@@ -452,42 +393,52 @@ fused_gemm_kernel(const __grid_constant__ FusedArgs p) {
       const i64 a_bt = role_off(d, D_AB, bt), b_bt = role_off(d, D_BB, bt);
       const i64 a_tile = p.uniform ? a_bt + role_off(d, D_AM, m0) : 0;
       const i64 b_tile = p.uniform ? b_bt + role_off(d, D_BN, n0) : 0;
-      for (int kt = 0; kt < nk; ++kt, ++it) {
+      for (int st = 0; st < nst; ++st, ++it) {
         const int s = it % F_STAGES;
         if (it >= F_STAGES)
           hopper::mbar_wait(&empty[s], ((it / F_STAGES) - 1) & 1);
-        const i64 k0 = (i64)kt * F_BK;
-        i64 a_base = 0, b_base = 0;
-        if (p.uniform) {
-          a_base = a_tile + __ldg(ka + kt);
-          b_base = b_tile + __ldg(kb + kt);
-        } else {
-          hopper::named_barrier(1, F_PT);  // done with the last tables
-          if (kt == 0) {
-            if (t < BM) {
-              const i64 m = m0 + t;
-              rows_a[t] = m < M ? a_bt + role_off(d, D_AM, m) : -1;
+        uint8_t* stage = smem + s * F_STAGE_BYTES;
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) {
+          const int kt = st * HALVES + h;
+          const bool valid = kt < nk;
+          const i64 k0 = (i64)kt * F_BK;
+          i64 a_base = 0, b_base = 0;
+          if (p.uniform) {
+            if (valid) {
+              a_base = a_tile + __ldg(ka + kt);
+              b_base = b_tile + __ldg(kb + kt);
             }
-            if (t < BN) {
-              const i64 n = n0 + t;
-              rows_b[t] = n < N ? b_bt + role_off(d, D_BN, n) : -1;
+          } else {
+            hopper::named_barrier(1, F_PT);  // done with the last tables
+            if (kt == 0) {
+              if (t < BM) {
+                const i64 m = m0 + t;
+                rows_a[t] = m < M ? a_bt + role_off(d, D_AM, m) : -1;
+              }
+              if (t < BN) {
+                const i64 n = n0 + t;
+                rows_b[t] = n < N ? b_bt + role_off(d, D_BN, n) : -1;
+              }
             }
+            if (t < F_BK) {
+              const i64 k = k0 + t;
+              ks_a[t] = k < K ? role_off(d, D_AK, k) : -1;
+            } else if (t < 2 * F_BK) {
+              const i64 k = k0 + t - F_BK;
+              ks_b[t - F_BK] = k < K ? role_off(d, D_BK, k) : -1;
+            }
+            hopper::named_barrier(1, F_PT);
           }
-          if (t < F_BK) {
-            const i64 k = k0 + t;
-            ks_a[t] = k < K ? role_off(d, D_AK, k) : -1;
-          } else if (t < 2 * F_BK) {
-            const i64 k = k0 + t - F_BK;
-            ks_b[t - F_BK] = k < K ? role_off(d, D_BK, k) : -1;
-          }
-          hopper::named_barrier(1, F_PT);
+          gather_operand<CPLX, BM, BF>(a16, stage, p.a, a_base, p.uniform,
+                                       rel_ta, sw_ta, kj_a, deltas[0],
+                                       deltas[1], a_slot, rows_a, ks_a, t, h,
+                                       valid);
+          gather_operand<CPLX, BN, BF>(b16, stage + 4 * A_PLANE, p.b, b_base,
+                                       p.uniform, rel_tb, sw_tb, kj_b,
+                                       deltas[2], deltas[3], b_slot, rows_b,
+                                       ks_b, t, h, valid);
         }
-        uint8_t* st = smem + s * F_STAGE_BYTES;
-        gather_tile<CPLX, BM>(st, p.a, a_base, p.uniform, rel_ta, sw_ta, kj_a,
-                              deltas[0], deltas[1], a_slot, rows_a, ks_a, t);
-        gather_tile<CPLX, BN>(st + 4 * A_PLANE, p.b, b_base, p.uniform, rel_tb,
-                              sw_tb, kj_b, deltas[2], deltas[3], b_slot,
-                              rows_b, ks_b, t);
         hopper::fence_proxy_async();
         hopper::mbar_arrive(&full[s]);
       }
@@ -508,7 +459,7 @@ fused_gemm_kernel(const __grid_constant__ FusedArgs p) {
     const i64 m0 = mt * BM, n0 = nt * BN;
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc_r[i] = acc_i[i] = 0.f;
-    for (int kt = 0; kt < nk; ++kt, ++it) {
+    for (int st = 0; st < nst; ++st, ++it) {
       const int s = it % F_STAGES;
       hopper::mbar_wait(&full[s], (it / F_STAGES) & 1);
       const uint8_t* A = smem + s * F_STAGE_BYTES + a_row0 * 128;
@@ -517,11 +468,26 @@ fused_gemm_kernel(const __grid_constant__ FusedArgs p) {
       hopper::fence_regs(pr);
       if (CPLX) hopper::fence_regs(pi);
 #pragma unroll
-      for (int k = 0; k < F_BK / 8; ++k) {
-        const int kb = 32 * k;  // k8 step: 32 bytes along K
+      for (int k = 0; k < 4; ++k) {
+        // a k8 (TF32) or k16 (bf16) step: 32 bytes along the row
+        const int kb = 32 * k;
         const uint64_t arh = hopper::desc_kmajor(A + kb);
-        const uint64_t arl = hopper::desc_kmajor(A + A_PLANE + kb);
         const uint64_t brh = hopper::desc_kmajor(B + kb);
+        if (BF) {
+          // bf16 planes: re at 0, im at one plane further
+          if (CPLX) {
+            const uint64_t aih = hopper::desc_kmajor(A + A_PLANE + kb);
+            const uint64_t bih = hopper::desc_kmajor(B + B_PLANE + kb);
+            hopper::wgmma_m64n64k16_bf16_ss<1>(pr, arh, brh, k > 0);
+            hopper::wgmma_m64n64k16_bf16_ss<-1>(pr, aih, bih, 1);
+            hopper::wgmma_m64n64k16_bf16_ss<1>(pi, arh, bih, k > 0);
+            hopper::wgmma_m64n64k16_bf16_ss<1>(pi, aih, brh, 1);
+          } else {
+            hopper::wgmma_m64n64k16_bf16_ss<1>(pr, arh, brh, k > 0);
+          }
+          continue;
+        }
+        const uint64_t arl = hopper::desc_kmajor(A + A_PLANE + kb);
         const uint64_t brl = hopper::desc_kmajor(B + B_PLANE + kb);
         // the small products first, the large one last
         if (CPLX) {
@@ -587,6 +553,7 @@ fused_gemm_kernel(const __grid_constant__ FusedArgs p) {
         co[j] = n < N ? role_off(d, D_ON, n) : 0;
       }
     }
+    const bool c16 = p.flags & F_C16;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (m0 + a_row0 + 16 * w + lane / 4 + 8 * h >= M) continue;
@@ -594,14 +561,36 @@ fused_gemm_kernel(const __grid_constant__ FusedArgs p) {
       for (int j = 0; j < 16; ++j) {
         if (n0 + b_row0 + 8 * (j / 2) + 2 * (lane % 4) + j % 2 >= N) continue;
         const int r = 4 * (j / 2) + 2 * h + j % 2;
-        if (CPLX)
-          reinterpret_cast<float2*>(p.c)[ro[h] + co[j]] =
-              make_float2(acc_r[r], acc_i[r]);
-        else
-          p.c[ro[h] + co[j]] = acc_r[r];
+        const i64 o = ro[h] + co[j];
+        if (c16) {
+          if (CPLX)
+            static_cast<uint32_t*>(p.c)[o] =
+                hopper::bf16x2_bits(acc_r[r], acc_i[r]);
+          else
+            static_cast<unsigned short*>(p.c)[o] =
+                (unsigned short)hopper::bf16_bits(acc_r[r]);
+        } else if (CPLX) {
+          static_cast<float2*>(p.c)[o] = make_float2(acc_r[r], acc_i[r]);
+        } else {
+          static_cast<float*>(p.c)[o] = acc_r[r];
+        }
       }
     }
   }
+}
+
+template <bool CPLX, bool WIDE, bool BF>
+__global__ void __launch_bounds__(F_THREADS, 1)
+fused_gemm_kernel(const __grid_constant__ FusedArgs p) {
+  fused_body<CPLX, WIDE, BF>(p);
+}
+
+// K1's in-place route: the same body on the step in GEMM order (see
+// repro_fused_gemm).
+template <bool CPLX, bool WIDE, bool BF>
+__global__ void __launch_bounds__(F_THREADS, 1)
+tiled_gemm_kernel(const __grid_constant__ FusedArgs p) {
+  fused_body<CPLX, WIDE, BF>(p);
 }
 
 // ---------------------------------------------------------------- K3
@@ -624,7 +613,12 @@ fused_gemm_kernel(const __grid_constant__ FusedArgs p) {
 // K = 1..16 on most of the path, too short for a k8 TF32 wgmma that
 // would be mostly padding, so each thread sums a 4x4 block of complex
 // outputs on the CUDA cores (direct form, FFMA), the k loop sized by the
-// step's K.  Complex operands are (re, im) pairs read in place.  On the
+// step's K.  Complex operands are (re, im) pairs read in place.  A bf16
+// step rounds each operand element to bf16 as it is staged (the products
+// of bf16 values are exact in fp32, so this is bf16 inputs with fp32
+// accumulation on the CUDA cores: K3 is bound by latency, not by its
+// arithmetic, so it takes no tensor-core route), and reads or writes
+// bf16 where an external, a workspace slot or the output is held so.  On the
 // H100 (chip_smoke.py) a launch costs 0.87 us of device time, a cluster
 // barrier 0.54 us and a small step about 2.4 us, the latency of its
 // staged loads.
@@ -638,10 +632,18 @@ fused_gemm_kernel(const __grid_constant__ FusedArgs p) {
 
 // Step words: B, M, N, K, tiles_m, tiles_n, tiles, a_src, b_src, c_dst,
 // then (hi, lo, full) for the nine roles in K2's order (AB, AM, AK, BB,
-// BK, BN, OB, OM, ON).  A source >= 0 is an external; one < 0 is the
-// workspace at element -src - 1.  c_dst -1 is the chain's output, else a
-// workspace element offset.
-enum { S_TILES = 6, S_ASRC = 7, S_BSRC = 8, S_CDST = 9, S_ROLES = 10 };
+// BK, BN, OB, OM, ON), then the step's flags.  A source >= 0 is an
+// external; one < 0 is the workspace at element -src - 1.  c_dst -1 is
+// the chain's output, else a workspace element offset.  Workspace
+// offsets count full-width elements; a bf16 slot holds its values as
+// bf16 from there.
+enum { S_TILES = 6, S_ASRC = 7, S_BSRC = 8, S_CDST = 9, S_ROLES = 10,
+       S_FLAGS = 37 };
+// S_FLAGS: S_BF (the step reads bf16: each operand element is rounded to
+// bf16 as it is staged, and the FFMA products of bf16 values are exact),
+// and F_A16 / F_B16 / F_C16 (A, B or the output held as bf16, in a bf16
+// workspace slot, a half-width external or the chain's output).
+enum { S_BF = 1 };
 
 struct ChainParams {
   const int* tab;
@@ -666,18 +668,39 @@ __device__ __forceinline__ int tab_off(const int* tab, const int* h, int r,
 }
 
 template <bool CPLX>
-__device__ __forceinline__ float2 ld_elem(const float* p, int off) {
+__device__ __forceinline__ float2 ld_elem(const float* p, int off, bool h16,
+                                          bool bf) {
   // carries were written by other blocks during this launch: read them
   // from L2 (L1 is not coherent across SMs)
-  if (CPLX) return __ldcg(reinterpret_cast<const float2*>(p) + off);
-  return make_float2(__ldcg(p + off), 0.f);
+  float2 v;
+  if (h16) {
+    v = CPLX ? hopper::bf16x2_float2(
+                   __ldcg(reinterpret_cast<const unsigned int*>(p) + off))
+             : make_float2(
+                   __uint_as_float(
+                       (uint32_t)__ldcg(
+                           reinterpret_cast<const unsigned short*>(p) + off)
+                       << 16),
+                   0.f);
+  } else {
+    v = CPLX ? __ldcg(reinterpret_cast<const float2*>(p) + off)
+             : make_float2(__ldcg(p + off), 0.f);
+  }
+  if (bf) v = make_float2(hopper::bf16_round(v.x), hopper::bf16_round(v.y));
+  return v;
 }
 
-template <bool CPLX>
+// MIXED: the launch has a step with flags (a bf16 step or a half-width
+// operand or output); otherwise every flag is known to be 0 and the loads
+// and stores are the fp32 ones, with no branch on the widths.
+template <bool CPLX, bool MIXED>
 __device__ void chain_tile(ChainSmem& s, const int* tab, const int* h,
                            int tile, const float* A, const float* B,
                            float* C) {
   const int M = h[1], N = h[2], K = h[3], tiles_m = h[4], tiles_n = h[5];
+  const int flags = MIXED ? h[S_FLAGS] : 0;
+  const bool bf = flags & S_BF, a16 = flags & F_A16, b16 = flags & F_B16;
+  const bool c16 = flags & F_C16;
   const int nt = tile % tiles_n, q = tile / tiles_n;
   const int mt = q % tiles_m, bt = q / tiles_m;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -712,8 +735,10 @@ __device__ void chain_tile(ChainSmem& s, const int* tab, const int* h,
     const int li = tid & 63;
     for (int ki = tid >> 6; ki < kc; ki += C_NT / 64) {
       const int ra = s.arow[li], cb = s.bcol[li];
-      s.a[ki][li] = ra >= 0 ? ld_elem<CPLX>(A, ra + s.ak[ki]) : make_float2(0.f, 0.f);
-      s.b[ki][li] = cb >= 0 ? ld_elem<CPLX>(B, cb + s.bk[ki]) : make_float2(0.f, 0.f);
+      s.a[ki][li] = ra >= 0 ? ld_elem<CPLX>(A, ra + s.ak[ki], a16, bf)
+                            : make_float2(0.f, 0.f);
+      s.b[ki][li] = cb >= 0 ? ld_elem<CPLX>(B, cb + s.bk[ki], b16, bf)
+                            : make_float2(0.f, 0.f);
     }
     __syncthreads();
     for (int ki = 0; ki < kc; ++ki) {
@@ -746,10 +771,18 @@ __device__ void chain_tile(ChainSmem& s, const int* tab, const int* h,
     for (int j = 0; j < 4; ++j) {
       const int co = s.ccol[tx + 16 * j];
       if (co < 0) continue;
-      if (CPLX)
+      if (c16) {
+        if (CPLX)
+          reinterpret_cast<uint32_t*>(C)[ro + co] =
+              hopper::bf16x2_bits(ar[i][j], ai[i][j]);
+        else
+          reinterpret_cast<unsigned short*>(C)[ro + co] =
+              (unsigned short)hopper::bf16_bits(ar[i][j]);
+      } else if (CPLX) {
         reinterpret_cast<float2*>(C)[ro + co] = make_float2(ar[i][j], ai[i][j]);
-      else
+      } else {
         C[ro + co] = ar[i][j];
+      }
     }
   }
 }
@@ -760,7 +793,7 @@ __device__ __forceinline__ const float* chain_src(const ChainParams& p,
   return src >= 0 ? p.ext[src] : p.work + (CPLX ? 2 : 1) * (i64)(-src - 1);
 }
 
-template <bool CPLX>
+template <bool CPLX, bool MIXED>
 __global__ void __launch_bounds__(C_NT)
 chain_gemm_kernel(const __grid_constant__ ChainParams p) {
   extern __shared__ int4 c_smem[];
@@ -777,7 +810,7 @@ chain_gemm_kernel(const __grid_constant__ ChainParams p) {
     const float* B = chain_src<CPLX>(p, h[S_BSRC]);
     float* C = h[S_CDST] < 0 ? p.out : p.work + (CPLX ? 2 : 1) * (i64)h[S_CDST];
     for (int tile = blockIdx.x; tile < h[S_TILES]; tile += gridDim.x)
-      chain_tile<CPLX>(s, tab, h, tile, A, B, C);
+      chain_tile<CPLX, MIXED>(s, tab, h, tile, A, B, C);
     if (t + 1 < p.nsteps) hopper::cluster_sync();
   }
 }
@@ -796,38 +829,6 @@ extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K1 on the four planes the wrapper wrote (see tf32x3_gemm_kernel).
-extern "C" int repro_tiled_gemm(const float* a_hi, const float* a_lo,
-                                const float* bt_hi, const float* bt_lo,
-                                float* C, i64 batch, i64 M, i64 N, i64 Kp,
-                                void* stream) {
-  const i64 tiles = batch * ((M + G_BM - 1) / G_BM) * ((N + G_BN - 1) / G_BN);
-  if (tiles <= 0 || tiles > 0x7fffffffLL || Kp <= 0 || Kp % 4 ||
-      batch * M > 0x7fffffffLL || batch * N > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[4];
-  const float* planes[4] = {a_hi, a_lo, bt_hi, bt_lo};
-  for (int i = 0; i < 4; ++i) {
-    const uint64_t rows = (uint64_t)(batch * (i < 2 ? M : N));
-    const uint64_t dims[2] = {(uint64_t)Kp, rows};
-    const uint64_t strides[1] = {(uint64_t)Kp * 4};
-    const uint32_t box[2] = {G_BK, (uint32_t)(i < 2 ? G_BM : G_BN)};
-    cudaError_t err = hopper::make_tensor_map(
-        &maps[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, planes[i], dims, strides,
-        box);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      tf32x3_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  tf32x3_gemm_kernel<<<(unsigned)tiles, G_THREADS, G_SMEM,
-                       (cudaStream_t)stream>>>(maps[0], maps[1], maps[2],
-                                               maps[3], C, (int)M, (int)N,
-                                               (int)Kp);
-  return (int)cudaGetLastError();
-}
-
-
 static int sm_count(int* n) {
   static int cached = 0;
   if (cached == 0) {
@@ -842,13 +843,14 @@ static int sm_count(int* n) {
   return 0;
 }
 
-template <bool CPLX, bool WIDE>
+template <bool CPLX, bool WIDE, bool BF, bool TILED>
 static int launch_fused(const FusedArgs& args, cudaStream_t stream) {
   static bool ready = false;
+  const void* fn = TILED ? (const void*)tiled_gemm_kernel<CPLX, WIDE, BF>
+                         : (const void*)fused_gemm_kernel<CPLX, WIDE, BF>;
   if (!ready) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_gemm_kernel<CPLX, WIDE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
@@ -856,24 +858,43 @@ static int launch_fused(const FusedArgs& args, cudaStream_t stream) {
   const int rc = sm_count(&sms);
   if (rc) return rc;
   const i64 grid = args.tiles < sms ? args.tiles : sms;
-  fused_gemm_kernel<CPLX, WIDE><<<(unsigned)grid, F_THREADS, F_SMEM, stream>>>(
-      args);
+  void* kargs[] = {const_cast<FusedArgs*>(&args)};
+  cudaError_t err = cudaLaunchKernel(fn, dim3((unsigned)grid), dim3(F_THREADS),
+                                     kargs, F_SMEM, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// K2 on an oriented descriptor and its gather maps (see fused_gemm_kernel):
-// complex64 operands as (re, im) float pairs when cplx, fp32 otherwise.
+template <bool CPLX, bool WIDE, bool BF>
+static int launch_fused(const FusedArgs& args, int tiled, cudaStream_t st) {
+  return tiled ? launch_fused<CPLX, WIDE, BF, true>(args, st)
+               : launch_fused<CPLX, WIDE, BF, false>(args, st);
+}
+
+template <bool CPLX, bool WIDE>
+static int launch_fused(const FusedArgs& args, int bf, int tiled,
+                        cudaStream_t st) {
+  return bf ? launch_fused<CPLX, WIDE, true>(args, tiled, st)
+            : launch_fused<CPLX, WIDE, false>(args, tiled, st);
+}
+
+// K2 (tiled = 0) or K1's in-place route (tiled = 1) on an oriented
+// descriptor and its gather maps (see fused_body): complex operands as
+// (re, im) pairs when cplx, real otherwise.  flags: 1 the bf16 route,
+// F_A16 / F_B16 / F_C16 the operands and output held as bf16.
 extern "C" int repro_fused_gemm(const i64* desc, const int* maps, int uniform,
-                                int wide, int cplx, i64 tiles, const float* a,
-                                const float* b, float* c, void* stream) {
+                                int wide, int cplx, i64 tiles, const void* a,
+                                const void* b, void* c, int flags, int tiled,
+                                void* stream) {
   if (tiles <= 0) return (int)cudaErrorInvalidValue;
-  const FusedArgs args{desc, maps, a, b, c, tiles, uniform};
+  const FusedArgs args{desc, maps, a, b, c, tiles, uniform, flags};
   cudaStream_t st = (cudaStream_t)stream;
+  const int bf = flags & 1;
   if (cplx)
-    return wide ? launch_fused<true, true>(args, st)
-                : launch_fused<true, false>(args, st);
-  return wide ? launch_fused<false, true>(args, st)
-              : launch_fused<false, false>(args, st);
+    return wide ? launch_fused<true, true>(args, bf, tiled, st)
+                : launch_fused<true, false>(args, bf, tiled, st);
+  return wide ? launch_fused<false, true>(args, bf, tiled, st)
+              : launch_fused<false, false>(args, bf, tiled, st);
 }
 
 // Launch `fn` as one cluster of `cluster` blocks of `threads`.
@@ -903,29 +924,35 @@ extern "C" int repro_chain_smem(int tab_words) {
 
 // K3: one segment of a chain (p->nsteps <= MAX_CHAIN steps) as one
 // cluster of `cluster` blocks (1..16; above 8 needs the non-portable
-// cluster size).
-extern "C" int repro_chain_gemm(const ChainParams* p, int cplx, int cluster,
-                                void* stream) {
+// cluster size); `mixed` when a step of it has flags.
+extern "C" int repro_chain_gemm(const ChainParams* p, int cplx, int mixed,
+                                int cluster, void* stream) {
   if (p->nsteps < 1 || p->nsteps > MAX_CHAIN || cluster < 1 || cluster > 16 ||
       p->tab_words % 4)
     return (int)cudaErrorInvalidValue;
-  static int smem_ok[2] = {48 << 10, 48 << 10};
-  static bool wide_ok[2] = {false, false};
-  const void* fn = cplx ? (const void*)chain_gemm_kernel<true>
-                        : (const void*)chain_gemm_kernel<false>;
+  static int smem_ok[2][2] = {{48 << 10, 48 << 10}, {48 << 10, 48 << 10}};
+  static bool wide_ok[2][2] = {{false, false}, {false, false}};
+  const void* fns[2][2] = {
+      {(const void*)chain_gemm_kernel<false, false>,
+       (const void*)chain_gemm_kernel<false, true>},
+      {(const void*)chain_gemm_kernel<true, false>,
+       (const void*)chain_gemm_kernel<true, true>}};
+  cplx = cplx != 0;
+  mixed = mixed != 0;
+  const void* fn = fns[cplx][mixed];
   const int smem = repro_chain_smem(p->tab_words);
   cudaError_t err = cudaSuccess;
-  if (smem > smem_ok[cplx]) {
+  if (smem > smem_ok[cplx][mixed]) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return (int)err;
-    smem_ok[cplx] = smem;
+    smem_ok[cplx][mixed] = smem;
   }
-  if (cluster > 8 && !wide_ok[cplx]) {
+  if (cluster > 8 && !wide_ok[cplx][mixed]) {
     err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
-    wide_ok[cplx] = true;
+    wide_ok[cplx][mixed] = true;
   }
   void* args[] = {const_cast<ChainParams*>(p)};
   return launch_cluster(fn, cluster, C_NT, smem, args, (cudaStream_t)stream);
@@ -935,7 +962,7 @@ extern "C" int repro_chain_gemm(const ChainParams* p, int cplx, int cluster,
 // block: 16 blocks (non-portable) where the card can schedule such a
 // cluster, else 8 (the portable size, which every Hopper card takes).
 extern "C" int repro_chain_cluster_max(int smem, int* out) {
-  const void* fn = (const void*)chain_gemm_kernel<true>;
+  const void* fn = (const void*)chain_gemm_kernel<true, false>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && smem > (48 << 10))

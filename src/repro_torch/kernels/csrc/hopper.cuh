@@ -123,6 +123,50 @@ __device__ __forceinline__ float ldg_f1(const float* p) {
   return v;
 }
 
+__device__ __forceinline__ uint32_t ldg_b32(const void* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ldg_b16(const void* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.b16 %0, [%1];\n" : "=h"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void sts_b16(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"((unsigned short)v)
+               : "memory");
+}
+
+__device__ __forceinline__ void sts_v2(uint32_t addr, uint32_t lo,
+                                       uint32_t hi) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(lo),
+               "r"(hi)
+               : "memory");
+}
+
+// bf16 <-> fp32.  bf16_bits rounds to nearest even (finite x), as
+// torch's conversion does; a bf16 value widens exactly.
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __uint_as_float(bf16_bits(x) << 16);
+}
+
+// Two bf16 values in one 32-bit word, `lo` at the lower address.
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+}
+
+__device__ __forceinline__ float2 bf16x2_float2(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
 __device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
   asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
@@ -266,6 +310,34 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(float (&d)[64],
 
 }
 
+// D(64x64, fp32) (+)= SA * A(64x16, bf16, smem, K-major) . B(16x64, bf16,
+// smem, K-major), SA = +1 or -1 (imm-scale-a).
+template <int SA>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32],
+                                                        uint64_t desc_a,
+                                                        uint64_t desc_b,
+                                                        int scale_d) {
+  static_assert(SA == 1 || SA == -1, "imm-scale-a is +1 or -1");
+  asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, %35, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(SA));
+}
+
 // D(64x64, fp32) (+)= A(64x16, bf16, registers) . B(16x64, bf16, smem,
 // MN-major: the transpose bit).  A's four registers per thread hold the
 // fragment of mma.sync's m16n8k16 A operand for the thread's warp rows.
@@ -291,45 +363,6 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-
-}
-
-// D(64x128, fp32) (+)= A(64x8, tf32, smem, K-major) . B(8x128, tf32,
-// smem, K-major).  tf32 wgmma takes K-major operands only.
-__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64],
-                                                        uint64_t desc_a,
-                                                        uint64_t desc_b,
-                                                        int scale_d) {
-  asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 
 }
 

@@ -2,14 +2,17 @@
 them.
 
 For the contraction kernels they handle the parts around the kernels:
-the complex 3-real-GEMM Karatsuba of :func:`matmul` (25% fewer real FLOPs
-than the naive 4-GEMM form) on separate fp32 re/im planes, and the
-library-matmul fallback below the kernels' tile size.  The tiled kernel
-masks its ragged edge itself, so unlike the reference's ``ops.matmul``
-nothing is padded.  :func:`fused_matmul` and :func:`fused_chain` hand
-complex64 tensors to their kernels as they are (the kernels read and
-write (re, im) pairs in place): one kernel launch per call, no plane
-copies.
+the library-matmul fallback below the kernels' tile size, a real operand
+beside a complex one (cast to complex64), and the precision of the step.
+Every contraction kernel reads complex64 in place as (re, im) pairs and
+computes a complex product in the direct form, so :func:`matmul`,
+:func:`tiled_step`, :func:`fused_matmul` and :func:`fused_chain` each
+make one kernel launch and no plane copies.  ``precision="bf16"`` runs
+the kernels' bf16 routes (operands rounded to bf16 at the kernel's
+loads, fp32 accumulation); ``out16`` asks for the output at half width,
+as bf16 (re, im) pairs (:func:`repro_torch.kernels.ref.to_pairs16`),
+which is how the executor stores a node every consumer of which reads
+bf16.  Half-width operands are taken as they are.
 
 For the LM side, :func:`attention` puts (b, s, h, d) heads into the flash
 kernel's (b·h, s, d) layout with the reference's dispatch rule, and
@@ -23,18 +26,30 @@ import torch
 
 from ..hardware import DEFAULT_HARDWARE
 from . import ref
-from .contract_gemm import chain_gemm_c64, fused_gemm_c64, tiled_gemm
+from .contract_gemm import (
+    _external_shape,
+    chain_gemm_c64,
+    fused_gemm_c64,
+    operand_kind,
+    tiled_gemm,
+    tiled_gemm_step,
+)
 from .flash_attention import flash_attention
 from .mamba2_ssd import ssd_intra_chunk
+from .ref import to_pairs16, widen
 
 _DISPATCH_TILE = 128  # the reference's dispatch rule for attention
 
 
-def _planes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Separate contiguous fp32 (re, im) planes of ``x``."""
-    if x.is_complex():
-        return x.real.float().contiguous(), x.imag.float().contiguous()
-    return x.float().contiguous(), torch.zeros_like(x, dtype=torch.float32)
+def _as_complex(xs, shapes):
+    """The operands, a real full-width one cast to complex64 when another
+    is complex (a half-width real operand beside a complex one is
+    widened first)."""
+    kinds = [operand_kind(x, s) for x, s in zip(xs, shapes)]
+    if not any(c for c, _ in kinds) or all(c for c, _ in kinds):
+        return list(xs)
+    return [x if c else widen(x, s).to(torch.complex64)
+            for x, s, (c, _) in zip(xs, shapes, kinds)]
 
 
 def matmul(
@@ -42,59 +57,65 @@ def matmul(
     b: torch.Tensor,
     *,
     min_kernel_dim: int = DEFAULT_HARDWARE.tile,
+    precision: str = "fp32",
+    out16: bool = False,
 ) -> torch.Tensor:
-    """(Batched) GEMM through the tiled kernel, with complex support.
+    """(Batched) GEMM through the tiled kernel (K1), complex in place.
 
-    ``a`` is (M, K) or (B, M, K), ``b`` (K, N) or (B, K, N).  Falls back
-    to the library's matmul for shapes under ``min_kernel_dim`` where the
-    kernel's output tile would be mostly idle (the paper's Sec. V-A
-    pathology)."""
-    if a.is_complex() or b.is_complex():
-        return _complex_matmul(a, b, min_kernel_dim=min_kernel_dim)
-    m, k = a.shape[-2:]
-    n = b.shape[-1]
-    if min(m, n, k) < min_kernel_dim:
-        return ref.matmul_ref(a, b)
-    if a.dim() == 2:
-        return tiled_gemm(a[None].float(), b[None].float())[0]
-    return tiled_gemm(a.float(), b.float())
-
-
-def _complex_matmul(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
-    """Karatsuba: 3 real GEMMs instead of 4.
-
-    P1 = Ar·Br, P2 = Ai·Bi, P3 = (Ar+Ai)·(Br+Bi)
-    C  = (P1 − P2) + i·(P3 − P1 − P2)
-    """
-    ar, ai = _planes(a)
-    br, bi = _planes(b)
-    p1 = matmul(ar, br, **kw)
-    p2 = matmul(ai, bi, **kw)
-    p3 = matmul(ar + ai, br + bi, **kw)
-    return torch.complex(p1 - p2, p3 - p1 - p2)
+    ``a`` is (M, K) or (B, M, K), ``b`` (K, N) or (B, K, N); half-width
+    operands come batched (bf16 (B, M, K), or bf16 pairs (B, M, K, 2)).
+    Falls back to the library's fp32 matmul for shapes under
+    ``min_kernel_dim`` where the kernel's output tile would be mostly
+    idle (the paper's Sec. V-A pathology)."""
+    squeeze = a.dim() == 2 and a.dtype != torch.bfloat16
+    if squeeze:
+        a, b = a[None], b[None]
+    Bt, M, K = a.shape[:3]
+    N = b.shape[2]
+    a, b = _as_complex((a, b), ((Bt, M, K), (Bt, K, N)))
+    if min(M, N, K) < min_kernel_dim:
+        x, y = widen(a, (Bt, M, K)), widen(b, (Bt, K, N))
+        if precision == "bf16":
+            x, y = ref.round16(x), ref.round16(y)
+        out = torch.matmul(x, y) if x.is_complex() else ref.matmul_ref(x, y)
+        out = to_pairs16(out) if out16 else out
+    else:
+        out = tiled_gemm(a, b, precision=precision, out16=out16)
+    return out[0] if squeeze else out
 
 
-def _kernel_dtype(*xs: torch.Tensor) -> torch.dtype:
-    return torch.complex64 if any(x.is_complex() for x in xs) else torch.float32
+def tiled_step(a: torch.Tensor, b: torch.Tensor, form, *,
+               precision: str = "fp32", out16: bool = False) -> torch.Tensor:
+    """One ``tiled`` contraction step ``form`` through the tiled kernel,
+    read in place in the operands' native layouts (no copies in GEMM
+    order), output in ``inds_out`` order; a real operand beside a
+    complex one is cast first."""
+    a, b = _as_complex((a, b), (form.a_shape, form.b_shape))
+    return tiled_gemm_step(a, b, form, precision=precision, out16=out16)
 
 
-def fused_matmul(a: torch.Tensor, b: torch.Tensor, form) -> torch.Tensor:
+def fused_matmul(a: torch.Tensor, b: torch.Tensor, form, *,
+                 precision: str = "fp32", out16: bool = False) -> torch.Tensor:
     """One contraction step ``form`` through the fused kernel, operands in
-    their tree-native layouts, output in ``inds_out`` order: complex64
-    in place (one launch; a real operand beside a complex one is cast
-    first), or fp32."""
-    dt = _kernel_dtype(a, b)
-    return fused_gemm_c64(a.to(dt), b.to(dt), form)
+    their tree-native layouts, output in ``inds_out`` order: complex in
+    place (one launch; a real operand beside a complex one is cast
+    first), or real."""
+    a, b = _as_complex((a, b), (form.a_shape, form.b_shape))
+    return fused_gemm_c64(a, b, form, precision=precision, out16=out16)
 
 
-def fused_chain(operands, *, forms, carry_side, slot_ids, slot_elems):
+def fused_chain(operands, *, forms, carry_side, slot_ids, slot_elems,
+                precisions=None, slot_prec=(), out16: bool = False):
     """Execute a fused GEMM chain (see :class:`repro_torch.lowering.
-    refiner.FusedChainSpec`) as one chain-kernel call: complex64
-    externals in place (one launch), or fp32."""
-    dt = _kernel_dtype(*operands)
+    refiner.FusedChainSpec`) as one chain-kernel call: complex externals
+    in place (one launch), or real.  ``precisions[t]`` is step ``t``'s
+    input precision; ``slot_prec`` says which workspace slots hold their
+    carries as bf16."""
+    shapes = [_external_shape(forms, carry_side, i) for i in range(len(operands))]
     return chain_gemm_c64(
-        [o.to(dt) for o in operands], tuple(forms), tuple(carry_side),
-        tuple(slot_ids), tuple(slot_elems),
+        _as_complex(operands, shapes), tuple(forms), tuple(carry_side),
+        tuple(slot_ids), tuple(slot_elems), precisions=precisions,
+        slot_prec=tuple(slot_prec), out16=out16,
     )
 
 

@@ -14,6 +14,35 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+def to_pairs16(x: torch.Tensor) -> torch.Tensor:
+    """Half-width storage of ``x``: complex64 as bf16 (re, im) pairs (a
+    ``torch.bfloat16`` tensor with a trailing axis of 2), float32 as
+    bf16.  Each component is rounded to nearest even."""
+    if x.is_complex():
+        return torch.view_as_real(x.contiguous()).to(torch.bfloat16)
+    return x.to(torch.bfloat16)
+
+
+def widen(x: torch.Tensor, shape) -> torch.Tensor:
+    """The fp32 value of an operand of logical ``shape``: bf16 pairs
+    (``shape + (2,)``) as complex64, bf16 as float32, anything else as
+    it is."""
+    if x.dtype != torch.bfloat16:
+        return x
+    if tuple(x.shape) == tuple(shape) + (2,):
+        return torch.view_as_complex(x.float().contiguous())
+    return x.float()
+
+
+def round16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every real component rounded to bf16, kept in fp32 (or
+    complex64): what a bf16 route reads."""
+    if x.is_complex():
+        return torch.view_as_complex(
+            torch.view_as_real(x.contiguous()).to(torch.bfloat16).float())
+    return x.to(torch.bfloat16).float()
+
+
 def permute_reshape(x: torch.Tensor, perm, shape) -> torch.Tensor:
     """``x.permute(perm).reshape(shape)``, with runs of axes that stay
     adjacent under ``perm`` merged first.

@@ -28,9 +28,9 @@ import sys
 
 from .variants import build_variants, card, edit, use
 
-_GATHER_A = "        gather_tile<CPLX, BM>(st, p.a, a_base,"
-_GATHER_B = "        gather_tile<CPLX, BN>(st + 4 * A_PLANE,"
-_MMA_LOOP = "      for (int k = 0; k < F_BK / 8; ++k) {"
+_GATHER_A = "          gather_operand<CPLX, BM, BF>(a16, stage, p.a, a_base,"
+_GATHER_B = "          gather_operand<CPLX, BN, BF>(b16, stage + 4 * A_PLANE,"
+_MMA_LOOP = "      for (int k = 0; k < 4; ++k) {"
 VARIANTS = ("base", "pwg1", "pwg4", "stream", "noproducer", "noproducer_nomma")
 
 
@@ -66,8 +66,8 @@ __device__ __forceinline__ float ldg_stream_f1(const float* p) {
         src = edit(src, "#define F_PWG 2 ", "#define F_PWG 4 ")
         return edit(src, "#define F_PREG 96", "#define F_PREG 40")
     if name in ("noproducer", "noproducer_nomma"):
-        src = edit(src, _GATHER_A, "        if (M < 0) " + _GATHER_A.lstrip())
-        src = edit(src, _GATHER_B, "        if (M < 0) " + _GATHER_B.lstrip())
+        src = edit(src, _GATHER_A, "          if (M < 0) " + _GATHER_A.lstrip())
+        src = edit(src, _GATHER_B, "          if (M < 0) " + _GATHER_B.lstrip())
         if name == "noproducer_nomma":
             src = edit(src, _MMA_LOOP, "      for (int k = 0; k < 0; ++k) {")
         return src

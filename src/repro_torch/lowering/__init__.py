@@ -12,9 +12,11 @@
               vs slice-dependent epilogue
   memory    — lifetime-based buffer planner: linear-scan slots, exact
               live-set peaks per execution segment, free schedules
+  precision — mixed precision under a Linear-XEB budget: which steps run
+              bf16 inputs with fp32 accumulation, which nodes are stored
+              at half width
 
-The plan cache and the mixed-precision planner of the reference are not
-ported yet.
+The plan cache of the reference is not ported yet.
 """
 
 from .gemm_form import GemmForm, apply, apply_chain, lower_step  # noqa: F401

@@ -180,44 +180,131 @@ def lower_step(
     )
 
 
-def apply(spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Execute one refined step (``spec`` is a refiner ``GemmSpec``) and
-    return its output in ``inds_out`` order."""
-    form: GemmForm = spec.form
-    if spec.backend == "einsum":
-        return torch.einsum(form.expr, a, b)
-    from ..kernels import ops
+def _full(x: torch.Tensor, shape) -> torch.Tensor:
+    from ..kernels.ref import widen
 
+    return widen(x, shape)
+
+
+_CHUNK_BYTES = 1 << 26  # the most the dot backend's blocks add to the plan
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, form: GemmForm, out16: bool) -> torch.Tensor:
+    """The ``dot`` backend: ``torch.matmul`` on the step in GEMM order.
+
+    An operand copied whole into GEMM order lives beside itself for the
+    length of the copy, which the planner does not count.  So the larger
+    operand is copied a block at a time: its leading M (or N) axes fixed,
+    each block a run of rows of the GEMM, and each block's product is
+    written straight into the output, allocated in ``inds_out`` order at
+    its storage width.  The blocks of the operand and of the product stay
+    under ``_CHUNK_BYTES``; a step whose operand and output are that size
+    or smaller is computed whole."""
+    import itertools
+
+    from ..kernels.ref import to_pairs16
+
+    a, b = _full(a, form.a_shape), _full(b, form.b_shape)
+    nb, nm, nk = len(form.batch_shape), len(form.m_shape), len(form.k_shape)
+    on_a = a.numel() >= b.numel()
+    x, perm = (a, form.perm_a) if on_a else (b, form.perm_b)
+    free0, nfree = (nb, nm) if on_a else (nb + nk, len(form.n_shape))
+    dims = [x.shape[perm[free0 + i]] for i in range(nfree)]
+    # the operand and the output shrink together as its free axes are fixed
+    out_bytes = math.prod(form.out_shape) * (
+        (4 if a.is_complex() or b.is_complex() else 2) if out16
+        else torch.result_type(a, b).itemsize)
+    c, size = 0, max(x.numel() * x.element_size(), out_bytes)
+    while c < nfree and size > _CHUNK_BYTES:
+        size //= dims[c]
+        c += 1
+    if c == 0:
+        x2 = permute_reshape(a, form.perm_a, (form.B, form.M, form.K))
+        y2 = permute_reshape(b, form.perm_b, (form.B, form.K, form.N))
+        out = torch.matmul(x2, y2)
+        return _inds_out(to_pairs16(out) if out16 else out, form)
+    cplx = a.is_complex() or b.is_complex()
+    pair = (2,) if out16 and cplx else ()
+    out = torch.empty(form.out_shape + pair, device=a.device,
+                      dtype=torch.bfloat16 if out16 else torch.result_type(a, b))
+    order = [form.out_perm.index(q) for q in range(len(form.out_perm))]
+    nat = out.permute(order + ([len(order)] if pair else []))  # natural order
+    fixed = [perm[free0 + i] for i in range(c)]  # the operand's axes to fix
+    rest = [p - sum(f < p for f in fixed) for p in perm if p not in fixed]
+    nat_fixed = [(nb if on_a else nb + nm) + i for i in range(c)]
+    blocks = math.prod(dims[:c])
+    if on_a:
+        other = permute_reshape(b, form.perm_b, (form.B, form.K, form.N))
+        block_shape = (form.B, form.M // blocks, form.K)
+        prod_shape = form.batch_shape + form.m_shape[c:] + form.n_shape
+    else:
+        other = permute_reshape(a, form.perm_a, (form.B, form.M, form.K))
+        block_shape = (form.B, form.K, form.N // blocks)
+        prod_shape = form.batch_shape + form.m_shape + form.n_shape[c:]
+    for idx in itertools.product(*(range(d) for d in dims[:c])):
+        xc, tgt = x, nat
+        for ax, i in sorted(zip(fixed, idx), reverse=True):
+            xc = xc.select(ax, i)
+        for ax, i in sorted(zip(nat_fixed, idx), reverse=True):
+            tgt = tgt.select(ax, i)
+        xb = permute_reshape(xc, rest, block_shape)
+        prod = torch.matmul(xb, other) if on_a else torch.matmul(other, xb)
+        del xb
+        tgt.copy_((to_pairs16(prod) if out16 else prod).reshape(prod_shape + pair))
+        del prod  # before the next block's product is allocated
+    return out
+
+
+def apply(spec, a: torch.Tensor, b: torch.Tensor, *, out16: bool = False) -> torch.Tensor:
+    """Execute one refined step (``spec`` is a refiner ``GemmSpec``) and
+    return its output in ``inds_out`` order.  ``spec.precision`` picks
+    the kernels' route; ``out16`` returns the output at half width (bf16
+    (re, im) pairs), written so by the kernels' epilogues and converted
+    after the library backends."""
+    form: GemmForm = spec.form
+    from ..kernels import ops
+    from ..kernels.ref import to_pairs16
+
+    if spec.backend == "einsum":
+        out = torch.einsum(form.expr, _full(a, form.a_shape), _full(b, form.b_shape))
+        return to_pairs16(out) if out16 else out
     real_bytes = real_component_bytes(torch.result_type(a, b))
     if spec.backend == "fused" and real_bytes <= 4:
         # operands stay in their tree-native layouts: the kernel gathers
         # through per-role offset tables and writes the inds_out layout,
         # so no permuted copy of a, b or the output is ever made.
-        return ops.fused_matmul(a, b, form)
-    a2 = permute_reshape(a, form.perm_a, (form.B, form.M, form.K))
-    b2 = permute_reshape(b, form.perm_b, (form.B, form.K, form.N))
+        return ops.fused_matmul(a, b, form, precision=spec.precision, out16=out16)
     if spec.backend == "dot" or real_bytes > 4:
         # 64-bit components handed to a schedule refined for a narrower
         # dtype would be silently truncated by the fp32 kernels — keep
         # them on the library's full-precision matmul (this also catches
         # a fused spec handed 64-bit tensors at run time).
-        out = torch.matmul(a2, b2)
-    elif spec.backend == "tiled":
-        # the refiner already gated tiny shapes
-        out = ops.matmul(a2, b2, min_kernel_dim=1)
-    else:
+        return _dot(a, b, form, out16)
+    if spec.backend != "tiled":
         raise ValueError(f"unknown lowering backend {spec.backend!r}")
-    out = out.reshape(form.batch_shape + form.m_shape + form.n_shape)
-    if form.out_perm != tuple(range(out.dim())):
-        out = out.permute(form.out_perm)
+    # the refiner already gated tiny shapes; the kernel reads the operands
+    # in their native layouts, as the fused one does
+    return ops.tiled_step(a, b, form, precision=spec.precision, out16=out16)
+
+
+def _inds_out(out: torch.Tensor, form: GemmForm) -> torch.Tensor:
+    """A (B, M, N) product (bf16 pairs: a trailing 2 more) as a view in
+    ``inds_out`` order."""
+    pair = (2,) if out.dim() == 4 else ()
+    out = out.reshape(form.batch_shape + form.m_shape + form.n_shape + pair)
+    if form.out_perm != tuple(range(len(form.out_perm))):
+        out = out.permute(tuple(form.out_perm) + ((len(form.out_perm),) if pair else ()))
     return out
 
 
-def apply_chain(chain, specs, operands):
+def apply_chain(chain, specs, operands, *, out16: bool = False):
     """Execute one fused chain (``chain`` is a refiner
     :class:`~repro_torch.lowering.refiner.FusedChainSpec`, ``specs`` the
     GemmSpecs of its steps, ``operands`` the external buffers in
-    ``chain.external_nodes`` order) as one chain-kernel call.
+    ``chain.external_nodes`` order) as one chain-kernel call, each step
+    at its spec's precision and each interior carry in a slot of
+    ``chain.slot_prec``'s width; ``out16`` returns the chain's output at
+    half width.
 
     64-bit components handed to a schedule refined for a narrower dtype
     fall back to the sequential per-step :func:`apply` (the fp32 chain
@@ -242,4 +329,7 @@ def apply_chain(chain, specs, operands):
         carry_side=chain.carry_side,
         slot_ids=chain.slot_ids,
         slot_elems=chain.slot_elems,
+        precisions=tuple(s.precision for s in specs),
+        slot_prec=chain.slot_prec,
+        out16=out16,
     )

@@ -85,15 +85,26 @@ class GemmSpec:
     modeled_time_s: float
     pad_waste: float  # fraction of executed kernel FLOPs that are padding
     transpose_bytes: float = 0.0  # HBM bytes moved permuting the operands
-    precision: str = "fp32"  # this slice plans fp32 only
+    precision: str = "fp32"  # "fp32" | "bf16" (bf16-input/fp32-accumulate)
 
 
-def operand_transpose_bytes(form: GemmForm, dtype) -> float:
+def precision_itemsize(dtype, precision: str = "fp32") -> int:
+    """Storage bytes per element at ``precision``: half the native width
+    when the element's real components are held as bf16 (complex64 → a
+    bf16 pair = 4 bytes, float32 → 2 bytes), the native width for fp32."""
+    itemsize = as_dtype(dtype).itemsize
+    return max(1, itemsize // 2) if precision == "bf16" else itemsize
+
+
+def operand_transpose_bytes(
+    form: GemmForm, dtype, precision: str = "fp32"
+) -> float:
     """Device-memory traffic of materializing the operand permutations:
     one read + one write per operand whose native layout is not already
     in GEMM order — the ``2*(|A|+|B|)*bytes`` the fused kernel
-    eliminates."""
-    itemsize = as_dtype(dtype).itemsize
+    eliminates.  Operands consumed at bf16 are permuted at their (halved)
+    storage width."""
+    itemsize = precision_itemsize(dtype, precision)
     t = 0.0
     if form.perm_a != tuple(range(len(form.perm_a))):
         t += 2.0 * itemsize * form.B * form.M * form.K
@@ -116,12 +127,18 @@ def _real_gemm_count(dtype, backend: str) -> int:
     return 3 if backend == "tiled" else 4
 
 
-def step_traffic_bytes(form: GemmForm, dtype) -> float:
+def step_traffic_bytes(
+    form: GemmForm, dtype, precision: str = "fp32"
+) -> float:
     """Modeled device-memory operand + output bytes for one execution of
-    the step (excluding any transpose round-trip)."""
+    the step (excluding any transpose round-trip): inputs at their
+    storage precision, the output at the full width (the kernels
+    accumulate in fp32)."""
     itemsize = as_dtype(dtype).itemsize
-    return float(form.B) * itemsize * (
-        form.M * form.K + form.K * form.N + form.M * form.N
+    in_item = precision_itemsize(dtype, precision)
+    return float(form.B) * (
+        in_item * (form.M * form.K + form.K * form.N)
+        + itemsize * form.M * form.N
     )
 
 
@@ -133,6 +150,7 @@ def modeled_step_time(
     bn: int,
     bk: int,
     hw: Hardware = DEFAULT_HARDWARE,
+    precision: str = "fp32",
 ) -> tuple[float, float]:
     """(seconds, pad_waste) for one execution of this step.
 
@@ -144,10 +162,15 @@ def modeled_step_time(
     (``tiled``, ``dot``) additionally pay the ``2*(|A|+|B|)*bytes``
     transpose traffic that the fused kernel (and einsum) eliminates: a
     separate round-trip before the GEMM proper.
+
+    ``precision="bf16"`` prices the kernel backends at
+    ``hw.bf16_peak_flops`` and halves the operand-side traffic (bf16
+    inputs, fp32 accumulation, full-width output).
     """
     n_real = _real_gemm_count(dtype, backend)
     flops = form.flops * n_real
-    t_mem = step_traffic_bytes(form, dtype) / hw.mem_bw
+    t_mem = step_traffic_bytes(form, dtype, precision) / hw.mem_bw
+    peak = hw.bf16_peak_flops if precision == "bf16" else hw.peak_flops
     if backend == "tiled":
         padded = (
             2.0
@@ -157,17 +180,17 @@ def modeled_step_time(
             * _ceil_to(form.K, bk)
             * n_real
         )
-        t_compute = padded / hw.peak_flops
+        t_compute = padded / peak
         waste = 1.0 - flops / padded
     elif backend == "fused":
-        t_compute = flops / hw.peak_flops
+        t_compute = flops / peak
         waste = 0.0
     else:
         t_compute = flops / (hw.peak_flops * hw.non_kernel_peak_fraction)
         waste = 0.0
     t = max(t_compute, t_mem)
     if backend in ("tiled", "dot"):
-        t += operand_transpose_bytes(form, dtype) / hw.mem_bw
+        t += operand_transpose_bytes(form, dtype, precision) / hw.mem_bw
     return t, waste
 
 
@@ -178,6 +201,7 @@ def refine_step(
     min_kernel_dim: int | None = None,
     fused: bool = True,
     hw: Hardware = DEFAULT_HARDWARE,
+    precision: str = "fp32",
 ) -> GemmSpec:
     """Pick backend + block shapes for one normalized contraction step.
 
@@ -188,6 +212,13 @@ def refine_step(
     are still kernel-sized — its cost model pays no padding FLOPs and no
     operand transpose traffic, so it wins whenever admissible and
     strictly cheaper.
+
+    ``precision="bf16"`` refines the step under the bf16-input/
+    fp32-accumulate model: the working-set check counts 2-byte operand
+    components (the fp32 accumulator tile stays 4-byte), and the cost
+    model prices the bf16 rate and half the operand traffic.  Only the
+    kernel backends carry the precision — dot/einsum fallbacks always
+    execute fp32.
     """
     if min_kernel_dim is None:
         min_kernel_dim = hw.tile
@@ -202,18 +233,24 @@ def refine_step(
         return GemmSpec(
             form, "dot", 0, 0, 0, t, w, operand_transpose_bytes(form, dtype)
         )
-    ob = real_bytes  # per-component operand bytes; the fp32 tile is 4-byte
+    # per-component operand bytes at the requested precision; the fp32
+    # accumulator/output tile is always 4-byte
+    ob = 2 if precision == "bf16" else real_bytes
     best: GemmSpec | None = None
-    tbytes = operand_transpose_bytes(form, dtype)
+    tbytes = operand_transpose_bytes(form, dtype, precision)
     budget = hw.tile_budget_bytes
     for bm in hw.block_candidates:
         for bn in hw.block_candidates:
             for bk in hw.block_candidates:
                 if ob * (bm * bk + bk * bn) + 4 * bm * bn > budget:
                     continue  # working set must fit one block's budget
-                t, w = modeled_step_time(form, dtype, "tiled", bm, bn, bk, hw)
+                t, w = modeled_step_time(
+                    form, dtype, "tiled", bm, bn, bk, hw, precision
+                )
                 if best is None or t < best.modeled_time_s:
-                    best = GemmSpec(form, "tiled", bm, bn, bk, t, w, tbytes)
+                    best = GemmSpec(
+                        form, "tiled", bm, bn, bk, t, w, tbytes, precision
+                    )
                 if not fused:
                     continue
                 # fused candidate at the same targets: effective tiles are
@@ -226,19 +263,31 @@ def refine_step(
                 if ob * (tm * tk + tk * tn) + 4 * tm * tn > budget:
                     continue
                 tf, wf = modeled_step_time(
-                    form, dtype, "fused", tm, tn, tk, hw
+                    form, dtype, "fused", tm, tn, tk, hw, precision
                 )
                 if tf < best.modeled_time_s:
-                    best = GemmSpec(form, "fused", tm, tn, tk, tf, wf, 0.0)
+                    best = GemmSpec(
+                        form, "fused", tm, tn, tk, tf, wf, 0.0, precision
+                    )
     return best
 
 
 @dataclasses.dataclass
 class LoweredSchedule:
-    """Refined kernel schedule for every step of a ContractionPlan."""
+    """Refined kernel schedule for every step of a ContractionPlan.
+
+    ``precision_mode``/``fidelity_tol``/``predicted_amp_error`` record
+    the mixed-precision assignment (see :mod:`repro_torch.lowering.
+    precision`): the mode the plan was built under, the XEB-fidelity
+    budget it was certified against, and the error model's accumulated
+    relative amplitude error over the bf16 steps.  All default to the
+    pure-fp32 schedule."""
 
     specs: list[GemmSpec]
     dtype: torch.dtype
+    precision_mode: str = "fp32"
+    fidelity_tol: float = 0.0
+    predicted_amp_error: float = 0.0
 
     @property
     def modeled_time_s(self) -> float:
@@ -249,6 +298,12 @@ class LoweredSchedule:
         counts: dict[str, int] = {}
         for s in self.specs:
             counts[s.backend] = counts.get(s.backend, 0) + 1
+        return counts
+
+    def precision_counts(self) -> dict[str, int]:
+        counts: dict[str, int] = {}
+        for s in self.specs:
+            counts[s.precision] = counts.get(s.precision, 0) + 1
         return counts
 
     def pad_waste(self) -> float:
@@ -373,6 +428,11 @@ class FusedChainSpec:
     slot_elems: tuple[int, ...]
     roundtrip_bytes_saved: float
     transpose_bytes_saved: float
+    # per-slot storage precision: "bf16" when every interior intermediate
+    # assigned to the slot is consumed at bf16 (the slot then holds bf16
+    # (re, im) pairs at half the bytes), "fp32" otherwise; empty means
+    # all-fp32
+    slot_prec: tuple[str, ...] = ()
 
     @property
     def n_steps(self) -> int:
@@ -440,10 +500,19 @@ def _build_chain(
     specs,
     nbytes: dict[int, int],
     itemsize: int,
+    itemsize_of: dict[int, int] | None = None,
 ):
     """Assemble the FusedChainSpec for one candidate run of schedule
-    positions.  Returns ``(spec, live_bytes)``."""
+    positions.  Returns ``(spec, live_bytes)``.
+
+    ``itemsize_of`` maps env keys to their *storage* itemsize when the
+    precision planner stores some nodes as bf16 component pairs;
+    ``nbytes`` is then precision-aware, and the slot element counts
+    divide by each node's own itemsize."""
     from .memory import chain_segment_plan  # lazy: avoid cycle
+
+    def isz(v: int) -> int:
+        return itemsize_of.get(v, itemsize) if itemsize_of else itemsize
 
     nodes = tuple(step_nodes[p] for p in run)
     carry_side = [""]
@@ -467,9 +536,14 @@ def _build_chain(
     remap = {s: d for d, s in enumerate(used)}
     slot_ids = tuple(remap[seg.slot_of[v]] for v in interior)
     slot_elems = [0] * len(used)
-    for v in interior:
+    slot_wide = [False] * len(used)
+    for t, v in enumerate(interior):
         d = remap[seg.slot_of[v]]
-        slot_elems[d] = max(slot_elems[d], nbytes[v] // itemsize)
+        slot_elems[d] = max(slot_elems[d], nbytes[v] // isz(v))
+        # the consuming step (t+1 within the run) fixes the interior's
+        # storage precision; a slot is bf16 only if no occupant needs fp32
+        if specs[run[t + 1]].precision != "bf16":
+            slot_wide[d] = True
     roundtrip = sum(2.0 * nbytes[v] for v in interior)
     transpose = sum(specs[p].transpose_bytes for p in run)
     spec = FusedChainSpec(
@@ -484,6 +558,7 @@ def _build_chain(
         slot_elems=tuple(slot_elems),
         roundtrip_bytes_saved=roundtrip,
         transpose_bytes_saved=transpose,
+        slot_prec=tuple("fp32" if wide else "bf16" for wide in slot_wide),
     )
     return spec, seg.peak_bytes
 
@@ -497,6 +572,7 @@ def plan_chains(
     vmem_budget: int | None = None,
     min_len: int = 2,
     hw: Hardware = DEFAULT_HARDWARE,
+    itemsize_of: dict[int, int] | None = None,
 ) -> ChainPlan:
     """The fusion-boundary pass: greedily grow runs of adjacent steps
     along each segment's execution order while the certified live set —
@@ -511,7 +587,8 @@ def plan_chains(
     ordered positions, so a chain can never cross the prologue/epilogue
     boundary, and a segment *output* (the root, or a hoisted frontier
     buffer) can never be chain-interior.  ``nbytes`` is the per-node
-    buffer size from the memory plan."""
+    buffer size from the memory plan: dtype-true under a mixed-precision
+    plan, with ``itemsize_of`` giving each node's storage itemsize."""
     if vmem_budget is None:
         vmem_budget = hw.chain_budget_bytes
     itemsize = schedule.dtype.itemsize
@@ -538,7 +615,7 @@ def plan_chains(
                     break
                 _, live = _build_chain(
                     name, run + [q], step_nodes, schedule.specs, nbytes,
-                    itemsize,
+                    itemsize, itemsize_of,
                 )
                 if live > vmem_budget:
                     break
@@ -547,6 +624,7 @@ def plan_chains(
             if len(run) >= min_len:
                 spec, _ = _build_chain(
                     name, run, step_nodes, schedule.specs, nbytes, itemsize,
+                    itemsize_of,
                 )
                 chains.append(spec)
             i = j + 1

@@ -12,7 +12,11 @@ import dataclasses
 from ..core.contraction_tree import ContractionTree
 from ..core.merging import merge_branches, orient_gemms
 from ..core.pathfinder import random_greedy_tree
-from ..core.slicing import find_slices, refine_slices_for_peak
+from ..core.slicing import (
+    find_slices,
+    peak_budget_for_width,
+    refine_slices_for_peak,
+)
 from ..core.tuning import tuning_slice_finder
 from ..hardware import DEFAULT_HARDWARE, Hardware
 
@@ -38,9 +42,17 @@ def oneshot_plan(
     itemsize: int = 8,
     budget_bytes: int | None = None,
     hw: Hardware = DEFAULT_HARDWARE,
+    precision: str = "fp32",
+    fidelity_tol: float | None = None,
 ) -> OneShot:
     """The classic staged pipeline, each stage run exactly once.  ``hw``
-    prices the branch-merging surface (it changes the tree)."""
+    prices the branch-merging surface (it changes the tree).
+
+    Under a mixed-precision mode (``precision`` in {"bf16", "auto"}) with
+    peak-mode slicing, the refined mask gets a second, prune-only pass at
+    the same fp32-derived budget using the plan's per-node storage
+    itemsizes: bf16-stored intermediates halve the certified peak, so the
+    bf16 mask is always a subset of the fp32 one (|S| never larger)."""
     tree = random_greedy_tree(tn, repeats=repeats, seed=seed)
     width0 = tree.width()
     if tune and method == "lifetime":
@@ -57,6 +69,25 @@ def oneshot_plan(
             tree, smask, target_dim, itemsize=itemsize,
             budget_bytes=budget_bytes,
         )
+        if smask and precision != "fp32":
+            from ..lowering.memory import certified_peak
+            from ..lowering.precision import tree_storage_itemsizes
+
+            iso = tree_storage_itemsizes(
+                tree, smask, itemsize=itemsize, mode=precision,
+                fidelity_tol=fidelity_tol, hw=hw,
+            )
+            if iso:
+                fp32_budget = budget_bytes
+                if fp32_budget is None:
+                    fp32_budget = max(
+                        peak_budget_for_width(target_dim, itemsize),
+                        certified_peak(tree, smask, itemsize),
+                    )
+                smask = refine_slices_for_peak(
+                    tree, smask, target_dim, itemsize=itemsize,
+                    budget_bytes=fp32_budget, itemsize_of=iso,
+                )
     elif slicing_mode not in ("width", "peak"):
         raise ValueError(f"unknown slicing_mode {slicing_mode!r}")
     return OneShot(tree, smask, width0)

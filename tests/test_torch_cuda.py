@@ -291,6 +291,138 @@ def test_amplitude_on_card(dev, fused, chain_budget, kernel):
     np.testing.assert_allclose(res.value, want, rtol=1e-4, atol=1e-5)
 
 
+# ------------------------------------------------------------ bf16 routes
+def _rel_plain(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _pairs(x):
+    return cg.to_pairs16(x)
+
+
+@pytest.mark.parametrize("cplx", [True, False])
+@pytest.mark.parametrize("B,M,N,K", [
+    (1, 256, 128, 96),    # whole tiles: the uniform gather
+    (2, 130, 70, 45),     # ragged everywhere, K odd: per-tile tables
+    (1, 1024, 512, 256),  # N > 64: the 64 x 128 tile; two bf16 stages
+])
+def test_tiled_gemm_bf16_route_on_card(dev, cplx, B, M, N, K):
+    """K1's bf16 route (bf16 inputs, fp32 accumulation) against its plain
+    twin, rounding first, within 1e-5 of max|plain|, in one launch."""
+    rng = np.random.default_rng(M + N + K)
+    dtype = torch.complex64 if cplx else torch.float32
+    a, b = _rand(rng, (B, M, K), dtype, dev), _rand(rng, (B, K, N), dtype, dev)
+    before = cg.LAUNCHES["tiled_gemm"]
+    got = cg.tiled_gemm(a, b, precision="bf16")
+    assert cg.LAUNCHES["tiled_gemm"] == before + 1
+    assert _rel_plain(got, cg.tiled_gemm_plain(a, b, "bf16")) <= 1e-5
+
+
+@pytest.mark.parametrize("B,M,N,K", [(1, 256, 128, 96), (2, 130, 70, 45),
+                                     (1, 2048, 64, 512)])
+def test_tiled_gemm_complex_in_place_on_card(dev, B, M, N, K):
+    """K1 on complex64 read in place (direct form, 3xTF32) against what
+    the Karatsuba wrapper of earlier versions computed: three real K1
+    products on separate planes."""
+    rng = np.random.default_rng(B * M + K)
+    a = _rand(rng, (B, M, K), torch.complex64, dev)
+    b = _rand(rng, (B, K, N), torch.complex64, dev)
+    ar, ai = a.real.contiguous(), a.imag.contiguous()
+    br, bi = b.real.contiguous(), b.imag.contiguous()
+    p1, p2 = cg.tiled_gemm(ar, br), cg.tiled_gemm(ai, bi)
+    p3 = cg.tiled_gemm(ar + ai, br + bi)
+    karatsuba = torch.complex(p1 - p2, p3 - p1 - p2)
+    before = cg.LAUNCHES["tiled_gemm"]
+    got = cg.tiled_gemm(a, b)
+    assert cg.LAUNCHES["tiled_gemm"] == before + 1
+    assert got.dtype == torch.complex64
+    torch.testing.assert_close(got, karatsuba, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got, torch.matmul(a, b), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32])
+@pytest.mark.parametrize("seed,nb,nm,nn,nk,size", K2_CARD_CASES)
+def test_fused_gemm_bf16_route_on_card(dev, seed, nb, nm, nn, nk, size, dtype):
+    """K2's bf16 route against its plain twin within 1e-5 of max|plain|;
+    with the operands held as bf16 (pairs) and the output written as
+    bf16 the result is that output's rounding."""
+    rng = np.random.default_rng(seed)
+    f = _random_form(rng, nb, nm, nn, nk, size)
+    a, b = _rand(rng, f.a_shape, dtype, dev), _rand(rng, f.b_shape, dtype, dev)
+    want = cg.fused_gemm_c64(a.cpu(), b.cpu(), f, precision="bf16").to(dev)
+    got = cg.fused_gemm_c64(a, b, f, precision="bf16")
+    assert got.dtype == dtype
+    assert _rel_plain(got, want) <= 1e-5
+    half = cg.fused_gemm_c64(_pairs(a), _pairs(b), f, precision="bf16", out16=True)
+    assert half.dtype == torch.bfloat16
+    assert torch.equal(cg.widen(half, f.out_shape), cg.widen(_pairs(got), f.out_shape))
+
+
+def test_chain_bf16_steps_on_card(dev):
+    """K3 with per-step precisions (every other step bf16), bf16 slots
+    where the consumer reads bf16, a half-width external and a bf16
+    output, against its plain twin: each step on the kernel's own carry
+    within 1e-5, the whole chain within a bf16 ulp (2^-8)."""
+    plan = _amp30_plan(dev)
+    ch, forms = _epilogue_chain(plan)
+    n = len(forms)
+    prec = tuple("bf16" if t % 2 == 0 else "fp32" for t in range(n))
+    slot_prec = ["fp32"] * len(ch.slot_elems)
+    for t in range(n - 1):
+        if prec[t + 1] == "bf16":
+            slot_prec[ch.slot_ids[t]] = "bf16"
+    for t in range(n - 1):
+        if prec[t + 1] != "bf16":
+            slot_prec[ch.slot_ids[t]] = "fp32"
+    rng = np.random.default_rng(11)
+    shapes = [forms[0].a_shape, forms[0].b_shape] + [
+        forms[t].b_shape if ch.carry_side[t] == "l" else forms[t].a_shape
+        for t in range(1, n)
+    ]
+    scales = [forms[0].K ** -0.25] * 2 + [f.K ** -0.5 for f in forms[1:]]
+    ext = [sc * _rand(rng, s, torch.complex64, dev) for s, sc in zip(shapes, scales)]
+    ext[0] = _pairs(ext[0])  # step 0 reads bf16: its external held so
+    kw = dict(precisions=prec, slot_prec=tuple(slot_prec))
+    # step by step, each on the kernel's own carry (the chain's first t
+    # steps): only the order of the sum differs
+    carry = None
+    for t, f in enumerate(forms):
+        got = cg.chain_gemm_c64(ext[:t + 2], forms[:t + 1], ch.carry_side[:t + 1],
+                                ch.slot_ids[:t], ch.slot_elems,
+                                precisions=prec[:t + 1], slot_prec=tuple(slot_prec))
+        if t == 0:
+            a, b = ext[0], ext[1]
+        else:
+            a, b = (carry, ext[t + 1]) if ch.carry_side[t] == "l" else (ext[t + 1], carry)
+        want = cg.fused_gemm_c64(cg.widen(a, f.a_shape).cpu(), cg.widen(b, f.b_shape).cpu(),
+                                 f, precision=prec[t]).to(dev)
+        assert _rel_plain(got, want) <= 1e-5, t
+        carry = got
+    # the whole chain: a carry rounded to bf16 may land one ulp apart
+    got = cg.chain_gemm_c64(ext, forms, ch.carry_side, ch.slot_ids, ch.slot_elems, **kw)
+    want = cg.chain_gemm_c64([e.cpu() for e in ext], forms, ch.carry_side,
+                             ch.slot_ids, ch.slot_elems, **kw).to(dev)
+    assert _rel_plain(got, want) <= 2.0 ** -8
+    half = cg.chain_gemm_c64(ext, forms, ch.carry_side, ch.slot_ids, ch.slot_elems,
+                             out16=True, **kw)
+    assert torch.equal(cg.widen(half, forms[-1].out_shape),
+                       cg.widen(_pairs(got), forms[-1].out_shape))
+
+
+def test_step_peaks_within_plan_on_card(dev):
+    """Each dispatch of one epilogue slice of a 20-qubit plan, fp32 and
+    auto, allocates no more than the lifetime plan's live set at that
+    step (plus 1 MiB of allocator rounding)."""
+    from repro_torch.launch.memory_steps import measure
+
+    c = circuits.sycamore_like(4, 5, 10, seed=0)
+    for precision in ("fp32", "auto"):
+        rec = measure(torch, c, 20, 12, precision=precision)
+        worst = max(r["excess"] for r in rec["records"])
+        assert worst <= 1 << 20, rec["worst"][:3]
+
+
 # ------------------------------------------------------------ LM kernels
 def _rel(got, want) -> float:
     return float((got.float() - want.float()).abs().max()
@@ -331,7 +463,7 @@ def test_flash_attention_on_card(dev, dtype, bh, group, sq, sk, d, causal,
 
 
 @pytest.mark.parametrize("lib,kernel,hgmma", [
-    ("gemm", "tf32x3_gemm_kernel", True),
+    ("gemm", "tiled_gemm_kernel", True),  # K1: 3xTF32 and bf16
     ("gemm", "fused_gemm_kernel", True),
     ("flash_attention", "flash_attention_wgmma_kernel", True),
     ("flash_attention", "flash_attention_kernel", False),  # fp32: FFMA
@@ -339,8 +471,9 @@ def test_flash_attention_on_card(dev, dtype, bh, group, sq, sk, d, causal,
     ("mamba2_ssd", "ssd_chunk_kernel", False),  # the simt route: FFMA
 ])
 def test_wgmma_kernels_issue_hgmma(dev, lib, kernel, hgmma):
-    """K1, K2 (each instantiation), K4's bf16 kernel and K5's wgmma
-    kernel run on the tensor cores: their SASS holds HGMMA (wgmma); K4's
+    """K1 (each instantiation, the bf16 route's among them), K2 (each instantiation, the bf16
+    route's too), K4's bf16 kernel and K5's wgmma kernel run on the
+    tensor cores: their SASS holds HGMMA (wgmma); K4's
     fp32 kernel and K5's simt kernel stay on the CUDA cores."""
     from repro_torch.kernels import build
 

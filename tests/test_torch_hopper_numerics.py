@@ -1,13 +1,16 @@
 """The arithmetic of the two wgmma kernels, emulated on the CPU and held
 against the JAX Pallas kernels they replace before the card runs them.
 
-K1 (``tiled_gemm``) multiplies fp32 matrices as 3xTF32: each operand is
-split into TF32 hi and lo planes by the wrapper (``contract_gemm.
-tf32_planes``, plain tensor code that runs here too), and the kernel
-sums ``a_hi.b_hi + a_hi.b_lo + a_lo.b_hi`` in fp32.  Each TF32 product
-is exact in fp32, so ``torch.matmul`` on the planes is the kernel's
-arithmetic up to the order of the sum.  Held against ``tiled_matmul``
-(interpret mode) within the card's ``RTOL, ATOL = 1e-5, 1e-4``.
+The wgmma kernels split each fp32 element into TF32 hi and lo parts in
+their producers (``cvt.rna``; :func:`tf32_split` below is the same rule
+in tensor code) and sum ``a_hi.b_hi + a_hi.b_lo + a_lo.b_hi`` in fp32.
+Each TF32 product is exact in fp32, so ``torch.matmul`` on the parts is
+the kernels' arithmetic up to the order of the sum.
+
+K1 (``tiled_gemm``) is K2's kernel body on the GEMM in GEMM order
+(``contract_gemm.gemm_form``), so ``_k2_emulated`` on that form is K1's
+arithmetic; held against ``tiled_matmul`` (interpret mode) within the
+card's ``RTOL, ATOL = 1e-5, 1e-4``.
 
 K2 (``fused_gemm_c64``) gathers each tile of the oriented step through
 its map, splits every element into TF32 hi and lo parts, and sums
@@ -71,16 +74,37 @@ def _rna_tf32(x: np.ndarray) -> np.ndarray:
     return (np.sign(x) * np.floor(np.abs(x) / ulp + 0.5) * ulp).astype(np.float32)
 
 
-# ------------------------------------------------------------------- K1
+_TF32_HALF = 1 << 12
+_TF32_MASK = -(1 << 13)  # 0xFFFFE000 as int32
+
+
+def tf32_split(x: torch.Tensor) -> torch.Tensor:
+    """The producers' split of fp32 ``x``: ``(2, *x.shape)`` holding
+    ``x_hi = tf32(x)`` and ``x_lo = tf32(x - x_hi)``.  ``tf32`` rounds to
+    10 explicit mantissa bits, to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` does: an integer add of half the dropped field,
+    then a mask of the 13 dropped bits."""
+    out = torch.empty((2, *x.shape), dtype=torch.float32)
+    hi, lo = out[0], out[1]
+    hi_bits, lo_bits = hi.view(torch.int32), lo.view(torch.int32)
+    torch.add(x.contiguous().view(torch.int32), _TF32_HALF, out=hi_bits)
+    hi_bits.bitwise_and_(_TF32_MASK)
+    torch.sub(x, hi, out=lo)  # exact: hi holds x's leading 11 bits
+    lo_bits.add_(_TF32_HALF).bitwise_and_(_TF32_MASK)
+    return out
+
+
+# ------------------------------------------------------------ TF32 split
 def test_tf32_split_rounds_to_nearest_ties_away():
-    """x_hi is cvt.rna.tf32.f32 of x, and x_lo that of x - x_hi."""
+    """x_hi is cvt.rna.tf32.f32 of x, and x_lo that of x - x_hi: the bit
+    trick the emulations below use against rounding by arithmetic."""
     rng = np.random.default_rng(0)
     x = (rng.standard_normal(4096) * np.exp2(rng.integers(-20, 20, 4096)))
     x = x.astype(np.float32)
     # exact ties: 11 significant bits and a half in the 12th
     ties = (np.arange(1, 257, dtype=np.float32) * 2 + 1) * np.float32(2.0**-11)
     x = np.concatenate([x, ties + 1.0, -(ties + 1.0)]).astype(np.float32)
-    hi, lo = cg.tf32_split(torch.from_numpy(x)).numpy()
+    hi, lo = tf32_split(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(hi, _rna_tf32(x))
     keep = x != hi  # an x that is a TF32 value leaves lo = 0
     np.testing.assert_array_equal(lo[keep], _rna_tf32(x[keep] - hi[keep]))
@@ -88,41 +112,41 @@ def test_tf32_split_rounds_to_nearest_ties_away():
 
 
 @pytest.mark.parametrize("shape,transpose", [
-    ((3, 40, 33), False),   # K padded 33 -> 36
-    ((2, 17, 64), False),   # K already a multiple of 4
-    ((2, 45, 30), True),    # a transposed view, as Bt is made
+    ((3, 40, 33), False),
+    ((2, 17, 64), False),
+    ((2, 45, 30), True),    # a transposed view
 ])
 def test_tf32_split_reconstructs_and_pads(shape, transpose):
+    """hi + lo is x to half a TF32 ulp of lo, both parts TF32 values;
+    a tile's padding (zeros) splits to zeros."""
     rng = np.random.default_rng(sum(shape))
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     if transpose:
         x = x.transpose(1, 2)
-    k = x.shape[-1]
-    planes = cg.tf32_split(x)
-    kp = -(-k // 4) * 4
-    assert planes.shape == (2, *x.shape[:-1], kp) and planes.is_contiguous()
-    hi, lo = planes[0, ..., :k], planes[1, ..., :k]
+    x = torch.nn.functional.pad(x, (0, 3))
+    planes = tf32_split(x)
+    assert planes.shape == (2, *x.shape) and planes.is_contiguous()
+    hi, lo = planes[0], planes[1]
     # both parts are TF32 values, and the padding is zero
     assert not (planes.view(torch.int32) & 0x1FFF).any()
-    assert not planes[..., k:].any()
+    assert not planes[..., -3:].any()
     # hi + lo is x up to the rounding of lo, half a TF32 ulp of lo
     ulp = torch.exp2(torch.floor(torch.log2(lo.abs().clamp_min(1e-38))) - 10)
     assert ((hi.double() + lo.double() - x.double()).abs() <= ulp / 2).all()
 
 
+# ------------------------------------------------------------------- K1
 @pytest.mark.parametrize("B,M,N", [(1, 200, 136), (2, 75, 260)])
 def test_3xtf32_matches_pallas_tiled_matmul(B, M, N):
-    """The kernel's arithmetic on the wrapper's own planes, K = 1024 and
+    """K1's arithmetic (K2's body on the GEMM's form), K = 1024 and
     ragged M/N, against the Pallas kernel on zero-padded operands (as
     the reference's ops.matmul pads)."""
     K, blk = 1024, 128
     rng = np.random.default_rng(M + N)
     a = rng.standard_normal((B, M, K)).astype(np.float32)
     b = rng.standard_normal((B, K, N)).astype(np.float32)
-    ap, bp = cg.tf32_planes(torch.from_numpy(a), torch.from_numpy(b))
-    a_hi, a_lo = ap[0], ap[1]
-    bt_hi, bt_lo = bp[0].transpose(1, 2), bp[1].transpose(1, 2)
-    got = (a_lo @ bt_hi + a_hi @ bt_lo) + a_hi @ bt_hi
+    f = cg.gemm_form(B, M, N, K)
+    got = _k2_emulated(a.reshape(f.a_shape), b.reshape(f.b_shape), f).reshape(B, M, N)
     mp, np_ = -(-M // blk) * blk, -(-N // blk) * blk
     for i in range(B):
         pa = np.zeros((mp, K), np.float32)
@@ -130,7 +154,7 @@ def test_3xtf32_matches_pallas_tiled_matmul(B, M, N):
         pa[:M], pb[:, :N] = a[i], b[i]
         want = np.asarray(tiled_matmul(pa, pb, bm=blk, bn=blk, bk=blk,
                                        interpret=True))[:M, :N]
-        np.testing.assert_allclose(got[i].numpy(), want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got[i], want, rtol=RTOL, atol=ATOL)
 
 
 def test_tf32_alone_misses_the_tolerance():
@@ -139,9 +163,9 @@ def test_tf32_alone_misses_the_tolerance():
     rng = np.random.default_rng(3)
     a = torch.from_numpy(rng.standard_normal((1, 64, 1024)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal((1, 1024, 64)).astype(np.float32))
-    ap, bp = cg.tf32_planes(a, b)
-    one = ap[0] @ bp[0].transpose(1, 2)
-    three = (ap[1] @ bp[0].transpose(1, 2) + ap[0] @ bp[1].transpose(1, 2)) + one
+    ap, bp = tf32_split(a), tf32_split(b)
+    one = ap[0] @ bp[0]
+    three = (ap[1] @ bp[0] + ap[0] @ bp[1]) + one
     want = (a.double() @ b.double()).float()
     assert not torch.allclose(one, want, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(three, want, rtol=RTOL, atol=ATOL)
@@ -189,7 +213,7 @@ def _role_offsets(desc, r, size):
 
 def _split(x: np.ndarray):
     """TF32 (hi, lo) of a real tile, as the producer's cvt.rna pair."""
-    hi, lo = cg.tf32_split(torch.from_numpy(np.ascontiguousarray(x, np.float32)))
+    hi, lo = tf32_split(torch.from_numpy(np.ascontiguousarray(x, np.float32)))
     return hi, lo
 
 
@@ -335,7 +359,7 @@ def test_k2_single_tf32_product_misses_the_tolerance():
     b = rng.standard_normal(f.b_shape).astype(np.float32)
     a2 = torch.from_numpy(a).permute(f.perm_a).reshape(f.M, f.K)
     b2 = torch.from_numpy(b).permute(f.perm_b).reshape(f.K, f.N)
-    hi = cg.tf32_split(a2)[0] @ cg.tf32_split(b2.T.contiguous())[0].T
+    hi = tf32_split(a2)[0] @ tf32_split(b2)[0]
     want = (a2.double() @ b2.double()).numpy()
     assert not np.allclose(hi.numpy(), want, rtol=RTOL, atol=ATOL)
     natural = _k2_emulated(a, b, f)
@@ -413,9 +437,8 @@ def _prod3(a: torch.Tensor, b: torch.Tensor, split: bool = True) -> torch.Tensor
     added in fp32; ``split=False`` keeps hi.hi alone."""
     out = None
     for k0 in range(0, a.shape[-1], 32):
-        ah, al = cg.tf32_split(a[..., k0:k0 + 32])
-        bh, bl = cg.tf32_split(b[..., k0:k0 + 32, :].transpose(-1, -2))
-        bh, bl = bh.transpose(-1, -2), bl.transpose(-1, -2)
+        ah, al = tf32_split(a[..., k0:k0 + 32])
+        bh, bl = tf32_split(b[..., k0:k0 + 32, :])
         part = (al @ bh + ah @ bl) + ah @ bh if split else ah @ bh
         out = part if out is None else out + part
     return out

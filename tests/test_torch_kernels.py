@@ -667,3 +667,68 @@ def test_swizzle_offsets_match_the_layout():
     row, k = slots // 32, slots % 32
     np.testing.assert_array_equal(off // 128, row)
     np.testing.assert_array_equal((off % 128) // 16, (k // 4) ^ (row % 8))
+
+
+# ----------------------------------------------------------------------
+# the in-place wrappers' host side, with the launch done by the plain
+# version: shapes, orientation, widths and flags as the kernel gets them
+# ----------------------------------------------------------------------
+def _fake_launch(calls):
+    def launch(lib, tiled, form, a, b, out, precision, cplx, a16, b16, c16):
+        assert (a.dtype == torch.bfloat16) == a16 and (b.dtype == torch.bfloat16) == b16
+        assert a.is_contiguous() and b.is_contiguous()
+        planes = lambda x, shape: (cg.widen(x, shape).real, cg.widen(x, shape).imag) \
+            if cplx else (cg.widen(x, shape),)
+        res = cg.fused_gemm_plain(planes(a, form.a_shape), planes(b, form.b_shape),
+                                  form, precision)
+        res = torch.complex(*res) if cplx else res[0]
+        out.copy_(cg.to_pairs16(res) if c16 else res)
+        calls.append((tiled, precision, a16, b16, c16))
+        return 0
+    return launch
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("half", [False, True])
+def test_in_place_wrappers_host_side(precision, half, monkeypatch):
+    """tiled_gemm (GEMM order: its operands reshaped to the split form),
+    tiled_gemm_step and fused_gemm_c64 hand the kernel contiguous
+    operands of the form's shapes and the width flags, count one launch,
+    and return the output in the caller's shape."""
+    calls = []
+    monkeypatch.setattr(cg, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(cg, "load_library", lambda name: None)
+    monkeypatch.setattr(cg, "check", lambda lib, rc, what: None)
+    monkeypatch.setattr(cg, "_device_plan", lambda form, dev: (cg.fused_plan(form), None, None))
+    monkeypatch.setattr(cg, "_launch_inplace", _fake_launch(calls))
+    rng = np.random.default_rng(5)
+    a = _t((rng.standard_normal((2, 256, 96)) + 1j * rng.standard_normal((2, 256, 96)))
+           .astype(np.complex64))
+    b = _t((rng.standard_normal((2, 96, 128)) + 1j * rng.standard_normal((2, 96, 128)))
+           .astype(np.complex64))
+    x, y = (cg.to_pairs16(a), cg.to_pairs16(b)) if half else (a, b)
+    # a half-width output is rounded to bf16: one ulp where the two sums
+    # round apart
+    rtol = 2.0 ** -7 if half else RTOL
+    cg.reset_launches()
+    got = cg.tiled_gemm(x, y, precision=precision, out16=half)
+    want = cg.tiled_gemm_plain(cg.widen(x, a.shape), cg.widen(y, b.shape), precision)
+    assert tuple(cg.widen(got, (2, 256, 128)).shape) == (2, 256, 128)
+    np.testing.assert_allclose(cg.widen(got, (2, 256, 128)).numpy(),
+                               (cg.widen(cg.to_pairs16(want), (2, 256, 128)) if half
+                                else want).numpy(), rtol=rtol, atol=ATOL)
+    f = _random_form(np.random.default_rng(1), 1, 2, 2, 3)
+    an = _t(rng.standard_normal(f.a_shape).astype(np.float32))
+    bn = _t(rng.standard_normal(f.b_shape).astype(np.float32))
+    xn, yn = (cg.to_pairs16(an), cg.to_pairs16(bn)) if half else (an, bn)
+    for fn in (cg.tiled_gemm_step, cg.fused_gemm_c64):
+        out = fn(xn, yn, f, precision=precision, out16=half)
+        (want,) = cg.fused_gemm_plain((cg.widen(xn, f.a_shape),),
+                                      (cg.widen(yn, f.b_shape),), f, precision)
+        np.testing.assert_allclose(cg.widen(out, f.out_shape).numpy(),
+                                   (cg.widen(cg.to_pairs16(want), f.out_shape) if half
+                                    else want).numpy(), rtol=rtol, atol=ATOL)
+    assert [c[0] for c in calls] == [1, 1, 0]
+    assert all(c[2:] == (half, half, half) for c in calls)
+    assert cg.LAUNCHES["tiled_gemm"] == 2 and cg.LAUNCHES["fused_gemm"] == 1
+    assert cg.BF16_LAUNCHES["tiled_gemm"] == (2 if precision == "bf16" else 0)

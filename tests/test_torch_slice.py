@@ -238,12 +238,6 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
             call()
 
 
-def test_only_fp32_runs():
-    with pytest.raises(NotImplementedError, match="precision.py"):
-        simulate_amplitude(circuits.sycamore_like(2, 2, 2), "0000",
-                           target_dim=4, precision="bf16", **CPU)
-
-
 def test_cpu_path_launches_no_kernel():
     cg.reset_launches()
     simulate_amplitude(circuits.sycamore_like(3, 3, 6), "0" * 9, target_dim=6,
