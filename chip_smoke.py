@@ -64,6 +64,26 @@ points at full width:
   4. sampling  — sample_bitstrings with the last 4 qubits open, 1000
                  samples; the batch against the einsum oracle backend and
                  the statevector;
+     engine    — the contraction server (EngineServer, max_batch=32) on
+                 samp30 with the sampling phase's planner seed and
+                 restarts: first obs.calibrate_plan on one slice of the
+                 amp30 plan (measured/modeled per backend class), then,
+                 with the plan cache emptied, two bursts of the same
+                 family, cold then warm: 16 amplitudes (0…0 outside
+                 qubits 26-29, each of their 16 patterns) and 2 sampling
+                 tenants (qubits 26-29 open, 1000 samples, sampler seeds
+                 0 and 1).  Every amplitude within 1e-3 of the
+                 statevector; the tenants' batches and every amplitude
+                 answered from a batch over qubits 26-29 bitwise the
+                 sampling phase's batch (same network, same plan, one
+                 fixed summation order); a coalesced group in each burst;
+                 in the warm burst every batch contraction a plan-cache
+                 hit planned in < 1% of the cold plan's time, and
+                 hoist-cache hits; each contraction's own peak (over the
+                 bytes resident when it starts, measured by the execution
+                 gate) within its certified peak (as above); never two
+                 executions at once.  Prints each burst's wall, server
+                 counters, and queue and compute latency (p50, max);
   5. share     — open_session on sycamore_like(6, 6, 14), 36 qubits (more
                  than any statevector on one card holds), run_slices on 2
                  slice ids against the einsum oracle on the same ids; its
@@ -82,12 +102,13 @@ points at full width:
                  > 0, and every ssd_chunk launch must take its wgmma
                  route;
   7. kernels   — one JSON line listing every kernel with its launches on
-                 its path (phases 3-5 for the contraction kernels, the
+                 its path (phases 3-5 and engine for the contraction
+                 kernels, the
                  serve phase for the LM kernels; each must be > 0) and
                  its design (wgmma-bf16, 3xtf32-wgmma, cluster-simt-fp32),
                  and the bf16 routes of tiled_gemm and fused_gemm
                  with their launches in the precision phase;
-                 every fused_gemm launch of phases 3-5 must
+                 every fused_gemm launch of phases 3-5 and engine must
                  have taken the wgmma kernel with the coalesced (uniform)
                  gather.
 
@@ -838,6 +859,150 @@ def trace_slice(torch, open_session, circ, n: int, target: int) -> dict:
     return profile(torch, lambda: sess.run_slice(1))
 
 
+def percentiles(xs) -> dict:
+    xs = sorted(xs)
+    return dict(p50=xs[len(xs) // 2], max=xs[-1])
+
+
+def phase_engine(torch, cg, circ, n: int, target: int, planner_seed: int,
+                 samp_flat, sv_batch, amp_plan, amp_arrays) -> dict:
+    """The contraction server on samp30: calibrate_plan on one slice of
+    the amp30 plan, then two bursts of one family (16 amplitudes over the
+    last 4 qubits, 2 sampling tenants), cold then warm, through
+    EngineServer(max_batch=32) on the card.  Checks: amplitudes against
+    the statevector; batch-served values bitwise the sampling phase's; a
+    coalesced group per burst; warm batch contractions all plan-cache
+    hits at < 1% of the cold plan's time, with hoist-cache hits; each
+    contraction within its certified peak; one execution at a time."""
+    from repro_torch import obs
+    from repro_torch.core.executor import running
+    from repro_torch.engine import (AmplitudeRequest, EngineServer,
+                                    SampleRequest, execution_gate)
+    from repro_torch.lowering.cache import PLAN_CACHE
+
+    cal = obs.calibrate_plan(amp_plan, amp_arrays, slice_id=0, repeat=3)
+    calibration = dict(device=cal.device, hardware=cal.hardware,
+                       by_class=cal.ratio_by_class())
+    del amp_plan, amp_arrays, cal
+    PLAN_CACHE.clear()  # the first burst plans cold
+    torch.cuda.empty_cache()
+
+    open_q = tuple(range(n - 4, n))
+    pk = dict(seed=planner_seed, repeats=32)  # the sampling phase's planner
+
+    def requests():
+        reqs = []
+        for p in range(16):
+            bits = ["0"] * n
+            for j, q in enumerate(open_q):
+                bits[q] = str((p >> (len(open_q) - 1 - j)) & 1)
+            reqs.append(AmplitudeRequest(circ, "".join(bits), target_dim=target,
+                                         plan_kwargs=pk))
+        for seed in (0, 1):
+            reqs.append(SampleRequest(circ, num_samples=1000, open_qubits=open_q,
+                                      seed=seed, target_dim=target, plan_kwargs=pk))
+        return reqs
+
+    def resident() -> int:
+        return sum(e.plan._hoist_cache.total_bytes for e in PLAN_CACHE.values())
+
+    gate, counter = execution_gate("cuda"), running("cuda")
+    counter.reset()
+    gate.probe = []
+    cg.reset_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    bursts = []
+    try:
+        with EngineServer(max_batch=32) as srv:
+            for b in range(2):
+                before = srv.stats()
+                t0 = time.perf_counter()
+                tickets = [srv.submit(r) for r in requests()]
+                for t in tickets:
+                    t.result(timeout=900)
+                wall = time.perf_counter() - t0
+                after = srv.stats()
+                bursts.append(dict(
+                    tickets=tickets, wall_s=wall, resident_bytes=resident(),
+                    stats={k: after[k] - before[k] for k in (
+                        "groups", "coalesced", "cold_groups", "warm_groups",
+                        "rejected", "completed", "failed")},
+                ))
+        probe = gate.probe
+    finally:
+        gate.probe = None
+    launches = dict(cg.LAUNCHES)
+    routes = dict(cg.FUSED_ROUTES)
+    hoist = [e.plan._hoist_cache.stats() for e in PLAN_CACHE.values()]
+
+    scale = float(abs(sv_batch).max())
+    records = []
+    cold_plan_s = None
+    for b, burst in enumerate(bursts):
+        amps, batch_reports = [], []
+        for t in burst["tickets"]:
+            r = t.request
+            if isinstance(r, AmplitudeRequest):
+                idx = int("".join(r.bitstring[q] for q in open_q), 2)
+                err = abs(t.value - complex(sv_batch[idx])) / scale
+                check(err <= AMP_TOL, f"engine burst {b}: amplitude {idx} off "
+                      f"the statevector by {err}")
+                amps.append(err)
+                if t.open_qubits == open_q:
+                    check(t.value == complex(samp_flat[idx]),
+                          f"engine burst {b}: amplitude {idx} from the batch is not "
+                          f"bitwise the sampling phase's")
+            else:
+                got = t.value.batch.flat()
+                check(got.tobytes() == samp_flat.tobytes(),
+                      f"engine burst {b}: tenant {r.seed}'s batch is not bitwise "
+                      f"the sampling phase's")
+                check(t.value.num_samples == 1000, "wrong sample count")
+            if t.open_qubits:
+                batch_reports.append(t.report)
+        check(burst["stats"]["coalesced"] > 0, f"engine burst {b}: nothing coalesced")
+        check(burst["stats"]["failed"] == 0, f"engine burst {b}: failed tickets")
+        reports = {id(rep): rep for rep in batch_reports}.values()
+        if b == 0:
+            cold = [rep.plan_wall_s for rep in reports if not rep.cache_hit]
+            check(bool(cold), "engine burst 0: no batch contraction planned cold")
+            cold_plan_s = cold[0]
+        else:
+            check(all(rep.cache_hit for rep in reports),
+                  "engine burst 1: a batch contraction missed the plan cache")
+            check(all(rep.plan_wall_s < 0.01 * cold_plan_s for rep in reports),
+                  f"engine burst 1: warm plan_wall_s "
+                  f"{[rep.plan_wall_s for rep in reports]} vs cold {cold_plan_s}")
+        tix = burst["tickets"]
+        records.append(dict(
+            wall_s=burst["wall_s"], stats=burst["stats"],
+            batch_contractions=len(reports),
+            batch_served=sum(1 for t in tix if t.open_qubits == open_q),
+            plan_wall_s=[rep.plan_wall_s for rep in reports],
+            cache_hit=[rep.cache_hit for rep in reports],
+            queue_s=percentiles([t.queue_s for t in tix]),
+            compute_s=percentiles([t.compute_s for t in tix]),
+            max_amp_err=max(amps), hoist_resident_bytes=burst["resident_bytes"],
+        ))
+    check(sum(h["hits"] for h in hoist) > 0, f"no hoist-cache hit: {hoist}")
+    contractions = [r for r in probe if r["planned_bytes"] is not None]
+    check(bool(contractions), "the gate measured no contraction")
+    for r in contractions:
+        check_peak(f"engine contraction {r['label']}", r["peak_bytes"],
+                   r["planned_bytes"])
+    check(counter.peak == 1, f"{counter.peak} executions ran at once")
+    phase_peak = max(r["resident_bytes"] + r["peak_bytes"] for r in probe) - base
+    return dict(
+        qubits=n, target_dim=target, open_qubits=list(open_q), plan_kwargs=pk,
+        calibration=calibration, bursts=records, cold_plan_s=cold_plan_s,
+        contractions=[{k: r[k] for k in ("label", "peak_bytes", "planned_bytes",
+                                         "resident_bytes")} for r in contractions],
+        max_concurrent_executions=counter.peak, phase_peak_bytes=phase_peak,
+        hoist_cache=hoist, launches=launches, fused_routes=routes,
+    )
+
+
 def main() -> int:
     import torch
 
@@ -866,6 +1031,7 @@ def main() -> int:
     from repro_torch.models import build_model
     from repro_torch.core.executor import exact_fp32_matmul
     from repro_torch.hardware import H100_SXM
+    from repro_torch.lowering.cache import PLAN_CACHE
     from repro_torch.quantum import circuits, statevector
     from repro_torch.sampling.batch import open_batch_network
 
@@ -903,12 +1069,11 @@ def main() -> int:
     rows, cols, cycles, target = 5, 6, 14, 28
     n = rows * cols
     circ = circuits.sycamore_like(rows, cols, cycles, seed=0)
-    tn, _ = network(circuits, simplify_network, circ, "0" * n)
+    tn, amp_arrays = network(circuits, simplify_network, circ, "0" * n)
     t0 = time.perf_counter()
-    plan, report = plan_compiled(tn, target)
+    amp_plan, report = plan_compiled(tn, target)
     plan_s = time.perf_counter() - t0
-    kern = phase_kernels(torch, plan, cg, ops, H100_SXM)
-    del plan
+    kern = phase_kernels(torch, amp_plan, cg, ops, H100_SXM)
     torch.cuda.empty_cache()
     kern.update(phase_lm_kernels(torch, fa, ssd))
     for name, rec in kern.items():
@@ -1005,7 +1170,19 @@ def main() -> int:
          seconds=samp_s, rel_err_vs_einsum=ein_err,
          rel_err_vs_statevector=sv_err, xeb=samp.xeb,
          launches=launches["sampling"])
+    samp_flat = samp.batch.flat().copy()
     del samp, oracle
+    torch.cuda.empty_cache()
+
+    # 4a. the contraction server on samp30: calibration, then a cold and
+    # a warm burst of amplitude and sampling tenants
+    eng = phase_engine(torch, cg, circ, n, target, seed4, samp_flat, sv_batch,
+                       amp_plan, amp_arrays)
+    del amp_plan, amp_arrays
+    launches["engine"] = eng.pop("launches")
+    routes["engine"] = eng.pop("fused_routes")
+    emit(phase="engine", **eng)
+    PLAN_CACHE.clear()
     torch.cuda.empty_cache()
 
     # 5. 36 qubits, two slices of the full width --------------------
@@ -1052,6 +1229,7 @@ def main() -> int:
          backends=rep5.lowered_backends, launches=launches["share"])
 
     del ein_val, val
+    PLAN_CACHE.clear()  # the plans' hoisted buffers leave the card
     torch.cuda.empty_cache()
 
     # 6. LM serving at full width, each model's own launches ----------
@@ -1071,14 +1249,15 @@ def main() -> int:
           f"ssd_chunk took the simt route serving mamba2-130m: {ssd_routes}")
 
     # 7. every kernel went through its path ---------------------------
-    total = {k: sum(launches[ph][k] for ph in ("amplitude", "sampling", "share"))
+    total = {k: sum(launches[ph][k]
+                    for ph in ("amplitude", "sampling", "engine", "share"))
              for k in cg.LAUNCHES}
     total["flash_attention"] = launches["serve:qwen3-4b"]["flash_attention"]
     total["ssd_chunk"] = launches["serve:mamba2-130m"]["ssd_chunk"]
     for name, count in total.items():
         check(count > 0, f"{name} was not launched on its path")
-    # every fused_gemm launch of phases 3-5 took the wgmma kernel, with the
-    # coalesced gather of one map for every tile
+    # every fused_gemm launch of phases 3-5 and engine took the wgmma
+    # kernel, with the coalesced gather of one map for every tile
     fused_routes = {r: sum(routes[ph][r] for ph in routes) for r in cg.FUSED_ROUTES}
     check(sum(fused_routes.values()) == total["fused_gemm"],
           f"fused_gemm launches {total['fused_gemm']} vs routes {fused_routes}")

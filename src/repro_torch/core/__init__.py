@@ -24,7 +24,12 @@ from .api import (  # noqa: F401
     simulate_amplitude,
 )
 from .contraction_tree import ContractionTree  # noqa: F401
-from .executor import ContractionPlan, simplify_network  # noqa: F401
+from .executor import (  # noqa: F401
+    ContractionPlan,
+    default_backend,
+    default_hoist,
+    simplify_network,
+)
 from .lifetime import Stem, detect_stem  # noqa: F401
 from .slicing import find_slices, greedy_slicer, interval_optimal_slicer, slice_finder  # noqa: F401
 from .tensor_network import TensorNetwork  # noqa: F401

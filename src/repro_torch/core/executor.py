@@ -36,18 +36,81 @@ from __future__ import annotations
 
 import dataclasses
 import string
+import threading
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..hardware import DEFAULT_HARDWARE, Hardware
+from ..obs import metrics as _metrics, trace as _trace
 from .contraction_tree import ContractionTree
 from .tensor_network import TensorNetwork, bits
 
 _LETTERS = string.ascii_letters
 
 BACKENDS = ("einsum", "gemm")
+
+
+def default_backend() -> str:
+    """Execution backend when none is requested: the lowered kernel
+    schedule.  (The reference reads ``REPRO_BACKEND`` and defaults to its
+    einsum oracle; the port reads no environment variable.)"""
+    return "gemm"
+
+
+def default_hoist() -> bool:
+    """Two-phase (slice-invariant hoisted) execution when no ``hoist=``
+    is requested: on.  ``hoist=False`` is the off-switch."""
+    return True
+
+
+class ExecutionCounter:
+    """How many step programs (:meth:`ContractionPlan._run_steps`) run at
+    once on one device, and the most that ever did since :meth:`reset`.
+    It watches the executor itself, independently of the execution gate
+    (:func:`repro_torch.engine.session.execution_gate`) that should keep
+    it at one."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.now = 0
+        self.peak = 0
+
+    def __enter__(self):
+        with self._lock:
+            self.now += 1
+            self.peak = max(self.peak, self.now)
+        return self
+
+    def __exit__(self, *exc):
+        with self._lock:
+            self.now -= 1
+        return False
+
+    def reset(self) -> None:
+        with self._lock:
+            self.peak = self.now
+
+
+def device_key(device) -> torch.device:
+    """``device`` with its index made explicit (``cuda`` is ``cuda:0``),
+    so per-device registries see one key per card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", 0)
+    return dev
+
+
+_RUNNING: dict[torch.device, ExecutionCounter] = {}
+_RUNNING_LOCK = threading.Lock()
+
+
+def running(device) -> ExecutionCounter:
+    """The :class:`ExecutionCounter` of ``device``."""
+    dev = device_key(device)
+    with _RUNNING_LOCK:
+        return _RUNNING.setdefault(dev, ExecutionCounter())
 
 
 def resolve_device(device) -> torch.device:
@@ -178,6 +241,10 @@ class ContractionPlan:
     consumer reads bf16 is stored as bf16 (re, im) pairs: a ``torch.bfloat16``
     tensor with a trailing axis of 2 (see :func:`repro_torch.kernels.
     ref.to_pairs16`).  Only ``backend="gemm"`` carries a precision.
+
+    ``hoist_cache_size`` and ``hoist_cache_bytes`` bound the plan's
+    :class:`~repro_torch.lowering.cache.HoistCache` of materialized
+    prologues (entries, and summed bytes; ``None`` is unbounded).
     """
 
     def __init__(
@@ -192,7 +259,10 @@ class ContractionPlan:
         fused: bool = True,
         fidelity_tol: float | None = None,
         precisions=None,
+        hoist_cache_size: int = 8,
+        hoist_cache_bytes: int | None = None,
     ):
+        from ..lowering.cache import HoistCache  # lazy: avoid cycle
         from ..lowering.precision import DEFAULT_FIDELITY_TOL, check_mode
 
         self.precision_mode = check_mode(precision)
@@ -348,6 +418,18 @@ class ContractionPlan:
             self._chain_dispatch = {
                 name: self.chain_plan.by_segment(name) for name in segments
             }
+        # materialized prologue tensors, LRU-keyed by the leaf tensors
+        # the prologue consumes (cross-call reuse: repeated requests on
+        # one network family skip the prologue)
+        self._hoist_cache = HoistCache(
+            maxsize=hoist_cache_size, max_bytes=hoist_cache_bytes
+        )
+        if self.chain_plan is not None:
+            _metrics.inc("plan.chains_fused", self.chain_plan.num_multi)
+            _metrics.inc(
+                "plan.chain_hbm_bytes_saved",
+                self.chain_plan.hbm_bytes_saved("naive"),
+            )
 
     # ------------------------------------------------------------------
     def out_shape(self) -> tuple[int, ...]:
@@ -377,6 +459,30 @@ class ContractionPlan:
         if hoist and self.partition is not None and self.can_hoist:
             return self.partition.hoisted_overhead()
         return self.tree.slicing_overhead(self.smask)
+
+    def executed_flops(
+        self, n_slices: int | None = None, hoist: bool = True
+    ) -> float:
+        """FLOPs actually executed when contracting ``n_slices`` subtasks
+        (default: all ``2^|S|``) under the chosen mode — the quantity the
+        obs layer accumulates into ``exec.flops_executed``.  Hoisted:
+        one prologue plus ``n`` epilogues; naive: ``n`` full subtasks."""
+        total = 1 << self.num_sliced
+        n = total if n_slices is None else n_slices
+        if hoist and self.partition is not None and self.can_hoist:
+            p = self.partition
+            return p.invariant_cost + p.per_slice_cost * n
+        return self.tree.sliced_cost(self.smask) / total * n
+
+    def hoist_summary(self) -> str:
+        """One-line two-phase summary for the examples."""
+        return (
+            f"hoist: inv_frac={self.invariant_fraction:.2f} "
+            f"slices={1 << self.num_sliced} "
+            f"hoisted_buffers={len(self.hoisted_nodes)} "
+            f"overhead naive={self.executed_overhead(False):.3f} -> "
+            f"hoisted={self.executed_overhead(True):.3f}"
+        )
 
     # ------------------------------------------------------------------
     def memory_plan(self):
@@ -408,6 +514,10 @@ class ContractionPlan:
         hoisted buffers out of the free lists).  Positions planned into a
         fused chain (keyed by the chain's first position) dispatch as one
         ``gemm_form.apply_chain`` call."""
+        with running(self.device):
+            self._run_steps_on(env, step_ids, segment)
+
+    def _run_steps_on(self, env: dict, step_ids, segment: str) -> None:
         from ..lowering import gemm_form  # lazy: avoid cycle
 
         seg = self.memory_plan().segment_for(segment)
@@ -494,16 +604,49 @@ class ContractionPlan:
             out = out.permute(self.out_perm)
         return out
 
-    def contract_prologue(self, arrays) -> list[torch.Tensor]:
+    def contract_prologue(self, arrays, use_cache: bool = True) -> list[torch.Tensor]:
         """Run the slice-invariant prologue once on the full (unsliced)
         leaf tensors and return the hoisted frontier buffers in
         ``hoisted_nodes`` order.  Invariant leaves carry no sliced index
-        by construction, so no slice specs apply here."""
+        by construction, so no slice specs apply here.
+
+        ``arrays`` are the caller's leaves (numpy or tensors); the ones
+        the prologue reads go to the plan's device.  The outputs are
+        memoized in the plan's :class:`~repro_torch.lowering.cache.
+        HoistCache`, keyed by :func:`repro_torch.lowering.cache.leaf_key`
+        over the prologue's leaves: host (numpy) leaves by value, tensors
+        by storage, layout and version counter, so a tensor written in
+        place since misses.  The key's keep-alive references ride with
+        the entry.  ``use_cache=False`` (or a cache of size 0) skips both
+        the key and the cache."""
         if not self.can_hoist:
             return []
-        env = {i: arrays[i] for i in self.prologue_leaves}
-        self._run_steps(env, self.prologue_idx, "prologue")
-        return [env[v] for v in self.hoisted_nodes]
+
+        def compute():
+            from ..engine.session import to_device  # lazy: cycle
+
+            leaves = to_device([arrays[i] for i in self.prologue_leaves], self.device)
+            with _trace.span(
+                "exec.prologue", cat="exec", buffers=len(self.hoisted_nodes)
+            ):
+                env = dict(zip(self.prologue_leaves, leaves))
+                del leaves
+                self._run_steps(env, self.prologue_idx, "prologue")
+                out = [env[v] for v in self.hoisted_nodes]
+                _trace.sync(out)
+            _metrics.inc("exec.flops_executed", self.partition.invariant_cost)
+            return out
+
+        if use_cache and self._hoist_cache.maxsize > 0:
+            from ..lowering.cache import leaf_key  # lazy: cycle
+
+            key, keepalive = leaf_key(arrays, self.prologue_leaves)
+            # single flight: sessions over the same leaves materialize
+            # the prologue once and count its FLOPs once
+            return self._hoist_cache.single_flight(
+                key, lambda: (compute(), keepalive)
+            )[0]
+        return compute()
 
     # ------------------------------------------------------------------
     def contract_all(self, arrays, hoist: bool = True) -> torch.Tensor:

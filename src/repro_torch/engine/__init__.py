@@ -1,7 +1,40 @@
-"""Execution engine: :class:`ContractionSession` is the session layer
-every slice strategy runs through.  The reference's multi-tenant serving
-engine is not ported yet."""
+"""Execution engine + contraction-as-a-service.
 
-from .session import ContractionSession, mask_invalid, padded_ids
+:mod:`repro_torch.engine.session` is the session layer every slice
+strategy runs through (:class:`ContractionSession`, with the device's
+:class:`ExecutionGate`); :mod:`repro_torch.engine.server` is the
+multi-tenant continuous-batching amplitude/sampling engine built on top
+of sessions.
+"""
 
-__all__ = ["ContractionSession", "mask_invalid", "padded_ids"]
+from .server import (
+    AmplitudeRequest,
+    EngineServer,
+    SampleRequest,
+    ServerOverloaded,
+    Ticket,
+    circuit_fingerprint,
+)
+from .session import (
+    ContractionSession,
+    ExecutionGate,
+    execution_gate,
+    mask_invalid,
+    padded_ids,
+    record_execution,
+)
+
+__all__ = [
+    "ContractionSession",
+    "ExecutionGate",
+    "execution_gate",
+    "mask_invalid",
+    "padded_ids",
+    "record_execution",
+    "AmplitudeRequest",
+    "EngineServer",
+    "SampleRequest",
+    "ServerOverloaded",
+    "Ticket",
+    "circuit_fingerprint",
+]

@@ -1,0 +1,3 @@
+"""Runnable examples, the port's twins of ``examples/*.py``:
+``python -m repro_torch.examples.quickstart`` and
+``python -m repro_torch.examples.simulate_sycamore``."""

@@ -38,7 +38,21 @@ import sys
 BACKENDS = ("fused", "tiled", "dot", "einsum")
 
 
-def _ms(torch, fn, n: int = 5) -> float:
+def time_ms(fn, n: int = 5, device="cuda") -> float:
+    """Mean milliseconds of ``fn()`` over back-to-back calls, after one
+    untimed warm-up call: CUDA events around the calls on a CUDA
+    ``device`` (at least ``n`` calls, more for a short ``fn``, up to
+    about 100 ms), ``time.perf_counter`` over ``n`` calls on the CPU."""
+    import time
+
+    import torch
+
+    if torch.device(device).type != "cuda":
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / n
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -106,7 +120,7 @@ def time_forms(torch, plans) -> list[dict]:
                     sp = dataclasses.replace(s, precision=prec)
                     key = backend if prec == "fp32" else f"{backend}:bf16"
                     try:
-                        rec["ms"][key] = _ms(torch, lambda: gemm_form.apply(sp, a, b))
+                        rec["ms"][key] = time_ms(lambda: gemm_form.apply(sp, a, b))
                     except Exception as e:  # noqa: BLE001 - recorded, not hidden
                         rec["ms"][key] = None
                         rec.setdefault("errors", {})[key] = repr(e)[:200]

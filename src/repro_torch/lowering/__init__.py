@@ -15,10 +15,22 @@
   precision — mixed precision under a Linear-XEB budget: which steps run
               bf16 inputs with fp32 accumulation, which nodes are stored
               at half width
-
-The plan cache of the reference is not ported yet.
+  cache     — compiled-plan LRU keyed by a canonical network
+              fingerprint (structure + dtype + open indices + planner
+              params) with single-flight misses, so repeated requests for
+              one circuit family skip planning; plus the hoisted-prologue
+              LRU keyed by the prologue's leaf tensors
 """
 
+from .cache import (  # noqa: F401
+    PLAN_CACHE,
+    HoistCache,
+    PlanCache,
+    PlanEntry,
+    leaf_fingerprint,
+    leaf_key,
+    network_fingerprint,
+)
 from .gemm_form import GemmForm, apply, apply_chain, lower_step  # noqa: F401
 from .memory import (  # noqa: F401
     MemoryPlan,

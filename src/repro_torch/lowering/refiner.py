@@ -327,6 +327,27 @@ class LoweredSchedule:
             if s.backend == "fused"
         )
 
+    def summary_row(self) -> str:
+        """One-line schedule summary (the reference's row, under the
+        port's backend names)."""
+        c = self.backend_counts()
+        per = " ".join(
+            f"{k}={c[k]}" for k in ("fused", "tiled", "dot", "einsum") if k in c
+        )
+        pc = self.precision_counts()
+        prec = (
+            f" bf16={pc['bf16']}/{len(self.specs)}"
+            f" amp_err={self.predicted_amp_error:.2e}"
+            if pc.get("bf16")
+            else ""
+        )
+        dtype = str(self.dtype).removeprefix("torch.")
+        return (
+            f"lowered[{dtype}]: {len(self.specs)} nodes ({per}) "
+            f"pad_waste={self.pad_waste()*100:.1f}% "
+            f"t_model={self.modeled_time_s:.3e}s/slice{prec}"
+        )
+
 
 def refine_schedule(
     steps: Sequence[tuple[Sequence, Sequence, Sequence]],

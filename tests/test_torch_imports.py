@@ -51,3 +51,14 @@ def test_guard_catches_forbidden_imports(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom repro.core import api\ndef f():\n    import jax.numpy as jnp\n")
     assert {m for m, _ in _imported_roots(str(p))} & set(FORBIDDEN) == {"repro", "jax"}
+
+
+def test_guard_reaches_the_serving_slice():
+    """The telemetry, cache, server and example modules are among the
+    guarded sources."""
+    files = set(_sources())
+    for rel in ("obs/__init__.py", "obs/trace.py", "obs/metrics.py", "obs/log.py",
+                "obs/calibrate.py", "lowering/cache.py", "engine/server.py",
+                "launch/serve.py", "examples/quickstart.py",
+                "examples/simulate_sycamore.py"):
+        assert os.path.join(PORT, rel) in files, rel
