@@ -84,6 +84,38 @@ points at full width:
                  gate) within its certified peak (as above); never two
                  executions at once.  Prints each burst's wall, server
                  counters, and queue and compute latency (p50, max);
+     search    — amp30 planned by the anytime plan search
+                 (optimize="anytime", 64 evaluations, 4 workers, seed 0)
+                 and executed through simulate_amplitude: evaluations,
+                 search wall, trace points, improvement, log2 objective of
+                 the one-shot seed and of the searched plan, |S|, certified
+                 peak against the search's budget, exec_s beside the
+                 amplitude phase's one-shot exec_s.  Checks: feasible,
+                 improvement >= 1, the search.evals counter equals the
+                 evaluations, the amplitude within 1e-3 of the
+                 statevector, the measured peak within the certified peak
+                 (as above).  Also samp30 searched at planner seed 0 on
+                 the host, beside the one-shot plans of seeds 0 and 2;
+     resume    — amp30's one-shot plan through contract_resumable(chunk=16)
+                 with a simulated failure at range 32 (raised on purpose:
+                 catching it is the point), then a resume at chunk=8 from
+                 the state it left: within 1e-6 of |amp| of the amplitude
+                 phase's value, each of the 128 ids summed exactly once,
+                 the peak within the certified peak;
+     multihost — the same plan through contract_multihost at world size 1
+                 with a claim store in a temporary directory and a
+                 simulated host failure after 2 ranges, then an epoch-1
+                 resume (merged value within 1e-6 of |amp|, ids covered
+                 exactly once, schedule_imbalance / steal_count /
+                 overlap_fraction printed); then samp30 through
+                 contract_sharded([cuda:0]) and sample_bitstrings(devices=
+                 [cuda:0]), bitwise the sampling phase's batch (the same
+                 summation order), and contract_sharded([cuda:0, cuda:0],
+                 slice_batch=4) within 1e-6 (another order); a list
+                 naming cuda:1 is refused.  One process
+                 drives the card: two processes would break the
+                 per-process execution gate and the one-contraction
+                 certified peak;
   5. share     — open_session on sycamore_like(6, 6, 14), 36 qubits (more
                  than any statevector on one card holds), run_slices on 2
                  slice ids against the einsum oracle on the same ids; its
@@ -102,13 +134,13 @@ points at full width:
                  > 0, and every ssd_chunk launch must take its wgmma
                  route;
   7. kernels   — one JSON line listing every kernel with its launches on
-                 its path (phases 3-5 and engine for the contraction
-                 kernels, the
+                 its path (phases 3-5, engine, search, resume and
+                 multihost for the contraction kernels, the
                  serve phase for the LM kernels; each must be > 0) and
                  its design (wgmma-bf16, 3xtf32-wgmma, cluster-simt-fp32),
                  and the bf16 routes of tiled_gemm and fused_gemm
                  with their launches in the precision phase;
-                 every fused_gemm launch of phases 3-5 and engine must
+                 every fused_gemm launch of those phases must
                  have taken the wgmma kernel with the coalesced (uniform)
                  gather.
 
@@ -120,7 +152,9 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1003,6 +1037,285 @@ def phase_engine(torch, cg, circ, n: int, target: int, planner_seed: int,
     )
 
 
+SEARCH = dict(optimize="anytime", search_evals=64, search_workers=4, seed=0)
+RESUME_TOL = 1e-6  # resumed / merged sums against run_all, of max|amp|
+
+
+def phase_search(torch, obs, cg, circ, tn, tn4, target: int, sv_amp: complex,
+                 amp_plan, amp_exec_s: float, samp_costs: dict) -> dict:
+    """amp30 planned by the anytime search (64 evaluations, 4 workers,
+    seed 0) through plan_compiled with telemetry on, then executed through
+    simulate_amplitude (a plan-cache hit).  Checks: the searched plan is
+    feasible (certified peak within the search's budget, which the
+    one-shot seed fixes), improvement >= 1, the search.evals counter
+    equals the report's evaluations, the amplitude within 1e-3 of the
+    statevector, the measured peak within the certified peak.  Then samp30
+    at planner seed 0 searched on the host with the same budget, beside
+    the one-shot plans of seeds 0 and 2."""
+    from repro_torch.core import plan_compiled, plan_contraction, simulate_amplitude
+    from repro_torch.lowering.memory import certified_peak
+
+    n = circ.num_qubits
+    obs.reset()
+    t0 = time.perf_counter()
+    plan, rep = plan_compiled(tn, target, telemetry=True, **SEARCH)
+    search_wall = time.perf_counter() - t0
+    counters = rep.telemetry["metrics"]["counters"]
+    spans = rep.telemetry["spans"]
+    obs.reset()
+    # the budget the search itself derived (the one-shot seed's certified
+    # envelope) and its own verdict, held against a recount of the peak
+    budget = rep.budget_bytes
+    peak = certified_peak(plan.tree, plan.smask, 8)
+    trace = rep.search_trace
+    objective = (plan.partition.hoisted_cost() if plan.smask
+                 else plan.tree.total_cost())
+    improvement = trace[0]["objective"] / objective
+    check(rep.feasible and 0 < peak <= budget,
+          f"search: certified peak {peak} over budget {budget} "
+          f"(feasible={rep.feasible})")
+    check(improvement >= 1.0, f"search: improvement {improvement} < 1")
+    check(counters.get("search.evals") == rep.search_evals,
+          f"search: counter {counters.get('search.evals')} vs "
+          f"{rep.search_evals} evaluations")
+    check(trace[0]["move"] == "init" and trace[0]["worker"] == 0,
+          "search: the trace does not start at the one-shot seed")
+
+    cg.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = simulate_amplitude(circ, "0" * n, target_dim=target, **SEARCH)
+    torch.cuda.synchronize()
+    exec_s = time.perf_counter() - t0 - res.report.plan_wall_s
+    mem_peak = torch.cuda.max_memory_allocated() - base
+    check(res.report.cache_hit and res.plan is plan,
+          "search: simulate_amplitude did not reuse the searched plan")
+    check_peak("search", mem_peak, res.report.peak_bytes_hoisted)
+    amp = complex(res.value)
+    amp_err = abs(amp - sv_amp) / abs(sv_amp)
+    check(amp_err <= AMP_TOL, f"search: amplitude vs statevector {amp_err}")
+    launches, routes = dict(cg.LAUNCHES), dict(cg.FUSED_ROUTES)
+
+    # samp30 (planner seed 0, the sampling phase's restarts), host only
+    t0 = time.perf_counter()
+    _, _, srep = plan_contraction(tn4, target, repeats=32, **SEARCH)
+    samp_wall = time.perf_counter() - t0
+    return dict(
+        qubits=n, target_dim=target, **SEARCH,
+        evaluations=rep.search_evals, search_wall_s=search_wall,
+        plan_build_s=spans["plan.build"]["total_s"],
+        eval_spans=spans["search.eval"]["count"],
+        accepted=counters.get("search.accepted", 0),
+        rejected=counters.get("search.rejected", 0),
+        restarts=counters.get("search.restarts", 0),
+        trace_points=len(trace), improvement=improvement,
+        log2_objective_oneshot=math.log2(trace[0]["objective"]),
+        log2_objective_searched=math.log2(objective),
+        log2_sliced_cost_oneshot=math.log2(
+            amp_plan.tree.sliced_cost(amp_plan.smask)),
+        log2_sliced_cost_searched=rep.log2_sliced_cost,
+        num_sliced_oneshot=amp_plan.num_sliced, num_sliced=plan.num_sliced,
+        certified_peak_bytes=peak, budget_bytes=budget, feasible=rep.feasible,
+        exec_s=exec_s, exec_s_oneshot=amp_exec_s, rel_err=amp_err,
+        amplitude=[amp.real, amp.imag], peak_bytes=mem_peak,
+        peak_bytes_planned=res.report.peak_bytes_hoisted,
+        backends=res.report.lowered_backends, launches=launches,
+        fused_routes=routes,
+        samp30=dict(planner_seed=0, repeats=32, wall_s=samp_wall,
+                    evaluations=srep.search_evals,
+                    log2_sliced_cost_searched=srep.log2_sliced_cost,
+                    log2_sliced_cost_oneshot_seed0=samp_costs[0],
+                    log2_sliced_cost_oneshot_seed2=samp_costs[2],
+                    num_sliced=srep.num_sliced),
+    )
+
+
+def phase_resume(torch, obs, cg, amp_plan, amp_arrays, amp: complex) -> dict:
+    """amp30's one-shot plan through contract_resumable(chunk=16) with a
+    simulated failure at range 32 (expected: raising it is the point),
+    then the resume from the state it left, at chunk=8.  Checks: the
+    failure was raised after exactly ids 0-31; the value within 1e-6 of
+    |amp| of the amplitude phase's run_all value; each of the 128 ids
+    summed exactly once (state and exec.slices_executed); the measured
+    peak within the certified peak."""
+    import numpy as np
+
+    from repro_torch.core.distributed import SliceRangeCheckpoint, contract_resumable
+
+    n_slices = 1 << amp_plan.num_sliced
+    state = SliceRangeCheckpoint(n_slices, set(), np.zeros((), np.complex64))
+    cg.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    raised = None
+    with obs.enabled_scope(True):
+        obs.reset()
+        t0 = time.perf_counter()
+        try:
+            contract_resumable(amp_plan, amp_arrays, chunk=16, state=state,
+                               fail_on={32})
+        except RuntimeError as e:  # the simulated node failure
+            raised = str(e)
+        fail_s = time.perf_counter() - t0
+        done_at_failure = sorted(state.done_ids())
+        t0 = time.perf_counter()
+        value, state = contract_resumable(amp_plan, amp_arrays, chunk=8,
+                                          state=state)
+        resume_s = time.perf_counter() - t0
+        counters = obs.telemetry_summary()["metrics"]["counters"]
+        spans = obs.trace.summary()
+    obs.reset()
+    torch.cuda.synchronize()
+    mem_peak = torch.cuda.max_memory_allocated() - base
+    check(raised is not None and "simulated failure" in raised,
+          f"resume: the simulated failure was not raised ({raised})")
+    check(done_at_failure == list(range(32)),
+          f"resume: {len(done_at_failure)} ids done at the failure, not 0-31")
+    check(state.done_ids() == set(range(n_slices)),
+          "resume: the resumed state does not cover every id")
+    check(counters.get("exec.slices_executed") == n_slices,
+          f"resume: {counters.get('exec.slices_executed')} slices summed, "
+          f"not {n_slices}")
+    val = complex(value)
+    err = abs(val - amp) / abs(amp)
+    check(err <= RESUME_TOL, f"resume: value off run_all by {err} of |amp|")
+    check_peak("resume", mem_peak, amp_plan.memory_plan().peak_bytes_hoisted)
+    return dict(
+        slices=n_slices, chunk_first=16, fail_on=32, chunk_resume=8,
+        raised=raised, done_at_failure=len(done_at_failure),
+        slices_executed=counters.get("exec.slices_executed"),
+        ranges=spans["exec.slice_range"]["count"],
+        fail_s=fail_s, resume_s=resume_s, value=[val.real, val.imag],
+        rel_err_vs_run_all=err, peak_bytes=mem_peak,
+        peak_bytes_planned=amp_plan.memory_plan().peak_bytes_hoisted,
+        launches=dict(cg.LAUNCHES), fused_routes=dict(cg.FUSED_ROUTES),
+    )
+
+
+def phase_multihost(torch, cg, amp_plan, amp_arrays, amp_report, amp: complex,
+                    samp_plan, samp_arrays, samp_flat, circ, open_q,
+                    target: int, planner_seed: int, dev) -> dict:
+    """amp30's one-shot plan through contract_multihost at world size 1
+    with a claim store (a temporary directory) and a simulated host
+    failure after 2 ranges, then an epoch-1 resume; then samp30 through
+    contract_sharded and sample_bitstrings with an explicit device list.
+    Checks: the failure was raised; the merged value within 1e-6 of |amp|
+    of run_all; every id covered exactly once; the sharded batches bitwise
+    the sampling phase's where they sum in its order (one device,
+    slice_batch 1: ids in order, one running sum) and within 1e-6 of
+    max|batch| where they do not (the card listed twice, slice_batch 4:
+    batch partials, then the two devices' partials in device order); a
+    list naming a second card, or a card other than the current one, is
+    refused before any launch (one process per card)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import sample_bitstrings
+    from repro_torch.core.distributed import contract_sharded
+    from repro_torch.distributed import ClaimStore, contract_multihost
+
+    n_slices = 1 << amp_plan.num_sliced
+    root = tempfile.mkdtemp(prefix="repro_multihost_")
+    report = dataclasses.replace(amp_report)
+    cg.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    try:
+        raised = None
+        t0 = time.perf_counter()
+        try:
+            contract_multihost(amp_plan, amp_arrays, world_size=1,
+                               checkpoint_dir=root, fail_after=2)
+        except RuntimeError as e:  # the simulated host failure
+            raised = str(e)
+        fail_s = time.perf_counter() - t0
+        before = ClaimStore(root, n_slices, host=0).merged()
+        done_before = before.done_ids()
+        t0 = time.perf_counter()
+        res = contract_multihost(amp_plan, amp_arrays, world_size=1,
+                                 checkpoint_dir=root, epoch=1, report=report)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    mem_peak = torch.cuda.max_memory_allocated() - base
+    check(raised is not None and "simulated host 0" in raised,
+          f"multihost: the simulated host failure was not raised ({raised})")
+    resumed = [i for s, e in res.executed_ranges for i in range(s, e)]
+    check(len(resumed) == len(set(resumed)) and done_before.isdisjoint(resumed)
+          and done_before | set(resumed) == set(range(n_slices)),
+          "multihost: slice ids not covered exactly once")
+    check(res.complete and res.state.done_ids() == set(range(n_slices)),
+          "multihost: the merged state is incomplete")
+    val = complex(res.value)
+    err = abs(val - amp) / abs(amp)
+    check(err <= RESUME_TOL, f"multihost: merged value off run_all by {err}")
+    check_peak("multihost", mem_peak, amp_plan.memory_plan().peak_bytes_hoisted)
+    check(report.schedule_imbalance == res.schedule_imbalance,
+          "multihost: the report's schedule fields were not filled")
+
+    # samp30 through the explicit-device paths
+    scale = float(abs(samp_flat).max())
+    t0 = time.perf_counter()
+    one = contract_sharded(samp_plan, samp_arrays, [dev]).cpu().numpy().ravel()
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    check(one.tobytes() == samp_flat.tobytes(),
+          "multihost: contract_sharded([cuda:0]) is not bitwise the "
+          "sampling phase's batch")
+    twice = contract_sharded(samp_plan, samp_arrays, [dev, dev],
+                             slice_batch=4).cpu().numpy().ravel()
+    twice_err = float(abs(twice - samp_flat).max()) / scale
+    check(twice_err <= RESUME_TOL,
+          f"multihost: contract_sharded([cuda:0, cuda:0]) off by {twice_err}")
+    t0 = time.perf_counter()
+    samp = sample_bitstrings(circ, num_samples=1000, open_qubits=open_q,
+                             target_dim=target, seed=planner_seed, repeats=32,
+                             devices=[dev])
+    torch.cuda.synchronize()
+    samp_s = time.perf_counter() - t0
+    check(samp.batch.flat().tobytes() == samp_flat.tobytes(),
+          "multihost: sample_bitstrings(devices=[cuda:0]) is not bitwise the "
+          "sampling phase's batch")
+    launches = dict(cg.LAUNCHES)  # amp30's two runs and samp30's three
+    refused = {}
+    for devs in (["cuda:0", "cuda:1"], ["cuda:1"]):
+        try:
+            contract_sharded(samp_plan, samp_arrays, devs)
+        except ValueError as e:  # one card per process: refused up front
+            refused[",".join(devs)] = str(e)
+    check(len(refused) == 2 and cg.LAUNCHES == launches,
+          f"multihost: a device list beyond the current card was not "
+          f"refused before any launch ({refused})")
+    return dict(
+        slices=n_slices, fail_after=2, raised=raised,
+        done_before_resume=len(done_before),
+        executed_on_resume=res.executed_slices, complete=res.complete,
+        value=[val.real, val.imag], rel_err_vs_run_all=err,
+        schedule_imbalance=res.schedule_imbalance,
+        initial_imbalance=res.initial_imbalance, steal_count=res.steal_count,
+        overlap_fraction=res.overlap_fraction, fail_s=fail_s, resume_s=resume_s,
+        peak_bytes=mem_peak,
+        peak_bytes_planned=amp_plan.memory_plan().peak_bytes_hoisted,
+        sharded_one_device_s=sharded_s, sharded_bitwise=True,
+        sharded_twice_rel_err=twice_err, sampling_devices_s=samp_s,
+        sampling_bitwise=True, refused=refused,
+        orders={"contract_sharded([cuda:0])": "ids in order, one running sum "
+                "(the sampling phase's order): bitwise",
+                "sample_bitstrings(devices=[cuda:0])": "the same: bitwise",
+                "contract_sharded([cuda:0, cuda:0], slice_batch=4)":
+                "4-id batch partials, then the two chunks' partials in device "
+                "order: within 1e-6",
+                "contract_multihost": "per-range partials, rounds of pushes, "
+                "claim-store partials on the host: within 1e-6"},
+        launches=launches, fused_routes=dict(cg.FUSED_ROUTES),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -1022,6 +1335,7 @@ def main() -> int:
         sample_bitstrings,
         simulate_amplitude,
     )
+    from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core.executor import simplify_network
     from repro_torch.kernels import build, contract_gemm as cg
@@ -1112,6 +1426,7 @@ def main() -> int:
     del psi
     torch.cuda.empty_cache()
     amp = complex(res.value)
+    amp_exec_s = exec_s
     amp_err = abs(amp - sv_amp) / abs(sv_amp)
     check(amp_err <= AMP_TOL, f"amplitude vs statevector: {amp_err}")
     emit(phase="amplitude", qubits=n, cycles=cycles, target_dim=target,
@@ -1178,10 +1493,37 @@ def main() -> int:
     # a warm burst of amplitude and sampling tenants
     eng = phase_engine(torch, cg, circ, n, target, seed4, samp_flat, sv_batch,
                        amp_plan, amp_arrays)
-    del amp_plan, amp_arrays
     launches["engine"] = eng.pop("launches")
     routes["engine"] = eng.pop("fused_routes")
     emit(phase="engine", **eng)
+    torch.cuda.empty_cache()
+
+    # 4b. the anytime plan search on amp30 (and samp30 on the host)
+    srch = phase_search(torch, obs, cg, circ, tn, tn4, target, sv_amp,
+                        amp_plan, amp_exec_s, costs)
+    launches["search"] = srch.pop("launches")
+    routes["search"] = srch.pop("fused_routes")
+    emit(phase="search", **srch)
+    torch.cuda.empty_cache()
+
+    # 4c. slice-level fault tolerance: a failure, then a resume
+    resu = phase_resume(torch, obs, cg, amp_plan, amp_arrays, amp)
+    launches["resume"] = resu.pop("launches")
+    routes["resume"] = resu.pop("fused_routes")
+    emit(phase="resume", **resu)
+    torch.cuda.empty_cache()
+
+    # 4d. multi-host scheduling at world size 1, and the explicit-device
+    # paths on samp30
+    tn4, arrays4 = open_batch_network(circ, "0" * n, open_q)
+    samp_plan, _ = plan_compiled(tn4, target, seed=seed4, repeats=32)
+    mh = phase_multihost(torch, cg, amp_plan, amp_arrays, report, amp,
+                         samp_plan, arrays4, samp_flat, circ, open_q, target,
+                         seed4, torch.device("cuda", 0))
+    launches["multihost"] = mh.pop("launches")
+    routes["multihost"] = mh.pop("fused_routes")
+    emit(phase="multihost", **mh)
+    del amp_plan, amp_arrays, samp_plan, arrays4
     PLAN_CACHE.clear()
     torch.cuda.empty_cache()
 
@@ -1250,7 +1592,8 @@ def main() -> int:
 
     # 7. every kernel went through its path ---------------------------
     total = {k: sum(launches[ph][k]
-                    for ph in ("amplitude", "sampling", "engine", "share"))
+                    for ph in ("amplitude", "sampling", "engine", "search",
+                               "resume", "multihost", "share"))
              for k in cg.LAUNCHES}
     total["flash_attention"] = launches["serve:qwen3-4b"]["flash_attention"]
     total["ssd_chunk"] = launches["serve:mamba2-130m"]["ssd_chunk"]

@@ -72,12 +72,25 @@ class PlanReport:
     peak_bytes_hoisted: int = 0  # live-set peak under two-phase execution
     buffer_slots: int = 0  # linear-scan slot count (naive subtask)
     transpose_bytes_saved: float = 0.0  # bytes the fused kernel avoids/slice
+    # anytime path–slice co-optimizer
+    optimize: str = "oneshot"  # planner mode: oneshot | anytime
+    search_evals: int = 0  # candidate evaluations the search spent
+    search_trace: list | None = None  # best-so-far improvements (dicts)
+    budget_bytes: int = 0  # the search's certified-peak budget (0: one-shot)
+    feasible: bool = True  # the searched plan's certified peak fits it
     fused_chains: int = 0  # multi-step chains planned
     max_chain_len: int = 0
     chain_hbm_bytes_saved: float = 0.0  # modeled bytes chains avoid/slice
     # metrics snapshot + per-span aggregates (obs.telemetry_summary()),
     # filled only when tracing is on (telemetry=True) — None otherwise
     telemetry: dict | None = None
+    # multi-host scheduling: realized max/mean host load, ranges stolen
+    # across hosts, and the share of the reduction hidden behind slice
+    # compute — filled by contract_multihost when a report is passed;
+    # the defaults describe a single-host run
+    schedule_imbalance: float = 0.0  # 0.0 = not a multi-host run
+    steal_count: int = 0
+    overlap_fraction: float = 0.0
     # mixed precision under an XEB budget
     precision: str = "fp32"  # fp32 | bf16 | auto
     fidelity_tol: float = 0.0  # the XEB budget the plan was certified at
@@ -101,6 +114,8 @@ class PlanReport:
                 f"[inv={self.invariant_fraction:.2f}"
                 f" ov={self.measured_overhead:.3f}]"
             )
+        if self.optimize != "oneshot":
+            row += f" opt={self.optimize}[evals={self.search_evals}]"
         if self.peak_bytes:
             row += f" peak={_fmt_bytes(self.peak_bytes)}"
             if self.peak_bytes_hoisted != self.peak_bytes:
@@ -119,6 +134,12 @@ class PlanReport:
             row += (
                 f" chains={self.fused_chains}"
                 f" chain_saved={_fmt_bytes(self.chain_hbm_bytes_saved)}"
+            )
+        if self.schedule_imbalance:
+            row += (
+                f" sched[imb={self.schedule_imbalance:.2f}"
+                f" steals={self.steal_count}"
+                f" overlap={self.overlap_fraction:.2f}]"
             )
         if self.precision != "fp32":
             counts = self.precision_counts or {}
@@ -164,30 +185,63 @@ def plan_contraction(
     seed: int = 0,
     slicing_mode: str = "width",
     itemsize: int = 8,
+    optimize: str = "oneshot",
+    search_evals: int = 64,
+    search_workers: int = 4,
+    search_wall_s: float | None = None,
     budget_bytes: int | None = None,
     hw: Hardware = DEFAULT_HARDWARE,
     precision: str = "fp32",
     fidelity_tol: float | None = None,
 ):
-    """Full planning pipeline on a tensor network (the one-shot planner).
+    """Full planning pipeline on a tensor network.
 
     ``slicing_mode="peak"`` re-judges the final slicing mask against the
     lifetime-based memory plan's live-set peak instead of the width
     proxy; under ``precision="auto"`` (or ``"bf16"``) a second,
     prune-only pass counts the bf16-stored nodes at half width.  ``hw``
-    prices branch merging and the modeled times."""
+    prices branch merging and the modeled times.
+
+    ``optimize="anytime"`` replaces the staged one-shot pipeline with the
+    path–slice–memory co-optimizer (:func:`repro_torch.optimize.
+    plan_search`): the slicer is re-invoked in place after every accepted
+    tree move and candidates are scored by hoist-aware executed FLOPs
+    under the certified peak budget.  ``search_evals`` / ``search_wall_s``
+    are its anytime budgets over ``search_workers`` annealing workers
+    (stopping early always yields a plan no worse than the one-shot
+    seed); the report carries the improvement trace in
+    ``PlanReport.search_trace``."""
     from ..lowering.memory import plan_memory  # lazy: avoid cycle
     from ..lowering.partition import partition_tree  # lazy: cycle
-    from ..optimize import oneshot_plan
+    from ..optimize import oneshot_plan, plan_search
 
     t0 = time.perf_counter()
-    shot = oneshot_plan(
-        tn, target_dim, method=method, tune=tune, merge=merge,
-        repeats=repeats, seed=seed, slicing_mode=slicing_mode,
-        itemsize=itemsize, budget_bytes=budget_bytes, hw=hw,
-        precision=precision, fidelity_tol=fidelity_tol,
-    )
-    tree, smask, width0 = shot.tree, shot.smask, shot.width_before
+    search_trace = None
+    search_evals_spent = 0
+    search_budget, feasible = 0, True
+    if optimize == "anytime":
+        sr = plan_search(
+            tn, target_dim, budget_bytes=budget_bytes, itemsize=itemsize,
+            num_workers=search_workers, max_evals=search_evals,
+            wall_clock_s=search_wall_s, seed=seed, method=method, tune=tune,
+            merge=merge, repeats=repeats, slicing_mode=slicing_mode,
+            precision=precision, fidelity_tol=fidelity_tol, hw=hw,
+        )
+        tree, smask = sr.tree, sr.smask
+        width0 = sr.width_before  # raw greedy seed width, as in oneshot
+        search_trace = [dataclasses.asdict(t) for t in sr.trace]
+        search_evals_spent = sr.evaluations
+        search_budget, feasible = sr.budget_bytes, sr.feasible
+    elif optimize == "oneshot":
+        shot = oneshot_plan(
+            tn, target_dim, method=method, tune=tune, merge=merge,
+            repeats=repeats, seed=seed, slicing_mode=slicing_mode,
+            itemsize=itemsize, budget_bytes=budget_bytes, hw=hw,
+            precision=precision, fidelity_tol=fidelity_tol,
+        )
+        tree, smask, width0 = shot.tree, shot.smask, shot.width_before
+    else:
+        raise ValueError(f"unknown optimize {optimize!r}")
     wall = time.perf_counter() - t0
     naive_overhead = tree.slicing_overhead(smask)
     invariant_fraction = 0.0
@@ -215,6 +269,11 @@ def plan_contraction(
         peak_bytes=mem.peak_bytes,
         peak_bytes_hoisted=mem.peak_bytes_hoisted,
         buffer_slots=mem.buffer_slots,
+        optimize=optimize,
+        search_evals=search_evals_spent,
+        search_trace=search_trace,
+        budget_bytes=search_budget,
+        feasible=feasible,
         hardware=hw.name,
     )
     return tree, smask, report
@@ -237,6 +296,10 @@ def plan_compiled(
     repeats: int = 8,
     seed: int = 0,
     slicing_mode: str = "width",
+    optimize: str = "oneshot",
+    search_evals: int = 64,
+    search_workers: int = 4,
+    search_wall_s: float | None = None,
     budget_bytes: int | None = None,
     use_cache: bool = True,
     telemetry: bool | None = None,
@@ -245,7 +308,9 @@ def plan_compiled(
     on ``device``, consulting the compiled-plan cache.
 
     ``method``/``tune``/``merge``/``repeats``/``seed``/``slicing_mode``/
-    ``budget_bytes`` go to :func:`plan_contraction`.  ``precision``
+    ``budget_bytes`` and the planner mode ``optimize`` (``"oneshot"`` or
+    ``"anytime"``, with ``search_evals``/``search_workers``/
+    ``search_wall_s``) go to :func:`plan_contraction`.  ``precision``
     (``"fp32"``, ``"bf16"`` or ``"auto"``) and ``fidelity_tol`` select the
     mixed-precision schedule (see :class:`ContractionPlan`).
 
@@ -256,7 +321,10 @@ def plan_compiled(
     device and the :class:`~repro_torch.hardware.Hardware` (its name and
     constants) added — so a hit returns the *identical* plan object, with
     its hoist cache and the kernels' launch state.  The fidelity
-    tolerance joins the key only off fp32.  Concurrent misses on one key
+    tolerance joins the key only off fp32, and the search parameters only
+    under ``optimize="anytime"`` (a searched plan is cache-addressable; it
+    is deterministic across processes only when ``search_wall_s`` is
+    ``None``).  Concurrent misses on one key
     plan once (single flight).  ``hoist`` is an execution-time choice and
     is not part of the key.  ``use_cache=False`` plans afresh.
 
@@ -271,6 +339,8 @@ def plan_compiled(
             precision=precision, hoist=hoist, hw=hw, fused=fused,
             fidelity_tol=fidelity_tol, method=method, tune=tune, merge=merge,
             repeats=repeats, seed=seed, slicing_mode=slicing_mode,
+            optimize=optimize, search_evals=search_evals,
+            search_workers=search_workers, search_wall_s=search_wall_s,
             budget_bytes=budget_bytes, use_cache=use_cache,
         )
         report = _with_telemetry(report)
@@ -302,12 +372,19 @@ def _plan_compiled(
         return ent.plan, ent.report
     tol = DEFAULT_FIDELITY_TOL if fidelity_tol is None else float(fidelity_tol)
     p = planner
+    # the search parameters shape the plan only under optimize="anytime":
+    # kept out of the one-shot key so ignored knobs cause no misses
+    search_key = (
+        (p["search_evals"], p["search_workers"], p["search_wall_s"])
+        if p["optimize"] == "anytime"
+        else ()
+    )
     key = network_fingerprint(
         tn,
         dtype,
         extra=(backend, target_dim, p["method"], p["tune"], p["merge"],
                p["repeats"], p["seed"], p["slicing_mode"], fused,
-               p["budget_bytes"], precision,
+               p["optimize"], p["budget_bytes"], search_key, precision,
                tol if precision != "fp32" else None,
                str(device), dataclasses.astuple(hw)),
     )
@@ -422,9 +499,11 @@ def simulate_amplitude(
     """Amplitude <bitstring|C|0…0> via the full planner + executor stack
     on ``device``.  ``precision``/``fidelity_tol`` select the
     mixed-precision schedule; ``plan_kwargs`` go to
-    :func:`plan_compiled`.  Two calls on the same circuit share one plan
-    through the plan cache (different bitstrings change leaf values,
-    never network structure); ``telemetry=True`` traces the call."""
+    :func:`plan_compiled` (the planner mode ``optimize="anytime"`` with
+    ``search_evals``/``search_workers``/``search_wall_s`` among them).
+    Two calls on the same circuit share one plan through the plan cache
+    (different bitstrings change leaf values, never network structure);
+    ``telemetry=True`` traces the call."""
     with _trace.enabled_scope(telemetry):
         tn, arrays = _network(circuit, bitstring)
         plan, report = plan_compiled(
@@ -449,6 +528,7 @@ def open_amplitude_batch(
     fidelity_tol: float | None = None,
     use_cache: bool = True,
     telemetry: bool | None = None,
+    devices=None,
     **plan_kwargs,
 ):
     """Contract one open-qubit batch: all ``2^k`` correlated amplitudes
@@ -456,7 +536,10 @@ def open_amplitude_batch(
     ``min(6, n)`` qubits open, all-zeros base).  The serving engine
     (:mod:`repro_torch.engine.server`) calls this directly: one batch
     contraction answers a coalesced group of amplitude requests or feeds
-    any number of per-tenant :func:`draw_from_batch` calls.
+    any number of per-tenant :func:`draw_from_batch` calls.  ``devices``
+    splits the slice ids over a list of devices (see
+    :func:`repro_torch.sampling.batch.contract_amplitude_batch`); the plan
+    is built on ``device``.
 
     Returns ``(AmplitudeBatch, PlanReport)``."""
     from ..sampling import AmplitudeBatch, batch as batch_mod
@@ -484,7 +567,9 @@ def open_amplitude_batch(
             device=device, hoist=hoist, precision=precision,
             fidelity_tol=fidelity_tol, use_cache=use_cache, **plan_kwargs,
         )
-        amps = batch_mod.contract_amplitude_batch(plan, arrays, hoist=hoist)
+        amps = batch_mod.contract_amplitude_batch(
+            plan, arrays, hoist=hoist, devices=devices,
+        )
         report = _with_telemetry(report)
     return AmplitudeBatch(amps, open_qubits, base_bitstring, n), report
 
@@ -536,6 +621,7 @@ def sample_bitstrings(
     fidelity_tol: float | None = None,
     use_cache: bool = True,
     telemetry: bool | None = None,
+    devices=None,
     **plan_kwargs,
 ):
     """Draw correlated bitstring samples from one batched contraction —
@@ -546,7 +632,10 @@ def sample_bitstrings(
     all ``2^k`` amplitudes sharing the ``base_bitstring`` prefix; the
     bitstrings are drawn from that batch with ``sampler`` and scored with
     Linear XEB.  ``seed`` seeds both the planner and the sampler.
-    Returns a :class:`repro_torch.sampling.SamplingResult`."""
+    ``devices`` (a list of devices) splits the slice ids over them.  Planner keywords (``optimize="anytime"``,
+    ``search_evals``, ...) go through ``plan_kwargs`` to
+    :func:`plan_compiled`.  Returns a :class:`repro_torch.sampling.
+    SamplingResult`."""
     if num_samples <= 0:
         raise ValueError(f"num_samples must be positive, got {num_samples}")
     if sampler not in ("frequency", "rejection", "topk"):
@@ -556,7 +645,8 @@ def sample_bitstrings(
             circuit, open_qubits=open_qubits, base_bitstring=base_bitstring,
             target_dim=target_dim, backend=backend, hoist=hoist,
             device=device, seed=seed, precision=precision,
-            fidelity_tol=fidelity_tol, use_cache=use_cache, **plan_kwargs,
+            fidelity_tol=fidelity_tol, use_cache=use_cache, devices=devices,
+            **plan_kwargs,
         )
         res = draw_from_batch(batch, num_samples, sampler=sampler, seed=seed)
         res.report = _with_telemetry(report)
@@ -578,7 +668,9 @@ def open_session(
 ):
     """Plan a circuit amplitude and return a live
     :class:`~repro_torch.engine.session.ContractionSession` plus its
-    report, ready for ``run_slice`` / ``run_slices`` / ``run_all``."""
+    report, ready for ``run_slice`` / ``run_slices`` / ``run_all`` /
+    ``run_sharded``.  ``plan_kwargs`` go to :func:`plan_compiled`
+    (``optimize="anytime"`` among them)."""
     from ..engine.session import ContractionSession
 
     tn, arrays = _network(circuit, bitstring)

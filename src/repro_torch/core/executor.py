@@ -113,6 +113,12 @@ def running(device) -> ExecutionCounter:
         return _RUNNING.setdefault(dev, ExecutionCounter())
 
 
+def auto_slice_batch(requested: int, n_slices: int) -> int:
+    """Clamp the requested slice batch to the slice count (any batch size
+    works: a ragged final batch is padded and masked)."""
+    return max(1, min(int(requested), n_slices))
+
+
 def resolve_device(device) -> torch.device:
     """The execution device; a CUDA device with no GPU present raises
     rather than running on the CPU."""
@@ -505,7 +511,9 @@ class ContractionPlan:
         """Bit-decompose a slice id into per-index 0/1 values."""
         return [(int(slice_id) >> i) & 1 for i in range(self.num_sliced)]
 
-    def _run_steps(self, env: dict, step_ids, segment: str = "naive") -> None:
+    def _run_steps(
+        self, env: dict, step_ids, segment: str = "naive", device=None
+    ) -> None:
         """Execute the given step positions over ``env`` (shared by the
         prologue, the epilogue, and the naive full-tree path).
 
@@ -513,8 +521,9 @@ class ContractionPlan:
         schedule for ``segment`` (in the epilogue this keeps the pinned
         hoisted buffers out of the free lists).  Positions planned into a
         fused chain (keyed by the chain's first position) dispatch as one
-        ``gemm_form.apply_chain`` call."""
-        with running(self.device):
+        ``gemm_form.apply_chain`` call.  ``device`` is where ``env``
+        lives (default the plan's)."""
+        with running(self.device if device is None else device):
             self._run_steps_on(env, step_ids, segment)
 
     def _run_steps_on(self, env: dict, step_ids, segment: str) -> None:
@@ -573,10 +582,13 @@ class ContractionPlan:
     ) -> torch.Tensor:
         """Contract one subtask (slice assignment = bits of slice_id).
 
-        ``arrays`` are the leaf tensors on the plan's device.  ``hoisted``
-        (from :meth:`contract_prologue`) seeds the environment with the
-        materialized slice-invariant buffers, so only the epilogue steps
-        run; ``None`` executes the full tree (naive)."""
+        ``arrays`` are the leaf tensors, on the plan's device or on the
+        device they were bound to (:meth:`ContractionSession.run_sharded`
+        runs one plan on several).  ``hoisted`` (from
+        :meth:`contract_prologue`, on the same device) seeds the
+        environment with the materialized slice-invariant buffers, so
+        only the epilogue steps run; ``None`` executes the full tree
+        (naive)."""
         svals = self.slice_values(slice_id)
         env: dict[int, torch.Tensor] = {}
         if hoisted is None:
@@ -598,20 +610,24 @@ class ContractionPlan:
                     a = a.select(axis, svals[spos])
                 a = a.contiguous()
             env[i] = a
-        self._run_steps(env, step_ids, segment)
+        dev = arrays[0].device if len(arrays) else self.device
+        self._run_steps(env, step_ids, segment, dev)
         out = env[self.root]
         if self.out_perm and self.out_perm != tuple(range(out.dim())):
             out = out.permute(self.out_perm)
         return out
 
-    def contract_prologue(self, arrays, use_cache: bool = True) -> list[torch.Tensor]:
+    def contract_prologue(
+        self, arrays, use_cache: bool = True, device=None
+    ) -> list[torch.Tensor]:
         """Run the slice-invariant prologue once on the full (unsliced)
         leaf tensors and return the hoisted frontier buffers in
         ``hoisted_nodes`` order.  Invariant leaves carry no sliced index
         by construction, so no slice specs apply here.
 
         ``arrays`` are the caller's leaves (numpy or tensors); the ones
-        the prologue reads go to the plan's device.  The outputs are
+        the prologue reads go to ``device`` (default the plan's; another
+        device keys its own cache entry).  The outputs are
         memoized in the plan's :class:`~repro_torch.lowering.cache.
         HoistCache`, keyed by :func:`repro_torch.lowering.cache.leaf_key`
         over the prologue's leaves: host (numpy) leaves by value, tensors
@@ -621,17 +637,18 @@ class ContractionPlan:
         the key and the cache."""
         if not self.can_hoist:
             return []
+        dev = self.device if device is None else device_key(device)
 
         def compute():
             from ..engine.session import to_device  # lazy: cycle
 
-            leaves = to_device([arrays[i] for i in self.prologue_leaves], self.device)
+            leaves = to_device([arrays[i] for i in self.prologue_leaves], dev)
             with _trace.span(
                 "exec.prologue", cat="exec", buffers=len(self.hoisted_nodes)
             ):
                 env = dict(zip(self.prologue_leaves, leaves))
                 del leaves
-                self._run_steps(env, self.prologue_idx, "prologue")
+                self._run_steps(env, self.prologue_idx, "prologue", dev)
                 out = [env[v] for v in self.hoisted_nodes]
                 _trace.sync(out)
             _metrics.inc("exec.flops_executed", self.partition.invariant_cost)
@@ -641,6 +658,8 @@ class ContractionPlan:
             from ..lowering.cache import leaf_key  # lazy: cycle
 
             key, keepalive = leaf_key(arrays, self.prologue_leaves)
+            if device_key(dev) != device_key(self.device):
+                key = f"{key}@{dev}"
             # single flight: sessions over the same leaves materialize
             # the prologue once and count its FLOPs once
             return self._hoist_cache.single_flight(

@@ -11,7 +11,13 @@ Strategies:
   * :meth:`ContractionSession.run_slices` — the masked partial sum over
     an explicit batch of slice ids (the unit a scheduler or a server
     hands out),
-  * :meth:`ContractionSession.run_all` — all ``2^|S|`` subtasks.
+  * :meth:`ContractionSession.run_all` — all ``2^|S|`` subtasks,
+  * :meth:`ContractionSession.run_sharded` — all subtasks split into
+    contiguous chunks over an explicit list of devices, each device with
+    its own copy of the leaves and its own hoisted prologue, the partials
+    summed on the first device in device order (the reference's
+    ``shard_map`` + ``psum``).  A list holds at most one CUDA device, the
+    calling thread's current one (:func:`check_devices`).
 
 The reference runs a batch of slices as one ``vmap``; PyTorch has no
 counterpart, so here a batch loops over its valid lanes and launches each
@@ -40,8 +46,35 @@ import threading
 import numpy as np
 import torch
 
-from ..core.executor import device_key
+from ..core.executor import auto_slice_batch, device_key
 from ..obs import metrics as _metrics, trace as _trace
+
+
+def check_devices(devices) -> None:
+    """Refuse a device list that the kernels' launchers cannot serve.
+
+    The K1-K3 launchers launch into the current stream of their tensors'
+    device, which CUDA accepts only while that device is the calling
+    thread's current one, and the fused kernel sets its shared-memory
+    attribute once per process, for the device current at its first
+    launch.  So a list of devices (:meth:`ContractionSession.run_sharded`,
+    ``contract_multihost(devices=)``) holds CPU devices and at most one
+    CUDA device, the current one: one process per card."""
+    keys = {device_key(d) for d in devices}
+    cuda = sorted((d for d in keys if d.type == "cuda"), key=str)
+    if len(cuda) > 1:
+        raise ValueError(
+            f"devices hold {len(cuda)} CUDA devices ({', '.join(map(str, cuda))}): "
+            "the kernels run on one card per process; start one process per "
+            "card (repro_torch.distributed.contract_multihost)"
+        )
+    if cuda and torch.cuda.is_available():
+        current = torch.cuda.current_device()
+        if cuda[0].index != current:
+            raise ValueError(
+                f"device {cuda[0]} is not the current CUDA device "
+                f"(cuda:{current}): call torch.cuda.set_device first"
+            )
 
 
 def mask_invalid(contrib: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -124,13 +157,16 @@ def execution_gate(device) -> ExecutionGate:
         return gate
 
 
-def record_execution(plan, executed: int, hoist: bool) -> None:
+def record_execution(plan, executed: int, hoist: bool, padded: int = 0) -> None:
     """Work accounting of a contraction: ``executed`` slices summed into
     the amplitude.  The prologue's FLOPs are counted where it runs
     (``contract_prologue``; a hoist-cache hit executes nothing), so under
-    hoisting only the per-slice epilogue cost lands here.  (The port
-    launches only valid lanes, so there are no padded slices to count.)"""
+    hoisting only the per-slice epilogue cost lands here.  ``padded``
+    counts the masked lanes of ragged batches (wrapped ids that were
+    neither launched nor summed), kept apart from ``executed``."""
     _metrics.inc("exec.slices_executed", executed)
+    if padded:
+        _metrics.inc("exec.padded_slices", padded)
     if hoist:
         _metrics.inc("exec.flops_executed", plan.partition.per_slice_cost * executed)
     else:
@@ -160,17 +196,21 @@ class ContractionSession:
     keyed by the leaves as the caller gave them (host arrays by value),
     so sessions over the same leaves — repeated requests, server tenants —
     share it.  Every execution holds the device's :class:`ExecutionGate`.
+
+    ``device`` binds the session to another device than the plan's (one
+    plan, one session per device: :meth:`run_sharded`).
     """
 
-    def __init__(self, plan, arrays, hoist: bool = True):
+    def __init__(self, plan, arrays, hoist: bool = True, device=None):
         self.plan = plan
         self._given = list(arrays)
-        self.gate = execution_gate(plan.device)
+        self.device = device_key(plan.device if device is None else device)
+        self.gate = execution_gate(self.device)
         with self.gate.hold():
-            self.arrays = to_device(arrays, plan.device)
+            self.arrays = to_device(arrays, self.device)
         self.hoist = bool(hoist and plan.can_hoist)
         self._hoisted: list | None = None
-        if plan.device.type == "cuda":
+        if self.device.type == "cuda":
             from ..core.executor import exact_fp32_matmul
 
             exact_fp32_matmul()
@@ -194,7 +234,9 @@ class ContractionSession:
             return []
         if self._hoisted is None:
             with self._hold():
-                self._hoisted = self.plan.contract_prologue(self._given)
+                self._hoisted = self.plan.contract_prologue(
+                    self._given, device=self.device
+                )
         return self._hoisted
 
     def run_slice(self, slice_id: int) -> torch.Tensor:
@@ -252,5 +294,72 @@ class ContractionSession:
             self.arrays[0].dtype if self.arrays else self.plan.dtype,
         )
         return torch.zeros(
-            self.plan.out_shape(), dtype=dtype, device=self.plan.device
+            self.plan.out_shape(), dtype=dtype, device=self.device
         )
+
+    def on(self, device) -> "ContractionSession":
+        """This session on ``device``: itself when bound there, else a new
+        session over the same leaves with its own copy of them and its own
+        hoisted prologue."""
+        dev = device_key(device)
+        if dev == self.device:
+            return self
+        return ContractionSession(self.plan, self._given, self.hoist, device=dev)
+
+    def run_sharded(self, devices, slice_batch: int = 1) -> torch.Tensor:
+        """Contract all slices with the slice ids split over ``devices``.
+
+        The ids are padded by wrap-around to a multiple of
+        ``len(devices) * slice_batch`` (:func:`padded_ids`) and cut into
+        one contiguous chunk per device, in list order; each device runs
+        its chunk as :meth:`run_slices` batches of ``slice_batch`` ids
+        (padded lanes masked, never launched) on its own copy of the
+        leaves and its own hoisted prologue, holding its own
+        :class:`ExecutionGate`.  The partials are then summed on
+        ``devices[0]`` in device order: one fixed order, no atomics, so a
+        run is bitwise reproducible (with one device and
+        ``slice_batch=1`` it sums in :meth:`run_all`'s order).  Distinct
+        devices run concurrently, one thread each; the list may repeat a
+        device and holds at most one CUDA device, the current one
+        (:func:`check_devices`).  Open-batch axes ride in every device's
+        accumulator; only the slice axis is split."""
+        devs = [device_key(d) for d in devices]
+        if not devs:
+            raise ValueError("run_sharded needs at least one device")
+        check_devices(devs)
+        n_slices = self.n_slices
+        sb = auto_slice_batch(slice_batch, n_slices)
+        ids, valid, total = padded_ids(n_slices, len(devs) * sb)
+        per = total // len(devs)
+        sessions = [self.on(d) for d in devs]
+
+        def work(k: int) -> torch.Tensor:
+            sess = sessions[k]
+            lo = k * per
+            acc = None
+            on_card = (torch.cuda.device(sess.device)
+                       if sess.device.type == "cuda"
+                       else contextlib.nullcontext())
+            with on_card, sess._hold():
+                for b in range(lo, lo + per, sb):
+                    delta = sess.run_slices(ids[b:b + sb], valid[b:b + sb])
+                    acc = delta if acc is None else acc.add_(delta)
+            return acc
+
+        with _trace.span(
+            "exec.sharded", cat="exec", slices=n_slices, devices=len(devs),
+            hoist=self.hoist,
+        ):
+            if len(set(devs)) > 1:
+                from concurrent.futures import ThreadPoolExecutor
+
+                with ThreadPoolExecutor(len(devs)) as pool:
+                    partials = list(pool.map(work, range(len(devs))))
+            else:
+                partials = [work(k) for k in range(len(devs))]
+            out = partials[0]
+            for p in partials[1:]:
+                out = out + p.to(out.device)
+            _trace.sync(out)
+        record_execution(self.plan, n_slices, self.hoist, total - n_slices)
+        return out

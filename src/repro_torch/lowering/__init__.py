@@ -46,6 +46,7 @@ from .refiner import (  # noqa: F401
     FusedChainSpec,
     GemmSpec,
     LoweredSchedule,
+    modeled_plan_time,
     modeled_step_time,
     operand_transpose_bytes,
     plan_chains,

@@ -686,3 +686,65 @@ def plan_tree_chains(
     return plan_chains(
         sched, step_nodes, segments, nbytes, vmem_budget=vmem_budget, hw=hw
     )
+
+
+def modeled_plan_time(
+    tree,
+    smask: int = 0,
+    dtype=torch.complex64,
+    *,
+    part=None,
+    fused: bool = True,
+    precision: str = "fp32",
+    fidelity_tol: float | None = None,
+    hw: Hardware = DEFAULT_HARDWARE,
+) -> float:
+    """Modeled seconds of *two-phase* execution for ``(tree, S)``: the
+    refined prologue runs once, the refined epilogue ``2^|S|`` times.
+
+    Scores a candidate without building a ``ContractionPlan``, so the
+    anytime co-optimizer (:func:`repro_torch.optimize.plan_search`,
+    ``objective="modeled_time"``) can price candidates straight from
+    planner state.  ``part`` reuses a caller-held
+    :class:`~repro_torch.lowering.partition.TreePartition`.
+    ``precision``/``fidelity_tol`` score with the mixed-precision
+    assignment the plan would run under (see :mod:`repro_torch.lowering.
+    precision`).  The model is the refiner's per-step cost: it prices no
+    kernel launch, so steps the card runs in 10-100 µs calls (``chain``,
+    ``einsum``) read as nanoseconds here."""
+    from ..core.tensor_network import popcount  # lazy: avoid cycle
+
+    sched = refine_tree_schedule(tree, smask, dtype=dtype, fused=fused, hw=hw)
+    if not smask:
+        if precision != "fp32":
+            from .precision import assign_precision  # lazy: avoid cycle
+
+            sched = assign_precision(
+                sched, mode=precision, fidelity_tol=fidelity_tol,
+                fused=fused, hw=hw,
+            )
+        return sched.modeled_time_s
+    if part is None:
+        from .partition import partition_tree  # lazy: avoid cycle
+
+        part = partition_tree(tree, smask)
+    invariant = set(part.invariant_nodes)
+    order = tree.contract_order()
+    n_slices = 1 << popcount(smask)
+    if precision != "fp32":
+        from .precision import assign_precision  # lazy: avoid cycle
+
+        epilogue = tuple(
+            i for i, v in enumerate(order) if v not in invariant
+        )
+        sched = assign_precision(
+            sched, mode=precision, fidelity_tol=fidelity_tol,
+            epilogue_positions=epilogue, n_slices=n_slices, fused=fused,
+            hw=hw,
+        )
+    prologue_t = sum(
+        spec.modeled_time_s
+        for v, spec in zip(order, sched.specs)
+        if v in invariant
+    )
+    return prologue_t + (sched.modeled_time_s - prologue_t) * n_slices

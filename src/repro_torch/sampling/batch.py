@@ -34,18 +34,36 @@ def open_batch_network(circuit, base_bitstring: str, open_qubits):
 def contract_amplitude_batch(
     plan,
     arrays,
-    hoist: bool | None = None,
+    hoist: bool = True,
+    devices=None,
 ) -> np.ndarray:
     """Run a compiled :class:`~repro_torch.core.executor.ContractionPlan`
     and return the amplitude tensor (one axis per open qubit) on the host.
 
+    ``devices=None`` runs every slice on the plan's device; with a list
+    of devices the slice ids are split into contiguous chunks over them
+    (:func:`repro_torch.core.distributed.contract_sharded`, one id at a
+    time, partials summed on the first device in device order) and the
+    open-batch axes ride inside each device's accumulator unchanged.
+
     Backend-agnostic: a plan built with ``backend="gemm"`` carries its
     lowered kernel schedule (open indices lowered as GEMM batch axes, see
     :mod:`repro_torch.lowering`) and executes it.  Under two-phase
-    execution (``hoist``) the slice-invariant stem prologue runs once and
-    only the per-slice epilogue runs per slice.
+    execution (``hoist``) the slice-invariant stem prologue runs once (per
+    device) and only the per-slice epilogue runs per slice.
     """
-    value = plan.contract_all(arrays, hoist=hoist)
+    from ..obs import trace as _trace
+
+    with _trace.span(
+        "sampling.contract", cat="sampling", sharded=devices is not None,
+    ):
+        if devices is None:
+            value = plan.contract_all(arrays, hoist=hoist)
+        else:
+            from ..core.distributed import contract_sharded
+
+            value = contract_sharded(plan, arrays, devices, hoist=hoist)
+        value = _trace.sync(value)
     return value.cpu().numpy()
 
 

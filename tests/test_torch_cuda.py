@@ -543,3 +543,36 @@ def test_prefill_on_card_matches_cpu(dev, arch, kernel):
     assert mod.LAUNCHES[kernel] == cfg.num_layers
     _, want = cpu_model.prefill(tokens)
     assert _rel(logits.cpu(), want) <= 3e-2
+
+
+def test_sharded_resumable_multihost_on_card(dev, tmp_path):
+    """The slice runners on the card: contract_sharded on one device sums
+    in run_all's order (bitwise); listing the card twice, a failed and
+    resumed contract_resumable, and contract_multihost with a claim store
+    agree with it to the fp32 order of the sums."""
+    from repro_torch.core.distributed import (SliceRangeCheckpoint,
+                                              contract_resumable,
+                                              contract_sharded)
+    from repro_torch.distributed import contract_multihost
+
+    c = circuits.random_1d_circuit(9, 8, seed=7)
+    tn, arrays = simplify_network(*circuits.circuit_to_network(
+        c, bitstring="011010010"))
+    plan, _ = plan_compiled(tn, 5, hw=SMALL_HW, use_cache=False)
+    n = 1 << plan.num_sliced
+    assert n >= 16
+    want = plan.contract_all(arrays)
+    assert torch.equal(contract_sharded(plan, arrays, [dev]), want)
+    scale = float(want.abs().max())
+    twice = contract_sharded(plan, arrays, [dev, dev], slice_batch=3)
+    assert float((twice - want).abs().max()) <= 1e-6 * scale
+    state = SliceRangeCheckpoint(n, set(), np.zeros((), np.complex64))
+    with pytest.raises(RuntimeError, match="simulated failure"):
+        contract_resumable(plan, arrays, chunk=4, state=state, fail_on={8})
+    value, state = contract_resumable(plan, arrays, chunk=3, state=state)
+    assert state.done_ids() == set(range(n))
+    assert abs(complex(value) - complex(want.cpu())) <= 1e-6 * scale
+    res = contract_multihost(plan, arrays, slice_batch=2,
+                             checkpoint_dir=str(tmp_path / "run"))
+    assert res.complete and res.executed_slices == n
+    assert abs(complex(res.value) - complex(want.cpu())) <= 1e-6 * scale

@@ -62,3 +62,18 @@ def test_guard_reaches_the_serving_slice():
                 "launch/serve.py", "examples/quickstart.py",
                 "examples/simulate_sycamore.py"):
         assert os.path.join(PORT, rel) in files, rel
+
+
+def test_guard_reaches_the_search_and_distributed_slice():
+    """The plan search, fault-tolerance and multi-process modules are
+    among the guarded sources, and none reads a ``REPRO_*`` variable (the
+    reference's configuration by environment; the port takes arguments
+    or torch's own ``env://`` variables)."""
+    files = set(_sources())
+    for rel in ("optimize/search.py", "core/distributed.py",
+                "checkpoint/manager.py", "distributed/scheduler.py",
+                "distributed/elastic.py", "distributed/transport.py",
+                "distributed/multihost.py"):
+        path = os.path.join(PORT, rel)
+        assert path in files, rel
+        assert "REPRO_" not in open(path, encoding="utf-8").read(), rel
