@@ -43,7 +43,13 @@ points at full width:
                  ssd_chunk at mamba2-130m's (fp32, <= 1e-4; its wgmma
                  route, the kernel alone on the profiler's device clock,
                  beside its simt route at the same shape, and an
-                 overflowing decay through the wgmma route);
+                 overflowing decay through the wgmma route); the backward
+                 kernels at the training shapes: flash_attention_bwd at
+                 qwen3-4b's (bf16, bh 64 on 16 kv heads, s 512, d 128,
+                 causal; <= 2e-2 of max|plain| per gradient, beside
+                 SDPA's autograd backward) and ssd_chunk_bwd at
+                 mamba2-130m's (fp32, batch 4 x 512; <= 1e-4), each run
+                 twice for the same bits;
   3. amplitude — simulate_amplitude on sycamore_like(5, 6, 14), 30 qubits,
                  every slice, held against the port's statevector on the
                  card (relative error <= 1e-3: fp32 sums over ~150 steps
@@ -133,10 +139,30 @@ points at full width:
                  phase's flash_attention and ssd_chunk launches must be
                  > 0, and every ssd_chunk launch must take its wgmma
                  route;
+     train     — LM training on the card through make_train_step
+                 (chunked cross-entropy, AdamW, each layer checkpointed):
+                 qwen3-4b at full width and depth, batch 2 x 512, and
+                 mamba2-130m, batch 4 x 512, 4 steps each: finite losses,
+                 the first within 0.1 of ln V + d s^2 / 2 (s the head's
+                 init std: the logits of a random head have variance
+                 d s^2), step ms, tokens/s, peak
+                 device memory, a profiler trace of one more step; the
+                 card's first two steps of each at 2 layers against the
+                 port's CPU run of the same weights and batch (loss and
+                 grad norm: fp32 <= 1e-3, bf16 <= 3e-2 relative); then the
+                 llama3-100m example twin's configuration through the
+                 launcher for 100 steps at seq 128 (finite, first loss as
+                 expected), and the learning gate: llama3.2-3b's smoke
+                 shrink for 200 steps (batch 4 x 128, lr 5e-3) must lower
+                 its loss by > 0.1, through flash_attention's forward and
+                 backward kernels.  flash_attention's and ssd_chunk's backward
+                 kernels must be launched (the counts are zeroed before
+                 each model and read after it);
   7. kernels   — one JSON line listing every kernel with its launches on
                  its path (phases 3-5, engine, search, resume and
                  multihost for the contraction kernels, the
-                 serve phase for the LM kernels; each must be > 0) and
+                 serve phase for the LM kernels, the train phase for their
+                 backward kernels; each must be > 0) and
                  its design (wgmma-bf16, 3xtf32-wgmma, cluster-simt-fp32),
                  and the bf16 routes of tiled_gemm and fused_gemm
                  with their launches in the precision phase;
@@ -198,6 +224,9 @@ TPU_KERNELS = {
     "chain_gemm": "src/repro/kernels/contract_gemm.py:421",
     "flash_attention": "src/repro/kernels/flash_attention.py:71",
     "ssd_chunk": "src/repro/kernels/mamba2_ssd.py:57",
+    # no TPU kernel: the reference differentiates these jnp functions
+    "flash_attention_bwd": "src/repro/models/layers.py:131",
+    "ssd_chunk_bwd": "src/repro/models/layers.py:393",
 }
 # how each kernel computes (the route of every kernel is CUDA C++)
 DESIGNS = {
@@ -206,6 +235,8 @@ DESIGNS = {
     "chain_gemm": "cluster-simt-fp32",
     "flash_attention": "wgmma-bf16",  # its fp32 inputs take simt-fp32
     "ssd_chunk": "3xtf32-wgmma",  # shapes outside its rule take simt-fp32
+    "flash_attention_bwd": "simt-ffma",  # bf16 or fp32 in, fp32 sums
+    "ssd_chunk_bwd": "simt-ffma-fp32",
 }
 # how each bf16 route computes
 BF16_DESIGNS = {"tiled_gemm": "bf16-wgmma", "fused_gemm": "bf16-wgmma"}
@@ -221,7 +252,8 @@ WGMMA_KERNELS = {
 BF16_INSTANCES = ("tiled_gemm", "fused_gemm")
 # kernels whose share of a trace's device time the traces report
 TRACED_KERNELS = ("tiled_gemm", "fused_gemm", "chain_gemm",
-                  "flash_attention", "ssd_chunk")
+                  "flash_attention", "ssd_chunk", "fa_bwd", "ssd_chunk_bwd",
+                  "ssd_bwd_group_sum")
 # the bf16 routes the precision phase launches: their records in the
 # kernels line.  chain_gemm's bf16 route (per-step precisions) is held
 # against its plain twin in the kernels phase, but no plan of this
@@ -235,10 +267,28 @@ SOURCES = {
     "chain_gemm": "src/repro_torch/kernels/csrc/gemm.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "ssd_chunk": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "ssd_chunk_bwd": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
 }
 CHAIN_CLUSTERS = (1, 2, 4, 8, 16)  # K3's cluster sizes timed
 SERVE = dict(batch=4, prompt_len=512, gen_tokens=32, seed=0)
 AGREE = dict(batch=1, prompt_len=256)  # the CPU half of the agreement
+FLASH_BWD_TOL = 2e-2  # bf16 gradients: each output's rounding is 2^-8
+# training: (batch, seq) per model, steps at full depth; the agreement's
+# CPU half runs 2 layers, 2 steps, one sequence of 128 tokens
+TRAIN = {"qwen3-4b": (2, 512), "mamba2-130m": (4, 512)}
+TRAIN_STEPS = 4
+TRAIN_AGREE = dict(batch=1, seq=128, steps=2, layers=2, lr=1e-4)
+TRAIN_TOL = {"fp32": 1e-3, "bf16": 3e-2}
+EXAMPLE_STEPS = 100  # the llama3-100m twin, seq 128
+# the learning gate: the synthetic stream (next = prev + delta mod V) is
+# learned only where each token id is seen often; at the twin's V of
+# 32000, 100 steps of 512 tokens show most ids once or twice, and
+# neither package's twin lowers its loss (PERF.md §6).  The
+# reference's own learning test's model (V 512) learns it: over 200
+# steps its loss must drop > 0.1 on the card.  Sequences of 128 take
+# the flash kernel's forward and backward, which must launch.
+LEARN = dict(arch="llama3.2-3b", steps=200, batch=4, seq=128, lr=5e-3)
 
 
 class SmokeFailure(RuntimeError):
@@ -663,6 +713,100 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
         plain_ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk_plain(x, dt, a, b, c)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, ffma_bound_ms=ffma_ms,
     )
+
+    # K5 backward at the same (training) shape: gradients of y and of the
+    # chunk states in, the five input gradients out
+    gy = torch.randn(B * H, C, L, D, generator=gen, device=dev)
+    gst = torch.randn(B * H, C, N, D, generator=gen, device=dev)
+    got = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)
+    again = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)
+    want = ssd.ssd_intra_chunk_bwd_plain(x, dt, a, b, c, gy, gst)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "ssd_chunk_bwd: non-finite")
+    rels = [rel_err(torch, [g], [w])[1] for g, w in zip(got, want)]
+    err = max(rel_err(torch, [g], [w])[0] for g, w in zip(got, want))
+    check(max(rels) <= KERNEL_TOL, f"ssd_chunk_bwd disagrees: {rels}")
+    check(all(torch.equal(g, h) for g, h in zip(got, again)),
+          "ssd_chunk_bwd: two runs differ")
+    big = ssd.ssd_intra_chunk_bwd(x, dt, a_big, b, c, gy, gst)
+    big_want = ssd.ssd_intra_chunk_bwd_plain(x, dt, a_big, b, c, gy, gst)
+    torch.cuda.synchronize()
+    big_rel = max(rel_err(torch, [g], [w])[1] for g, w in zip(big, big_want))
+    check(all(bool(torch.isfinite(g).all()) for g in big),
+          "ssd_chunk_bwd: non-finite with overflowing decays")
+    check(big_rel <= KERNEL_TOL, f"ssd_chunk_bwd disagrees on overflow: {big_rel}")
+    nbytes = 4.0 * sum(t.numel() for t in (x, dt, a, b, c, gy, gst, *got))
+    # the least arithmetic: C B^T once per (group, chunk); per cell the
+    # masked products gM = gy Xd^T, M^T gy, G B, G^T C (lower triangle)
+    # and the full B gst and Xd gst^T, each as three TF32 products
+    # (3xTF32) at the TF32 rate, as the forward's bound; ffma_bound_ms is
+    # the same arithmetic as fp32 on the CUDA cores
+    flops = B * C * 2.0 * tri * N + cells * (
+        2.0 * tri * (2 * D + 2 * N) + 4.0 * L * N * D)
+    b_ms, b_by = bound(3.0 * flops, nbytes, TF32_PEAK)
+    ffma_ms, _ = bound(flops, nbytes, FP32_PEAK)
+    out["ssd_chunk_bwd"] = dict(
+        shape=dict(BH=B * H, C=C, L=L, D=D, S=N, groups=B),
+        max_abs_err=err, rel_err=max(rels), overflow_rel_err=big_rel,
+        ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)),
+        plain_ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk_bwd_plain(
+            x, dt, a, b, c, gy, gst)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, ffma_bound_ms=ffma_ms,
+    )
+    del x, dt, a, b, c, gy, gst, got, again, want, big, big_want
+
+    # K4 backward at qwen3-4b's training shape (batch 2 x 512): 32 query
+    # heads on 8 kv heads of 128, causal, bf16
+    B, H, KV, S, d = 2, 32, 8, 512, 128
+    q = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
+    do = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    _, want_lse = fa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "flash_attention_bwd: non-finite")
+    rels = [rel_err(torch, [g.float()], [w.float()])[1] for g, w in zip(got, want)]
+    err = max(rel_err(torch, [g.float()], [w.float()])[0]
+              for g, w in zip(got, want))
+    lse_err = float((lse - want_lse).abs().max())
+    check(max(rels) <= FLASH_BWD_TOL, f"flash_attention_bwd disagrees: {rels}")
+    check(lse_err <= 1e-3, f"flash_attention lse disagrees: {lse_err}")
+    check(all(torch.equal(g, h) for g, h in zip(got, again)),
+          "flash_attention_bwd: two runs differ")
+    pairs = S * (S + 1) // 2
+    # the least arithmetic: five products over the causal pairs (S = QK^T
+    # to recompute P, dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K)
+    flops = 10.0 * B * H * pairs * d
+    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + o.numel() + do.numel()
+                    + sum(g.numel() for g in got)) + 4.0 * lse.numel()
+    b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
+    q4, k4, v4 = (t.view(B, -1, S, d).detach().requires_grad_()
+                  for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                        enable_gqa=True)
+    do4 = do.view(B, H, S, d)
+    out["flash_attention_bwd"] = dict(
+        shape=dict(bh=B * H, bh_kv=B * KV, sq=S, sk=S, d=d, dtype="bf16",
+                   causal=True),
+        max_abs_err=err, rel_err=rels, lse_abs_err=lse_err,
+        ms=cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                         causal=True)),
+        fwd_lse_ms=cuda_ms(torch, lambda: fa.flash_attention(
+            q, k, v, causal=True, return_lse=True)),
+        fwd_ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True)),
+        plain_ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=True)),
+        # SDPA's backward through autograd on the same inputs
+        library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do4, retain_graph=True)),
+        bound_ms=b_ms, bound_by=b_by,
+    )
     return out
 
 
@@ -676,9 +820,10 @@ def _cpu_params(model) -> dict:
 
 
 def _cast(params: dict, dtype, layers: int) -> dict:
-    """The first ``layers`` layers of ``params``, in ``dtype``."""
-    out = {k: v.to(dtype) for k, v in params.items() if k != "layers"}
-    out["layers"] = [{k: v.to(dtype) for k, v in lp.items()}
+    """Copies of the first ``layers`` layers of ``params``, in ``dtype``
+    (training updates its weights in place)."""
+    out = {k: v.to(dtype, copy=True) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: v.to(dtype, copy=True) for k, v in lp.items()}
                      for lp in params["layers"][:layers]]
     return out
 
@@ -769,6 +914,149 @@ def phase_serve(torch, arch, serve, build_model, get_config, counts, reset):
     )
 
 
+def _train_steps(torch, model, ocfg, batches):
+    """Run ``batches`` through a fresh training state of ``model``:
+    (losses, grad norms, step seconds, state, step function), each step
+    ended by a device sync (``float`` of its loss)."""
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    state = init_state(model, ocfg)
+    step = make_train_step(model, ocfg)
+    losses, norms, secs = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        secs.append(time.perf_counter() - t0)
+        norms.append(float(met["grad_norm"]))
+    return losses, norms, secs, state, step
+
+
+def phase_train(torch, arch, build_model, get_config, counts, reset) -> dict:
+    """One model trained at full width and depth on the card, then the
+    card's first two steps at 2 layers against the port's CPU run."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticTextDataset
+    from repro_torch.models import param_defs
+    from repro_torch.models.params import count_params
+    from repro_torch.train import optimizer as opt
+
+    full = get_config(arch)
+    batch, seq = TRAIN[arch]
+    ds = SyntheticTextDataset(vocab_size=full.vocab_size, seq_len=seq,
+                              global_batch=batch, seed=0)
+    ocfg = opt.OptimizerConfig(learning_rate=1e-3, warmup_steps=2,
+                               total_steps=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset()
+    model = build_model(full, seed=0, device="cuda")
+    losses, norms, secs, state, step = _train_steps(
+        torch, model, ocfg, [ds.batch(i) for i in range(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    trace = profile(torch, lambda: float(step(state, ds.batch(TRAIN_STEPS))[1]["loss"]))
+    del state, step, model
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{arch}: non-finite training loss or grad norm {losses} {norms}")
+    # a random head of std s over unit-RMS hidden states gives logits of
+    # variance d s^2, so the expected first loss is ln V + d s^2 / 2
+    defs = param_defs(full)
+    s_head = (defs["embed"] if full.tie_embeddings else defs["head"]).scale
+    expect = math.log(full.vocab_size) + full.d_model * s_head ** 2 / 2
+    first = abs(losses[0] - expect)
+    check(first <= 0.1, f"{arch}: first loss {losses[0]} is {first} from "
+          f"ln V + d s^2 / 2 = {expect}")
+    n_params = count_params(defs)
+
+    # the card against the CPU on the same weights and batch, 2 layers
+    agree = {}
+    small = dataclasses.replace(full, num_layers=TRAIN_AGREE["layers"])
+    params = _cpu_params(build_model(small, seed=1, device="cuda"))
+    torch.cuda.empty_cache()
+    ads = SyntheticTextDataset(vocab_size=full.vocab_size,
+                               seq_len=TRAIN_AGREE["seq"],
+                               global_batch=TRAIN_AGREE["batch"], seed=1)
+    abatches = [ads.batch(i) for i in range(TRAIN_AGREE["steps"])]
+    acfg = opt.OptimizerConfig(learning_rate=TRAIN_AGREE["lr"], warmup_steps=0,
+                               total_steps=TRAIN_AGREE["steps"])
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        runs = {}
+        for where in ("cuda", "cpu"):
+            model = build_model(small, _cast(params, dtype, small.num_layers),
+                                device=where)
+            t0 = time.perf_counter()
+            runs[where] = _train_steps(torch, model, acfg, abatches)[:2]
+            runs[where + "_s"] = time.perf_counter() - t0
+            del model
+            torch.cuda.empty_cache()
+        diffs = [abs(a - b) / max(abs(b), 1e-30)
+                 for a, b in zip(runs["cuda"][0] + runs["cuda"][1],
+                                 runs["cpu"][0] + runs["cpu"][1])]
+        check(max(diffs) <= TRAIN_TOL[name],
+              f"{arch}: {name} card vs CPU training {runs['cuda']} {runs['cpu']}")
+        agree[name] = dict(card_losses=runs["cuda"][0], cpu_losses=runs["cpu"][0],
+                           card_grad_norms=runs["cuda"][1],
+                           cpu_grad_norms=runs["cpu"][1], max_rel_err=max(diffs),
+                           cpu_s=runs["cpu_s"])
+    del params
+    tokens = batch * seq
+    return dict(
+        arch=arch, layers=full.num_layers, params=n_params, batch=batch,
+        seq=seq, steps=TRAIN_STEPS, losses=losses, grad_norms=norms,
+        ln_vocab=math.log(full.vocab_size), expected_first_loss=expect,
+        step_ms=[1e3 * t for t in secs],
+        tokens_per_s=tokens * (len(secs) - 1) / sum(secs[1:]),
+        peak_bytes=peak, step_trace=trace,
+        agreement=dict(**TRAIN_AGREE, **agree), launches=launched,
+    )
+
+
+def phase_train_example(torch, counts, reset) -> dict:
+    """The llama3-100m example twin's configuration through the training
+    launcher (the user's entry point; the twin's own script also asserts
+    that the loss fell, which neither package's twin does in 100 steps:
+    see LEARN), then the learning gate, which must go through K4's
+    forward and backward kernels."""
+    from repro_torch import configs
+    from repro_torch.examples import train_lm
+    from repro_torch.launch.train import train
+
+    cfg = train_lm.llama3_100m()
+    configs.ARCHS[cfg.name] = cfg  # registered as the twin registers it
+    t0 = time.perf_counter()
+    losses = train(cfg.name, steps=EXAMPLE_STEPS, smoke=False, global_batch=4,
+                   seq_len=128, lr=3e-3, device="cuda")
+    wall = time.perf_counter() - t0
+    check(all(math.isfinite(x) for x in losses), "llama3-100m: non-finite loss")
+    expect = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    check(abs(losses[0] - expect) <= 0.1,
+          f"llama3-100m: first loss {losses[0]}, expected {expect}")
+    reset()
+    t0 = time.perf_counter()
+    learn = train(LEARN["arch"], steps=LEARN["steps"], smoke=True,
+                  global_batch=LEARN["batch"], seq_len=LEARN["seq"],
+                  lr=LEARN["lr"], device="cuda", log_every=50)
+    learn_s = time.perf_counter() - t0
+    learn_launches = counts()
+    drop = learn[0] - learn[-1]
+    check(all(math.isfinite(x) for x in learn) and drop > 0.1,
+          f"{LEARN['arch']} (smoke) did not learn: {learn[0]} -> {learn[-1]}")
+    check(learn_launches["flash_attention"] > 0
+          and learn_launches["flash_attention_bwd"] > 0,
+          f"the learning gate bypassed K4: {learn_launches}")
+    return dict(arch=cfg.name, steps=len(losses), batch=4, seq=128,
+                first_loss=losses[0], expected_first_loss=expect,
+                last_loss=losses[-1], min_loss=min(losses), wall_s=wall,
+                step_ms=1e3 * wall / len(losses),
+                learn=dict(**LEARN, first_loss=learn[0], last_loss=learn[-1],
+                           drop=drop, wall_s=learn_s, launches=learn_launches))
+
+
 def profile(torch, fn) -> dict:
     """One warm call of ``fn`` under the profiler: wall time, summed
     device time, busy share and the kernels that take most of it."""
@@ -790,7 +1078,9 @@ def profile(torch, fn) -> dict:
     device_ms = sum(r[0] for r in rows) / 1e3
     kernels = {}
     for name in TRACED_KERNELS:
-        ms = sum(us for us, k, _ in rows if name in k) / 1e3
+        # a forward's name is a prefix of its backward's: keep them apart
+        ms = sum(us for us, k, _ in rows if name in k
+                 and ("bwd" in name or "bwd" not in k)) / 1e3
         if ms > 0:
             kernels[name] = dict(ms=ms, share=ms / max(device_ms, 1e-9))
     return dict(
@@ -1590,6 +1880,23 @@ def main() -> int:
           and ssd_routes["wgmma"] == launches["serve:mamba2-130m"]["ssd_chunk"],
           f"ssd_chunk took the simt route serving mamba2-130m: {ssd_routes}")
 
+    # 6a. LM training at full width and depth, each model's own launches
+    for arch in ("qwen3-4b", "mamba2-130m"):
+        rec = phase_train(torch, arch, build_model, get_config, lm_counts,
+                          lm_reset)
+        launches[f"train:{arch}"] = rec["launches"]
+        emit(phase="train", **rec)
+        torch.cuda.empty_cache()
+    emit(phase="train", **phase_train_example(torch, lm_counts, lm_reset))
+    torch.cuda.empty_cache()
+    check(launches["train:qwen3-4b"]["flash_attention_bwd"] > 0,
+          "flash_attention_bwd was not launched training qwen3-4b")
+    check(launches["train:mamba2-130m"]["ssd_chunk_bwd"] > 0,
+          "ssd_chunk_bwd was not launched training mamba2-130m")
+    ssd_routes = launches["train:mamba2-130m"]["ssd_routes"]
+    check(ssd_routes["simt"] == 0,
+          f"ssd_chunk took the simt route training mamba2-130m: {ssd_routes}")
+
     # 7. every kernel went through its path ---------------------------
     total = {k: sum(launches[ph][k]
                     for ph in ("amplitude", "sampling", "engine", "search",
@@ -1597,6 +1904,8 @@ def main() -> int:
              for k in cg.LAUNCHES}
     total["flash_attention"] = launches["serve:qwen3-4b"]["flash_attention"]
     total["ssd_chunk"] = launches["serve:mamba2-130m"]["ssd_chunk"]
+    total["flash_attention_bwd"] = launches["train:qwen3-4b"]["flash_attention_bwd"]
+    total["ssd_chunk_bwd"] = launches["train:mamba2-130m"]["ssd_chunk_bwd"]
     for name, count in total.items():
         check(count > 0, f"{name} was not launched on its path")
     # every fused_gemm launch of phases 3-5 and engine took the wgmma

@@ -24,6 +24,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..tree import flatten, unflatten
+
 
 def _fsync_dir(path: str) -> None:
     """fsync the directory entry so a rename survives power loss."""
@@ -80,37 +82,6 @@ def load_slice_checkpoint(path: str):
     return SliceRangeCheckpoint(n_slices, done, partial)
 
 
-# ----------------------------------------------------------------------
-# trees of tensors
-# ----------------------------------------------------------------------
-def _flatten(tree, prefix: str = "") -> list[tuple[str, Any]]:
-    """``(path, leaf)`` pairs of a nested dict/list/tuple tree, paths
-    joined with ``/`` (dict keys by name, sequence items by index)."""
-    if isinstance(tree, dict):
-        out = []
-        for k in tree:
-            out += _flatten(tree[k], f"{prefix}{k}/")
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _flatten(v, f"{prefix}{i}/")
-        return out
-    return [(prefix[:-1], tree)]
-
-
-def _unflatten(template, leaves: dict[str, Any], prefix: str = ""):
-    """Rebuild ``template``'s structure with the leaves at its paths."""
-    if isinstance(template, dict):
-        return {k: _unflatten(v, leaves, f"{prefix}{k}/")
-                for k, v in template.items()}
-    if isinstance(template, (list, tuple)):
-        items = [_unflatten(v, leaves, f"{prefix}{i}/")
-                 for i, v in enumerate(template)]
-        return type(template)(items) if isinstance(template, list) else tuple(items)
-    return leaves[prefix[:-1]]
-
-
 # numpy has no bfloat16: such tensors are stored as their raw 16-bit words
 _VIEW_AS = {torch.bfloat16: torch.int16}
 
@@ -120,7 +91,7 @@ def _to_host(tree) -> tuple[dict[str, np.ndarray], dict[str, str]]:
     stored as same-width integer views and named in ``exotic``."""
     flat: dict[str, np.ndarray] = {}
     exotic: dict[str, str] = {}
-    for key, leaf in _flatten(tree):
+    for key, leaf in flatten(tree):
         if isinstance(leaf, torch.Tensor):
             t = leaf.detach()
             if t.dtype in _VIEW_AS:
@@ -133,8 +104,8 @@ def _to_host(tree) -> tuple[dict[str, np.ndarray], dict[str, str]]:
 
 
 class CheckpointManager:
-    """Numbered checkpoints of a nested dict/list/tuple tree of tensors
-    under ``directory``: ``step_<N>/arrays.npz`` and ``meta.json``.
+    """Numbered checkpoints of a nested dict/list/tuple/dataclass tree of
+    tensors under ``directory``: ``step_<N>/arrays.npz`` and ``meta.json``.
 
     :meth:`save` copies the tree to the host synchronously, then writes
     on a background thread (``blocking=True`` writes in the caller); one
@@ -237,4 +208,4 @@ class CheckpointManager:
             if key in exotic:
                 t = t.view(getattr(torch, exotic[key]))
             leaves[key] = t.to(device) if device is not None else t
-        return _unflatten(template, leaves)
+        return unflatten(template, leaves)

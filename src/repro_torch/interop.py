@@ -4,8 +4,9 @@ The reference package plans with its own cost surface; these functions
 rebuild its network, contraction tree and plan here from plain Python
 and numpy values (the reference's ``TensorNetwork`` fields and
 ``ContractionTree.children`` as ints), so that the port can execute the
-reference's exact plan.  :func:`lm_params_from_numpy` does the same for
-an LM's parameter tree.  They take no object of the reference package.
+reference's exact plan.  :func:`lm_params_from_numpy` and
+:func:`opt_state_from_numpy` do the same for an LM's parameter tree and
+its optimizer state.  They take no object of the reference package.
 """
 
 from __future__ import annotations
@@ -76,6 +77,33 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))  # a writable copy
 
 
+def _unstack(cfg, tree: dict, leaf) -> dict:
+    """The reference's stacked tree in the port's layout: the stacked
+    group's entries cut into one dict per layer.  ``leaf(x, i)`` turns a
+    reference leaf into the port's (layer ``i``, or ``None`` for an
+    unstacked entry)."""
+    stack_key = {"dense": "dense_layers", "ssm": "layers"}.get(cfg.family)
+    if stack_key is None:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item 11)"
+        )
+    out = {k: leaf(v, None) for k, v in tree.items() if k != stack_key}
+    stacked = tree[stack_key]
+    n = cfg.num_layers
+    for k, v in stacked.items():
+        rows = np.shape(v[0] if isinstance(v, tuple) else v)[0]
+        if rows != n:
+            raise ValueError(f"{stack_key}.{k}: {rows} layers, config has {n}")
+    out["layers"] = [{k: leaf(v, i) for k, v in stacked.items()}
+                     for i in range(n)]
+    return out
+
+
+def _layer(x, i):
+    t = _tensor(x)
+    return t if i is None else t[i].clone()
+
+
 def lm_params_from_numpy(cfg, tree: dict) -> dict:
     """The port's parameters for ``cfg`` from the reference's parameter
     pytree as numpy arrays (bf16 ones included).
@@ -85,19 +113,21 @@ def lm_params_from_numpy(cfg, tree: dict) -> dict:
     for the SSM); the port keeps one dict per layer.  Returns
     ``{"embed", "final_norm", ["head"], "layers": [dict per layer]}`` of
     CPU tensors, for :func:`repro_torch.models.build_model`."""
-    stack_key = {"dense": "dense_layers", "ssm": "layers"}.get(cfg.family)
-    if stack_key is None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item 11)"
-        )
-    out = {k: _tensor(v) for k, v in tree.items() if k != stack_key}
-    stacked = {k: _tensor(v) for k, v in tree[stack_key].items()}
-    n = cfg.num_layers
-    for k, v in stacked.items():
-        if v.shape[0] != n:
-            raise ValueError(f"{stack_key}.{k}: {v.shape[0]} layers, config "
-                             f"has {n}")
-    out["layers"] = [
-        {k: v[i].clone() for k, v in stacked.items()} for i in range(n)
-    ]
-    return out
+    return _unstack(cfg, tree, _layer)
+
+
+def opt_state_from_numpy(cfg, state: dict) -> dict:
+    """The port's optimizer state (:func:`repro_torch.train.optimizer.
+    init`'s layout) from the reference's ``{"m", "v", "count"}`` as numpy
+    arrays.  fp32 moments are cut per layer like the parameters; an int8
+    moment ``(q, scale)`` of a stacked tensor becomes each layer's slice
+    of ``q`` with the stacked tensor's one scale (the same values; the
+    port's next update scales each layer on its own)."""
+    def moment(x, i):
+        if isinstance(x, tuple):
+            return _layer(x[0], i), _tensor(x[1])
+        return _layer(x, i)
+
+    return {"m": _unstack(cfg, state["m"], moment),
+            "v": _unstack(cfg, state["v"], moment),
+            "count": _tensor(state["count"])}

@@ -87,10 +87,15 @@ def _declare_gemm(lib: ctypes.CDLL) -> None:
 
 def _declare_flash_attention(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention.argtypes = [
-        _P, _P, _P, _P, _INT, _I64, _INT, _INT, _INT, _INT, _INT, _F32,
+        _P, _P, _P, _P, _P, _INT, _I64, _INT, _INT, _INT, _INT, _INT, _F32,
         _INT, _P,
     ]
     lib.repro_flash_attention.restype = _INT
+    lib.repro_flash_attention_bwd.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _I64, _INT, _INT,
+        _INT, _INT, _INT, _F32, _INT, _P,
+    ]
+    lib.repro_flash_attention_bwd.restype = _INT
 
 
 def _declare_mamba2_ssd(lib: ctypes.CDLL) -> None:
@@ -105,6 +110,13 @@ def _declare_mamba2_ssd(lib: ctypes.CDLL) -> None:
         _P,
     ]
     lib.repro_ssd_chunk_wgmma.restype = _INT
+    lib.repro_ssd_chunk_bwd_smem.argtypes = [_INT, _INT, _INT]
+    lib.repro_ssd_chunk_bwd_smem.restype = _I64
+    lib.repro_ssd_chunk_bwd.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT,
+        _INT, _INT, _INT, _INT, _P,
+    ]
+    lib.repro_ssd_chunk_bwd.restype = _INT
 
 
 _DECLARE = {

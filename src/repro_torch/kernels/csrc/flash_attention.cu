@@ -1,5 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 on wgmma fed by TMA,
-// fp32 by FFMA on the CUDA cores.
+// Flash attention for Hopper (sm_90a).  Forward: bf16 on wgmma fed by
+// TMA, fp32 by FFMA on the CUDA cores; both may also write each row's
+// logsumexp (fp32, natural log of the scaled scores) for the backward,
+// which serving does not ask for.  Backward (the training path): three
+// FFMA kernels, bf16 or fp32, described at "backward" below.
 //
 // Replaces the TPU kernel flash_attention (_flash_kernel) of
 // src/repro/kernels/flash_attention.py: causal or full softmax attention
@@ -107,9 +110,9 @@ static size_t fa_smem_bytes(int d) {
 template <typename T>
 __global__ void __launch_bounds__(FA_NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq,
-                       int sk, int d, int group, int q_offset, float sm_scale,
-                       int causal) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int sq, int sk, int d,
+                       int group, int q_offset, float sm_scale, int causal) {
   extern __shared__ float smem[];
   float* qt = smem;                    // [d][FA_PAD]: q rows, scaled
   float* kt = qt + d * FA_PAD;         // [d][FA_PAD]: k rows of the tile
@@ -228,14 +231,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = tx + 16 * c;
       if (col < d) fa_store(ob + (long long)r * d + col, acc[i][c] * inv);
     }
+    // the row's logsumexp of the scaled scores, for the backward
+    if (lse != nullptr && tx == 0) lse[bh * sq + r] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T>
 static cudaError_t fa_launch(const void* q, const void* k, const void* v,
-                             void* o, long long bhq, int sq, int sk, int d,
-                             int group, int q_offset, float sm_scale,
-                             int causal, cudaStream_t stream) {
+                             void* o, float* lse, long long bhq, int sq,
+                             int sk, int d, int group, int q_offset,
+                             float sm_scale, int causal, cudaStream_t stream) {
   const size_t smem = fa_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -243,7 +248,7 @@ static cudaError_t fa_launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const long long blocks = bhq * (sq / FA_BQ);
   flash_attention_kernel<T><<<(unsigned)blocks, FA_NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, d, group,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, sk, d, group,
       q_offset, sm_scale, causal);
   return cudaGetLastError();
 }
@@ -290,9 +295,10 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                              const __grid_constant__ CUtensorMap mk,
                              const __grid_constant__ CUtensorMap mv,
-                             __nv_bfloat16* __restrict__ o, int bhq, int sq,
-                             int sk, int d, int group, int q_offset,
-                             float sm_scale, int causal) {
+                             __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse, int bhq, int sq, int sk,
+                             int d, int group, int q_offset, float sm_scale,
+                             int causal) {
   extern __shared__ uint8_t fw_smem_raw[];
   __shared__ __align__(8) uint64_t q_full, k_full[FW_STAGES],
       v_full[FW_STAGES], kv_empty[FW_STAGES];
@@ -467,6 +473,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     const int r = q0 + r0 + 8 * h;
     if (r >= sq) continue;
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    // logsumexp of the natural-domain scaled scores: m and l are in the
+    // log2 domain, so (m + log2 l) ln 2
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(long long)bh * sq + r] = (m[h] + log2f(l[h])) * 0.6931471805599453f;
 #pragma unroll
     for (int p = 0; p < DP; ++p)
 #pragma unroll
@@ -482,9 +492,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
 
 template <int DP>
 static cudaError_t fw_launch(const void* q, const void* k, const void* v,
-                             void* o, long long bhq, int sq, int sk, int d,
-                             int group, int q_offset, float sm_scale,
-                             int causal, cudaStream_t stream) {
+                             void* o, float* lse, long long bhq, int sq,
+                             int sk, int d, int group, int q_offset,
+                             float sm_scale, int causal, cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* base[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
@@ -506,8 +516,393 @@ static cudaError_t fw_launch(const void* q, const void* k, const void* v,
   const long long blocks = bhq * ((sq + FW_BQ - 1) / FW_BQ);
   flash_attention_wgmma_kernel<DP><<<(unsigned)blocks, FW_THREADS, smem,
                                      stream>>>(
-      maps[0], maps[1], maps[2], (__nv_bfloat16*)o, (int)bhq, sq, sk, d, group,
-      q_offset, sm_scale, causal);
+      maps[0], maps[1], maps[2], (__nv_bfloat16*)o, lse, (int)bhq, sq, sk, d,
+      group, q_offset, sm_scale, causal);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ backward
+// Three FFMA kernels on the CUDA cores, bf16 or fp32 in (fp32 sums),
+// q.dtype out.  The reference differentiates its jnp blockwise attention
+// (src/repro/models/layers.py); it has no backward kernel to replace.
+// With P = exp(scale * Q.K^T - lse) recomputed from the forward's row
+// logsumexp (never the softmax statistics again):
+//
+//   fa_bwd_dot_kernel   D_i = rowsum(dO_i * O_i), one warp a row
+//   fa_bwd_dkdv_kernel  one block per (query head, 64 keys), key tile 0
+//                       (the most query tiles) first: over the visible
+//                       query tiles in order, dV += P^T dO, dS = P *
+//                       (dO.V^T - D), dK += dS^T Q, written as the head's
+//                       fp32 share of its kv head's dK and dV
+//   fa_bwd_group_sum_kernel  each kv head's dK, dV: its group's shares
+//                       summed in head order (one block per kv head would
+//                       walk the group's heads in series, four times the
+//                       critical path at qwen3-4b's group of 4)
+//   fa_bwd_dq_kernel    one block per (query head, 64 rows), the last
+//                       rows first: a second pass over the visible key
+//                       tiles, dQ += dS K
+//
+// No atomics: every gradient element is one ordered sum, so two runs give
+// the same bits.  Layout as the fp32 forward: thread (ty, tx) of a 16x16
+// grid owns score rows ty + 16i and columns tx + 16j (i, j < 4), and
+// output columns tx + 16c (c < FA_DC); operands sit transposed in shared
+// memory with a row stride of 65 floats.  The causal mask is a select (P
+// = 0 where a query precedes a key), taken before exp, never a product.
+// What bounds it on the H100: at qwen3-4b's training shape (bh 64 on 16
+// kv heads, s 512, d 128, causal) it does 7 products over the causal
+// half, 7.5 GFLOP, against 33.6 MB of traffic: the bf16 tensor-core rate
+// would make it 7.6 us, the bytes 10 us; FFMA from shared memory is far
+// slower than both (its time and bound are in PERF.md).
+__device__ __forceinline__ float fa_f32(float v) { return v; }
+__device__ __forceinline__ float fa_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void fa_put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void fa_put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+static size_t fa_bwd_smem_bytes(int d, int score_tiles) {
+  // four transposed [d][65] operand tiles, score_tiles [64][65] tiles, and
+  // the 64 rows' lse and D
+  return sizeof(float) * ((size_t)4 * d * FA_PAD +
+                          (size_t)score_tiles * FA_BK * FA_PAD + 2 * FA_BQ);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FA_NT)
+fa_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                  float* __restrict__ dsum, long long rows, int d) {
+  const long long row = (long long)blockIdx.x * (FA_NT / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const T* ob = o + row * d;
+  const T* gb = dout + row * d;
+  float v = 0.f;
+  for (int f = lane; f < d; f += 32) v = fmaf(fa_f32(gb[f]), fa_f32(ob[f]), v);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (lane == 0) dsum[row] = v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FA_NT)
+fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ dsum, float* __restrict__ dk_part,
+                   float* __restrict__ dv_part, long long bhq, int sq, int sk,
+                   int d, int group, int q_offset, float sm_scale,
+                   int causal) {
+  extern __shared__ float smem[];
+  float* kt = smem;                 // [d][65]: the block's keys
+  float* vt = kt + d * FA_PAD;      // [d][65]: their values
+  float* qt = vt + d * FA_PAD;      // [d][65]: the query tile
+  float* gt = qt + d * FA_PAD;      // [d][65]: its dO rows
+  float* ps = gt + d * FA_PAD;      // [64 queries][65]: P^T
+  float* dss = ps + FA_BQ * FA_PAD; // [64 queries][65]: dS^T
+  float* ls = dss + FA_BQ * FA_PAD; // [64]: lse of the tile's rows
+  float* ds_ = ls + FA_BQ;          // [64]: D of the tile's rows
+
+  // key tile 0 sees the most query tiles: launched first
+  const int k0 = (int)(blockIdx.x / bhq) * FA_BK;
+  const long long bh = blockIdx.x % bhq;
+  const long long kvh = bh / group;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const T* kb = k + kvh * sk * (long long)d;
+  const T* vb = v + kvh * sk * (long long)d;
+  for (int e = tid; e < FA_BK * d; e += FA_NT) {
+    const int r = e / d, f = e - r * d;
+    kt[f * FA_PAD + r] = fa_f32(kb[(long long)(k0 + r) * d + f]);
+    vt[f * FA_PAD + r] = fa_f32(vb[(long long)(k0 + r) * d + f]);
+  }
+
+  // the first query tile that sees key k0: q_offset + q0 + 63 >= k0
+  int q_first = 0;
+  if (causal) {
+    const int t = k0 - q_offset - (FA_BQ - 1);
+    q_first = t > 0 ? (t + FA_BQ - 1) / FA_BQ * FA_BQ : 0;
+  }
+
+  float adk[4][FA_DC], adv[4][FA_DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < FA_DC; ++c) adk[i][c] = adv[i][c] = 0.f;
+
+  const T* qb = q + bh * sq * (long long)d;
+  const T* gb = dout + bh * sq * (long long)d;
+  for (int q0 = q_first; q0 < sq; q0 += FA_BQ) {
+    __syncthreads();  // the previous tile is consumed
+    for (int e = tid; e < FA_BQ * d; e += FA_NT) {
+      const int r = e / d, f = e - r * d;
+      qt[f * FA_PAD + r] = fa_f32(qb[(long long)(q0 + r) * d + f]);
+      gt[f * FA_PAD + r] = fa_f32(gb[(long long)(q0 + r) * d + f]);
+    }
+    for (int r = tid; r < FA_BQ; r += FA_NT) {
+      ls[r] = lse[bh * sq + q0 + r];
+      ds_[r] = dsum[bh * sq + q0 + r];
+    }
+    __syncthreads();
+
+    // S^T (keys x queries) and dP^T = V.dO^T
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int f = 0; f < d; ++f) {
+      float kr[4], vr[4], qc[4], gc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kr[i] = kt[f * FA_PAD + ty + 16 * i];
+        vr[i] = vt[f * FA_PAD + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        qc[j] = qt[f * FA_PAD + tx + 16 * j];
+        gc[j] = gt[f * FA_PAD + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(kr[i], qc[j], s[i][j]);
+          dp[i][j] = fmaf(vr[i], gc[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + ty + 16 * i, qr = tx + 16 * j;
+        const bool hidden = causal && q_offset + q0 + qr < key;
+        const float p = hidden ? 0.f : expf(s[i][j] * sm_scale - ls[qr]);
+        ps[qr * FA_PAD + ty + 16 * i] = p;
+        dss[qr * FA_PAD + ty + 16 * i] = p * (dp[i][j] - ds_[qr]);
+      }
+    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T Q over the tile's 64 queries, in order
+    for (int r = 0; r < FA_BQ; ++r) {
+      float pr[4], dr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pr[i] = ps[r * FA_PAD + ty + 16 * i];
+        dr[i] = dss[r * FA_PAD + ty + 16 * i];
+      }
+#pragma unroll
+      for (int c = 0; c < FA_DC; ++c) {
+        const int col = tx + 16 * c;
+        const float gv = col < d ? gt[col * FA_PAD + r] : 0.f;
+        const float qv = col < d ? qt[col * FA_PAD + r] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          adv[i][c] = fmaf(pr[i], gv, adv[i][c]);
+          adk[i][c] = fmaf(dr[i], qv, adk[i][c]);
+        }
+      }
+    }
+  }
+
+  // this query head's share of its kv head's dK and dV
+  float* dkb = dk_part + bh * sk * (long long)d;
+  float* dvb = dv_part + bh * sk * (long long)d;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long r = k0 + ty + 16 * i;
+#pragma unroll
+    for (int c = 0; c < FA_DC; ++c) {
+      const int col = tx + 16 * c;
+      if (col < d) {
+        dkb[r * d + col] = adk[i][c] * sm_scale;
+        dvb[r * d + col] = adv[i][c];
+      }
+    }
+  }
+}
+
+// dK, dV of kv head h: the sum of its group's shares, heads in order
+template <typename T>
+__global__ void fa_bwd_group_sum_kernel(const float* __restrict__ dk_part,
+                                        const float* __restrict__ dv_part,
+                                        T* __restrict__ dk, T* __restrict__ dv,
+                                        long long per_head, long long total,
+                                        int group) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const long long h = e / per_head, r = e - h * per_head;
+  const float* pk = dk_part + h * group * per_head + r;
+  const float* pv = dv_part + h * group * per_head + r;
+  float vk = 0.f, vv = 0.f;
+  for (int g = 0; g < group; ++g) {
+    vk += pk[g * per_head];
+    vv += pv[g * per_head];
+  }
+  fa_put(dk + e, vk);
+  fa_put(dv + e, vv);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FA_NT)
+fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ dsum,
+                 T* __restrict__ dq, int sq, int sk, int d, int group,
+                 int q_offset, float sm_scale, int causal) {
+  extern __shared__ float smem[];
+  float* qt = smem;                 // [d][65]: the block's query rows
+  float* gt = qt + d * FA_PAD;      // [d][65]: their dO rows
+  float* kt = gt + d * FA_PAD;      // [d][65]: the key tile
+  float* vt = kt + d * FA_PAD;      // [d][65]: its values
+  float* dss = vt + d * FA_PAD;     // [64 keys][65]: dS^T
+  float* ls = dss + FA_BK * FA_PAD; // [64]
+  float* ds_ = ls + FA_BQ;          // [64]
+
+  // the last query tile sees the most key tiles: launched first
+  const int n_qt = sq / FA_BQ;
+  const long long bhq = gridDim.x / n_qt;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / bhq)) * FA_BQ;
+  const long long bh = blockIdx.x % bhq;
+  const long long kvh = bh / group;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const T* qb = q + bh * sq * (long long)d;
+  const T* gb = dout + bh * sq * (long long)d;
+  const T* kb = k + kvh * sk * (long long)d;
+  const T* vb = v + kvh * sk * (long long)d;
+  for (int e = tid; e < FA_BQ * d; e += FA_NT) {
+    const int r = e / d, f = e - r * d;
+    qt[f * FA_PAD + r] = fa_f32(qb[(long long)(q0 + r) * d + f]);
+    gt[f * FA_PAD + r] = fa_f32(gb[(long long)(q0 + r) * d + f]);
+  }
+  for (int r = tid; r < FA_BQ; r += FA_NT) {
+    ls[r] = lse[bh * sq + q0 + r];
+    ds_[r] = dsum[bh * sq + q0 + r];
+  }
+  int n_kt = sk / FA_BK;
+  if (causal) n_kt = min(n_kt, (q_offset + q0 + FA_BQ + FA_BK - 1) / FA_BK);
+
+  float adq[4][FA_DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < FA_DC; ++c) adq[i][c] = 0.f;
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int k0 = t * FA_BK;
+    __syncthreads();  // the previous tile is consumed (and Q is loaded)
+    for (int e = tid; e < FA_BK * d; e += FA_NT) {
+      const int r = e / d, f = e - r * d;
+      kt[f * FA_PAD + r] = fa_f32(kb[(long long)(k0 + r) * d + f]);
+      vt[f * FA_PAD + r] = fa_f32(vb[(long long)(k0 + r) * d + f]);
+    }
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int f = 0; f < d; ++f) {
+      float qr[4], gr[4], kc[4], vc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qr[i] = qt[f * FA_PAD + ty + 16 * i];
+        gr[i] = gt[f * FA_PAD + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kc[j] = kt[f * FA_PAD + tx + 16 * j];
+        vc[j] = vt[f * FA_PAD + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
+          dp[i][j] = fmaf(gr[i], vc[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qr = ty + 16 * i, key = k0 + tx + 16 * j;
+        const bool hidden = causal && q_offset + q0 + qr < key;
+        const float p = hidden ? 0.f : expf(s[i][j] * sm_scale - ls[qr]);
+        dss[(tx + 16 * j) * FA_PAD + qr] = p * (dp[i][j] - ds_[qr]);
+      }
+    __syncthreads();
+
+    // dQ += dS K over the tile's 64 keys, in order
+    for (int r = 0; r < FA_BK; ++r) {
+      float dr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dr[i] = dss[r * FA_PAD + ty + 16 * i];
+#pragma unroll
+      for (int c = 0; c < FA_DC; ++c) {
+        const int col = tx + 16 * c;
+        const float kv = col < d ? kt[col * FA_PAD + r] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) adq[i][c] = fmaf(dr[i], kv, adq[i][c]);
+      }
+    }
+  }
+
+  T* dqb = dq + bh * sq * (long long)d;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long r = q0 + ty + 16 * i;
+#pragma unroll
+    for (int c = 0; c < FA_DC; ++c) {
+      const int col = tx + 16 * c;
+      if (col < d) fa_put(dqb + r * d + col, adq[i][c] * sm_scale);
+    }
+  }
+}
+
+template <typename T>
+static cudaError_t fa_bwd_launch(const void* q, const void* k, const void* v,
+                                 const void* o, const float* lse,
+                                 const void* dout, void* dq, void* dk, void* dv,
+                                 float* dsum, float* dk_part, float* dv_part,
+                                 long long bhq, int sq, int sk, int d,
+                                 int group, int q_offset, float sm_scale,
+                                 int causal, cudaStream_t stream) {
+  const size_t smem_kv = fa_bwd_smem_bytes(d, 2);
+  const size_t smem_q = fa_bwd_smem_bytes(d, 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_kv);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fa_bwd_dq_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_q);
+  if (err != cudaSuccess) return err;
+  const long long rows = bhq * sq;
+  const int warps = FA_NT / 32;
+  fa_bwd_dot_kernel<T><<<(unsigned)((rows + warps - 1) / warps), FA_NT, 0,
+                         stream>>>((const T*)o, (const T*)dout, dsum, rows, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fa_bwd_dkdv_kernel<T><<<(unsigned)(bhq * (sk / FA_BK)), FA_NT, smem_kv,
+                          stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum,
+      dk_part, dv_part, bhq, sq, sk, d, group, q_offset, sm_scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long per_head = (long long)sk * d;
+  const long long total = bhq / group * per_head;
+  fa_bwd_group_sum_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0,
+                               stream>>>(dk_part, dv_part, (T*)dk, (T*)dv,
+                                         per_head, total, group);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fa_bwd_dq_kernel<T><<<(unsigned)(bhq * (sq / FA_BQ)), FA_NT, smem_q,
+                        stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum,
+      (T*)dq, sq, sk, d, group, q_offset, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -520,7 +915,8 @@ extern "C" const char* repro_error_string(int code) {
 }
 
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int bf16,
+                                     const void* v, void* o, float* lse,
+                                     int bf16,
                                      long long bhq, int sq, int sk, int d,
                                      int group, int q_offset, float sm_scale,
                                      int causal, void* stream) {
@@ -531,12 +927,40 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (!bf16)
-    return (int)fa_launch<float>(q, k, v, o, bhq, sq, sk, d, group, q_offset,
-                                 sm_scale, causal, st);
+    return (int)fa_launch<float>(q, k, v, o, lse, bhq, sq, sk, d, group,
+                                 q_offset, sm_scale, causal, st);
   // TMA reads rows of d bf16 values: 16-byte strides need d % 8 == 0
   if (d % 8 || bhq > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  return (int)(d > 64 ? fw_launch<2>(q, k, v, o, bhq, sq, sk, d, group,
+  return (int)(d > 64 ? fw_launch<2>(q, k, v, o, lse, bhq, sq, sk, d, group,
                                      q_offset, sm_scale, causal, st)
-                      : fw_launch<1>(q, k, v, o, bhq, sq, sk, d, group,
+                      : fw_launch<1>(q, k, v, o, lse, bhq, sq, sk, d, group,
                                      q_offset, sm_scale, causal, st));
+}
+
+// The backward: dq (bh, sq, d), dk and dv (bh / group, sk, d) in q's type,
+// from q, k, v, the forward's o and fp32 lse (bh, sq), and dout; fp32
+// scratch: dsum (bh * sq), dk_part and dv_part (bh * sk * d each, every
+// query head's share).  The same tiles, causal rule, q_offset and GQA as
+// the forward.
+extern "C" int repro_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const float* lse, const void* dout, void* dq, void* dk, void* dv,
+    float* dsum, float* dk_part, float* dv_part, int bf16, long long bhq,
+    int sq, int sk, int d, int group, int q_offset, float sm_scale, int causal,
+    void* stream) {
+  const long long rows = bhq * sq;
+  if (bhq <= 0 || rows > 0x7fffffffLL * (FA_NT / 32) ||
+      bhq * (sq / FA_BQ) > 0x7fffffffLL || bhq * (sk / FA_BK) > 0x7fffffffLL ||
+      bhq / group * sk * (long long)d > 0x7fffffffLL * 256LL ||
+      sq < FA_BQ || sq % FA_BQ || sk < FA_BK || sk % FA_BK || d < 1 ||
+      d > FA_MAX_D || group < 1 || bhq % group != 0 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    return (int)fa_bwd_launch<__nv_bfloat16>(
+        q, k, v, o, lse, dout, dq, dk, dv, dsum, dk_part, dv_part, bhq, sq, sk,
+        d, group, q_offset, sm_scale, causal, st);
+  return (int)fa_bwd_launch<float>(q, k, v, o, lse, dout, dq, dk, dv, dsum,
+                                   dk_part, dv_part, bhq, sq, sk, d, group,
+                                   q_offset, sm_scale, causal, st);
 }

@@ -26,6 +26,10 @@
 //   ssd_chunk_kernel        every other shape (the tests' small ones):
 //       fp32 FFMA, one block per (bh, chunk).
 //
+// The training path's backward, ssd_chunk_bwd_kernel (FFMA, every shape
+// whose cell fits one block's shared memory), is described at "backward"
+// below.
+//
 // What bounds K5 on the H100: at the serve shape (BH 96, 8 chunks of 64,
 // D 64, S 128, 4 head-free B/C groups) the function moves 52.8 MB (x, y
 // and the chunk states dominate): 15.8 us at 3.35 TB/s.  With C B^T once
@@ -546,6 +550,222 @@ ssd_chunk_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// ------------------------------------------------------------ backward
+// The training path's gradient of the intra-chunk function, FFMA on the
+// CUDA cores, one block per (bh, chunk) cell, 512 threads.  The reference
+// differentiates its jnp chunked SSD (src/repro/models/layers.py); there
+// is no TPU kernel to replace.  With Xd = dt * X, M = (C B^T) * Lmat,
+// w_j = exp(cum[L-1] - cum[j]) and the incoming gy (L x D), gst (S x D):
+//
+//   gXd   = M^T gy + w * (B gst)          gM = gy Xd^T  (lower triangle)
+//   G     = gM * Lmat                     gC = G B,  gB = G^T C + w * (Xd gst^T)
+//   gcum  = rowsum(gM * M) - colsum(gM * M) - gw * w  (+ sum(gw * w) at L-1),
+//           gw_j = B_j . (gst Xd_j)
+//   ga    = reverse cumsum of gcum;  gdt = rowsum(gXd * X);  gx = gXd * dt
+//
+// Lmat is taken by select before exp (exp(cum_i - cum_j) only where
+// i >= j): after exp a select would still give 0 * inf = NaN where the
+// exponent overflows above the diagonal.  gB and gC are written per head
+// (the cell's share); ssd_bwd_group_sum_kernel then sums a group's heads
+// in head order.  No atomics: every element is one ordered sum.
+//
+// What bounds it on the H100: at mamba2-130m's training shape (BH 96,
+// 8 chunks of 64, D 64, S 128, 4 B/C groups) it moves ~100 MB (x, dt, a,
+// b, c, gy, gst in; gx, gdt, ga, the per-head gB/gC partials out and back
+// in for the group sum), 30 us at 3.35 TB/s; its FFMA from shared memory
+// take longer (time and bound in PERF.md).
+#define SSD_BWD_NT 512
+
+static size_t ssd_bwd_smem_bytes(int L, int D, int S) {
+  // cum, w, dt, gw, gcum [L]; xd, gy, gxd, bg [L][D+1]; gst [S][D+1];
+  // b, c [L][S+1]; M, G, Q [L][L+1].  Every row is padded by one float,
+  // so a warp reading down a column hits 32 banks
+  return sizeof(float) * ((size_t)5 * L + (size_t)4 * L * (D + 1) +
+                          (size_t)S * (D + 1) + (size_t)2 * L * (S + 1) +
+                          (size_t)3 * L * (L + 1));
+}
+
+__global__ void __launch_bounds__(SSD_BWD_NT)
+ssd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ a, const float* __restrict__ b,
+                     const float* __restrict__ c,
+                     const float* __restrict__ gy,
+                     const float* __restrict__ gst, float* __restrict__ gx,
+                     float* __restrict__ gdt, float* __restrict__ ga,
+                     float* __restrict__ gb_part, float* __restrict__ gc_part,
+                     int C, int L, int D, int S, int heads_per_group) {
+  extern __shared__ float smem[];
+  const int DP = D + 1;
+  float* cum = smem;              // [L]
+  float* w = cum + L;             // [L] exp(cum[L-1] - cum[j])
+  float* dts = w + L;             // [L]
+  float* gw = dts + L;            // [L]
+  float* gcum = gw + L;           // [L]
+  float* xd = gcum + L;           // [L][D+1]
+  float* gys = xd + L * DP;       // [L][D+1]
+  float* gxd = gys + L * DP;      // [L][D+1]
+  float* bg = gxd + L * DP;       // [L][D+1]: B gst
+  float* gs = bg + L * DP;        // [S][D+1]: gst
+  float* bs = gs + S * DP;        // [L][S+1]
+  float* cs = bs + L * (S + 1);   // [L][S+1]
+  float* ms = cs + L * (S + 1);   // [L][L+1]: M
+  float* gm = ms + L * (L + 1);   // [L][L+1]: G = gM * Lmat
+  float* qm = gm + L * (L + 1);   // [L][L+1]: gM * M
+
+  const long long cell = blockIdx.x;  // bh * C + chunk
+  const long long bh = cell / C;
+  const long long chunk = cell - bh * C;
+  const long long gcell = (bh / heads_per_group) * C + chunk;
+  const float* xb = x + cell * L * D;
+  const float* bb = b + gcell * L * S;
+  const float* cb = c + gcell * L * S;
+  const float* gyb = gy + cell * L * D;
+  const float* gsb = gst + cell * (long long)S * D;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < L; i += SSD_BWD_NT) {
+    cum[i] = a[cell * L + i];
+    dts[i] = dt[cell * L + i];
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float run = 0.f;
+    for (int i = 0; i < L; ++i) {
+      run += cum[i];
+      cum[i] = run;
+    }
+  }
+  for (int e = tid; e < L * D; e += SSD_BWD_NT) {
+    const int i = e / D, dd = e - i * D;
+    xd[i * DP + dd] = xb[e] * dts[i];
+    gys[i * DP + dd] = gyb[e];
+  }
+  for (int e = tid; e < S * D; e += SSD_BWD_NT) {
+    const int s = e / D, dd = e - s * D;
+    gs[s * DP + dd] = gsb[e];
+  }
+  for (int e = tid; e < L * S; e += SSD_BWD_NT) {
+    const int i = e / S, s = e - i * S;
+    bs[i * (S + 1) + s] = bb[e];
+    cs[i * (S + 1) + s] = cb[e];
+  }
+  __syncthreads();
+  for (int j = tid; j < L; j += SSD_BWD_NT) w[j] = expf(cum[L - 1] - cum[j]);
+
+  // M, G and gM * M on the lower triangle, zeros above it
+  for (int e = tid; e < L * L; e += SSD_BWD_NT) {
+    const int i = e / L, j = e - i * L;
+    float m = 0.f, g = 0.f, qv = 0.f;
+    if (i >= j) {
+      float cbv = 0.f, gmv = 0.f;
+      const float* ci = cs + i * (S + 1);
+      const float* bj = bs + j * (S + 1);
+      for (int s = 0; s < S; ++s) cbv = fmaf(ci[s], bj[s], cbv);
+      const float* gi = gys + i * DP;
+      const float* xj = xd + j * DP;
+      for (int dd = 0; dd < D; ++dd) gmv = fmaf(gi[dd], xj[dd], gmv);
+      const float lm = expf(cum[i] - cum[j]);
+      m = cbv * lm;
+      g = gmv * lm;
+      qv = gmv * m;
+    }
+    ms[i * (L + 1) + j] = m;
+    gm[i * (L + 1) + j] = g;
+    qm[i * (L + 1) + j] = qv;
+  }
+  __syncthreads();
+
+  // gXd = M^T gy + w * (B gst)
+  for (int e = tid; e < L * D; e += SSD_BWD_NT) {
+    const int j = e / D, dd = e - j * D;
+    float v = 0.f, bgv = 0.f;
+    for (int i = j; i < L; ++i)
+      v = fmaf(ms[i * (L + 1) + j], gys[i * DP + dd], v);
+    const float* bj = bs + j * (S + 1);
+    for (int s = 0; s < S; ++s) bgv = fmaf(bj[s], gs[s * DP + dd], bgv);
+    bg[j * DP + dd] = bgv;
+    gxd[j * DP + dd] = fmaf(w[j], bgv, v);
+  }
+  // this head's share of gC = G B and gB = G^T C + w * (Xd gst^T)
+  float* gcp = gc_part + cell * L * S;
+  float* gbp = gb_part + cell * L * S;
+  for (int e = tid; e < L * S; e += SSD_BWD_NT) {
+    const int r = e / S, s = e - r * S;
+    float vc = 0.f, vb = 0.f, ev = 0.f;
+    for (int j = 0; j <= r; ++j)
+      vc = fmaf(gm[r * (L + 1) + j], bs[j * (S + 1) + s], vc);
+    for (int i = r; i < L; ++i)
+      vb = fmaf(gm[i * (L + 1) + r], cs[i * (S + 1) + s], vb);
+    const float* xr = xd + r * DP;
+    const float* gsr = gs + s * DP;
+    for (int dd = 0; dd < D; ++dd) ev = fmaf(xr[dd], gsr[dd], ev);
+    gcp[e] = vc;
+    gbp[e] = fmaf(w[r], ev, vb);
+  }
+  __syncthreads();
+
+  // per row, one warp: gdt = rowsum(gXd * X), gw = rowsum(Xd * B gst);
+  // gx = gXd * dt
+  const int warp = tid / 32, lane = tid % 32;
+  for (int j = warp; j < L; j += SSD_BWD_NT / 32) {
+    float vdt = 0.f, vw = 0.f;
+    for (int dd = lane; dd < D; dd += 32) {
+      const float g = gxd[j * DP + dd];
+      vdt = fmaf(g, xb[j * D + dd], vdt);
+      vw = fmaf(xd[j * DP + dd], bg[j * DP + dd], vw);
+      gx[cell * L * D + j * D + dd] = g * dts[j];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      vdt += __shfl_xor_sync(0xffffffffu, vdt, off);
+      vw += __shfl_xor_sync(0xffffffffu, vw, off);
+    }
+    if (lane == 0) {
+      gdt[cell * L + j] = vdt;
+      gw[j] = vw;
+    }
+  }
+  __syncthreads();
+  for (int t = tid; t < L; t += SSD_BWD_NT) {
+    float row = 0.f, col = 0.f;
+    for (int j = 0; j < L; ++j) row += qm[t * (L + 1) + j];
+    for (int i = 0; i < L; ++i) col += qm[i * (L + 1) + t];
+    gcum[t] = row - col - gw[t] * w[t];
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float tot = 0.f;
+    for (int j = 0; j < L; ++j) tot = fmaf(gw[j], w[j], tot);
+    gcum[L - 1] += tot;
+    float run = 0.f;
+    for (int i = L - 1; i >= 0; --i) {
+      run += gcum[i];
+      ga[cell * L + i] = run;
+    }
+  }
+}
+
+// gb[g] = sum over the group's heads h, in order, of part[g * hpg + h]
+__global__ void ssd_bwd_group_sum_kernel(const float* __restrict__ gb_part,
+                                         const float* __restrict__ gc_part,
+                                         float* __restrict__ gb,
+                                         float* __restrict__ gc,
+                                         long long per_head, long long total,
+                                         int heads_per_group) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const long long g = e / per_head, r = e - g * per_head;
+  const float* pb = gb_part + g * heads_per_group * per_head + r;
+  const float* pc = gc_part + g * heads_per_group * per_head + r;
+  float vb = 0.f, vc = 0.f;
+  for (int h = 0; h < heads_per_group; ++h) {
+    vb += pb[h * per_head];
+    vc += pc[h * per_head];
+  }
+  gb[e] = vb;
+  gc[e] = vc;
+}
+
 // ---------------------------------------------------------- C interface
 // Launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() (0 on success).
@@ -617,5 +837,41 @@ extern "C" int repro_ssd_chunk_wgmma(const float* x, const float* dt,
   ssd_chunk_wgmma_kernel<<<(unsigned)blocks, W_THREADS, smem,
                            (cudaStream_t)stream>>>(
       maps[0], maps[1], maps[2], dt, a, y, st, C, D, S, (int)hpg, hb);
+  return (int)cudaGetLastError();
+}
+
+extern "C" long long repro_ssd_chunk_bwd_smem(int L, int D, int S) {
+  return (long long)ssd_bwd_smem_bytes(L, D, S);
+}
+
+// The backward of repro_ssd_chunk: gx (BH,C,L,D), gdt and ga (BH,C,L),
+// the per-head partials gb_part and gc_part (BH,C,L,S), then, with more
+// than one head a group, their group sums gb and gc (G,C,L,S).
+extern "C" int repro_ssd_chunk_bwd(
+    const float* x, const float* dt, const float* a, const float* b,
+    const float* c, const float* gy, const float* gst, float* gx, float* gdt,
+    float* ga, float* gb_part, float* gc_part, float* gb, float* gc,
+    long long cells, int C, int L, int D, int S, int heads_per_group,
+    void* stream) {
+  if (cells <= 0 || cells > 0x7fffffffLL || C < 1 || L < 1 || D < 1 ||
+      S < 1 || heads_per_group < 1 || (cells / C) % heads_per_group)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ssd_bwd_smem_bytes(L, D, S);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  ssd_chunk_bwd_kernel<<<(unsigned)cells, SSD_BWD_NT, smem, st>>>(
+      x, dt, a, b, c, gy, gst, gx, gdt, ga, gb_part, gc_part, C, L, D, S,
+      heads_per_group);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || heads_per_group == 1) return (int)err;
+  const long long per_head = (long long)C * L * S;
+  const long long total = cells / heads_per_group * L * S;
+  const long long blocks = (total + 255) / 256;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  ssd_bwd_group_sum_kernel<<<(unsigned)blocks, 256, 0, st>>>(
+      gb_part, gc_part, gb, gc, per_head, total, heads_per_group);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Flash-attention forward on Hopper (K4), with its plain version.
+"""Flash attention on Hopper (K4), forward and backward, with plain versions.
 
 :func:`flash_attention` launches a hand-written CUDA kernel of
 ``csrc/flash_attention.cu``, which replaces the reference's Pallas kernel
@@ -28,6 +28,20 @@ online softmax over key tiles with the same numerics.  The wrapper uses
 it only for CPU tensors; for CUDA tensors it launches the kernel or
 raises.  :data:`LAUNCHES` counts kernel launches.  What bounds the kernel
 on the H100 is noted at the top of the CUDA source.
+
+Training (the reference differentiates its jnp attention; its Pallas
+kernel has no backward): ``return_lse=True`` also returns each row's
+logsumexp of the scaled scores (fp32, (bh, sq)), and
+:func:`flash_attention_bwd` launches the backward kernels of the same
+source, which recompute P from it: dV = Pᵀ dO, dS = P ⊙ (dO Vᵀ − D) with
+D = rowsum(dO ⊙ O), dK = scale · dSᵀ Q (each query head's share in fp32,
+then a kv head's ``group`` shares summed in head order by a second
+kernel), dQ = scale · dS K in a second pass over the key tiles (no
+atomics, so the gradients are deterministic).
+:class:`FlashAttentionFn` is the autograd function over the two; on CPU
+tensors it runs :func:`flash_attention_plain` and
+:func:`flash_attention_bwd_plain` (the explicit formulas, not autograd).
+The plain versions also take float64, for ``gradcheck``.
 """
 
 from __future__ import annotations
@@ -42,22 +56,22 @@ BQ = BK = 64  # the whole tiles taken; the fp32 kernel's tiles (FA_BQ, FA_BK)
 MAX_HEAD_DIM = 128  # the kernel's register budget (FA_MAX_D)
 NEG_INF = -1e30  # the reference kernel's mask value
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
-def _check(q, k, v) -> int:
+def _check(q, k, v, plain: bool = False) -> int:
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(
             f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
             "want (bh, seq, d) each"
         )
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (
-        q.dtype == k.dtype == v.dtype
-    ):
+    types = (torch.float32, torch.bfloat16) + ((torch.float64,) if plain else ())
+    if q.dtype not in types or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"want bf16 or fp32 inputs of one type, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.shape[2] != k.shape[2] or q.shape[0] % k.shape[0]:
@@ -73,6 +87,11 @@ def _contiguous_aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def _work(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type: fp32, or float64 for float64."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -80,25 +99,29 @@ def flash_attention_plain(
     *,
     causal: bool = True,
     q_offset: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain version of K4: per query tile, an online softmax over key
-    tiles up to the causal limit, in fp32, with the kernel's numerics."""
-    group = _check(q, k, v)
+    tiles up to the causal limit, in fp32, with the kernel's numerics.
+    ``return_lse`` also returns the rows' logsumexp, (bh, sq) fp32."""
+    group = _check(q, k, v, plain=True)
     bh, sq, d = q.shape
     sk = k.shape[1]
     sm_scale = 1.0 / math.sqrt(d)
-    kf = k.float().repeat_interleave(group, dim=0)
-    vf = v.float().repeat_interleave(group, dim=0)
+    wt = _work(q)
+    kf = k.to(wt).repeat_interleave(group, dim=0)
+    vf = v.to(wt).repeat_interleave(group, dim=0)
     out = torch.empty_like(q)
+    lse = q.new_empty((bh, sq), dtype=wt)
     for q0 in range(0, sq, BQ):
-        qi = q[:, q0:q0 + BQ].float() * sm_scale
+        qi = q[:, q0:q0 + BQ].to(wt) * sm_scale
         rows = qi.shape[1]
         n_kt = -(-sk // BK)
         if causal:
             n_kt = min(n_kt, -(-(q_offset + q0 + rows) // BK))
-        acc = q.new_zeros((bh, rows, d), dtype=torch.float32)
-        m_i = q.new_full((bh, rows), NEG_INF, dtype=torch.float32)
-        l_i = q.new_zeros((bh, rows), dtype=torch.float32)
+        acc = q.new_zeros((bh, rows, d), dtype=wt)
+        m_i = q.new_full((bh, rows), NEG_INF, dtype=wt)
+        l_i = q.new_zeros((bh, rows), dtype=wt)
         qpos = q_offset + q0 + torch.arange(rows, device=q.device)
         for t in range(n_kt):
             k0 = t * BK
@@ -116,21 +139,43 @@ def flash_attention_plain(
         out[:, q0:q0 + BQ] = (
             acc / torch.clamp(l_i, min=1e-30)[..., None]
         ).to(q.dtype)
-    return out
+        lse[:, q0:q0 + BQ] = m_i + torch.log(l_i)
+    return (out, lse) if return_lse else out
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    q_offset: int = 0,
-) -> torch.Tensor:
-    """K4: q (bh, sq, d); k, v (bh_kv, sk, d) with ``bh % bh_kv == 0``;
-    scores scaled by 1/sqrt(d), the reference's default.
-    Returns (bh, sq, d) in ``q.dtype``.  ``q_offset`` is the absolute
-    position of ``q[:, 0]`` (causal decode of a chunk where sq < sk)."""
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              q_offset: int = 0):
+    """Plain version of K4's backward, the explicit formulas (not
+    autograd): P = exp(scale·QKᵀ − lse), the causal mask a select before
+    exp; dV = Pᵀ dO, dS = P ⊙ (dO Vᵀ − rowsum(dO ⊙ O)), dQ = scale·dS K,
+    dK = scale·dSᵀ Q, then dK and dV summed over each kv head's ``group``
+    query heads.  Returns (dq, dk, dv) in q's type."""
+    group = _check(q, k, v, plain=True)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    wt = _work(q)
+    qf, of, gf = q.to(wt), o.to(wt), do.to(wt)
+    kf = k.to(wt).repeat_interleave(group, dim=0)
+    vf = v.to(wt).repeat_interleave(group, dim=0)
+    s = (qf @ kf.transpose(1, 2)) * scale - lse.to(wt)[..., None]
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)
+        kpos = torch.arange(sk, device=q.device)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, -math.inf)
+    p = torch.exp(s)
+    dv = p.transpose(1, 2) @ gf
+    ds = p * (gf @ vf.transpose(1, 2) - (gf * of).sum(-1, keepdim=True))
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(1, 2) @ qf) * scale
+    dk = dk.reshape(bh // group, group, sk, d).sum(1)
+    dv = dv.reshape(bh // group, group, sk, d).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_tiles(q, k, v, q_offset: int) -> int:
+    """The kernels' shape rules (forward and backward); returns the
+    group."""
     group = _check(q, k, v)
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")
@@ -143,20 +188,102 @@ def flash_attention(
     if q.dtype == torch.bfloat16 and q.shape[2] % 8:
         raise ValueError(f"head dim {q.shape[2]}: the bf16 kernel takes "
                          "multiples of 8 (TMA's 16-byte row stride)")
+    return group
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    return_lse: bool = False,
+):
+    """K4: q (bh, sq, d); k, v (bh_kv, sk, d) with ``bh % bh_kv == 0``;
+    scores scaled by 1/sqrt(d), the reference's default.
+    Returns (bh, sq, d) in ``q.dtype``, and with ``return_lse`` also the
+    rows' logsumexp (bh, sq) fp32.  ``q_offset`` is the absolute
+    position of ``q[:, 0]`` (causal decode of a chunk where sq < sk)."""
+    group = _check_tiles(q, k, v, q_offset)
     if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset, return_lse=return_lse)
     bh, sq, d = q.shape
     sk = k.shape[1]
     q, k, v = (_contiguous_aligned(x) for x in (q, k, v))
     o = torch.empty_like(q)
+    lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if o.numel() == 0:
-        return o
+        return (o, lse) if return_lse else o
     lib = load_library("flash_attention")
     rc = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if return_lse else None,
         int(q.dtype == torch.bfloat16), bh, sq, sk, d, group, q_offset,
         1.0 / math.sqrt(d), int(causal), cuda_stream(q.device),
     )
     check(lib, rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        q_offset: int = 0):
+    """K4's backward: (dq, dk, dv) in q's type from the forward's inputs,
+    its output ``o`` and row logsumexp ``lse`` (fp32 (bh, sq)) and the
+    output's gradient ``do``.  The same shape rules as the forward."""
+    group = _check_tiles(q, k, v, q_offset)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2]:
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    if on_cpu(q, k, v, o, lse, do):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         q_offset=q_offset)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    q, k, v, o = (_contiguous_aligned(x) for x in (q, k, v, o))
+    do = _contiguous_aligned(do.to(q.dtype))
+    lse = _contiguous_aligned(lse.float())
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    dsum = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    # each query head's fp32 share of its kv head's dK and dV
+    dk_part = torch.empty((bh, sk, d), dtype=torch.float32, device=q.device)
+    dv_part = torch.empty_like(dk_part)
+    lib = load_library("flash_attention")
+    rc = lib.repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dsum.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
+        int(q.dtype == torch.bfloat16), bh, sq, sk, d, group, q_offset,
+        1.0 / math.sqrt(d), int(causal), cuda_stream(q.device),
+    )
+    check(lib, rc, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K4 under autograd: the forward kernel with its row logsumexp, the
+    backward kernels for the gradients (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True, q_offset: int = 0):
+        if not any(ctx.needs_input_grad[:3]):  # serving: no lse to write
+            return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        o, lse = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal,
+                                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None

@@ -32,9 +32,22 @@ the tests and the smoke, which time both at the serve shape).
 wrapper uses it only for CPU tensors; for CUDA tensors it launches a
 kernel or raises.  :data:`LAUNCHES` counts kernel launches.  What bounds
 the kernels on the H100 is noted at the top of the CUDA source.
+
+Training (the reference differentiates its jnp chunked SSD; its Pallas
+kernel has no backward): :func:`ssd_intra_chunk_bwd` launches
+``ssd_chunk_bwd_kernel`` (FFMA, one block per cell), which returns gx,
+gdt and ga per row and each head's share of gB and gC, then sums a
+group's heads in head order (no atomics).  :class:`SSDIntraChunkFn` is the
+autograd function over the forward (either route) and this backward; on
+CPU tensors it runs :func:`ssd_intra_chunk_plain` and
+:func:`ssd_intra_chunk_bwd_plain` (the explicit formulas).  Both plain
+versions take the decay's ``exp`` only of selected entries, so strong
+decays give finite gradients, and take float64 for ``gradcheck``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -42,12 +55,13 @@ from .build import check, cuda_stream, load_library, on_cpu
 
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
-LAUNCHES = {"ssd_chunk": 0}
+LAUNCHES = {"ssd_chunk": 0, "ssd_chunk_bwd": 0}
 SSD_ROUTES = {"wgmma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["ssd_chunk"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
     for route in SSD_ROUTES:
         SSD_ROUTES[route] = 0
 
@@ -72,7 +86,7 @@ def heads_per_block(heads: int, chunks: int, sms: int) -> int:
     return -(-heads // blocks_per_pair)
 
 
-def _check(x, dt, a, b, c) -> int:
+def _check(x, dt, a, b, c, plain: bool = False) -> int:
     if x.dim() != 4 or b.dim() != 4 or c.shape != b.shape:
         raise ValueError(f"x {tuple(x.shape)}, b {tuple(b.shape)}, "
                          f"c {tuple(c.shape)}: want (BH,C,L,D), (G,C,L,S)")
@@ -84,28 +98,72 @@ def _check(x, dt, a, b, c) -> int:
     if b.shape[1:3] != (C, L) or G == 0 or BH % G:
         raise ValueError(f"b {tuple(b.shape)} does not match x "
                          f"{tuple(x.shape)}")
-    for t in (x, dt, a, b, c):
-        if t.dtype != torch.float32:
-            raise TypeError(f"ssd_intra_chunk takes float32, got {t.dtype}")
+    types = (torch.float32, torch.float64) if plain else (torch.float32,)
+    if len({t.dtype for t in (x, dt, a, b, c)}) != 1 or x.dtype not in types:
+        raise TypeError(f"ssd_intra_chunk takes float32, got "
+                        f"{sorted({str(t.dtype) for t in (x, dt, a, b, c)})}")
     return BH // G
+
+
+def _decay(a):
+    """(lmat, w) of a cell, from cum, the in-chunk cumsum of the log
+    decays: the decay matrix exp(cum_i − cum_j) on and below the diagonal
+    and 0 above it (exp of a selected −inf, never a product with a mask:
+    above the diagonal the exponent may overflow), and the end-state
+    weights exp(cum_{L−1} − cum_j)."""
+    L = a.shape[-1]
+    cum = torch.cumsum(a, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    lower = torch.ones(L, L, dtype=torch.bool, device=a.device).tril()
+    l_mat = torch.exp(torch.where(lower, diff, -math.inf))
+    return l_mat, torch.exp(cum[..., -1:] - cum)
 
 
 def ssd_intra_chunk_plain(x, dt, a, b, c):
     """Plain version of K5: the cell's three products in fp32."""
-    hpg = _check(x, dt, a, b, c)
-    L = x.shape[2]
+    hpg = _check(x, dt, a, b, c, plain=True)
     b = b.repeat_interleave(hpg, dim=0)
     c = c.repeat_interleave(hpg, dim=0)
-    cum = torch.cumsum(a, dim=-1)  # (BH, C, L)
-    diff = cum[..., :, None] - cum[..., None, :]
-    lower = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
-    l_mat = torch.where(lower, torch.exp(diff), torch.zeros((), device=x.device))
+    l_mat, decay_end = _decay(a)
     scores = (c @ b.transpose(-1, -2)) * l_mat
     xdt = x * dt[..., None]
     y = scores @ xdt
-    decay_end = torch.exp(cum[..., -1:] - cum)
     st = (b * decay_end[..., None]).transpose(-1, -2) @ xdt
     return y, st
+
+
+def ssd_intra_chunk_bwd_plain(x, dt, a, b, c, gy, gst):
+    """Plain version of K5's backward, the explicit formulas: with
+    Xd = dt ⊙ X, M = (C Bᵀ) ⊙ Lmat and w the end-state weights,
+    gXd = Mᵀ gy + w ⊙ (B gst), gM = gy Xdᵀ, G = gM ⊙ Lmat, gC = G B,
+    gB = Gᵀ C + w ⊙ (Xd gstᵀ), gcum from gM ⊙ M (row minus column) and
+    from w, ga its reverse cumsum, gdt = rowsum(gXd ⊙ X), gx = gXd ⊙ dt.
+    gb and gc are summed over each group's heads.  Returns
+    (gx, gdt, ga, gb, gc)."""
+    hpg = _check(x, dt, a, b, c, plain=True)
+    G, C, L, S = b.shape
+    br = b.repeat_interleave(hpg, dim=0)
+    cr = c.repeat_interleave(hpg, dim=0)
+    l_mat, w = _decay(a)
+    m = (cr @ br.transpose(-1, -2)) * l_mat
+    xd = x * dt[..., None]
+    bg = br @ gst  # (BH, C, L, D): B gst
+    gxd = m.transpose(-1, -2) @ gy + w[..., None] * bg
+    gm = gy @ xd.transpose(-1, -2)
+    g = gm * l_mat
+    gc = g @ br
+    gb = g.transpose(-1, -2) @ cr + w[..., None] * (xd @ gst.transpose(-1, -2))
+    gw = (xd * bg).sum(-1)
+    q = gm * m
+    end = torch.zeros_like(a)
+    end[..., -1] = (gw * w).sum(-1)
+    gcum = q.sum(-1) - q.sum(-2) - gw * w + end
+    ga = torch.flip(torch.cumsum(torch.flip(gcum, (-1,)), -1), (-1,))
+    gdt = (gxd * x).sum(-1)
+    gx = gxd * dt[..., None]
+    gb = gb.reshape(G, hpg, C, L, S).sum(1)
+    gc = gc.reshape(G, hpg, C, L, S).sum(1)
+    return gx, gdt, ga, gb, gc
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -156,3 +214,59 @@ def ssd_intra_chunk(x, dt, a, b, c, *, route: str | None = None):
     LAUNCHES["ssd_chunk"] += 1
     SSD_ROUTES[route] += 1
     return y, st
+
+
+def ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst):
+    """K5's backward: from the forward's inputs and the gradients of its
+    outputs, gy (BH, C, L, D) and gst (BH, C, S, D), returns (gx, gdt,
+    ga, gb, gc) shaped as (x, dt, a, b, c), fp32."""
+    hpg = _check(x, dt, a, b, c)
+    BH, C, L, D = x.shape
+    S = b.shape[-1]
+    if gy.shape != x.shape or gst.shape != (BH, C, S, D):
+        raise ValueError(f"gy {tuple(gy.shape)}, gst {tuple(gst.shape)} do "
+                         f"not match x {tuple(x.shape)}, state size {S}")
+    gy, gst = gy.float(), gst.float()
+    if on_cpu(x, dt, a, b, c, gy, gst):
+        return ssd_intra_chunk_bwd_plain(x, dt, a, b, c, gy, gst)
+    x, dt, a, b, c, gy, gst = (t.contiguous() for t in (x, dt, a, b, c, gy, gst))
+    gx = torch.empty_like(x)
+    gdt, ga = torch.empty_like(dt), torch.empty_like(a)
+    gb, gc = torch.empty_like(b), torch.empty_like(c)
+    if BH * C == 0:
+        return gx, gdt, ga, gb.zero_(), gc.zero_()
+    lib = load_library("mamba2_ssd")
+    smem = lib.repro_ssd_chunk_bwd_smem(L, D, S)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"chunk {L}, head dim {D}, state {S}: the backward "
+                         f"needs {smem} bytes of shared memory > {SMEM_LIMIT}")
+    if hpg == 1:
+        gb_part, gc_part = gb, gc
+    else:
+        gb_part = torch.empty((BH, C, L, S), dtype=torch.float32,
+                              device=x.device)
+        gc_part = torch.empty_like(gb_part)
+    rc = lib.repro_ssd_chunk_bwd(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        gy.data_ptr(), gst.data_ptr(), gx.data_ptr(), gdt.data_ptr(),
+        ga.data_ptr(), gb_part.data_ptr(), gc_part.data_ptr(), gb.data_ptr(),
+        gc.data_ptr(), BH * C, C, L, D, S, hpg, cuda_stream(x.device))
+    check(lib, rc, "ssd_intra_chunk_bwd")
+    LAUNCHES["ssd_chunk_bwd"] += 1
+    return gx, gdt, ga, gb, gc
+
+
+class SSDIntraChunkFn(torch.autograd.Function):
+    """K5 under autograd: the forward kernel (``route`` as in
+    :func:`ssd_intra_chunk`) and the backward kernel (plain versions on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, route=None):
+        y, st = ssd_intra_chunk(x, dt, a, b, c, route=route)
+        ctx.save_for_backward(x, dt, a, b, c)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, gy, gst):
+        return (*ssd_intra_chunk_bwd(*ctx.saved_tensors, gy, gst), None)

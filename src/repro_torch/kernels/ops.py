@@ -17,7 +17,13 @@ bf16.  Half-width operands are taken as they are.
 For the LM side, :func:`attention` puts (b, s, h, d) heads into the flash
 kernel's (b·h, s, d) layout with the reference's dispatch rule, and
 :func:`ssd_scan` runs the SSD intra-chunk kernel and the inter-chunk
-state recurrence.
+state recurrence.  Both are differentiable: the kernels run through
+:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn` and
+:class:`~repro_torch.kernels.mamba2_ssd.SSDIntraChunkFn`, whose backward
+passes are kernels too (without autograd they launch the forward
+kernels alone, and attention writes no logsumexp); the ragged
+shapes' plain references and the inter-chunk recurrence are plain
+PyTorch under autograd, as the reference runs them in jnp.
 """
 
 from __future__ import annotations
@@ -34,8 +40,8 @@ from .contract_gemm import (
     tiled_gemm,
     tiled_gemm_step,
 )
-from .flash_attention import flash_attention
-from .mamba2_ssd import ssd_intra_chunk
+from .flash_attention import FlashAttentionFn
+from .mamba2_ssd import SSDIntraChunkFn
 from .ref import to_pairs16, widen
 
 _DISPATCH_TILE = 128  # the reference's dispatch rule for attention
@@ -149,7 +155,7 @@ def attention(
             causal=causal, q_offset=q_offset,
         )
     else:
-        o = flash_attention(qf, kf, vf, causal=causal, q_offset=q_offset)
+        o = FlashAttentionFn.apply(qf, kf, vf, causal, q_offset)
     return o.reshape(batch, hq, sq, d).transpose(1, 2)
 
 
@@ -186,7 +192,7 @@ def ssd_scan(
     ar = a.float().reshape(BH, C, chunk)
     br = b.float().reshape(G, C, chunk, S)
     cr = c.float().reshape(G, C, chunk, S)
-    y_intra, chunk_states = ssd_intra_chunk(xr, dtr, ar, br, cr)
+    y_intra, chunk_states = SSDIntraChunkFn.apply(xr, dtr, ar, br, cr)
     cum_a = torch.cumsum(ar, dim=2)  # (BH, C, L)
     chunk_decay = torch.exp(cum_a[:, :, -1])  # (BH, C) total decay of chunk
     h = (

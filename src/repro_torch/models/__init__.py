@@ -11,6 +11,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.executor import resolve_device
+from ..tree import tree_map
 from . import lm, ssm_model
 from .lm import DecoderLM
 from .ssm_model import MambaLM
@@ -49,12 +50,8 @@ def param_defs(cfg: ArchConfig) -> dict:
     )
 
 
-def _to(tree, device):
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return [_to(v, device) for v in tree]
+def _to(params, device):
+    return tree_map(lambda t: t.to(device), params)
 
 
 __all__ = ["build_model", "param_defs", "DecoderLM", "MambaLM"]

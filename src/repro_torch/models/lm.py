@@ -1,10 +1,13 @@
-"""Dense decoder-only LM (GQA, optional qk-norm), serving path.
+"""Dense decoder-only LM (GQA, optional qk-norm): serving and training.
 
 Counterpart of the reference's ``DecoderLM`` (``models/lm.py``) for
 ``family == "dense"``: prefill, ``decode_step``, ``cache_spec`` and
-``init_cache``.  The reference stacks the layers' parameters on a leading
-axis for ``lax.scan``; here each layer is a module of its own and the
-stack is a Python loop.  MoE layers and M-RoPE are not ported and raise.
+``init_cache``, and for training ``hidden_states`` and ``loss``.  The
+reference stacks the layers' parameters on a leading axis for
+``lax.scan``; here each layer is a module of its own and the stack is a
+Python loop, each layer under ``torch.utils.checkpoint`` when training
+(the reference's ``jax.checkpoint``: the same values, other memory).
+MoE layers and M-RoPE are not ported and raise.
 
 Serving conventions (as in the reference):
   prefill:  tokens (B, S) → (cache, last-position logits (B, V) fp32)
@@ -14,11 +17,11 @@ Serving conventions (as in the reference):
 from __future__ import annotations
 
 import torch
-from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import layers as L
-from .params import ParamDef, param_modules
+from .params import ParamDef, TrainableLM, param_modules
 
 
 def _attn_defs(cfg: ArchConfig) -> dict:
@@ -64,7 +67,7 @@ def param_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-class DecoderLM(nn.Module):
+class DecoderLM(TrainableLM):
     """Dense decoder-only transformer.  ``params`` is the nested dict
     ``{"embed", "final_norm", ["head"], "layers": [per-layer dict]}`` (see
     :func:`repro_torch.interop.lm_params_from_numpy`); without it the
@@ -126,6 +129,25 @@ class DecoderLM(nn.Module):
     def _mlp(self, p, h):
         x = L.rms_norm(h, p["ln_mlp"], self.cfg.norm_eps)
         return h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+    # ------------------------------------------------------------ train
+    def _block(self, p, h, positions):
+        h, _ = self._attention(p, h, positions)
+        return self._mlp(p, h)
+
+    def hidden_states(self, batch: dict):
+        """Final-layer hidden states (B, S, D), normed, and the MoE aux
+        loss (0: no MoE layers)."""
+        top = self.top.tensors()
+        tokens = self._tokens(batch["tokens"])
+        h = top["embed"][tokens]
+        B, S = tokens.shape
+        positions = torch.arange(S, device=h.device).expand(B, S)
+        for layer in self.layers:
+            h = checkpoint(self._block, layer.tensors(), h, positions,
+                           use_reentrant=False)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return L.rms_norm(h, top["final_norm"], self.cfg.norm_eps), aux
 
     # ------------------------------------------------------------- serve
     def cache_spec(self, batch_size: int, max_len: int) -> dict:

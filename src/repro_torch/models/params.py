@@ -62,8 +62,9 @@ def count_params(defs) -> int:
 
 
 class Params(nn.Module):
-    """A flat set of named, frozen tensors (one layer, or the model's top
-    level), readable as a dict through :meth:`tensors`."""
+    """A flat set of named tensors (one layer, or the model's top level),
+    readable as a dict through :meth:`tensors`; frozen until the model's
+    ``train_mode(True)``."""
 
     def __init__(self, tensors: dict):
         super().__init__()
@@ -102,3 +103,40 @@ def param_modules(defs: dict, params: dict | None,
     for i, (d, lp) in enumerate(zip(defs["layers"], params["layers"])):
         _check(d, lp, f"layers[{i}]")
     return Params(top), nn.ModuleList(Params(lp) for lp in params["layers"])
+
+
+class TrainableLM(nn.Module):
+    """What the dense and SSM models share for training: a model holds
+    its weights in ``top`` (a :class:`Params`) and ``layers`` (a list of
+    them), and defines ``hidden_states(batch) -> (h, aux)`` and
+    ``head_weights(top)``."""
+
+    def train_mode(self, flag: bool = True):
+        """Make every parameter trainable (``requires_grad``), or frozen
+        again for serving.  Returns the model."""
+        for p in self.parameters():
+            p.requires_grad_(flag)
+        return self
+
+    def param_tree(self) -> dict:
+        """``{"embed", "final_norm", ["head"], "layers": [dict per
+        layer]}`` of the model's own parameters (not copies): the
+        training state's ``params``."""
+        tree = self.top.tensors()
+        tree["layers"] = [lp.tensors() for lp in self.layers]
+        return tree
+
+    def _tokens(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.top.embed.device).long()
+
+    def loss(self, batch: dict):
+        """``(loss, {"xent", "aux"})`` on ``batch`` (``tokens`` and
+        ``labels``, (B, S), numpy or tensors): the final hidden states
+        through the chunked cross-entropy against the head, plus
+        ``0.01 · aux`` (0 for the dense and SSM families)."""
+        from .losses import chunked_cross_entropy
+
+        h, aux = self.hidden_states(batch)
+        xent = chunked_cross_entropy(h, self.head_weights(self.top.tensors()),
+                                     self._tokens(batch["labels"]))
+        return xent + 0.01 * aux, {"xent": xent, "aux": aux}

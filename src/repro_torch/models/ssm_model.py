@@ -1,20 +1,21 @@
 """Mamba-2 (SSD) language model — attention-free, O(1)-state decode.
 
-Counterpart of the reference's ``MambaLM`` (``models/ssm_model.py``),
-serving path: prefill and ``decode_step`` with the SSM state and the two
-conv carries.  One module per layer (the reference scans stacked
-parameters).  The conv carries are stored in bf16, as the reference
+Counterpart of the reference's ``MambaLM`` (``models/ssm_model.py``):
+serving (prefill and ``decode_step`` with the SSM state and the two conv
+carries) and training (``hidden_states``, ``loss``; each layer under
+``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).  One
+module per layer (the reference scans stacked parameters).  The conv carries are stored in bf16, as the reference
 stores them, whatever the activation type.
 """
 
 from __future__ import annotations
 
 import torch
-from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import layers as L
-from .params import ParamDef, param_modules
+from .params import ParamDef, TrainableLM, param_modules
 
 
 def mamba_defs(cfg: ArchConfig) -> dict:
@@ -50,7 +51,7 @@ def param_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-class MambaLM(nn.Module):
+class MambaLM(TrainableLM):
     """Mamba-2 LM.  ``params`` is ``{"embed", "final_norm", ["head"],
     "layers": [per-layer dict]}``; without it the weights are drawn from
     ``generator``."""
@@ -75,6 +76,20 @@ class MambaLM(nn.Module):
             expand=cfg.ssm_expand, ssm_state=ssm_state, conv_state=conv_state,
         )
         return h + y, s2, c2
+
+    # ------------------------------------------------------------ train
+    def _block(self, p, h):
+        return self._mix(p, h)[0]
+
+    def hidden_states(self, batch: dict):
+        """Final-layer hidden states (B, S, D), normed, and aux 0."""
+        top = self.top.tensors()
+        h = top["embed"][self._tokens(batch["tokens"])]
+        for layer in self.layers:
+            h = checkpoint(self._block, layer.tensors(), h,
+                           use_reentrant=False)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return L.rms_norm(h, top["final_norm"], self.cfg.norm_eps), aux
 
     # ------------------------------------------------------------- serve
     def cache_spec(self, batch_size: int, max_len: int) -> dict:

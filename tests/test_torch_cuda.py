@@ -518,6 +518,119 @@ def test_ssd_chunk_on_card(dev, BH, G, C, L, D, S, lo, hi, route, force):
         assert _rel(g_, w) <= 1e-4
 
 
+FLASH_BWD_CASES = [
+    (8, 1, 128, 128, 64, True, 0),
+    (16, 4, 256, 256, 128, True, 0),    # GQA: dK/dV summed over 4 heads
+    (4, 2, 128, 384, 32, True, 256),    # chunk with q_offset
+    (6, 3, 64, 192, 24, False, 0),      # full attention, odd head dim
+    (8, 4, 512, 512, 128, True, 0),     # qwen3-4b's group and head dim
+    (4, 1, 64, 256, 16, True, 0),       # keys no query sees: zero dK/dV
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,group,sq,sk,d,causal,q_offset", FLASH_BWD_CASES)
+def test_flash_attention_bwd_on_card(dev, dtype, bh, group, sq, sk, d, causal,
+                                     q_offset):
+    """K4's forward logsumexp and its backward kernels against the plain
+    versions on the same inputs (the kernel forward's o and lse): fp32
+    1e-4 of max|plain| (another summation order), bf16 2e-2 (bf16
+    outputs, 2^-8 each); two runs give the same bits (no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(bh + sq + sk + d + 1)
+    q = torch.randn(bh, sq, d, generator=g).to(dev, dtype)
+    k = torch.randn(bh // group, sk, d, generator=g).to(dev, dtype)
+    v = torch.randn(bh // group, sk, d, generator=g).to(dev, dtype)
+    do = torch.randn(bh, sq, d, generator=g).to(dev, dtype)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                return_lse=True)
+    _, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                           q_offset=q_offset, return_lse=True)
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 q_offset=q_offset)
+    assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   q_offset=q_offset)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for x, y, z in zip(got, want, again):
+        assert x.dtype == dtype and torch.isfinite(x).all()
+        assert _rel(x, y) <= tol
+        assert torch.equal(x, z)
+
+
+@pytest.mark.parametrize("BH,G,C,L,D,S,lo,hi", [
+    (6, 6, 3, 64, 64, 128, 0.01, 0.5),   # mamba2-130m cell, G == BH
+    (96, 4, 8, 64, 64, 128, 0.01, 0.5),  # the training shape: 24 heads a group
+    (8, 2, 2, 32, 16, 8, 0.01, 0.5),     # head-free groups, small
+    (3, 3, 2, 32, 8, 4, 5.0, 10.0),      # decay overflow above the diagonal
+    (4, 2, 2, 64, 64, 64, 5.0, 10.0),
+])
+def test_ssd_chunk_bwd_on_card(dev, BH, G, C, L, D, S, lo, hi):
+    """K5's backward kernel against its plain version, 1e-4 of
+    max|plain| (fp32, another summation order), finite under decays that
+    overflow above the diagonal; two runs give the same bits."""
+    from repro_torch.kernels import mamba2_ssd as ssd
+
+    rng = np.random.default_rng(BH + L + S)
+
+    def rnd(shape, sample=rng.standard_normal):
+        return torch.from_numpy(np.asarray(sample(size=shape), np.float32)).to(dev)
+
+    x = rnd((BH, C, L, D))
+    dt = rnd((BH, C, L), lambda size: rng.uniform(0.1, 1.0, size))
+    a = rnd((BH, C, L), lambda size: -rng.uniform(lo, hi, size))
+    b, c = rnd((G, C, L, S)), rnd((G, C, L, S))
+    gy, gst = rnd((BH, C, L, D)), rnd((BH, C, S, D))
+    before = ssd.LAUNCHES["ssd_chunk_bwd"]
+    got = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)
+    assert ssd.LAUNCHES["ssd_chunk_bwd"] == before + 1
+    again = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)
+    want = ssd.ssd_intra_chunk_bwd_plain(x, dt, a, b, c, gy, gst)
+    torch.cuda.synchronize()
+    for x_, y_, z_ in zip(got, want, again):
+        assert x_.shape == y_.shape and torch.isfinite(x_).all()
+        assert _rel(x_, y_) <= 1e-4
+        assert torch.equal(x_, z_)
+
+
+def test_autograd_functions_launch_backward_kernels(dev):
+    """ops.attention and ops.ssd_scan under autograd on the card: the
+    backward kernels run (no plain version), and the gradients match the
+    same graph on the CPU (fp32, 1e-4 of max|grad|)."""
+    from repro_torch.kernels import flash_attention as fa, mamba2_ssd as ssd
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 128, 4, 32, generator=g)
+    k, v = (torch.randn(2, 128, 2, 32, generator=g) for _ in range(2))
+    x = torch.randn(6, 128, 16, generator=g)
+    dt = 0.1 + torch.rand(6, 128, generator=g)
+    a = -0.5 * torch.rand(6, 128, generator=g)
+    b, c = (torch.randn(2, 128, 8, generator=g) for _ in range(2))
+
+    def grads(device):
+        ins = [t.to(device).requires_grad_() for t in (q, k, v, x, dt, a, b, c)]
+        o = ops.attention(*ins[:3], causal=True)
+        y, h = ops.ssd_scan(*ins[3:], chunk=64)
+        (o.square().sum() + y.square().sum() + h.sum()).backward()
+        return [t.grad.cpu() for t in ins]
+
+    fa.reset_launches()
+    ssd.reset_launches()
+    card = grads(dev)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd"] == 1
+    assert ssd.LAUNCHES["ssd_chunk_bwd"] == 1
+    for got, want in zip(card, grads("cpu")):
+        assert _rel(got, want) <= 1e-4
+
+
 @pytest.mark.parametrize("arch,kernel", [
     ("qwen3-4b", "flash_attention"), ("mamba2-130m", "ssd_chunk"),
 ])

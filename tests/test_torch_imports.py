@@ -77,3 +77,15 @@ def test_guard_reaches_the_search_and_distributed_slice():
         path = os.path.join(PORT, rel)
         assert path in files, rel
         assert "REPRO_" not in open(path, encoding="utf-8").read(), rel
+
+
+def test_guard_reaches_the_training_slice():
+    """The training modules (data, losses, optimizer, train step,
+    gradient compression, launcher, example twin) are among the guarded
+    sources."""
+    files = set(_sources())
+    for rel in ("data/pipeline.py", "models/losses.py", "train/optimizer.py",
+                "train/train_step.py", "train/grad_compress.py",
+                "launch/train.py", "examples/train_lm.py",
+                "configs/llama3_2_3b.py"):
+        assert os.path.join(PORT, rel) in files, rel

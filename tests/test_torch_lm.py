@@ -63,7 +63,9 @@ def test_config_matches_reference(arch):
 
 
 def test_only_served_models_are_registered():
-    assert set(ARCHS) == set(MODELS)
+    """The served models and llama3.2-3b (the training launcher's
+    default) are registered; the rest wait in ROADMAP."""
+    assert set(ARCHS) == set(MODELS) | {"llama3.2-3b"}
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("llama3-405b")
 

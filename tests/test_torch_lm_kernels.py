@@ -1,5 +1,10 @@
 """The port's LM kernels (flash attention K4, Mamba-2 SSD chunk K5) and
-their ops wrappers, held against the JAX package on the same inputs.
+their ops wrappers, held against the JAX package on the same inputs;
+and their backward passes (the training path), held against float64
+``gradcheck`` of the plain forwards and against ``jax.vjp`` of the
+reference's jnp functions, which the reference differentiates (its
+Pallas kernels have no backward).  The backward kernels themselves run
+only on the card (``tests/test_torch_cuda.py``, which imports no JAX).
 
 The CUDA kernels run only on the card; here the wrappers take their
 plain PyTorch versions (CPU tensors) and are held against the Pallas
@@ -14,9 +19,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.models import layers as jL  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.mamba2_ssd import ssd_intra_chunk as jax_ssd_chunk  # noqa: E402
@@ -24,6 +31,7 @@ from repro.kernels.mamba2_ssd import ssd_intra_chunk as jax_ssd_chunk  # noqa: E
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 
 
 def _t(x, dtype=torch.float32):
@@ -393,3 +401,224 @@ def test_editing_a_header_renames_the_library(name, monkeypatch, tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     after = build._out_path(name)
     assert after != before and after.parent == before.parent
+
+
+# ------------------------------------------------------------- backward
+class _PlainFlash(torch.autograd.Function):
+    """The plain forward under the plain backward's formulas."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset):
+        o, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                          q_offset=q_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        causal, q_offset = ctx.args
+        return (*fa.flash_attention_bwd_plain(*ctx.saved_tensors, do,
+                                              causal=causal,
+                                              q_offset=q_offset), None, None)
+
+
+class _PlainSSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c):
+        ctx.save_for_backward(x, dt, a, b, c)
+        return ssd.ssd_intra_chunk_plain(x, dt, a, b, c)
+
+    @staticmethod
+    def backward(ctx, gy, gst):
+        return ssd.ssd_intra_chunk_bwd_plain(*ctx.saved_tensors, gy, gst)
+
+
+@pytest.mark.parametrize("bh,group,sq,sk,causal,q_offset", [
+    (4, 1, 64, 64, True, 0),
+    (4, 4, 64, 128, True, 64),    # GQA group 4, causal with q_offset
+    (4, 2, 128, 64, False, 0),    # full attention
+    (8, 4, 128, 192, True, 64),   # two query tiles, q_offset
+])
+def test_flash_bwd_plain_gradcheck(bh, group, sq, sk, causal, q_offset):
+    """The explicit backward formulas against float64 finite differences
+    of the plain forward (gradcheck), and against autograd of it."""
+    g = torch.Generator().manual_seed(bh + sq + sk)
+    q = torch.randn(bh, sq, 4, generator=g, dtype=torch.float64)
+    k = torch.randn(bh // group, sk, 4, generator=g, dtype=torch.float64)
+    v = torch.randn(bh // group, sk, 4, generator=g, dtype=torch.float64)
+    ins = tuple(t.requires_grad_() for t in (q, k, v))
+    assert torch.autograd.gradcheck(
+        lambda *t: _PlainFlash.apply(*t, causal, q_offset), ins, fast_mode=True)
+    o = fa.flash_attention_plain(*ins, causal=causal, q_offset=q_offset)
+    do = torch.randn(o.shape, generator=g, dtype=torch.float64)
+    want = torch.autograd.grad(o, ins, do)
+    o2, lse = fa.flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                       causal=causal, q_offset=q_offset,
+                                       return_lse=True)
+    got = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), o2,
+                                       lse, do, causal=causal, q_offset=q_offset)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("G,lo,hi", [(4, 0.01, 0.5), (1, 0.01, 0.5), (2, 0.5, 2.0)])
+def test_ssd_bwd_plain_gradcheck(G, lo, hi):
+    """The explicit K5 backward against float64 finite differences of the
+    plain forward, 4 B/C groups of one head, one group of 4, and 2 of 2."""
+    g = torch.Generator().manual_seed(G)
+    BH, C, L, D, S = 4, 2, 6, 3, 2
+    x = torch.randn(BH, C, L, D, generator=g, dtype=torch.float64)
+    dt = 0.1 + 0.9 * torch.rand(BH, C, L, generator=g, dtype=torch.float64)
+    a = -(lo + (hi - lo) * torch.rand(BH, C, L, generator=g, dtype=torch.float64))
+    b = torch.randn(G, C, L, S, generator=g, dtype=torch.float64)
+    c = torch.randn(G, C, L, S, generator=g, dtype=torch.float64)
+    ins = tuple(t.requires_grad_() for t in (x, dt, a, b, c))
+    assert torch.autograd.gradcheck(_PlainSSD.apply, ins, fast_mode=True)
+    y, st = ssd.ssd_intra_chunk_plain(*ins)
+    gy, gst = torch.randn_like(y), torch.randn_like(st)
+    want = torch.autograd.grad((y, st), ins, (gy, gst))
+    got = ssd.ssd_intra_chunk_bwd_plain(*(t.detach() for t in ins), gy, gst)
+    for p_, w in zip(got, want):
+        torch.testing.assert_close(p_, w, rtol=1e-10, atol=1e-10)
+
+
+def test_ssd_strong_decay_gives_finite_plain_grads():
+    """Decays of -5..-10 a step overflow exp(cum_i - cum_j) above the
+    diagonal: the plain forward's autograd and the plain backward take
+    exp only of selected entries, so every gradient is finite (a select
+    after exp would give 0 · inf = NaN), and the two agree."""
+    rng = np.random.default_rng(9)
+    BH, C, L, D, S = 3, 2, 32, 8, 4
+    x, dt, a, b, c = (
+        _t(rng.normal(size=(BH, C, L, D))), _t(rng.uniform(0.1, 1.0, (BH, C, L))),
+        _t(-rng.uniform(5.0, 10.0, (BH, C, L))), _t(rng.normal(size=(BH, C, L, S))),
+        _t(rng.normal(size=(BH, C, L, S))))
+    ins = tuple(t.requires_grad_() for t in (x, dt, a, b, c))
+    y, st = ssd.ssd_intra_chunk_plain(*ins)
+    gy, gst = torch.ones_like(y), torch.ones_like(st)
+    auto = torch.autograd.grad((y, st), ins, (gy, gst))
+    plain = ssd.ssd_intra_chunk_bwd_plain(*(t.detach() for t in ins), gy, gst)
+    for p_, w in zip(plain, auto):
+        assert torch.isfinite(p_).all() and torch.isfinite(w).all()
+        torch.testing.assert_close(p_, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sq,sk,h,hkv,d,causal", [
+    (128, 128, 4, 4, 16, True),
+    (256, 256, 8, 2, 32, True),    # GQA, two query tiles of the reference
+    (128, 256, 4, 1, 16, True),    # MQA chunk with q_offset
+    (128, 512, 4, 2, 16, False),   # full attention (see below)
+])
+def test_attention_vjp_matches_reference(sq, sk, h, hkv, d, causal):
+    """``ops.attention`` under autograd (FlashAttentionFn; on the CPU the
+    plain forward and backward) against ``jax.vjp`` of the reference
+    model's ``blockwise_attention``, rtol/atol 2e-4.  Full attention runs
+    at sk = 512, its key block: at other lengths the reference pads the
+    keys with zeros and, unmasked without causality, attends to them
+    (kept as found, ROADMAP.md queue 3; its models are causal)."""
+    rng = np.random.default_rng(sq + sk + h + d)
+    q = rng.normal(size=(2, sq, h, d)).astype(np.float32)
+    k = rng.normal(size=(2, sk, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(2, sk, hkv, d)).astype(np.float32)
+    do = rng.normal(size=(2, sq, h, d)).astype(np.float32)
+    off = sk - sq if causal else 0
+    want_o, vjp = jax.vjp(
+        lambda *t: jL.blockwise_attention(*t, causal=causal, q_offset=off),
+        *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    ins = [_t(x).requires_grad_() for x in (q, k, v)]
+    fa.reset_launches()
+    o = ops.attention(*ins, causal=causal, q_offset=off)
+    o.backward(_t(do))
+    assert fa.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
+    np.testing.assert_allclose(_np(o.detach()), np.asarray(want_o), rtol=2e-4,
+                               atol=2e-4)
+    for t, w in zip(ins, want):
+        np.testing.assert_allclose(_np(t.grad), np.asarray(w), rtol=2e-4,
+                                   atol=2e-4)
+
+
+@pytest.mark.parametrize("T,H,Dh,N,chunk", [(128, 3, 8, 4, 64), (64, 2, 16, 8, 16)])
+def test_ssd_scan_vjp_matches_reference(T, H, Dh, N, chunk):
+    """``ops.ssd_scan`` under autograd (SSDIntraChunkFn for the chunks,
+    plain PyTorch for the inter-chunk recurrence) against ``jax.vjp`` of
+    the reference model's ``_ssd_chunked_jnp`` (head-free B/C), with an
+    initial state, rtol/atol 2e-4."""
+    rng = np.random.default_rng(T + H)
+    B = 2
+    xh = rng.normal(size=(B, T, H, Dh)).astype(np.float32)
+    dt = rng.uniform(0.1, 1.0, (B, T, H)).astype(np.float32)
+    a = -rng.uniform(0.01, 0.5, (B, T, H)).astype(np.float32)
+    b = rng.normal(size=(B, T, N)).astype(np.float32)
+    c = rng.normal(size=(B, T, N)).astype(np.float32)
+    s0 = rng.normal(size=(B, H, N, Dh)).astype(np.float32)
+    gy = rng.normal(size=(B, T, H, Dh)).astype(np.float32)
+    gh = rng.normal(size=(B, H, N, Dh)).astype(np.float32)
+    (want_y, want_h), vjp = jax.vjp(
+        lambda *t: jL._ssd_chunked_jnp(*t[:5], chunk, t[5]),
+        *map(jnp.asarray, (xh, dt, a, b, c, s0)))
+    want = vjp((jnp.asarray(gy), jnp.asarray(gh)))
+    ins = [_t(x).requires_grad_() for x in (xh, dt, a, b, c, s0)]
+    ssd.reset_launches()
+    y, h = L._ssd_chunked(*ins[:5], chunk, ins[5])
+    torch.autograd.backward((y, h), (_t(gy), _t(gh)))
+    assert ssd.LAUNCHES == {"ssd_chunk": 0, "ssd_chunk_bwd": 0}
+    np.testing.assert_allclose(_np(y.detach()), np.asarray(want_y), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(_np(h.detach()), np.asarray(want_h), rtol=2e-4,
+                               atol=2e-4)
+    for t, w in zip(ins, want):
+        np.testing.assert_allclose(_np(t.grad), np.asarray(w), rtol=2e-4,
+                                   atol=2e-4)
+
+
+@pytest.mark.parametrize("op", ["attention", "ssd_scan"])
+def test_forward_is_the_same_with_and_without_autograd(op):
+    """Serving (inference mode, no gradient wanted) and training call the
+    same autograd function: the outputs are bitwise the same, and only
+    the training call records a backward."""
+    rng = np.random.default_rng(11)
+    if op == "attention":
+        shapes = [(1, 128, 4, 16), (1, 128, 2, 16), (1, 128, 2, 16)]
+        fn = ops.attention
+    else:
+        shapes = [(4, 128, 8), (4, 128), (4, 128), (2, 128, 4), (2, 128, 4)]
+        fn = ops.ssd_scan
+    ins = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    if op == "ssd_scan":
+        ins[2] = -np.abs(ins[2]) * 0.1
+    with torch.inference_mode():
+        served = fn(*map(_t, ins))
+    trained = fn(*(_t(x).requires_grad_() for x in ins))
+    served = served if isinstance(served, tuple) else (served,)
+    trained = trained if isinstance(trained, tuple) else (trained,)
+    for s, t in zip(served, trained):
+        assert s.grad_fn is None and t.grad_fn is not None
+        assert torch.equal(s, t.detach())
+
+
+@pytest.mark.parametrize("name", ["flash_attention_bwd", "ssd_chunk_bwd"])
+def test_backward_cuda_call_without_library_raises(name, monkeypatch, tmp_path):
+    """With the device check answering "CUDA" and no kernel library to
+    build, the backward wrappers raise; they never run the plain
+    version."""
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
+    z = torch.zeros
+    if name == "flash_attention_bwd":
+        mod, call = fa, lambda: fa.flash_attention_bwd(
+            z(4, 64, 16), z(2, 64, 16), z(2, 64, 16), z(4, 64, 16), z(4, 64),
+            z(4, 64, 16))
+        monkeypatch.setattr(fa, "flash_attention_bwd_plain", None)
+    else:
+        mod, call = ssd, lambda: ssd.ssd_intra_chunk_bwd(
+            z(4, 2, 16, 8), z(4, 2, 16), z(4, 2, 16), z(2, 2, 16, 4),
+            z(2, 2, 16, 4), z(4, 2, 16, 8), z(4, 2, 4, 8))
+        monkeypatch.setattr(ssd, "ssd_intra_chunk_bwd_plain", None)
+    monkeypatch.setattr(mod, "on_cpu", lambda *t: False)
+    before = dict(mod.LAUNCHES)
+    with pytest.raises((RuntimeError, OSError)):
+        call()
+    assert mod.LAUNCHES == before
