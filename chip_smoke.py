@@ -11,9 +11,11 @@ points at full width:
                  build seconds and the card's name and power limit;
      sass      — the wgmma kernels (tiled_gemm's TMA and in-place
                  kernels, fused_gemm, flash_attention's bf16 kernel,
-                 ssd_chunk's wgmma kernel) must hold HGMMA in their SASS
-                 (cuobjdump), the four bf16 instantiations of tiled_gemm's
-                 in-place kernel and of fused_gemm among them;
+                 ssd_chunk's and ssd_chunk_bwd's wgmma kernels) must hold
+                 HGMMA in their SASS (cuobjdump), the four bf16
+                 instantiations of tiled_gemm's in-place kernel and of
+                 fused_gemm among them; flash_attention_bwd's bf16 kernel
+                 (mma.sync) must hold HMMA;
   2. kernels   — each contraction kernel (tiled_gemm, fused_gemm,
                  chain_gemm) at the shapes of the 30-qubit plan (its
                  largest tiled step, largest fused step, longest chain),
@@ -44,12 +46,15 @@ points at full width:
                  route, the kernel alone on the profiler's device clock,
                  beside its simt route at the same shape, and an
                  overflowing decay through the wgmma route); the backward
-                 kernels at the training shapes: flash_attention_bwd at
-                 qwen3-4b's (bf16, bh 64 on 16 kv heads, s 512, d 128,
-                 causal; <= 2e-2 of max|plain| per gradient, beside
-                 SDPA's autograd backward) and ssd_chunk_bwd at
-                 mamba2-130m's (fp32, batch 4 x 512; <= 1e-4), each run
-                 twice for the same bits;
+                 kernels at the training shapes, each route: flash_attention_bwd
+                 at qwen3-4b's (bf16, bh 64 on 16 kv heads, s 512, d 128,
+                 causal; <= 2e-2 of max|plain| per gradient; its mma
+                 route, which bf16 takes, beside its simt route forced on
+                 the same inputs and SDPA's autograd backward) and
+                 ssd_chunk_bwd at mamba2-130m's (fp32, batch 4 x 512;
+                 <= 1e-4, also at overflowing decays; its wgmma route
+                 beside its simt route forced), each route run twice for
+                 the same bits;
   3. amplitude — simulate_amplitude on sycamore_like(5, 6, 14), 30 qubits,
                  every slice, held against the port's statevector on the
                  card (relative error <= 1e-3: fp32 sums over ~150 steps
@@ -156,8 +161,10 @@ points at full width:
                  shrink for 200 steps (batch 4 x 128, lr 5e-3) must lower
                  its loss by > 0.1, through flash_attention's forward and
                  backward kernels.  flash_attention's and ssd_chunk's backward
-                 kernels must be launched (the counts are zeroed before
-                 each model and read after it);
+                 kernels must be launched, qwen3-4b's bf16 steps through
+                 flash_attention_bwd's mma route and every mamba2-130m
+                 backward through ssd_chunk_bwd's wgmma route (the counts
+                 are zeroed before each model and read after it);
   7. kernels   — one JSON line listing every kernel with its launches on
                  its path (phases 3-5, engine, search, resume and
                  multihost for the contraction kernels, the
@@ -235,8 +242,8 @@ DESIGNS = {
     "chain_gemm": "cluster-simt-fp32",
     "flash_attention": "wgmma-bf16",  # its fp32 inputs take simt-fp32
     "ssd_chunk": "3xtf32-wgmma",  # shapes outside its rule take simt-fp32
-    "flash_attention_bwd": "simt-ffma",  # bf16 or fp32 in, fp32 sums
-    "ssd_chunk_bwd": "simt-ffma-fp32",
+    "flash_attention_bwd": "mma-bf16",  # its fp32 inputs take simt-ffma
+    "ssd_chunk_bwd": "3xtf32-wgmma",  # shapes outside its rule take simt-ffma-fp32
 }
 # how each bf16 route computes
 BF16_DESIGNS = {"tiled_gemm": "bf16-wgmma", "fused_gemm": "bf16-wgmma"}
@@ -246,14 +253,19 @@ WGMMA_KERNELS = {
     "fused_gemm": ("gemm", "fused_gemm_kernel"),
     "flash_attention": ("flash_attention", "flash_attention_wgmma_kernel"),
     "ssd_chunk": ("mamba2_ssd", "ssd_chunk_wgmma_kernel"),
+    "ssd_chunk_bwd": ("mamba2_ssd", "ssd_chunk_bwd_wgmma_kernel"),
+}
+# the kernels that must run on the tensor cores through mma.sync (HMMA)
+MMA_KERNELS = {
+    "flash_attention_bwd": ("flash_attention", "fa_bwd_mma_kernel"),
 }
 # the kernels whose bf16 instantiations (the third template argument
 # true) must hold HGMMA: 4 each (complex or real, 64- or 128-wide tile)
 BF16_INSTANCES = ("tiled_gemm", "fused_gemm")
 # kernels whose share of a trace's device time the traces report
 TRACED_KERNELS = ("tiled_gemm", "fused_gemm", "chain_gemm",
-                  "flash_attention", "ssd_chunk", "fa_bwd", "ssd_chunk_bwd",
-                  "ssd_bwd_group_sum")
+                  "flash_attention", "ssd_chunk", "fa_bwd", "fa_bwd_mma",
+                  "ssd_chunk_bwd", "ssd_chunk_bwd_wgmma", "ssd_bwd_group_sum")
 # the bf16 routes the precision phase launches: their records in the
 # kernels line.  chain_gemm's bf16 route (per-step precisions) is held
 # against its plain twin in the kernels phase, but no plan of this
@@ -715,28 +727,39 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
     )
 
     # K5 backward at the same (training) shape: gradients of y and of the
-    # chunk states in, the five input gradients out
+    # chunk states in, the five input gradients out; the wgmma route the
+    # shape takes, and the simt route forced, each against the plain
+    # version, at overflowing decays too, and twice for the same bits
     gy = torch.randn(B * H, C, L, D, generator=gen, device=dev)
     gst = torch.randn(B * H, C, N, D, generator=gen, device=dev)
-    got = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)
-    again = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)
     want = ssd.ssd_intra_chunk_bwd_plain(x, dt, a, b, c, gy, gst)
-    torch.cuda.synchronize()
-    check(all(bool(torch.isfinite(g).all()) for g in got),
-          "ssd_chunk_bwd: non-finite")
-    rels = [rel_err(torch, [g], [w])[1] for g, w in zip(got, want)]
-    err = max(rel_err(torch, [g], [w])[0] for g, w in zip(got, want))
-    check(max(rels) <= KERNEL_TOL, f"ssd_chunk_bwd disagrees: {rels}")
-    check(all(torch.equal(g, h) for g, h in zip(got, again)),
-          "ssd_chunk_bwd: two runs differ")
-    big = ssd.ssd_intra_chunk_bwd(x, dt, a_big, b, c, gy, gst)
     big_want = ssd.ssd_intra_chunk_bwd_plain(x, dt, a_big, b, c, gy, gst)
-    torch.cuda.synchronize()
-    big_rel = max(rel_err(torch, [g], [w])[1] for g, w in zip(big, big_want))
-    check(all(bool(torch.isfinite(g).all()) for g in big),
-          "ssd_chunk_bwd: non-finite with overflowing decays")
-    check(big_rel <= KERNEL_TOL, f"ssd_chunk_bwd disagrees on overflow: {big_rel}")
-    nbytes = 4.0 * sum(t.numel() for t in (x, dt, a, b, c, gy, gst, *got))
+    rels, big_rels = {}, {}
+    for route in ("wgmma", "simt"):
+        before = ssd.SSD_BWD_ROUTES[route]
+        force = None if route == "wgmma" else route
+        got = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst, route=force)
+        check(ssd.SSD_BWD_ROUTES[route] == before + 1,
+              f"ssd_chunk_bwd: the call did not take the {route} route")
+        again = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst, route=force)
+        big = ssd.ssd_intra_chunk_bwd(x, dt, a_big, b, c, gy, gst, route=force)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g).all()) for g in got + big),
+              f"ssd_chunk_bwd ({route}): non-finite")
+        rels[route] = [rel_err(torch, [g], [w])[1] for g, w in zip(got, want)]
+        big_rels[route] = max(rel_err(torch, [g], [w])[1]
+                              for g, w in zip(big, big_want))
+        check(max(rels[route]) <= KERNEL_TOL,
+              f"ssd_chunk_bwd ({route}) disagrees: {rels[route]}")
+        check(big_rels[route] <= KERNEL_TOL,
+              f"ssd_chunk_bwd ({route}) disagrees on overflow: {big_rels[route]}")
+        check(all(torch.equal(g, h) for g, h in zip(got, again)),
+              f"ssd_chunk_bwd ({route}): two runs differ")
+        if route == "wgmma":
+            err = max(rel_err(torch, [g], [w])[0] for g, w in zip(got, want))
+        del got, again, big
+    # each input read once, each output (want's shapes) written once
+    nbytes = 4.0 * sum(t.numel() for t in (x, dt, a, b, c, gy, gst, *want))
     # the least arithmetic: C B^T once per (group, chunk); per cell the
     # masked products gM = gy Xd^T, M^T gy, G B, G^T C (lower triangle)
     # and the full B gst and Xd gst^T, each as three TF32 products
@@ -746,15 +769,32 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
         2.0 * tri * (2 * D + 2 * N) + 4.0 * L * N * D)
     b_ms, b_by = bound(3.0 * flops, nbytes, TF32_PEAK)
     ffma_ms, _ = bound(flops, nbytes, FP32_PEAK)
+
+    def k5_bwd(route=None):
+        return lambda: ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst,
+                                               route=route)
+
     out["ssd_chunk_bwd"] = dict(
-        shape=dict(BH=B * H, C=C, L=L, D=D, S=N, groups=B),
-        max_abs_err=err, rel_err=max(rels), overflow_rel_err=big_rel,
-        ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)),
+        shape=dict(BH=B * H, C=C, L=L, D=D, S=N, groups=B,
+                   heads_per_block=out["ssd_chunk"]["shape"]["heads_per_block"]),
+        max_abs_err=err, rel_err=max(rels["wgmma"]),
+        simt_rel_err=max(rels["simt"]),
+        overflow_rel_err=big_rels["wgmma"],
+        simt_overflow_rel_err=big_rels["simt"],
+        # the call with CUDA events (the kernel table's reading), each
+        # route; then the kernels alone on the device clock: the wgmma
+        # kernel, its group sum of the block shares, the simt route's two
+        ms=cuda_ms(torch, k5_bwd()),
+        simt_ms=cuda_ms(torch, k5_bwd("simt")),
+        kernel_ms=device_ms(torch, k5_bwd(), "ssd_chunk_bwd_wgmma"),
+        group_sum_ms=device_ms(torch, k5_bwd(), "ssd_bwd_group_sum"),
+        simt_kernel_ms=device_ms(torch, k5_bwd("simt"), "ssd_chunk_bwd_kernel"),
+        simt_group_sum_ms=device_ms(torch, k5_bwd("simt"), "ssd_bwd_group_sum"),
         plain_ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk_bwd_plain(
             x, dt, a, b, c, gy, gst)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, ffma_bound_ms=ffma_ms,
     )
-    del x, dt, a, b, c, gy, gst, got, again, want, big, big_want
+    del x, dt, a, b, c, gy, gst, want, big_want
 
     # K4 backward at qwen3-4b's training shape (batch 2 x 512): 32 query
     # heads on 8 kv heads of 128, causal, bf16
@@ -764,39 +804,64 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
     v = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
     do = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
     o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
     _, want_lse = fa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
-    torch.cuda.synchronize()
-    check(all(bool(torch.isfinite(g).all()) for g in got),
-          "flash_attention_bwd: non-finite")
-    rels = [rel_err(torch, [g.float()], [w.float()])[1] for g, w in zip(got, want)]
-    err = max(rel_err(torch, [g.float()], [w.float()])[0]
-              for g, w in zip(got, want))
     lse_err = float((lse - want_lse).abs().max())
-    check(max(rels) <= FLASH_BWD_TOL, f"flash_attention_bwd disagrees: {rels}")
     check(lse_err <= 1e-3, f"flash_attention lse disagrees: {lse_err}")
-    check(all(torch.equal(g, h) for g, h in zip(got, again)),
-          "flash_attention_bwd: two runs differ")
+    # the mma route bf16 takes, and the simt route forced on the same
+    # inputs, each against the plain version and twice for the same bits
+    rels = {}
+    for route in ("mma", "simt"):
+        before = fa.BWD_ROUTES[route]
+        force = None if route == "mma" else route
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                     route=force)
+        check(fa.BWD_ROUTES[route] == before + 1,
+              f"flash_attention_bwd: the call did not take the {route} route")
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                       route=force)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"flash_attention_bwd ({route}): non-finite")
+        rels[route] = [rel_err(torch, [g.float()], [w.float()])[1]
+                       for g, w in zip(got, want)]
+        check(max(rels[route]) <= FLASH_BWD_TOL,
+              f"flash_attention_bwd ({route}) disagrees: {rels[route]}")
+        check(all(torch.equal(g, h) for g, h in zip(got, again)),
+              f"flash_attention_bwd ({route}): two runs differ")
+        if route == "mma":
+            err = max(rel_err(torch, [g.float()], [w.float()])[0]
+                      for g, w in zip(got, want))
+            outs = got
+        del again
     pairs = S * (S + 1) // 2
     # the least arithmetic: five products over the causal pairs (S = QK^T
     # to recompute P, dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K)
     flops = 10.0 * B * H * pairs * d
     nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + o.numel() + do.numel()
-                    + sum(g.numel() for g in got)) + 4.0 * lse.numel()
+                    + sum(g.numel() for g in outs)) + 4.0 * lse.numel()
     b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
     q4, k4, v4 = (t.view(B, -1, S, d).detach().requires_grad_()
                   for t in (q, k, v))
     o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                         enable_gqa=True)
     do4 = do.view(B, H, S, d)
+
+    def k4_bwd(route=None):
+        return lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                              route=route)
+
     out["flash_attention_bwd"] = dict(
         shape=dict(bh=B * H, bh_kv=B * KV, sq=S, sk=S, d=d, dtype="bf16",
                    causal=True),
-        max_abs_err=err, rel_err=rels, lse_abs_err=lse_err,
-        ms=cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                                         causal=True)),
+        max_abs_err=err, rel_err=rels["mma"], simt_rel_err=rels["simt"],
+        lse_abs_err=lse_err,
+        # the call with CUDA events (the kernel table's reading), each
+        # route; then each route's kernels on the device clock (fa_bwd_*)
+        ms=cuda_ms(torch, k4_bwd()),
+        simt_ms=cuda_ms(torch, k4_bwd("simt")),
+        kernel_ms=device_ms(torch, k4_bwd(), "fa_bwd"),
+        simt_kernel_ms=device_ms(torch, k4_bwd("simt"), "fa_bwd"),
         fwd_lse_ms=cuda_ms(torch, lambda: fa.flash_attention(
             q, k, v, causal=True, return_lse=True)),
         fwd_ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True)),
@@ -1641,7 +1706,9 @@ def main() -> int:
 
     def lm_counts() -> dict:
         return {**fa.LAUNCHES, **ssd.LAUNCHES,
-                "ssd_routes": dict(ssd.SSD_ROUTES)}
+                "ssd_routes": dict(ssd.SSD_ROUTES),
+                "flash_bwd_routes": dict(fa.BWD_ROUTES),
+                "ssd_bwd_routes": dict(ssd.SSD_BWD_ROUTES)}
 
     def lm_reset() -> None:
         fa.reset_launches()
@@ -1661,10 +1728,15 @@ def main() -> int:
     print(smi, flush=True)
     hgmma = {name: build.kernels_with(lib, kernel, "HGMMA")
              for name, (lib, kernel) in WGMMA_KERNELS.items()}
-    emit(phase="sass", hgmma=hgmma)
+    hmma = {name: build.kernels_with(lib, kernel, "HMMA")
+            for name, (lib, kernel) in MMA_KERNELS.items()}
+    emit(phase="sass", hgmma=hgmma, hmma=hmma)
     for name, found in hgmma.items():
         check(bool(found) and all(found.values()),
               f"{name}: no HGMMA in the SASS of {WGMMA_KERNELS[name][1]}")
+    for name, found in hmma.items():
+        check(bool(found) and all(found.values()),
+              f"{name}: no HMMA in the SASS of {MMA_KERNELS[name][1]}")
     for name in BF16_INSTANCES:
         bf16 = [k for k in hgmma[name] if k.endswith("Lb1EEv9FusedArgs")]
         check(len(bf16) == 4, f"{name}: bf16 instantiations {bf16}")
@@ -1896,6 +1968,14 @@ def main() -> int:
     ssd_routes = launches["train:mamba2-130m"]["ssd_routes"]
     check(ssd_routes["simt"] == 0,
           f"ssd_chunk took the simt route training mamba2-130m: {ssd_routes}")
+    fa_routes = launches["train:qwen3-4b"]["flash_bwd_routes"]
+    check(fa_routes["mma"] > 0,
+          f"flash_attention_bwd's mma route was not launched training "
+          f"qwen3-4b: {fa_routes}")
+    ssd_routes = launches["train:mamba2-130m"]["ssd_bwd_routes"]
+    check(ssd_routes["simt"] == 0 and ssd_routes["wgmma"]
+          == launches["train:mamba2-130m"]["ssd_chunk_bwd"],
+          f"ssd_chunk_bwd took the simt route training mamba2-130m: {ssd_routes}")
 
     # 7. every kernel went through its path ---------------------------
     total = {k: sum(launches[ph][k]

@@ -96,6 +96,11 @@ def _declare_flash_attention(lib: ctypes.CDLL) -> None:
         _INT, _INT, _INT, _F32, _INT, _P,
     ]
     lib.repro_flash_attention_bwd.restype = _INT
+    lib.repro_flash_attention_bwd_mma.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT,
+        _INT, _F32, _INT, _P,
+    ]
+    lib.repro_flash_attention_bwd_mma.restype = _INT
 
 
 def _declare_mamba2_ssd(lib: ctypes.CDLL) -> None:
@@ -117,6 +122,13 @@ def _declare_mamba2_ssd(lib: ctypes.CDLL) -> None:
         _INT, _INT, _INT, _INT, _P,
     ]
     lib.repro_ssd_chunk_bwd.restype = _INT
+    lib.repro_ssd_chunk_bwd_wgmma_smem.argtypes = [_INT]
+    lib.repro_ssd_chunk_bwd_wgmma_smem.restype = _I64
+    lib.repro_ssd_chunk_bwd_wgmma.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT,
+        _INT, _INT, _INT, _I64, _INT, _P,
+    ]
+    lib.repro_ssd_chunk_bwd_wgmma.restype = _INT
 
 
 _DECLARE = {

@@ -1,8 +1,10 @@
 // Flash attention for Hopper (sm_90a).  Forward: bf16 on wgmma fed by
 // TMA, fp32 by FFMA on the CUDA cores; both may also write each row's
 // logsumexp (fp32, natural log of the scaled scores) for the backward,
-// which serving does not ask for.  Backward (the training path): three
-// FFMA kernels, bf16 or fp32, described at "backward" below.
+// which serving does not ask for.  Backward (the training path), routed
+// by dtype as the forward: bf16 on the tensor cores (mma.sync, "backward,
+// bf16 on mma" below), fp32 by FFMA ("backward" below; it also takes
+// bf16 when the wrapper is asked for route "simt").
 //
 // Replaces the TPU kernel flash_attention (_flash_kernel) of
 // src/repro/kernels/flash_attention.py: causal or full softmax attention
@@ -549,10 +551,13 @@ static cudaError_t fw_launch(const void* q, const void* k, const void* v,
 // memory with a row stride of 65 floats.  The causal mask is a select (P
 // = 0 where a query precedes a key), taken before exp, never a product.
 // What bounds it on the H100: at qwen3-4b's training shape (bh 64 on 16
-// kv heads, s 512, d 128, causal) it does 7 products over the causal
-// half, 7.5 GFLOP, against 33.6 MB of traffic: the bf16 tensor-core rate
-// would make it 7.6 us, the bytes 10 us; FFMA from shared memory is far
-// slower than both (its time and bound are in PERF.md).
+// kv heads, s 512, d 128, causal) the least work is five products over
+// the causal pairs, 10.8 GFLOP (10.9 us at bf16's 989 TFLOP/s), against
+// 42.1 MB of inputs and outputs, 12.6 us at 3.35 TB/s: the bytes bound
+// it, as chip_smoke.py reckons.  These kernels do seven products over
+// whole 64 x 64 causal tiles, 16.9 GFLOP, by FFMA from shared memory at
+// a fraction of FP32's 67 TFLOP/s, and move 67 MB of fp32 shares besides
+// (written, then read by the group sum): far slower than the bound.
 __device__ __forceinline__ float fa_f32(float v) { return v; }
 __device__ __forceinline__ float fa_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -906,6 +911,474 @@ static cudaError_t fa_bwd_launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- backward, bf16 on mma
+// The bf16 route of the backward ("mma"): the same function, every product
+// on the tensor cores, and no per-head shares.  Two launches:
+//
+//   fa_bwd_dot_kernel   D_i = rowsum(dO_i * O_i), as above
+//   fa_bwd_mma_kernel   the dK/dV blocks, then the dQ blocks, in one grid
+//
+// dK/dV: one block per (kv head, 64 keys), key tile 0 (the most visible
+//   queries) first: at qwen3-4b's training shape 16 x 8 = 128 blocks, one
+//   wave.  The block walks its group's query heads in head order and, for
+//   each, the visible 64-row query tiles (Q, dO, lse and D double-buffered
+//   by cp.async), and keeps dK and dV in fp32 registers across all of
+//   them: each kv head's gradient is one ordered sum, with no fp32 share
+//   per query head and no group-sum pass.  Per query tile, 8 warps:
+//     S^T = K.Q^T and dP^T = V.dO^T, warp (kw, h) taking keys 16kw..+15
+//       and queries 32h..+31; P^T = exp(scale S^T - lse) where the query
+//       sees the key (a select before exp: 0 elsewhere), dS^T = P^T (dP^T
+//       - D); both rounded to bf16 into shared memory;
+//     dV += P^T.dO and dK += dS^T.Q, warp (kw, h) taking keys 16kw..+15
+//       and head-dim columns h*DK/2..+DK/2-1, P^T and dS^T as A fragments.
+// dQ: one block per (query head, 64 rows), the last rows (the most keys)
+//   first: over the visible key tiles (K, V double-buffered), S = Q.K^T,
+//   dP = dO.V^T, dS as above into shared memory, then dQ += dS.K.  An
+//   atomic dQ in the dK/dV blocks would make dQ's sum order vary.
+// The dQ blocks follow the dK/dV blocks in the grid, so they fill the SMs
+// that the short key tiles free while the long ones run.
+//
+// Why mma.sync (m16n8k16, bf16 in, fp32 sums) and not wgmma: every
+// product of the backward reads one operand transposed (K^T, V^T, Q^T,
+// dO^T, P^T, dS^T by turns).  ldmatrix(.trans) reads each of them from
+// one padded row-major tile, where wgmma would need a second, transposed
+// or swizzled copy of Q, dO, K and V per tile; P^T and dS^T go from the
+// score fragments to shared memory once and come back as A fragments.
+// At these sizes mma.sync's rate is not the limit (below).
+//
+// What bounds it on the H100: at qwen3-4b's training shape (bh 64 on 16
+// kv heads, s 512, d 128, causal) the least work is five products over
+// the causal pairs (S, dP, dV, dK, dQ), 10.8 GFLOP, 10.9 us at bf16's 989
+// TFLOP/s, against 42.1 MB of inputs and outputs (q, k, v, o, dO, dq, dk,
+// dv in bf16, lse in fp32), 12.6 us at 3.35 TB/s: the bytes.  This route
+// does seven products over whole causal 64 x 64 tiles (S and dP twice),
+// 16.9 GFLOP; the FFMA route does the same seven and moves 67 MB of fp32
+// shares besides.  Their times are in PERF.md.
+#define FM_THREADS 256
+
+template <int DK>
+struct FmSmem {
+  static constexpr int ROW = (DK + 8) * 2;   // bytes of a padded bf16 row
+  static constexpr int TILE = 64 * ROW;      // a 64-row operand tile
+  static constexpr int SROW = (64 + 8) * 2;  // a padded row of 64 scores
+  static constexpr int STILE = 64 * SROW;
+  // six operand tiles, two score tiles, four vectors of 64 floats
+  static constexpr int VEC = 6 * TILE + 2 * STILE;
+  static constexpr int TOTAL = VEC + 4 * 64 * 4;
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lane l gives the row address of row l % 8 of
+// matrix l / 8.  Without .trans, register i holds (row lane / 4, columns
+// 2 (lane % 4), +1) of matrix i; with .trans, of its transpose.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d (16x8, fp32) += a (16x16, bf16, row) . b (16x8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Address for ldsm_x4 of the A fragment (16 rows x 16 k) at (row, k) of a
+// row-major tile, or of two B fragments (16 n x 16 k) stored [n][k].
+__device__ __forceinline__ uint32_t fm_a_addr(uint32_t tile, int row_bytes,
+                                              int row, int k, int lane) {
+  return tile + (row + lane % 16) * row_bytes + (k + (lane / 16) * 8) * 2;
+}
+
+__device__ __forceinline__ uint32_t fm_b_addr(uint32_t tile, int row_bytes,
+                                              int n, int k, int lane) {
+  return tile + (n + (lane / 16) * 8 + lane % 8) * row_bytes +
+         (k + ((lane / 8) % 2) * 8) * 2;
+}
+
+// Address for ldsm_x4_t of two B fragments (16 k x 16 n) stored [k][n].
+__device__ __forceinline__ uint32_t fm_bt_addr(uint32_t tile, int row_bytes,
+                                               int k, int n, int lane) {
+  return tile + (k + ((lane / 8) % 2) * 8 + lane % 8) * row_bytes +
+         (n + (lane / 16) * 8) * 2;
+}
+
+// 64 rows of d bf16 values (row stride d) into a padded tile, by cp.async;
+// columns past d keep the zeros the block wrote at its start.
+template <int DK>
+__device__ __forceinline__ void fm_load_rows(uint32_t tile,
+                                             const __nv_bfloat16* src, int d) {
+  const int per_row = d / 8;
+  for (int e = threadIdx.x; e < 64 * per_row; e += FM_THREADS) {
+    const int r = e / per_row, c = e - r * per_row;
+    cp_async16(tile + r * FmSmem<DK>::ROW + c * 16, src + (long long)r * d + c * 8);
+  }
+}
+
+__device__ __forceinline__ void fm_load_vec(uint32_t dst, const float* src) {
+  if (threadIdx.x < 16) cp_async16(dst + threadIdx.x * 16, src + threadIdx.x * 4);
+}
+
+template <int DK>
+__device__ __forceinline__ void fm_zero(uint8_t* sm) {
+  for (int e = threadIdx.x; e < FmSmem<DK>::VEC / 16; e += FM_THREADS)
+    reinterpret_cast<uint4*>(sm)[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+}
+
+// Scores of a 16 x 32 warp tile (acc[nt][r]: row 16*rw + g + 8 (r / 2),
+// column 32*ch + 8 nt + 2 (lane % 4) + r % 2) into P and dS = P (dP - D),
+// rounded to bf16 into the score tiles (p_tile may be 0: dS only).  The
+// score rows are `rows` and its columns `cols`; which of the two is the
+// query decides the mask, the lse and D.
+template <bool KEY_ROWS>
+__device__ __forceinline__ void fm_scores(const float (&s)[4][4],
+                                          const float (&dp)[4][4],
+                                          uint8_t* p_tile, uint8_t* ds_tile,
+                                          const float* lse, const float* dsum,
+                                          int rw, int ch, int k_base,
+                                          int q_base, float sl2, int causal) {
+  const int lane = threadIdx.x % 32;
+  const float l2e = 1.4426950408889634f;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * rw + lane / 4 + 8 * h;
+      const int col = 32 * ch + 8 * nt + 2 * (lane % 4);
+      float p[2], ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int ql = KEY_ROWS ? col + c : row;   // query in its tile
+        const int kl = KEY_ROWS ? row : col + c;   // key in its tile
+        const bool hidden = causal && q_base + ql < k_base + kl;
+        const float x = s[nt][2 * h + c] * sl2 - lse[ql] * l2e;
+        p[c] = hidden ? 0.f : fw_exp2(x);
+        ds[c] = p[c] * (dp[nt][2 * h + c] - dsum[ql]);
+      }
+      const int off = row * FmSmem<64>::SROW + col * 2;
+      if (p_tile != nullptr)
+        *reinterpret_cast<uint32_t*>(p_tile + off) = pack_bf16(p[0], p[1]);
+      *reinterpret_cast<uint32_t*>(ds_tile + off) = pack_bf16(ds[0], ds[1]);
+    }
+}
+
+// acc (16 rows x DK/2 columns of the warp, fp32) * scale as bf16 into
+// out (row stride d), columns past d skipped.
+template <int DK>
+__device__ __forceinline__ void fm_store(const float (&acc)[DK / 16][4],
+                                         __nv_bfloat16* out, long long row0,
+                                         int col0, int d, float scale) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int nt = 0; nt < DK / 16; ++nt) {
+    const int col = col0 + 8 * nt + 2 * (lane % 4);
+    if (col >= d) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long r = row0 + lane / 4 + 8 * h;
+      *reinterpret_cast<uint32_t*>(out + r * d + col) =
+          pack_bf16(acc[nt][2 * h] * scale, acc[nt][2 * h + 1] * scale);
+    }
+  }
+}
+
+template <int DK>
+__device__ void fm_dkdv(uint8_t* sm, const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dsum,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int blk, int bhkv,
+                        int sq, int sk, int d, int group, int q_offset,
+                        float sm_scale, int causal) {
+  using L = FmSmem<DK>;
+  const uint32_t base = hopper::smem_u32(sm);
+  const uint32_t ks = base, vs = base + L::TILE;
+  const uint32_t qs = base + 2 * L::TILE, gs = base + 4 * L::TILE;  // x2 each
+  uint8_t* ps = sm + 6 * L::TILE;
+  uint8_t* dss = ps + L::STILE;
+  float* vec = reinterpret_cast<float*>(sm + L::VEC);  // lse[2][64], D[2][64]
+
+  const int k0 = (blk / bhkv) * 64;  // key tile 0 first
+  const int kvh = blk % bhkv;
+  int q_first = 0;  // the first query tile that sees key k0
+  if (causal) {
+    const int t = k0 - q_offset - 63;
+    q_first = t > 0 ? (t + 63) / 64 : 0;
+  }
+  const int nqt = sq / 64, per_head = max(nqt - q_first, 0);
+  const int n_it = group * per_head;
+  auto load = [&](int it, int buf) {
+    const int bh = kvh * group + it / per_head;
+    const int q0 = (q_first + it % per_head) * 64;
+    const long long row = (long long)bh * sq + q0;
+    fm_load_rows<DK>(qs + buf * L::TILE, q + row * d, d);
+    fm_load_rows<DK>(gs + buf * L::TILE, dout + row * d, d);
+    fm_load_vec(hopper::smem_u32(vec + 64 * buf), lse + row);
+    fm_load_vec(hopper::smem_u32(vec + 128 + 64 * buf), dsum + row);
+  };
+
+  fm_zero<DK>(sm);
+  fm_load_rows<DK>(ks, k + ((long long)kvh * sk + k0) * d, d);
+  fm_load_rows<DK>(vs, v + ((long long)kvh * sk + k0) * d, d);
+  if (n_it > 0) load(0, 0);
+  cp_async_commit();
+
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kw = w % 4, hw = w / 4;
+  const float sl2 = sm_scale * 1.4426950408889634f;
+  float adk[DK / 16][4], adv[DK / 16][4];
+#pragma unroll
+  for (int nt = 0; nt < DK / 16; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) adk[nt][r] = adv[nt][r] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_it) load(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t qb = qs + buf * L::TILE, gb = gs + buf * L::TILE;
+
+    // S^T = K.Q^T and dP^T = V.dO^T: keys 16kw.., queries 32hw..
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) st[nt][r] = dpt[nt][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, fm_a_addr(ks, L::ROW, 16 * kw, 16 * kk, lane));
+      ldsm_x4(av, fm_a_addr(vs, L::ROW, 16 * kw, 16 * kk, lane));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bq[4], bg[4];
+        ldsm_x4(bq, fm_b_addr(qb, L::ROW, 32 * hw + 16 * np, 16 * kk, lane));
+        ldsm_x4(bg, fm_b_addr(gb, L::ROW, 32 * hw + 16 * np, 16 * kk, lane));
+        mma_bf16(st[2 * np], ak, bq[0], bq[1]);
+        mma_bf16(st[2 * np + 1], ak, bq[2], bq[3]);
+        mma_bf16(dpt[2 * np], av, bg[0], bg[1]);
+        mma_bf16(dpt[2 * np + 1], av, bg[2], bg[3]);
+      }
+    }
+    const int q0 = (q_first + it % per_head) * 64;
+    fm_scores<true>(st, dpt, ps, dss, vec + 64 * buf, vec + 128 + 64 * buf,
+                    kw, hw, k0, q_offset + q0, sl2, causal);
+    __syncthreads();
+
+    // dV += P^T.dO, dK += dS^T.Q: keys 16kw.., columns hw*DK/2..
+    const uint32_t pb = hopper::smem_u32(ps), db = hopper::smem_u32(dss);
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) {
+      uint32_t ap[4], ad[4];
+      ldsm_x4(ap, fm_a_addr(pb, L::SROW, 16 * kw, 16 * kq, lane));
+      ldsm_x4(ad, fm_a_addr(db, L::SROW, 16 * kw, 16 * kq, lane));
+#pragma unroll
+      for (int np = 0; np < DK / 32; ++np) {
+        uint32_t bg[4], bq[4];
+        const int n = hw * (DK / 2) + 16 * np;
+        ldsm_x4_t(bg, fm_bt_addr(gb, L::ROW, 16 * kq, n, lane));
+        ldsm_x4_t(bq, fm_bt_addr(qb, L::ROW, 16 * kq, n, lane));
+        mma_bf16(adv[2 * np], ap, bg[0], bg[1]);
+        mma_bf16(adv[2 * np + 1], ap, bg[2], bg[3]);
+        mma_bf16(adk[2 * np], ad, bq[0], bq[1]);
+        mma_bf16(adk[2 * np + 1], ad, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // the scores and this buffer are free again
+  }
+  cp_async_wait<0>();
+
+  const long long row0 = (long long)kvh * sk + k0 + 16 * kw;
+  fm_store<DK>(adk, dk, row0, hw * (DK / 2), d, sm_scale);
+  fm_store<DK>(adv, dv, row0, hw * (DK / 2), d, 1.f);
+}
+
+template <int DK>
+__device__ void fm_dq(uint8_t* sm, const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dsum,
+                      __nv_bfloat16* __restrict__ dq, int blk, int bhq, int sq,
+                      int sk, int d, int group, int q_offset, float sm_scale,
+                      int causal) {
+  using L = FmSmem<DK>;
+  const uint32_t base = hopper::smem_u32(sm);
+  const uint32_t qs = base, gs = base + L::TILE;
+  const uint32_t ks = base + 2 * L::TILE, vs = base + 4 * L::TILE;  // x2 each
+  uint8_t* dss = sm + 6 * L::TILE;
+  float* vec = reinterpret_cast<float*>(sm + L::VEC);  // lse[64], D[64]
+
+  const int nqt = sq / 64;
+  const int q0 = (nqt - 1 - blk / bhq) * 64;  // the last rows first
+  const int bh = blk % bhq, kvh = bh / group;
+  int n_kt = sk / 64;
+  if (causal) n_kt = min(n_kt, (q_offset + q0 + 64 + 63) / 64);
+  auto load = [&](int t, int buf) {
+    const long long row = (long long)kvh * sk + 64 * t;
+    fm_load_rows<DK>(ks + buf * L::TILE, k + row * d, d);
+    fm_load_rows<DK>(vs + buf * L::TILE, v + row * d, d);
+  };
+
+  fm_zero<DK>(sm);
+  const long long qrow = (long long)bh * sq + q0;
+  fm_load_rows<DK>(qs, q + qrow * d, d);
+  fm_load_rows<DK>(gs, dout + qrow * d, d);
+  fm_load_vec(hopper::smem_u32(vec), lse + qrow);
+  fm_load_vec(hopper::smem_u32(vec + 64), dsum + qrow);
+  load(0, 0);
+  cp_async_commit();
+
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qw = w % 4, hw = w / 4;
+  const float sl2 = sm_scale * 1.4426950408889634f;
+  float adq[DK / 16][4];
+#pragma unroll
+  for (int nt = 0; nt < DK / 16; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) adq[nt][r] = 0.f;
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_kt) load(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t kb = ks + buf * L::TILE, vb = vs + buf * L::TILE;
+
+    // S = Q.K^T and dP = dO.V^T: queries 16qw.., keys 32hw..
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[nt][r] = dp[nt][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      uint32_t aq[4], ag[4];
+      ldsm_x4(aq, fm_a_addr(qs, L::ROW, 16 * qw, 16 * kk, lane));
+      ldsm_x4(ag, fm_a_addr(gs, L::ROW, 16 * qw, 16 * kk, lane));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, fm_b_addr(kb, L::ROW, 32 * hw + 16 * np, 16 * kk, lane));
+        ldsm_x4(bv, fm_b_addr(vb, L::ROW, 32 * hw + 16 * np, 16 * kk, lane));
+        mma_bf16(s[2 * np], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[2 * np], ag, bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], ag, bv[2], bv[3]);
+      }
+    }
+    fm_scores<false>(s, dp, nullptr, dss, vec, vec + 64, qw, hw, 64 * t,
+                     q_offset + q0, sl2, causal);
+    __syncthreads();
+
+    // dQ += dS.K: queries 16qw.., columns hw*DK/2..
+    const uint32_t db = hopper::smem_u32(dss);
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) {
+      uint32_t ad[4];
+      ldsm_x4(ad, fm_a_addr(db, L::SROW, 16 * qw, 16 * kq, lane));
+#pragma unroll
+      for (int np = 0; np < DK / 32; ++np) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, fm_bt_addr(kb, L::ROW, 16 * kq, hw * (DK / 2) + 16 * np,
+                                 lane));
+        mma_bf16(adq[2 * np], ad, bk[0], bk[1]);
+        mma_bf16(adq[2 * np + 1], ad, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // dS and this buffer are free again
+  }
+  cp_async_wait<0>();
+  fm_store<DK>(adq, dq, qrow + 16 * qw, hw * (DK / 2), d, sm_scale);
+}
+
+// Blocks [0, n_dkdv) are the dK/dV blocks, the rest the dQ blocks.
+template <int DK>
+__global__ void __launch_bounds__(FM_THREADS, 1)
+fa_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ dsum,
+                  __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int n_dkdv, int bhq, int sq,
+                  int sk, int d, int group, int q_offset, float sm_scale,
+                  int causal) {
+  extern __shared__ __align__(16) uint8_t fm_smem[];
+  const int blk = blockIdx.x;
+  if (blk < n_dkdv)
+    fm_dkdv<DK>(fm_smem, q, k, v, dout, lse, dsum, dk, dv, blk, bhq / group,
+                sq, sk, d, group, q_offset, sm_scale, causal);
+  else
+    fm_dq<DK>(fm_smem, q, k, v, dout, lse, dsum, dq, blk - n_dkdv, bhq, sq,
+              sk, d, group, q_offset, sm_scale, causal);
+}
+
+template <int DK>
+static cudaError_t fm_launch(const void* q, const void* k, const void* v,
+                            const void* o, const float* lse, const void* dout,
+                            void* dq, void* dk, void* dv, float* dsum,
+                            long long bhq, int sq, int sk, int d, int group,
+                            int q_offset, float sm_scale, int causal,
+                            cudaStream_t stream) {
+  typedef __nv_bfloat16 bf;
+  const int smem = FmSmem<DK>::TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_mma_kernel<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long rows = bhq * sq;
+  const int warps = FA_NT / 32;
+  fa_bwd_dot_kernel<bf><<<(unsigned)((rows + warps - 1) / warps), FA_NT, 0,
+                          stream>>>((const bf*)o, (const bf*)dout, dsum, rows,
+                                    d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n_dkdv = bhq / group * (sk / 64);
+  const long long blocks = n_dkdv + bhq * (sq / 64);
+  fa_bwd_mma_kernel<DK><<<(unsigned)blocks, FM_THREADS, smem, stream>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, dsum,
+      (bf*)dq, (bf*)dk, (bf*)dv, (int)n_dkdv, (int)bhq, sq, sk, d, group,
+      q_offset, sm_scale, causal);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------- C interface
 // Launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() (0 on success).
@@ -963,4 +1436,26 @@ extern "C" int repro_flash_attention_bwd(
   return (int)fa_bwd_launch<float>(q, k, v, o, lse, dout, dq, dk, dv, dsum,
                                    dk_part, dv_part, bhq, sq, sk, d, group,
                                    q_offset, sm_scale, causal, st);
+}
+
+// The bf16 backward on the tensor cores: the same outputs, inputs, tiles
+// and rules as repro_flash_attention_bwd (d a multiple of 8 up to 128, as
+// the bf16 forward), fp32 scratch dsum (bh * sq) only.
+extern "C" int repro_flash_attention_bwd_mma(
+    const void* q, const void* k, const void* v, const void* o,
+    const float* lse, const void* dout, void* dq, void* dk, void* dv,
+    float* dsum, long long bhq, int sq, int sk, int d, int group,
+    int q_offset, float sm_scale, int causal, void* stream) {
+  if (bhq <= 0 || group < 1 || bhq % group != 0 || sq < 64 || sq % 64 ||
+      sk < 64 || sk % 64 || d < 8 || d > FA_MAX_D || d % 8 || q_offset < 0 ||
+      bhq * sq > 0x7fffffffLL || bhq / group * sk > 0x7fffffffLL ||
+      bhq / group * (sk / 64) + bhq * (sq / 64) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(d > 64 ? fm_launch<128>(q, k, v, o, lse, dout, dq, dk, dv, dsum,
+                                       bhq, sq, sk, d, group, q_offset,
+                                       sm_scale, causal, st)
+                      : fm_launch<64>(q, k, v, o, lse, dout, dq, dk, dv, dsum,
+                                      bhq, sq, sk, d, group, q_offset,
+                                      sm_scale, causal, st));
 }

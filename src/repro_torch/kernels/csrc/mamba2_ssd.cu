@@ -26,9 +26,11 @@
 //   ssd_chunk_kernel        every other shape (the tests' small ones):
 //       fp32 FFMA, one block per (bh, chunk).
 //
-// The training path's backward, ssd_chunk_bwd_kernel (FFMA, every shape
-// whose cell fits one block's shared memory), is described at "backward"
-// below.
+// The training path's backward is routed by the same rule:
+// ssd_chunk_bwd_wgmma_kernel (3xTF32 wgmma, one block per (group, chunk,
+// block of heads), "backward, wgmma" below) for the wgmma shapes,
+// ssd_chunk_bwd_kernel (FFMA, one block per cell, "backward" below) for
+// every other shape whose cell fits one block's shared memory.
 //
 // What bounds K5 on the H100: at the serve shape (BH 96, 8 chunks of 64,
 // D 64, S 128, 4 head-free B/C groups) the function moves 52.8 MB (x, y
@@ -570,10 +572,12 @@ ssd_chunk_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 // in head order.  No atomics: every element is one ordered sum.
 //
 // What bounds it on the H100: at mamba2-130m's training shape (BH 96,
-// 8 chunks of 64, D 64, S 128, 4 B/C groups) it moves ~100 MB (x, dt, a,
-// b, c, gy, gst in; gx, gdt, ga, the per-head gB/gC partials out and back
-// in for the group sum), 30 us at 3.35 TB/s; its FFMA from shared memory
-// take longer (time and bound in PERF.md).
+// 8 chunks of 64, D 64, S 128, 4 B/C groups) the function moves 68 MB
+// (x, dt, a, b, c, gy, gst in; gx, gdt, ga, gb, gc out), 20.3 us at 3.35
+// TB/s, as chip_smoke.py reckons; this kernel moves 100 MB more (the
+// per-head gB/gC shares, 50 MB, written and read back by the group sum)
+// and runs its products by FFMA from shared memory, far slower than that
+// (time and bound in PERF.md).
 #define SSD_BWD_NT 512
 
 static size_t ssd_bwd_smem_bytes(int L, int D, int S) {
@@ -766,6 +770,508 @@ __global__ void ssd_bwd_group_sum_kernel(const float* __restrict__ gb_part,
   gc[e] = vc;
 }
 
+// ------------------------------------------------------ backward, wgmma
+// The backward for the wgmma route's shapes (L = 64, D a multiple of 64,
+// S = 64 or 128), 3xTF32 on wgmma as the forward, with its block shape:
+// one block per (group g, chunk c, a block of up to hb heads of g), so
+// the group's B (and C) are split once and serve all the block's heads,
+// and gB, gC are summed over the block's heads in registers.  One share
+// of gB and of gC per block is written (4 per (group, chunk) at
+// mamba2-130m's shape, against 24 per-head shares on the FFMA route) and
+// ssd_bwd_group_sum_kernel sums them in block order; with one block a
+// group the block writes gB and gC itself.
+//
+// Operands.  wgmma's TF32 operands are K-major in shared memory, and the
+// backward contracts each of its matrices over both of its axes, so A
+// always comes from registers (any layout can be read there): each
+// thread loads its A fragment of fp32 values from device memory (x, gy,
+// gst, B, C: L2-resident) and splits it to TF32 hi/lo in registers.  B
+// operands are K-major hi/lo planes in shared memory, 128-byte swizzled:
+//   Bn  rows j, k = s: the group's B, split once by the whole block;
+//   Xd  rows j, k = d: dt * x of the head, one 64-wide d slice at a time;
+//   Mt  rows j, k = i: M = (C B^T) * Lmat of the head, transposed;
+//   Gt  rows j, k = i and Gn rows i, k = j: G = gM * Lmat of the head.
+// Every product sums each 32-wide k-tile into a fresh partial, added by
+// FADD in k order (the tensor cores' accumulation does not round to
+// nearest).  Two warpgroups, 256 threads, one block per SM:
+//
+//   WG1 (rows i).  Once: C B^T (A = C, B = Bn) into shared memory.  Per
+//     head: per d slice, Xd's planes, then gM += gy Xd^T and e^T = gst
+//     Xd^T (rows s), gB^T += w_j e^T; then M and G from C B^T, gM and the
+//     decay exp(cum_i - cum_j), taken only where i >= j (a select before
+//     exp: above the diagonal the exponent may overflow), Q = gM * M with
+//     its row and column sums, and the planes Mt, Gt, Gn; then gB^T +=
+//     C^T-side product (A = C read transposed, B = Gt).
+//   WG0 (rows d, then s).  Per head: per 64-wide d tile, bg^T = gst^T
+//     B^T (A = gst read transposed, B = Bn), gw_j += Xd . bg, w_j bg
+//     parked in gx; after WG1's planes, gXd^T = gy^T M (A = gy read
+//     transposed, B = Mt) + w bg, gdt_j += gXd . x, gx = gXd dt; then
+//     gC^T += B^T-side product (A = B read transposed, B = Gn).  Its warp
+//     0 then sums gcum = rowsum Q - colsum Q - gw w (+ sum gw w at L-1)
+//     and the reverse cumsum into ga.
+// The two meet at two named barriers per head: WG1 arrives at B1 when
+// the head's planes are written, WG0 at B2 when it is done reading them.
+// Every sum has one order (no atomics), so two runs give the same bits.
+//
+// What bounds it on the H100: at mamba2-130m's training shape (BH 96, 8
+// chunks of 64, D 64, S 128, 4 B/C groups) the function moves 68 MB (x,
+// dt, a, b, c, gy, gst in; gx, gdt, ga, gb, gc out), 20.3 us at 3.35
+// TB/s; its least products (C B^T once per (group, chunk), the masked
+// L x L products and the full L x S x D ones per cell) as 3xTF32 take
+// 17.3 us at the TF32 rate.  This route does ten 64^3 products a head as
+// 3xTF32 (1.25e10 FLOP at the training shape, 25 us at the TF32 rate)
+// and moves 16.8 MB of block shares besides (written, then read by the
+// group sum).  It runs at several times that: each warpgroup is one chain
+// of load, split, wgmma and wait, 255 registers a thread leave no room to
+// keep two k-tiles in flight, and shared memory (217 KB) none to stage
+// the A operands.  launch/ssd_bwd_variants.py times it with its parts
+// taken out (PERF.md).
+#define WB_THREADS 256
+
+template <int S>
+struct WbSmem {
+  static constexpr int BN = 0;               // hi S * 256 bytes, lo after
+  static constexpr int XD = BN + S * 512;    // hi 16 KB, lo after
+  static constexpr int MT = XD + 32768;
+  static constexpr int GT = MT + 32768;
+  static constexpr int GN = GT + 32768;
+  static constexpr int CBT = GN + 32768;     // C B^T fragments [32][128]
+  static constexpr int VEC = CBT + 16384;
+  // w0[2][64], dt0[2][64], cum1, w1, dt1 [64], qrow[2][64], qcol, gwp,
+  // gdtp [2][4][64]
+  static constexpr int NVEC = 4 * 64 + 3 * 64 + 2 * 64 + 3 * 512;
+  static constexpr int TOTAL = VEC + NVEC * 4 + 1024;  // + alignment slack
+};
+
+// Byte offset of element (row, k) of a K-major plane of 64 rows.
+__device__ __forceinline__ int wb_off(int row, int k) {
+  return (k >> 5) * 8192 + swz(row, k & 31);
+}
+
+__device__ __forceinline__ void wb_put(uint8_t* plane, int lo, int off,
+                                       float v) {
+  const float hi = hopper::tf32_rna(v);
+  hopper::sts_f32(hopper::smem_u32(plane + off), hi);
+  hopper::sts_f32(hopper::smem_u32(plane + lo + off), hopper::tf32_rna(v - hi));
+}
+
+// This thread's fragment of k-tile kt (four k8 steps; rows r0 and r0 + 8,
+// k slots q and q + 4 of each step) of a 64-row A whose element (m, k) is
+// a[m * sm + k * sk] in device memory.  The loads are volatile asm, so the
+// compiler keeps them ahead of the wgmma they overlap.
+__device__ __forceinline__ void wb_load_a(float (&raw)[16], const float* a,
+                                          int sm, int sk, int kt, int r0,
+                                          int q) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int m = r0 + 8 * (r & 1), k = 32 * kt + 8 * s + q + 4 * (r >> 1);
+      raw[4 * s + r] = hopper::ldg_f1(a + m * sm + k * sk);
+    }
+}
+
+// res = A . B^T over KT 32-wide k-tiles, 3xTF32, one fresh partial per
+// k-tile added in k order.  A as wb_load_a reads it, split to TF32 hi/lo
+// in registers; B: K-major planes of 64 rows, hi at b (k-tiles 8192 bytes
+// apart), lo b_lo bytes further.  The next k-tile's A is read while this
+// one's wgmma run.
+template <int KT>
+__device__ __forceinline__ void wb_prod(float (&res)[32], float (&part)[32],
+                                        const float* a, int sm, int sk,
+                                        const uint8_t* b, int b_lo, int r0,
+                                        int q) {
+  float raw[16];
+  wb_load_a(raw, a, sm, sk, 0, r0, q);
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float hi = hopper::tf32_rna(raw[4 * s + r]);
+        ah[s][r] = __float_as_uint(hi);
+        al[s][r] = __float_as_uint(hopper::tf32_rna(raw[4 * s + r] - hi));
+      }
+    if (kt + 1 < KT) wb_load_a(raw, a, sm, sk, kt + 1, r0, q);
+    hopper::wgmma_fence();
+    if (kt == 0) {
+      hopper::fence_regs(res);
+      ktile_rs(res, ah, al, b, b_lo);
+    } else {
+      hopper::fence_regs(part);
+      ktile_rs(part, ah, al, b + kt * 8192, b_lo);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(res);
+    hopper::fence_regs(part);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      hopper::fence_regs(ah[s]);
+      hopper::fence_regs(al[s]);
+    }
+    if (kt > 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) res[i] += part[i];
+    }
+  }
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Sum over the 8 lanes of a warp that share lane % 4.
+__device__ __forceinline__ float wb_col_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// One warp: the cell's in-chunk cumsum of a (lane l holds 2l, 2l+1) and
+// the end-state weights w_j = exp(cum[63] - cum_j); dt copied beside.
+__device__ __forceinline__ void wb_scan(const float* a, const float* dt,
+                                        float* cum, float* w, float* dts) {
+  const int lane = threadIdx.x % 32;
+  const float a0 = a[2 * lane], a1 = a[2 * lane + 1];
+  float run = a0 + a1;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float n = __shfl_up_sync(0xffffffffu, run, off);
+    if (lane >= off) run += n;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, run, 1);
+  if (lane == 0) excl = 0.f;
+  const float c0 = excl + a0, c1 = c0 + a1;
+  const float last = __shfl_sync(0xffffffffu, c1, 31);
+  if (cum != nullptr) {
+    cum[2 * lane] = c0;
+    cum[2 * lane + 1] = c1;
+  }
+  w[2 * lane] = expf(last - c0);
+  w[2 * lane + 1] = expf(last - c1);
+  dts[2 * lane] = dt[2 * lane];
+  dts[2 * lane + 1] = dt[2 * lane + 1];
+}
+
+template <int S>
+__global__ void __launch_bounds__(WB_THREADS, 1)
+ssd_chunk_bwd_wgmma_kernel(const float* __restrict__ x,
+                           const float* __restrict__ dt,
+                           const float* __restrict__ a,
+                           const float* __restrict__ b,
+                           const float* __restrict__ c,
+                           const float* __restrict__ gy,
+                           const float* __restrict__ gst, float* gx,
+                           float* __restrict__ gdt, float* __restrict__ ga,
+                           float* __restrict__ gb_out,
+                           float* __restrict__ gc_out, int C, int D, int hpg,
+                           int hb) {
+  using LY = WbSmem<S>;
+  constexpr int SM = S / 64;  // 64-row tiles of the state
+  extern __shared__ uint8_t wb_smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(wb_smem_raw) + 1023) & ~uintptr_t(1023));
+  float* w0 = reinterpret_cast<float*>(sm + LY::VEC);  // [2][64]
+  float* dt0 = w0 + 128;                               // [2][64]
+  float* cum1 = dt0 + 128;
+  float* w1 = cum1 + 64;
+  float* dt1 = w1 + 64;
+  float* qrow = dt1 + 64;     // [2][64]
+  float* qcol = qrow + 128;   // [2][4][64]
+  float* gwp = qcol + 512;    // [2][4][64]
+  float* gdtp = gwp + 512;    // [2][4][64]
+
+  const int nhb = (hpg + hb - 1) / hb;
+  const int gc = blockIdx.x / nhb, hbi = blockIdx.x % nhb;
+  const int cc = gc % C, g = gc / C;
+  const int h0 = hbi * hb, nh = min(hb, hpg - h0);
+  const float* bg = b + (long long)gc * 64 * S;  // B, C of (g, c): 64 x S
+  const float* cg = c + (long long)gc * 64 * S;
+  const long long out = (nhb > 1 ? (long long)gc * nhb + hbi : gc) * 64 * S;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int w = t / 32, lane = t % 32, q = lane % 4;
+  const int r0 = 16 * w + lane / 4;
+  auto cell_of = [&](int hh) {
+    return (long long)(g * hpg + h0 + hh) * C + cc;
+  };
+
+  // the group's B as K-major hi/lo planes (rows j, k = s), every thread
+  for (int e = threadIdx.x; e < 16 * S; e += WB_THREADS) {
+    const int j = e / (S / 4), s4 = (e % (S / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(bg + j * S + s4);
+    const float xs[4] = {v.x, v.y, v.z, v.w};
+    float4 hi, lo;
+    split4(xs, hi, lo);
+    const int off = wb_off(j, s4);
+    hopper::sts_v4(hopper::smem_u32(sm + LY::BN + off), hi);
+    hopper::sts_v4(hopper::smem_u32(sm + LY::BN + S * 256 + off), lo);
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  float res[32], part[32];
+  if (wg == 1) {
+    // C B^T (rows i, columns j), kept as this thread's fragment
+    float* cbt = reinterpret_cast<float*>(sm + LY::CBT);
+    wb_prod<S / 32>(res, part, cg, S, 1, sm + LY::BN, S * 256, r0, q);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) cbt[i * 128 + t] = res[i];
+    float gbt[SM][32];  // gB^T: rows s, columns j
+#pragma unroll
+    for (int mt = 0; mt < SM; ++mt)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) gbt[mt][i] = 0.f;
+
+    for (int hh = 0; hh < nh; ++hh) {
+      const int p = hh & 1;
+      const long long cell = cell_of(hh);
+      const float* xh = x + cell * 64 * D;
+      const float* gyh = gy + cell * 64 * D;
+      const float* gsth = gst + cell * S * D;
+      if (w == 0) wb_scan(a + cell * 64, dt + cell * 64, cum1, w1, dt1);
+      hopper::named_barrier(4, 128);
+      float gm[32];
+      for (int ds = 0; ds < D / 64; ++ds) {
+        if (ds > 0) hopper::named_barrier(4, 128);  // the last slice is read
+        // Xd's planes of this d slice: rows j, k = d
+        for (int e = t; e < 1024; e += 128) {
+          const int j = e >> 4, d4 = (e & 15) * 4;
+          const float4 v =
+              *reinterpret_cast<const float4*>(xh + j * D + 64 * ds + d4);
+          const float xs[4] = {v.x * dt1[j], v.y * dt1[j], v.z * dt1[j],
+                               v.w * dt1[j]};
+          float4 hi, lo;
+          split4(xs, hi, lo);
+          const int off = wb_off(j, d4);
+          hopper::sts_v4(hopper::smem_u32(sm + LY::XD + off), hi);
+          hopper::sts_v4(hopper::smem_u32(sm + LY::XD + 16384 + off), lo);
+        }
+        hopper::fence_proxy_async();
+        hopper::named_barrier(4, 128);
+        // gM (rows i, columns j) += gy[:, slice] . Xd^T
+        if (ds == 0) {
+          wb_prod<2>(gm, part, gyh, D, 1, sm + LY::XD, 16384, r0, q);
+        } else {
+          wb_prod<2>(res, part, gyh + 64 * ds, D, 1, sm + LY::XD,
+                     16384, r0, q);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) gm[i] += res[i];
+        }
+        // e^T (rows s, columns j) = gst[:, slice] . Xd^T; gB^T += w_j e^T
+#pragma unroll
+        for (int mt = 0; mt < SM; ++mt) {
+          wb_prod<2>(res, part,
+                     gsth + (long long)64 * mt * D + 64 * ds, D, 1,
+                     sm + LY::XD, 16384, r0, q);
+#pragma unroll
+          for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              gbt[mt][4 * jb + i] +=
+                  w1[8 * jb + 2 * q + (i & 1)] * res[4 * jb + i];
+        }
+      }
+      // M, G, Q = gM * M on this thread's fragment
+      const float ci[2] = {cum1[r0], cum1[r0 + 8]};
+      float qr[2] = {0.f, 0.f}, qc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) qc[i] = 0.f;
+      if (hh > 0) hopper::named_barrier(2, 256);  // WG0 read the last planes
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int cj = 0; cj < 2; ++cj) {
+            const int idx = 4 * jb + 2 * hf + cj;
+            const int i = r0 + 8 * hf, j = 8 * jb + 2 * q + cj;
+            const bool low = i >= j;
+            const float lm = low ? expf(ci[hf] - cum1[j]) : 0.f;
+            const float m = low ? cbt[idx * 128 + t] * lm : 0.f;
+            const float gv = low ? gm[idx] * lm : 0.f;
+            const float qv = gm[idx] * m;
+            qr[hf] += qv;
+            qc[2 * jb + cj] += qv;
+            wb_put(sm + LY::MT, 16384, wb_off(j, i), m);
+            wb_put(sm + LY::GT, 16384, wb_off(j, i), gv);
+            wb_put(sm + LY::GN, 16384, wb_off(i, j), gv);
+          }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float v = qr[hf];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (q == 0) qrow[64 * p + r0 + 8 * hf] = v;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float v = wb_col_sum(qc[i]);
+        if (lane < 4) qcol[256 * p + 64 * w + 8 * (i / 2) + 2 * q + (i & 1)] = v;
+      }
+      hopper::fence_proxy_async();
+      named_arrive(1, 256);            // B1: this head's planes are written
+      hopper::named_barrier(4, 128);   // and visible to WG1's own wgmma
+      // gB^T (rows s) += C^T G: A (s, i) = C[i, s], B = Gt
+#pragma unroll
+      for (int mt = 0; mt < SM; ++mt) {
+        wb_prod<2>(res, part, cg + 64 * mt, 1, S, sm + LY::GT, 16384,
+                   r0, q);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) gbt[mt][i] += res[i];
+      }
+    }
+    hopper::named_barrier(2, 256);  // WG0's last B2
+#pragma unroll
+    for (int mt = 0; mt < SM; ++mt)
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int s = 64 * mt + r0 + 8 * (i >> 1), j = 8 * jb + 2 * q + (i & 1);
+          gb_out[out + j * S + s] = gbt[mt][4 * jb + i];
+        }
+    return;
+  }
+
+  // WG0
+  float gct[SM][32];  // gC^T: rows s, columns i
+#pragma unroll
+  for (int mt = 0; mt < SM; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) gct[mt][i] = 0.f;
+  for (int hh = 0; hh < nh; ++hh) {
+    const int p = hh & 1;
+    const long long cell = cell_of(hh);
+    const float* xh = x + cell * 64 * D;
+    const float* gyh = gy + cell * 64 * D;
+    const float* gsth = gst + cell * S * D;
+    float* gxh = gx + cell * 64 * D;
+    const float* wv = w0 + 64 * p;
+    const float* dv = dt0 + 64 * p;
+    // warp 1 scans (warp 0 may still be finishing the last head's ga)
+    if (w == 1)
+      wb_scan(a + cell * 64, dt + cell * 64, nullptr, w0 + 64 * p, dt0 + 64 * p);
+    hopper::named_barrier(3, 128);
+    // bg^T (rows d, columns j) = gst^T B^T per d tile; gw; w bg into gx
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+    for (int dtl = 0; dtl < D / 64; ++dtl) {
+      wb_prod<S / 32>(res, part, gsth + 64 * dtl, 1, D, sm + LY::BN,
+                      S * 256, r0, q);
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = 64 * dtl + r0 + 8 * (i >> 1), j = 8 * jb + 2 * q + (i & 1);
+          const float bgv = res[4 * jb + i];
+          acc[2 * jb + (i & 1)] += xh[j * D + d] * dv[j] * bgv;
+          gxh[j * D + d] = wv[j] * bgv;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float v = wb_col_sum(acc[i]);
+      if (lane < 4) gwp[256 * p + 64 * w + 8 * (i / 2) + 2 * q + (i & 1)] = v;
+      acc[i] = 0.f;
+    }
+    hopper::named_barrier(1, 256);  // B1: WG1's planes of this head
+    // gXd^T (rows d) = gy^T M + w bg; gdt_j += gXd . x; gx = gXd dt
+    for (int dtl = 0; dtl < D / 64; ++dtl) {
+      wb_prod<2>(res, part, gyh + 64 * dtl, 1, D, sm + LY::MT, 16384,
+                 r0, q);
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = 64 * dtl + r0 + 8 * (i >> 1), j = 8 * jb + 2 * q + (i & 1);
+          const float gxd = res[4 * jb + i] + gxh[j * D + d];
+          acc[2 * jb + (i & 1)] += gxd * xh[j * D + d];
+          gxh[j * D + d] = gxd * dv[j];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float v = wb_col_sum(acc[i]);
+      if (lane < 4) gdtp[256 * p + 64 * w + 8 * (i / 2) + 2 * q + (i & 1)] = v;
+    }
+    // gC^T (rows s) += B^T G^T: A (s, j) = B[j, s], B = Gn
+#pragma unroll
+    for (int mt = 0; mt < SM; ++mt) {
+      wb_prod<2>(res, part, bg + 64 * mt, 1, S, sm + LY::GN, 16384,
+                 r0, q);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) gct[mt][i] += res[i];
+    }
+    hopper::named_barrier(3, 128);  // every warp of WG0 is done with them
+    named_arrive(2, 256);           // B2
+    if (w == 0) {
+      // gcum, then ga = its reverse cumsum; gdt (lane l: rows 2l, 2l+1)
+      float gcum[2], tot = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = 2 * lane + u;
+        float gw = 0.f, qcs = 0.f, gd = 0.f;
+#pragma unroll
+        for (int k4 = 0; k4 < 4; ++k4) {
+          gw += gwp[256 * p + 64 * k4 + j];
+          qcs += qcol[256 * p + 64 * k4 + j];
+          gd += gdtp[256 * p + 64 * k4 + j];
+        }
+        gcum[u] = qrow[64 * p + j] - qcs - gw * wv[j];
+        tot = fmaf(gw, wv[j], tot);
+        gdt[cell * 64 + j] = gd;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        tot += __shfl_xor_sync(0xffffffffu, tot, off);
+      if (lane == 31) gcum[1] += tot;
+      const float pair = gcum[0] + gcum[1];
+      float run = pair;  // sum over lanes >= this one
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float n = __shfl_down_sync(0xffffffffu, run, off);
+        if (lane + off < 32) run += n;
+      }
+      float excl = __shfl_down_sync(0xffffffffu, run, 1);
+      if (lane == 31) excl = 0.f;
+      const float g1 = excl + gcum[1];
+      ga[cell * 64 + 2 * lane + 1] = g1;
+      ga[cell * 64 + 2 * lane] = g1 + gcum[0];
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < SM; ++mt)
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = 64 * mt + r0 + 8 * (i >> 1), ii = 8 * jb + 2 * q + (i & 1);
+        gc_out[out + ii * S + s] = gct[mt][4 * jb + i];
+      }
+}
+
+template <int S>
+static cudaError_t wb_launch(const float* x, const float* dt, const float* a,
+                             const float* b, const float* c, const float* gy,
+                             const float* gst, float* gx, float* gdt,
+                             float* ga, float* gb_out, float* gc_out,
+                             long long blocks, int C, int D, int hpg, int hb,
+                             cudaStream_t stream) {
+  const int smem = WbSmem<S>::TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_bwd_wgmma_kernel<S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  ssd_chunk_bwd_wgmma_kernel<S><<<(unsigned)blocks, WB_THREADS, smem,
+                                  stream>>>(x, dt, a, b, c, gy, gst, gx, gdt,
+                                            ga, gb_out, gc_out, C, D, hpg, hb);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------- C interface
 // Launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() (0 on success).
@@ -873,5 +1379,45 @@ extern "C" int repro_ssd_chunk_bwd(
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   ssd_bwd_group_sum_kernel<<<(unsigned)blocks, 256, 0, st>>>(
       gb_part, gc_part, gb, gc, per_head, total, heads_per_group);
+  return (int)cudaGetLastError();
+}
+
+extern "C" long long repro_ssd_chunk_bwd_wgmma_smem(int S) {
+  return S == 64 ? WbSmem<64>::TOTAL : S == 128 ? WbSmem<128>::TOTAL : -1;
+}
+
+// The backward on the wgmma route's shapes (L = 64, D a multiple of 64,
+// S = 64 or 128; x and b 16-byte aligned): gx (BH,C,L,D), gdt and ga
+// (BH,C,L), gb and gc (G,C,L,S); G groups of BH / G heads, up to hb heads
+// a block.  With more than one block a group, each block's share goes to
+// gb_part and gc_part (G*C, blocks a group, L, S), summed in block order.
+extern "C" int repro_ssd_chunk_bwd_wgmma(
+    const float* x, const float* dt, const float* a, const float* b,
+    const float* c, const float* gy, const float* gst, float* gx, float* gdt,
+    float* ga, float* gb, float* gc, float* gb_part, float* gc_part,
+    long long BH, int C, int L, int D, int S, long long G, int hb,
+    void* stream) {
+  if (L != 64 || D < 64 || D % 64 || (S != 64 && S != 128) || C < 1 ||
+      G < 1 || BH % G || hb < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long hpg = BH / G, nhb = (hpg + hb - 1) / hb;
+  const long long blocks = G * C * nhb;
+  if (blocks > 0x7fffffffLL || BH * C * 64 * D > 0x7fffffffLL ||
+      BH * C * (long long)S * D > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {(const void*)x, (const void*)b})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  float* gb_out = nhb > 1 ? gb_part : gb;
+  float* gc_out = nhb > 1 ? gc_part : gc;
+  cudaError_t err =
+      S == 64 ? wb_launch<64>(x, dt, a, b, c, gy, gst, gx, gdt, ga, gb_out,
+                              gc_out, blocks, C, D, (int)hpg, hb, st)
+              : wb_launch<128>(x, dt, a, b, c, gy, gst, gx, gdt, ga, gb_out,
+                               gc_out, blocks, C, D, (int)hpg, hb, st);
+  if (err != cudaSuccess || nhb == 1) return (int)err;
+  const long long total = G * C * 64 * S;
+  ssd_bwd_group_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      gb_part, gc_part, gb, gc, 64LL * S, total, (int)nhb);
   return (int)cudaGetLastError();
 }

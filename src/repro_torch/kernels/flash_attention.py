@@ -34,10 +34,17 @@ kernel has no backward): ``return_lse=True`` also returns each row's
 logsumexp of the scaled scores (fp32, (bh, sq)), and
 :func:`flash_attention_bwd` launches the backward kernels of the same
 source, which recompute P from it: dV = Pᵀ dO, dS = P ⊙ (dO Vᵀ − D) with
-D = rowsum(dO ⊙ O), dK = scale · dSᵀ Q (each query head's share in fp32,
-then a kv head's ``group`` shares summed in head order by a second
-kernel), dQ = scale · dS K in a second pass over the key tiles (no
-atomics, so the gradients are deterministic).
+D = rowsum(dO ⊙ O), dK = scale · dSᵀ Q, dQ = scale · dS K in a second
+pass over the key tiles (no atomics, so the gradients are
+deterministic).  Two routes, chosen by dtype (:func:`bwd_route`, a
+dispatch rule as the forward's, never a fallback): bf16 takes ``mma``,
+every product on the tensor cores (``mma.sync``), one block per (kv
+head, 64 keys) walking its group's query heads in order, so dK and dV
+stay in registers; fp32 takes ``simt``, the FFMA kernels, where each
+query head writes an fp32 share of its kv head's dK and dV and a second
+kernel sums a group's shares in head order.  ``route=`` forces one (the
+smoke times both on bf16); :func:`bwd_workspace` is the fp32 scratch
+each route allocates; :data:`BWD_ROUTES` counts launches by route.
 :class:`FlashAttentionFn` is the autograd function over the two; on CPU
 tensors it runs :func:`flash_attention_plain` and
 :func:`flash_attention_bwd_plain` (the explicit formulas, not autograd).
@@ -57,11 +64,14 @@ MAX_HEAD_DIM = 128  # the kernel's register budget (FA_MAX_D)
 NEG_INF = -1e30  # the reference kernel's mask value
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+BWD_ROUTES = {"mma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for route in BWD_ROUTES:
+        BWD_ROUTES[route] = 0
 
 
 def _check(q, k, v, plain: bool = False) -> int:
@@ -229,15 +239,46 @@ def flash_attention(
     return (o, lse) if return_lse else o
 
 
+def bwd_route(dtype: torch.dtype) -> str:
+    """The backward a dtype takes: ``mma`` (tensor cores) for bf16,
+    ``simt`` (FFMA) for fp32, as the forward routes (fp32 on the tensor
+    cores would be TF32)."""
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "simt"
+    raise TypeError(f"the backward kernels take bf16 or fp32, not {dtype}")
+
+
+def bwd_workspace(route: str, bh: int, sq: int, sk: int, d: int) -> dict:
+    """The fp32 scratch the backward's ``route`` allocates, name -> shape:
+    the rows' D = rowsum(dO ⊙ O) on both; the ``simt`` route also each
+    query head's share of its kv head's dK and dV."""
+    if route not in BWD_ROUTES:
+        raise ValueError(f"route {route!r}: want one of {sorted(BWD_ROUTES)}")
+    out = {"dsum": (bh, sq)}
+    if route == "simt":
+        out["dk_part"] = out["dv_part"] = (bh, sk, d)
+    return out
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        q_offset: int = 0):
+                        q_offset: int = 0, route: str | None = None):
     """K4's backward: (dq, dk, dv) in q's type from the forward's inputs,
     its output ``o`` and row logsumexp ``lse`` (fp32 (bh, sq)) and the
-    output's gradient ``do``.  The same shape rules as the forward."""
+    output's gradient ``do``.  The same shape rules as the forward.
+    ``route`` (``"mma"`` or ``"simt"``) overrides :func:`bwd_route`;
+    ``"mma"`` on fp32 raises."""
     group = _check_tiles(q, k, v, q_offset)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2]:
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
                          f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    if route is None:
+        route = bwd_route(q.dtype)
+    elif route not in BWD_ROUTES:
+        raise ValueError(f"route {route!r}: want one of {sorted(BWD_ROUTES)}")
+    elif route == "mma" and q.dtype != torch.bfloat16:
+        raise ValueError(f"the mma backward takes bf16, not {q.dtype}")
     if on_cpu(q, k, v, o, lse, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          q_offset=q_offset)
@@ -249,20 +290,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if dq.numel() == 0:
         return dq, dk, dv
-    dsum = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    # each query head's fp32 share of its kv head's dK and dV
-    dk_part = torch.empty((bh, sk, d), dtype=torch.float32, device=q.device)
-    dv_part = torch.empty_like(dk_part)
+    work = {name: torch.empty(shape, dtype=torch.float32, device=q.device)
+            for name, shape in bwd_workspace(route, bh, sq, sk, d).items()}
     lib = load_library("flash_attention")
-    rc = lib.repro_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dsum.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
-        int(q.dtype == torch.bfloat16), bh, sq, sk, d, group, q_offset,
-        1.0 / math.sqrt(d), int(causal), cuda_stream(q.device),
-    )
-    check(lib, rc, "flash_attention_bwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), work["dsum"].data_ptr())
+    shape = (bh, sq, sk, d, group, q_offset, 1.0 / math.sqrt(d), int(causal),
+             cuda_stream(q.device))
+    if route == "mma":
+        rc = lib.repro_flash_attention_bwd_mma(*ptrs, *shape)
+    else:
+        rc = lib.repro_flash_attention_bwd(
+            *ptrs, work["dk_part"].data_ptr(), work["dv_part"].data_ptr(),
+            int(q.dtype == torch.bfloat16), *shape)
+    check(lib, rc, f"flash_attention_bwd ({route})")
     LAUNCHES["flash_attention_bwd"] += 1
+    BWD_ROUTES[route] += 1
     return dq, dk, dv
 
 

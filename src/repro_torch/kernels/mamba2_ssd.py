@@ -34,13 +34,20 @@ kernel or raises.  :data:`LAUNCHES` counts kernel launches.  What bounds
 the kernels on the H100 is noted at the top of the CUDA source.
 
 Training (the reference differentiates its jnp chunked SSD; its Pallas
-kernel has no backward): :func:`ssd_intra_chunk_bwd` launches
-``ssd_chunk_bwd_kernel`` (FFMA, one block per cell), which returns gx,
-gdt and ga per row and each head's share of gB and gC, then sums a
-group's heads in head order (no atomics).  :class:`SSDIntraChunkFn` is the
-autograd function over the forward (either route) and this backward; on
-CPU tensors it runs :func:`ssd_intra_chunk_plain` and
-:func:`ssd_intra_chunk_bwd_plain` (the explicit formulas).  Both plain
+kernel has no backward): :func:`ssd_intra_chunk_bwd` routes by the same
+shape rule.  The wgmma shapes take ``ssd_chunk_bwd_wgmma_kernel``
+(3xTF32 ``wgmma``, the forward's blocks: one per (group, chunk,
+:func:`heads_per_block` heads), B split once per block, gB and gC
+summed over the block's heads in registers, one share a block, the
+shares summed in block order); every other shape takes
+``ssd_chunk_bwd_kernel`` (FFMA, one block per cell, each head's share of
+gB and gC summed in head order).  No atomics.  :data:`SSD_BWD_ROUTES`
+counts launches by route, ``route=`` forces one, and
+:func:`bwd_workspace` is the shares' scratch each route allocates.
+:class:`SSDIntraChunkFn` is the autograd function over the forward
+(either route) and this backward; on CPU tensors it runs
+:func:`ssd_intra_chunk_plain` and :func:`ssd_intra_chunk_bwd_plain` (the
+explicit formulas).  Both plain
 versions take the decay's ``exp`` only of selected entries, so strong
 decays give finite gradients, and take float64 for ``gradcheck``.
 """
@@ -57,13 +64,15 @@ SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
 LAUNCHES = {"ssd_chunk": 0, "ssd_chunk_bwd": 0}
 SSD_ROUTES = {"wgmma": 0, "simt": 0}
+SSD_BWD_ROUTES = {"wgmma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    for route in SSD_ROUTES:
-        SSD_ROUTES[route] = 0
+    for routes in (SSD_ROUTES, SSD_BWD_ROUTES):
+        for route in routes:
+            routes[route] = 0
 
 
 def ssd_route(L: int, D: int, S: int) -> str:
@@ -84,6 +93,37 @@ def heads_per_block(heads: int, chunks: int, sms: int) -> int:
     alone fill a wave)."""
     blocks_per_pair = max(1, min(heads, sms // max(chunks, 1)))
     return -(-heads // blocks_per_pair)
+
+
+def _pick_route(route: str | None, L: int, D: int, S: int) -> str:
+    """``route``, or :func:`ssd_route`'s when None; a route outside
+    ("wgmma", "simt"), or "wgmma" on a shape it does not take, raises."""
+    if route is None:
+        return ssd_route(L, D, S)
+    if route not in SSD_ROUTES:
+        raise ValueError(f"route {route!r}: want one of {sorted(SSD_ROUTES)}")
+    if route == "wgmma" and ssd_route(L, D, S) != "wgmma":
+        raise ValueError(f"the wgmma kernels take L = 64, D % 64 == 0 and "
+                         f"S in (64, 128), not L {L}, D {D}, S {S}")
+    return route
+
+
+def bwd_workspace(route: str, BH: int, G: int, C: int, L: int, S: int,
+                  hb: int = 1) -> dict:
+    """The fp32 scratch the backward's ``route`` allocates, name -> shape:
+    the shares of gB and gC that are summed into them.  ``simt``: one per
+    head (BH, C, L, S), none with one head a group; ``wgmma``: one per
+    block of ``hb`` heads (G·C, blocks a group, L, S), none with one block
+    a group."""
+    hpg = BH // G
+    if route == "simt":
+        shape = (BH, C, L, S) if hpg > 1 else None
+    elif route == "wgmma":
+        nhb = -(-hpg // hb)
+        shape = (G * C, nhb, L, S) if nhb > 1 else None
+    else:
+        raise ValueError(f"route {route!r}: want one of {sorted(SSD_BWD_ROUTES)}")
+    return {} if shape is None else {"gb_part": shape, "gc_part": shape}
 
 
 def _check(x, dt, a, b, c, plain: bool = False) -> int:
@@ -181,13 +221,7 @@ def ssd_intra_chunk(x, dt, a, b, c, *, route: str | None = None):
     hpg = _check(x, dt, a, b, c)
     BH, C, L, D = x.shape
     S = b.shape[-1]
-    if route is None:
-        route = ssd_route(L, D, S)
-    elif route not in SSD_ROUTES:
-        raise ValueError(f"route {route!r}: want one of {sorted(SSD_ROUTES)}")
-    elif route == "wgmma" and ssd_route(L, D, S) != "wgmma":
-        raise ValueError(f"the wgmma kernel takes L = 64, D % 64 == 0 and "
-                         f"S in (64, 128), not L {L}, D {D}, S {S}")
+    route = _pick_route(route, L, D, S)
     if on_cpu(x, dt, a, b, c):
         return ssd_intra_chunk_plain(x, dt, a, b, c)
     x, dt, a, b, c = (_aligned(t) for t in (x, dt, a, b, c))
@@ -216,50 +250,62 @@ def ssd_intra_chunk(x, dt, a, b, c, *, route: str | None = None):
     return y, st
 
 
-def ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst):
+def ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst, *, route: str | None = None):
     """K5's backward: from the forward's inputs and the gradients of its
     outputs, gy (BH, C, L, D) and gst (BH, C, S, D), returns (gx, gdt,
-    ga, gb, gc) shaped as (x, dt, a, b, c), fp32."""
+    ga, gb, gc) shaped as (x, dt, a, b, c), fp32.  ``route`` as in
+    :func:`ssd_intra_chunk`."""
     hpg = _check(x, dt, a, b, c)
     BH, C, L, D = x.shape
-    S = b.shape[-1]
+    G, S = b.shape[0], b.shape[-1]
     if gy.shape != x.shape or gst.shape != (BH, C, S, D):
         raise ValueError(f"gy {tuple(gy.shape)}, gst {tuple(gst.shape)} do "
                          f"not match x {tuple(x.shape)}, state size {S}")
+    route = _pick_route(route, L, D, S)
     gy, gst = gy.float(), gst.float()
     if on_cpu(x, dt, a, b, c, gy, gst):
         return ssd_intra_chunk_bwd_plain(x, dt, a, b, c, gy, gst)
-    x, dt, a, b, c, gy, gst = (t.contiguous() for t in (x, dt, a, b, c, gy, gst))
+    x, dt, a, b, c, gy, gst = (_aligned(t) for t in (x, dt, a, b, c, gy, gst))
     gx = torch.empty_like(x)
     gdt, ga = torch.empty_like(dt), torch.empty_like(a)
     gb, gc = torch.empty_like(b), torch.empty_like(c)
     if BH * C == 0:
         return gx, gdt, ga, gb.zero_(), gc.zero_()
     lib = load_library("mamba2_ssd")
-    smem = lib.repro_ssd_chunk_bwd_smem(L, D, S)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"chunk {L}, head dim {D}, state {S}: the backward "
-                         f"needs {smem} bytes of shared memory > {SMEM_LIMIT}")
-    if hpg == 1:
-        gb_part, gc_part = gb, gc
+    if route == "wgmma":
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        hb = heads_per_block(hpg, G * C, sms)
     else:
-        gb_part = torch.empty((BH, C, L, S), dtype=torch.float32,
-                              device=x.device)
-        gc_part = torch.empty_like(gb_part)
-    rc = lib.repro_ssd_chunk_bwd(
-        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        gy.data_ptr(), gst.data_ptr(), gx.data_ptr(), gdt.data_ptr(),
-        ga.data_ptr(), gb_part.data_ptr(), gc_part.data_ptr(), gb.data_ptr(),
-        gc.data_ptr(), BH * C, C, L, D, S, hpg, cuda_stream(x.device))
-    check(lib, rc, "ssd_intra_chunk_bwd")
+        hb = 1
+        smem = lib.repro_ssd_chunk_bwd_smem(L, D, S)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"chunk {L}, head dim {D}, state {S}: the "
+                             f"backward needs {smem} bytes of shared memory "
+                             f"> {SMEM_LIMIT}")
+    work = {name: torch.empty(shape, dtype=torch.float32, device=x.device)
+            for name, shape in bwd_workspace(route, BH, G, C, L, S, hb).items()}
+    gb_part, gc_part = work.get("gb_part", gb), work.get("gc_part", gc)
+    ptrs = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), gy.data_ptr(), gst.data_ptr(), gx.data_ptr(),
+            gdt.data_ptr(), ga.data_ptr())
+    if route == "wgmma":
+        rc = lib.repro_ssd_chunk_bwd_wgmma(
+            *ptrs, gb.data_ptr(), gc.data_ptr(), gb_part.data_ptr(),
+            gc_part.data_ptr(), BH, C, L, D, S, G, hb, cuda_stream(x.device))
+    else:
+        rc = lib.repro_ssd_chunk_bwd(
+            *ptrs, gb_part.data_ptr(), gc_part.data_ptr(), gb.data_ptr(),
+            gc.data_ptr(), BH * C, C, L, D, S, hpg, cuda_stream(x.device))
+    check(lib, rc, f"ssd_intra_chunk_bwd ({route})")
     LAUNCHES["ssd_chunk_bwd"] += 1
+    SSD_BWD_ROUTES[route] += 1
     return gx, gdt, ga, gb, gc
 
 
 class SSDIntraChunkFn(torch.autograd.Function):
     """K5 under autograd: the forward kernel (``route`` as in
-    :func:`ssd_intra_chunk`) and the backward kernel (plain versions on
-    the CPU)."""
+    :func:`ssd_intra_chunk`) and the backward kernels (routed by their
+    rule; plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b, c, route=None):

@@ -469,6 +469,8 @@ def test_flash_attention_on_card(dev, dtype, bh, group, sq, sk, d, causal,
     ("flash_attention", "flash_attention_kernel", False),  # fp32: FFMA
     ("mamba2_ssd", "ssd_chunk_wgmma_kernel", True),
     ("mamba2_ssd", "ssd_chunk_kernel", False),  # the simt route: FFMA
+    ("mamba2_ssd", "ssd_chunk_bwd_wgmma_kernel", True),  # K5 bwd, wgmma route
+    ("mamba2_ssd", "ssd_chunk_bwd_kernel", False),  # its simt route
 ])
 def test_wgmma_kernels_issue_hgmma(dev, lib, kernel, hgmma):
     """K1 (each instantiation, the bf16 route's among them), K2 (each instantiation, the bf16
@@ -480,6 +482,22 @@ def test_wgmma_kernels_issue_hgmma(dev, lib, kernel, hgmma):
     found = build.kernels_with(lib, kernel, "HGMMA")
     assert found, f"{kernel} not in the {lib} library"
     assert set(found.values()) == {hgmma}, found
+
+
+@pytest.mark.parametrize("kernel,hmma", [
+    ("fa_bwd_mma_kernel", True),   # K4 bwd, bf16 route: mma.sync
+    ("fa_bwd_dkdv_kernel", False),  # its simt route: FFMA
+    ("fa_bwd_dq_kernel", False),
+])
+def test_mma_kernels_issue_hmma(dev, kernel, hmma):
+    """K4's bf16 backward runs its products on the tensor cores through
+    mma.sync (HMMA in every instantiation's SASS); the simt route's
+    kernels stay on the CUDA cores."""
+    from repro_torch.kernels import build
+
+    found = build.kernels_with("flash_attention", kernel, "HMMA")
+    assert found, f"{kernel} not in the flash_attention library"
+    assert set(found.values()) == {hmma}, found
 
 
 @pytest.mark.parametrize("BH,G,C,L,D,S,lo,hi,route,force", [
@@ -564,6 +582,40 @@ def test_flash_attention_bwd_on_card(dev, dtype, bh, group, sq, sk, d, causal,
         assert torch.equal(x, z)
 
 
+@pytest.mark.parametrize("route", ["mma", "simt"])
+@pytest.mark.parametrize("bh,group,sq,sk,d,causal,q_offset", FLASH_BWD_CASES)
+def test_flash_attention_bwd_routes_on_card(dev, route, bh, group, sq, sk, d,
+                                            causal, q_offset):
+    """Each route of K4's bf16 backward (the tensor-core one the dtype
+    rule picks, and the FFMA one forced) against the plain version on the
+    same inputs, 2e-2 of max|plain| (bf16 outputs, and P, dS rounded to
+    bf16 as operands on the mma route); the launch is counted on its
+    route, and two runs give the same bits."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(bh + sq + sk + d + 2)
+    q = torch.randn(bh, sq, d, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(bh // group, sk, d, generator=g).to(dev, torch.bfloat16)
+    v = torch.randn(bh // group, sk, d, generator=g).to(dev, torch.bfloat16)
+    do = torch.randn(bh, sq, d, generator=g).to(dev, torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                return_lse=True)
+    force = None if route == fa.bwd_route(torch.bfloat16) else route
+    before = dict(fa.BWD_ROUTES)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 q_offset=q_offset, route=force)
+    assert fa.BWD_ROUTES[route] == before[route] + 1
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   q_offset=q_offset, route=force)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        q_offset=q_offset)
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, want, again):
+        assert x.dtype == torch.bfloat16 and torch.isfinite(x).all()
+        assert _rel(x, y) <= 2e-2
+        assert torch.equal(x, z)
+
+
 @pytest.mark.parametrize("BH,G,C,L,D,S,lo,hi", [
     (6, 6, 3, 64, 64, 128, 0.01, 0.5),   # mamba2-130m cell, G == BH
     (96, 4, 8, 64, 64, 128, 0.01, 0.5),  # the training shape: 24 heads a group
@@ -591,6 +643,53 @@ def test_ssd_chunk_bwd_on_card(dev, BH, G, C, L, D, S, lo, hi):
     got = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)
     assert ssd.LAUNCHES["ssd_chunk_bwd"] == before + 1
     again = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)
+    want = ssd.ssd_intra_chunk_bwd_plain(x, dt, a, b, c, gy, gst)
+    torch.cuda.synchronize()
+    for x_, y_, z_ in zip(got, want, again):
+        assert x_.shape == y_.shape and torch.isfinite(x_).all()
+        assert _rel(x_, y_) <= 1e-4
+        assert torch.equal(x_, z_)
+
+
+SSD_BWD_ROUTE_CASES = [
+    (6, 6, 3, 64, 64, 128, 0.01, 0.5),    # G == BH: one head a group
+    (96, 4, 8, 64, 64, 128, 0.01, 0.5),   # the training shape: 6 heads a block
+    (24, 1, 8, 64, 64, 128, 0.01, 0.5),   # one group of 24 heads
+    (40, 4, 8, 64, 64, 128, 5.0, 10.0),   # 10 heads a group, overflowing decays
+    (4, 2, 2, 64, 64, 64, 5.0, 10.0),     # S = 64, overflowing decays
+]
+
+
+@pytest.mark.parametrize("route,BH,G,C,L,D,S,lo,hi", [
+    (route, *case) for case in SSD_BWD_ROUTE_CASES for route in ("wgmma", "simt")
+] + [
+    # two head-dim slices: the simt kernel's cell (315 KB) does not fit
+    ("wgmma", 8, 2, 2, 64, 128, 128, 0.01, 0.5),
+])
+def test_ssd_chunk_bwd_routes_on_card(dev, route, BH, G, C, L, D, S, lo, hi):
+    """Each route of K5's backward at shapes the wgmma rule takes (the
+    3xTF32 one the rule picks, the FFMA one forced) against the plain
+    version, 1e-4 of max|plain| (fp32, another summation order), finite
+    under decays that overflow above the diagonal; the launch is counted
+    on its route, and two runs give the same bits."""
+    from repro_torch.kernels import mamba2_ssd as ssd
+
+    rng = np.random.default_rng(BH + D + S + 7)
+
+    def rnd(shape, sample=rng.standard_normal):
+        return torch.from_numpy(np.asarray(sample(size=shape), np.float32)).to(dev)
+
+    x = rnd((BH, C, L, D))
+    dt = rnd((BH, C, L), lambda size: rng.uniform(0.1, 1.0, size))
+    a = rnd((BH, C, L), lambda size: -rng.uniform(lo, hi, size))
+    b, c = rnd((G, C, L, S)), rnd((G, C, L, S))
+    gy, gst = rnd((BH, C, L, D)), rnd((BH, C, S, D))
+    assert ssd.ssd_route(L, D, S) == "wgmma"
+    force = None if route == "wgmma" else route
+    before = dict(ssd.SSD_BWD_ROUTES)
+    got = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst, route=force)
+    assert ssd.SSD_BWD_ROUTES[route] == before[route] + 1
+    again = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst, route=force)
     want = ssd.ssd_intra_chunk_bwd_plain(x, dt, a, b, c, gy, gst)
     torch.cuda.synchronize()
     for x_, y_, z_ in zip(got, want, again):

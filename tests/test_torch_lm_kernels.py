@@ -598,27 +598,173 @@ def test_forward_is_the_same_with_and_without_autograd(op):
         assert torch.equal(s, t.detach())
 
 
-@pytest.mark.parametrize("name", ["flash_attention_bwd", "ssd_chunk_bwd"])
+@pytest.mark.parametrize("name", ["flash_attention_bwd", "ssd_chunk_bwd",
+                                  "flash_attention_bwd:mma",
+                                  "ssd_chunk_bwd:wgmma"])
 def test_backward_cuda_call_without_library_raises(name, monkeypatch, tmp_path):
     """With the device check answering "CUDA" and no kernel library to
-    build, the backward wrappers raise; they never run the plain
-    version."""
+    build, the backward wrappers raise on every route (fp32 K4 and small
+    K5 cells take simt; bf16 K4 takes mma, a mamba2 cell wgmma); they
+    never run the plain version."""
     monkeypatch.setattr(build, "_libs", {})
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
     z = torch.zeros
-    if name == "flash_attention_bwd":
+    if name.startswith("flash_attention_bwd"):
+        t = torch.bfloat16 if name.endswith(":mma") else torch.float32
         mod, call = fa, lambda: fa.flash_attention_bwd(
-            z(4, 64, 16), z(2, 64, 16), z(2, 64, 16), z(4, 64, 16), z(4, 64),
-            z(4, 64, 16))
+            z(4, 64, 16, dtype=t), z(2, 64, 16, dtype=t), z(2, 64, 16, dtype=t),
+            z(4, 64, 16, dtype=t), z(4, 64), z(4, 64, 16, dtype=t))
         monkeypatch.setattr(fa, "flash_attention_bwd_plain", None)
+        routes = fa.BWD_ROUTES
     else:
+        BH, G, C, L, D, S = ((4, 2, 2, 64, 64, 64) if name.endswith(":wgmma")
+                             else (4, 2, 2, 16, 8, 4))
         mod, call = ssd, lambda: ssd.ssd_intra_chunk_bwd(
-            z(4, 2, 16, 8), z(4, 2, 16), z(4, 2, 16), z(2, 2, 16, 4),
-            z(2, 2, 16, 4), z(4, 2, 16, 8), z(4, 2, 4, 8))
+            z(BH, C, L, D), z(BH, C, L), z(BH, C, L), z(G, C, L, S),
+            z(G, C, L, S), z(BH, C, L, D), z(BH, C, S, D))
         monkeypatch.setattr(ssd, "ssd_intra_chunk_bwd_plain", None)
+        routes = ssd.SSD_BWD_ROUTES
     monkeypatch.setattr(mod, "on_cpu", lambda *t: False)
-    before = dict(mod.LAUNCHES)
+    before, routes_before = dict(mod.LAUNCHES), dict(routes)
     with pytest.raises((RuntimeError, OSError)):
         call()
-    assert mod.LAUNCHES == before
+    assert mod.LAUNCHES == before and routes == routes_before
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "simt"),
+                                         (torch.float64, None)])
+def test_flash_bwd_route_rule(dtype, route):
+    """K4's backward routes by dtype, as its forward: bf16 to the tensor
+    cores, fp32 to FFMA; any other type is refused."""
+    if route is None:
+        with pytest.raises(TypeError):
+            fa.bwd_route(dtype)
+    else:
+        assert fa.bwd_route(dtype) == route
+
+
+@pytest.mark.parametrize("bad", ["mma_on_fp32", "unknown", "head_dim",
+                                 "bf16_head_dim", "ragged"])
+def test_flash_bwd_refuses_what_it_does_not_take(bad):
+    """The backward takes the forward's shape rules (``_check_tiles``)
+    and refuses a route its inputs do not take, before any launch."""
+    def call(dtype=torch.float32, d=16, s=64, route=None):
+        z = lambda *shape: torch.zeros(*shape, dtype=dtype)  # noqa: E731
+        return fa.flash_attention_bwd(z(4, s, d), z(2, s, d), z(2, s, d),
+                                      z(4, s, d), torch.zeros(4, s),
+                                      z(4, s, d), route=route)
+    fa.reset_launches()
+    with pytest.raises(ValueError):
+        if bad == "mma_on_fp32":
+            call(route="mma")
+        elif bad == "unknown":
+            call(route="tensor")
+        elif bad == "head_dim":
+            call(d=136)
+        elif bad == "bf16_head_dim":  # TMA's and cp.async's 16-byte rows
+            call(dtype=torch.bfloat16, d=20)
+        else:
+            call(s=96)
+    assert set(fa.LAUNCHES.values()) == {0}
+    assert set(fa.BWD_ROUTES.values()) == {0}
+
+
+def test_flash_bwd_route_argument_on_cpu():
+    """On the CPU every route runs the plain version and launches
+    nothing."""
+    g = torch.Generator().manual_seed(0)
+    q, o, do = (torch.randn(4, 64, 16, generator=g).bfloat16() for _ in range(3))
+    k, v = (torch.randn(2, 64, 16, generator=g).bfloat16() for _ in range(2))
+    lse = torch.randn(4, 64, generator=g)
+    fa.reset_launches()
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for route in (None, "mma", "simt"):
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, route=route)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert set(fa.LAUNCHES.values()) == {0}
+    assert set(fa.BWD_ROUTES.values()) == {0}
+
+
+@pytest.mark.parametrize("route,bh,sq,sk,d,want", [
+    # qwen3-4b's training shape: the mma route keeps dK/dV in registers
+    ("mma", 64, 512, 512, 128, {"dsum": (64, 512)}),
+    ("simt", 64, 512, 512, 128, {"dsum": (64, 512), "dk_part": (64, 512, 128),
+                                 "dv_part": (64, 512, 128)}),
+    ("mma", 4, 128, 384, 32, {"dsum": (4, 128)}),
+    ("simt", 4, 128, 384, 32, {"dsum": (4, 128), "dk_part": (4, 384, 32),
+                               "dv_part": (4, 384, 32)}),
+])
+def test_flash_bwd_workspace(route, bh, sq, sk, d, want):
+    """The fp32 scratch each route of K4's backward allocates: no per-head
+    dK/dV shares on the mma route."""
+    assert fa.bwd_workspace(route, bh, sq, sk, d) == want
+
+
+def test_flash_bwd_workspace_refuses_unknown_route():
+    with pytest.raises(ValueError):
+        fa.bwd_workspace("wgmma", 4, 64, 64, 16)
+
+
+@pytest.mark.parametrize("route,BH,G,C,S,hb,want", [
+    # mamba2-130m's training shape: 24 heads a group, 6 a block -> 4
+    # shares per (group, chunk) on the wgmma route, 24 on the simt route
+    ("wgmma", 96, 4, 8, 128, 6, (32, 4, 64, 128)),
+    ("simt", 96, 4, 8, 128, 1, (96, 8, 64, 128)),
+    ("wgmma", 96, 4, 8, 128, 24, None),   # one block a group: no shares
+    ("wgmma", 40, 4, 8, 128, 3, (32, 4, 64, 128)),  # 10 heads: 3, 3, 3, 1
+    ("simt", 6, 6, 3, 128, 1, None),      # one head a group: no shares
+    ("wgmma", 6, 6, 3, 64, 1, None),
+])
+def test_ssd_bwd_workspace(route, BH, G, C, S, hb, want):
+    """The gB/gC shares each route of K5's backward allocates (L = 64)."""
+    got = ssd.bwd_workspace(route, BH, G, C, 64, S, hb)
+    if want is None:
+        assert got == {}
+    else:
+        assert got == {"gb_part": want, "gc_part": want}
+
+
+def test_ssd_bwd_block_shares_at_the_training_shape():
+    """At mamba2-130m's training shape (4 groups of 24 heads, 8 chunks, on
+    132 SMs) the wgmma backward takes the forward's blocks: 6 heads a
+    block, 128 blocks, 4 shares per (group, chunk) against 24 heads'."""
+    hb = ssd.heads_per_block(24, 4 * 8, 132)
+    assert hb == 6
+    shares = ssd.bwd_workspace("wgmma", 96, 4, 8, 64, 128, hb)["gb_part"]
+    assert shares[0] * shares[1] == 128 and shares[1] == 4
+    per_head = ssd.bwd_workspace("simt", 96, 4, 8, 64, 128)["gb_part"]
+    assert per_head[0] // 4 == 24
+
+
+def test_ssd_bwd_workspace_refuses_unknown_route():
+    with pytest.raises(ValueError):
+        ssd.bwd_workspace("mma", 4, 2, 2, 64, 64)
+
+
+def test_ssd_bwd_route_argument():
+    """K5's backward routes by ``ssd_route`` (the forward's rule); the
+    wgmma route refuses shapes outside it, an unknown route is refused,
+    and on the CPU the plain version runs whatever the route and nothing
+    is launched."""
+    z = torch.zeros
+    small = (z(4, 2, 16, 8), z(4, 2, 16), z(4, 2, 16), z(2, 2, 16, 4),
+             z(2, 2, 16, 4), z(4, 2, 16, 8), z(4, 2, 4, 8))
+    with pytest.raises(ValueError):
+        ssd.ssd_intra_chunk_bwd(*small, route="wgmma")
+    with pytest.raises(ValueError):
+        ssd.ssd_intra_chunk_bwd(*small, route="tensor")
+    ssd.reset_launches()
+    rng = np.random.default_rng(0)
+    cell = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((2, 1, 64, 64), (2, 1, 64), (2, 1, 64), (1, 1, 64, 64),
+                      (1, 1, 64, 64), (2, 1, 64, 64), (2, 1, 64, 64))]
+    cell[1] = cell[1].abs()
+    cell[2] = -0.1 * cell[2].abs()
+    want = ssd.ssd_intra_chunk_bwd_plain(*cell)
+    for route in (None, "wgmma", "simt"):
+        got = ssd.ssd_intra_chunk_bwd(*cell, route=route)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert ssd.LAUNCHES["ssd_chunk_bwd"] == 0
+    assert set(ssd.SSD_BWD_ROUTES.values()) == {0}

@@ -5,7 +5,7 @@ moved on would otherwise show there first)."""
 import pytest
 
 from repro_torch.kernels import build
-from repro_torch.launch import fused_variants, ssd_variants
+from repro_torch.launch import fused_variants, ssd_bwd_variants, ssd_variants
 from repro_torch.launch.variants import edit
 
 
@@ -20,6 +20,13 @@ def test_fused_variant_edits_apply(name):
 def test_ssd_variant_edits_apply(name):
     src = (build.CSRC / "mamba2_ssd.cu").read_text()
     out = ssd_variants.variant_source(name, src)
+    assert (out == src) == (name in ("base", "hb1", "hb24"))
+
+
+@pytest.mark.parametrize("name", ssd_bwd_variants.VARIANTS)
+def test_ssd_bwd_variant_edits_apply(name):
+    src = (build.CSRC / "mamba2_ssd.cu").read_text()
+    out = ssd_bwd_variants.variant_source(name, src)
     assert (out == src) == (name in ("base", "hb1", "hb24"))
 
 
