@@ -40,8 +40,11 @@ points at full width:
                  differs; the chain step by step on its own carries, and
                  whole within 2^-8, a carry's bf16 rounding apart),
                  bounded at the bf16 rate; then
-                 flash_attention at qwen3-4b's prefill shapes (bf16,
-                 <= 1e-2: the output's bf16 rounding alone is 2^-8) and
+                 flash_attention at the prefill shapes of qwen3-4b,
+                 deepseek-moe-16b (MHA, bh 64) and qwen2-vl-72b (bh 256
+                 on 32 kv heads), batch 4 x 512 (bf16, <= 1e-2: the
+                 output's bf16 rounding alone is 2^-8; each beside SDPA
+                 and its bound), and
                  ssd_chunk at mamba2-130m's (fp32, <= 1e-4; its wgmma
                  route, the kernel alone on the profiler's device clock,
                  beside its simt route at the same shape, and an
@@ -131,19 +134,29 @@ points at full width:
                  than any statevector on one card holds), run_slices on 2
                  slice ids against the einsum oracle on the same ids; its
                  measured peak against the certified peak (as above);
-  6. serve     — for qwen3-4b and mamba2-130m: the full config (36 and
-                 24 layers) through repro_torch.launch.decode_demo.serve,
-                 batch 4, prompt 512, 32 tokens, finite logits; the
-                 card's prefill logits against the port's own CPU run on
-                 the same weights and tokens, at full width: in bf16 at 2
-                 layers <= 3e-2 of max|logit| (the bf16 attention
-                 tolerance of the JAX suite), in fp32 (qwen3-4b at 2
-                 layers, mamba2-130m whole) <= 1e-3; profiler traces of
-                 one prefill and one decode step at the serve shapes,
-                 with each kernel's share of the device time; the
-                 phase's flash_attention and ssd_chunk launches must be
-                 > 0, and every ssd_chunk launch must take its wgmma
-                 route;
+  6. serve     — for qwen3-4b, mamba2-130m and deepseek-moe-16b: the
+                 full config (36, 24 and 28 layers) through
+                 repro_torch.launch.decode_demo.serve; for qwen2-vl-72b
+                 (80 layers, 145 GB in bf16) its published widths at 16
+                 layers through the same steps (decode_demo's
+                 prompt_inputs, with the stub frontend's embeddings and
+                 M-RoPE positions, then generate); batch 4, prompt 512,
+                 32 tokens, finite logits of the right shapes, peak
+                 device memory, the decode step beside its weights'
+                 bound; the card's prefill logits against the port's own
+                 CPU run on the same weights and prompt, at full width:
+                 in bf16 at 2 layers <= 3e-2 of max|logit| (the bf16
+                 attention tolerance of the JAX suite), in fp32 (the
+                 attention models at 2 layers, an MoE model's layer 0
+                 dense and layer 1 MoE; mamba2-130m whole) <= 1e-3, with
+                 the MoE layer's routing decisions that differ between
+                 the card and the CPU counted; profiler traces of one
+                 prefill and one decode step at the serve shapes, with
+                 each kernel's share of the device time and, for MoE, the
+                 shares of the expert products and the dispatch; the
+                 phase's flash_attention launches (every attention
+                 model) and ssd_chunk launches must be > 0, and every
+                 ssd_chunk launch must take its wgmma route;
      train     — LM training on the card through make_train_step
                  (chunked cross-entropy, AdamW, each layer checkpointed):
                  qwen3-4b at full width and depth, batch 2 x 512, and
@@ -172,7 +185,9 @@ points at full width:
                  backward kernels; each must be > 0) and
                  its design (wgmma-bf16, 3xtf32-wgmma, cluster-simt-fp32),
                  and the bf16 routes of tiled_gemm and fused_gemm
-                 with their launches in the precision phase;
+                 with their launches in the precision phase, and
+                 flash_attention at deepseek-moe-16b's and qwen2-vl-72b's
+                 shapes with their launches serving those models;
                  every fused_gemm launch of those phases must
                  have taken the wgmma kernel with the coalesced (uniform)
                  gather.
@@ -185,6 +200,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -284,6 +300,28 @@ SOURCES = {
 }
 CHAIN_CLUSTERS = (1, 2, 4, 8, 16)  # K3's cluster sizes timed
 SERVE = dict(batch=4, prompt_len=512, gen_tokens=32, seed=0)
+# the served models, each with its cut of depth (None: the published
+# depth; qwen2-vl-72b's 80 layers hold 145 GB in bf16, 16 of them 33 GB)
+# and the depth of its traces (None: the served depth; qwen3-4b's per
+# layer the same at 2 layers)
+SERVE_MODELS = {
+    "qwen3-4b": dict(layers=None, trace_layers=2),
+    "mamba2-130m": dict(layers=None, trace_layers=None),
+    "deepseek-moe-16b": dict(layers=None, trace_layers=None),
+    "qwen2-vl-72b": dict(layers=16, trace_layers=None),
+}
+# K4's records: the key in the kernels line -> (query heads, kv heads)
+# of the served model whose prefill shape it times
+K4_SHAPES = {
+    "flash_attention": (32, 8),  # qwen3-4b
+    "flash_attention:deepseek-moe-16b": (16, 16),
+    "flash_attention:qwen2-vl-72b": (64, 8),
+}
+# the spans the MoE traces read: the whole layer, its routing (router,
+# top-k, positions in the experts) and its three expert products; the
+# dispatch's share is the layer's less the products'
+MOE_SPANS = {"moe_layer": "moe.layer", "moe_route": "moe.route",
+             "expert_ffn": "moe.experts"}
 AGREE = dict(batch=1, prompt_len=256)  # the CPU half of the agreement
 FLASH_BWD_TOL = 2e-2  # bf16 gradients: each output's rounding is 2^-8
 # training: (batch, seq) per model, steps at full depth; the agreement's
@@ -628,42 +666,23 @@ def phase_kernels(torch, plan, cg, ops, hw) -> dict:
 
 
 def phase_lm_kernels(torch, fa, ssd) -> dict:
-    """flash_attention and ssd_chunk at the serve path's own shapes
-    (batch 4, prompt 512) against their plain versions."""
+    """flash_attention (at each served model's heads) and ssd_chunk at
+    the serve path's own shapes (batch 4, prompt 512) against their plain
+    versions."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     out = {}
 
-    # K4: qwen3-4b prefill, 32 query heads on 8 kv heads of 128, causal
-    B, H, KV, S, d = 4, 32, 8, 512, 128
-    q = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
-    k = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
-    v = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = fa.flash_attention_plain(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    err, rel = rel_err(torch, [got.float()], [want.float()])
-    check(bool(torch.isfinite(got).all()), "flash_attention: non-finite")
-    check(rel <= FLASH_TOL, f"flash_attention disagrees: {rel}")
-    pairs = S * (S + 1) // 2  # causal (q, k) pairs this input needs
-    flops = 4.0 * B * H * pairs * d  # q.k and p.v
-    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + got.numel())
-    b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
-    q4, k4, v4 = (t.view(B, -1, S, d) for t in (q, k, v))
-    out["flash_attention"] = dict(
-        shape=dict(bh=B * H, bh_kv=B * KV, sq=S, sk=S, d=d, dtype="bf16",
-                   causal=True),
-        max_abs_err=err, rel_err=rel,
-        ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True)),
-        plain_ms=cuda_ms(
-            torch, lambda: fa.flash_attention_plain(q, k, v, causal=True)),
-        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True)),
-        bound_ms=b_ms, bound_by=b_by,
-    )
-    del q, k, v, got, want, q4, k4, v4
+    # K4 at each served model's prefill (batch 4 x 512, heads of 128,
+    # causal): qwen3-4b 32 query heads on 8 kv heads, deepseek-moe-16b
+    # 16 on 16 (MHA), qwen2-vl-72b 64 on 8
+    # (qwen3-4b's draws from ``gen`` as before; each other shape from a
+    # generator of its own, so the K5 inputs below stay the same)
+    for i, (name, (H, KV)) in enumerate(K4_SHAPES.items()):
+        g = gen if i == 0 else torch.Generator(device="cuda").manual_seed(i)
+        out[name] = _k4_record(torch, fa, F, g, 4, H, KV, 512, 128)
 
     # K5: mamba2-130m prefill, 24 heads of 64, state 128, chunks of 64,
     # head-free B/C (one group per batch row)
@@ -875,6 +894,38 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
     return out
 
 
+def _k4_record(torch, fa, F, gen, B, H, KV, S, d) -> dict:
+    """K4's bf16 kernel on (B·H, S, d) queries over (B·KV, S, d) keys and
+    values, causal, against its plain version (<= FLASH_TOL of
+    max|plain|), timed beside the plain version, SDPA and its bound."""
+    dev = torch.device("cuda")
+    q = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err, rel = rel_err(torch, [got.float()], [want.float()])
+    shape = dict(bh=B * H, bh_kv=B * KV, sq=S, sk=S, d=d, dtype="bf16",
+                 causal=True)
+    check(bool(torch.isfinite(got).all()), f"flash_attention {shape}: non-finite")
+    check(rel <= FLASH_TOL, f"flash_attention {shape} disagrees: {rel}")
+    pairs = S * (S + 1) // 2  # causal (q, k) pairs this input needs
+    flops = 4.0 * B * H * pairs * d  # q.k and p.v
+    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + got.numel())
+    b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
+    q4, k4, v4 = (t.view(B, -1, S, d) for t in (q, k, v))
+    return dict(
+        shape=shape, max_abs_err=err, rel_err=rel,
+        ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True)),
+        plain_ms=cuda_ms(
+            torch, lambda: fa.flash_attention_plain(q, k, v, causal=True)),
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=KV != H)),
+        bound_ms=b_ms, bound_by=b_by,
+    )
+
+
 def _cpu_params(model) -> dict:
     params = {k: t.detach().cpu() for k, t in model.top.tensors().items()}
     params["layers"] = [
@@ -893,62 +944,151 @@ def _cast(params: dict, dtype, layers: int) -> dict:
     return out
 
 
-def phase_serve(torch, arch, serve, build_model, get_config, counts, reset):
-    """One served model: the full config through ``serve``, then the
-    card's prefill against the port's CPU run on the same weights."""
+@contextlib.contextmanager
+def _patched(module, wrappers: dict):
+    """``module``'s functions named in ``wrappers`` replaced by
+    ``wrappers[name](function)`` inside the block."""
+    saved = {n: getattr(module, n) for n in wrappers}
+    for n, wrap in wrappers.items():
+        setattr(module, n, wrap(saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def _spans(torch):
+    """Wrappers that run each MoE function under its profiler span."""
+    def wrap(span):
+        def outer(fn):
+            def inner(*a, **kw):
+                with torch.profiler.record_function(span):
+                    return fn(*a, **kw)
+            return inner
+        return outer
+    return {n: wrap(span) for n, span in MOE_SPANS.items()}
+
+
+def _route_recorder(routes: list):
+    """A wrapper of ``moe_route`` that appends each call's (ids, keep) to
+    ``routes`` on the host."""
+    def outer(fn):
+        def inner(*a, **kw):
+            out = fn(*a, **kw)
+            routes.append((out[2].cpu(), out[3].cpu()))
+            return out
+        return inner
+    return {"moe_route": outer}
+
+
+def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
+                layers=None, trace_layers=None):
+    """One served model: its config (the published depth, or ``layers``
+    of it) through decode_demo's serve path, then the card's prefill
+    against the port's CPU run on the same weights and prompt, then
+    traces at ``trace_layers`` (default the served depth)."""
     import dataclasses
 
+    from repro_torch.models import param_defs
+    from repro_torch.models.params import count_params
+
+    full = get_config(arch)
+    served = full if layers is None else dataclasses.replace(full,
+                                                             num_layers=layers)
     reset()
     torch.cuda.reset_peak_memory_stats()
-    r = serve(arch, smoke=False, device="cuda", **SERVE)
+    if layers is None:
+        r = dd.serve(arch, smoke=False, device="cuda", **SERVE)
+    else:
+        # serve's own steps on the cut config: the weights from the seed,
+        # the prompt from the seeded generator, prefill and greedy decode
+        model = build_model(served, seed=SERVE["seed"], device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SERVE["seed"])
+        r = dd.generate(model, dd.prompt_inputs(
+            served, SERVE["batch"], SERVE["prompt_len"], gen),
+            SERVE["gen_tokens"])
+        del model
     torch.cuda.synchronize()
     launched = counts()
     logits = r["prefill_logits"]
     check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    check(tuple(logits.shape) == (SERVE["batch"], full.vocab_size),
+          f"{arch}: prefill logits {tuple(logits.shape)}")
     check(tuple(r["generated"].shape) == (SERVE["batch"], SERVE["gen_tokens"]),
           f"{arch}: generated {r['generated'].shape}")
     peak = torch.cuda.max_memory_allocated()
     del r["prefill_logits"]
     torch.cuda.empty_cache()
+    # a decode step's least time: every weight it reads (all but the
+    # embedding table, of which it reads B rows) once, at the HBM rate
+    weights = count_params(param_defs(served))
+    if not served.tie_embeddings:
+        weights -= served.vocab_size * served.d_model
+    decode_bound_ms = 1e3 * 2.0 * weights / HBM_BW
 
-    full = get_config(arch)
-    # the fp32 agreement and the traces: qwen3-4b at full width and 2
-    # layers (the CPU half holds its weights in fp32), mamba2-130m whole
-    deep = dataclasses.replace(full, num_layers=2) if full.family == "dense" else full
+    # the fp32 agreement and the traces: attention models at full width
+    # and 2 layers (the CPU half holds their weights in fp32; an MoE
+    # model's layer 0 dense, layer 1 MoE), mamba2-130m whole
+    deep = (dataclasses.replace(full, num_layers=2)
+            if full.family in ("dense", "moe") else full)
     gen = torch.Generator().manual_seed(1)
-    tokens = torch.randint(0, full.vocab_size,
-                           (AGREE["batch"], AGREE["prompt_len"]), generator=gen)
-    big = torch.randint(0, full.vocab_size, (SERVE["batch"], SERVE["prompt_len"]),
-                        generator=gen).cuda()
+    agree_in = dd.prompt_inputs(deep, AGREE["batch"], AGREE["prompt_len"], gen)
     params = _cpu_params(build_model(deep, seed=1, device="cuda"))
     runs = {}
-    for name, dtype, layers in (("bf16", torch.bfloat16, BF16_LAYERS),
-                                ("fp32", torch.float32, deep.num_layers)):
-        cfg = dataclasses.replace(full, num_layers=layers)
-        cast = _cast(params, dtype, layers)
+    for name, dtype, n in (("bf16", torch.bfloat16, BF16_LAYERS),
+                           ("fp32", torch.float32, deep.num_layers)):
+        cfg = dataclasses.replace(full, num_layers=n)
+        cast = _cast(params, dtype, n)
         model = build_model(cfg, cast, device="cuda")
-        _, card = model.prefill(tokens.cuda())
+        card_routes, host_routes = [], []
+        with _patched(L, _route_recorder(card_routes)):
+            _, card = dd.prefill(model, {k: v.cuda() for k, v in agree_in.items()})
         del model
         torch.cuda.empty_cache()
         cpu_model = build_model(cfg, cast, device="cpu")
         t0 = time.perf_counter()
-        _, host = cpu_model.prefill(tokens)
-        runs[name] = dict(card=card.cpu(), host=host, layers=layers,
+        with _patched(L, _route_recorder(host_routes)):
+            _, host = dd.prefill(cpu_model, agree_in)
+        runs[name] = dict(card=card.cpu(), host=host, layers=n,
                           cpu_s=time.perf_counter() - t0)
+        if card_routes:
+            # the (token, rank) decisions of the compared (last) MoE
+            # layer that differ: another expert, or kept on one side and
+            # dropped on the other (a flip early in the flat order moves
+            # the later slots of its experts, so drops differ in turn);
+            # the compared logits are the last token's, whose decisions
+            # come last
+            (ci, ck), (hi, hk) = card_routes[-1], host_routes[-1]
+            expert = (ci != hi).reshape(-1)
+            differ = expert | (ck != hk)
+            k = ci.shape[-1]
+            runs[name]["routing"] = dict(
+                decisions=int(ck.numel()), differ=int(differ.sum()),
+                expert_differs=int(expert.sum()),
+                kept_differs=int((ck != hk).sum()),
+                last_token_differs=int(differ[-k:].sum()),
+                dropped_card=int((~ck).sum()), dropped_cpu=int((~hk).sum()))
         del cpu_model, cast
 
-    # where the time goes at the serve shapes (per layer the same as at
-    # full depth): one prefill, then one decode step, in bf16
-    model = build_model(deep, _cast(params, torch.bfloat16, deep.num_layers),
-                        device="cuda")
+    # where the time goes at the serve shapes, in bf16: one prefill, then
+    # one decode step, the MoE functions under their spans
+    trace_cfg = (served if trace_layers is None
+                 else dataclasses.replace(full, num_layers=trace_layers))
     del params
-    model.prefill(big)
-    prefill_trace = profile(torch, lambda: model.prefill(big))
-    cache, logits = model.prefill(big, max_len=SERVE["prompt_len"] + 2)
+    model = build_model(trace_cfg, seed=1, device="cuda")
+    big = {k: v.cuda() for k, v in dd.prompt_inputs(
+        trace_cfg, SERVE["batch"], SERVE["prompt_len"],
+        torch.Generator().manual_seed(2)).items()}
+    dd.prefill(model, big)
+    with _patched(L, _spans(torch)):
+        prefill_trace = profile(torch, lambda: dd.prefill(model, big))
+    cache, logits = dd.prefill(model, big, max_len=SERVE["prompt_len"] + 2)
     nxt = logits.argmax(-1)[:, None]
-    model.decode_step(cache, nxt, SERVE["prompt_len"])
-    decode_trace = profile(
-        torch, lambda: model.decode_step(cache, nxt, SERVE["prompt_len"] + 1))
+    dd.decode_step(model, cache, nxt, SERVE["prompt_len"])
+    with _patched(L, _spans(torch)):
+        decode_trace = profile(torch, lambda: dd.decode_step(
+            model, cache, nxt, SERVE["prompt_len"] + 1))
     del cache, model, big
     torch.cuda.empty_cache()
 
@@ -960,20 +1100,29 @@ def phase_serve(torch, arch, serve, build_model, get_config, counts, reset):
               f"{arch}: non-finite {name} card logits")
     err32 = rel(runs["fp32"]["card"], runs["fp32"]["host"])
     err16 = rel(runs["bf16"]["card"], runs["bf16"]["host"])
-    check(err32 <= SERVE_TOL_FP32, f"{arch}: fp32 card vs CPU prefill {err32}")
-    check(err16 <= SERVE_TOL, f"{arch}: bf16 card vs CPU prefill {err16}")
+    routing = {k: v["routing"] for k, v in runs.items() if "routing" in v}
+    check(err32 <= SERVE_TOL_FP32,
+          f"{arch}: fp32 card vs CPU prefill {err32} (routing {routing})")
+    check(err16 <= SERVE_TOL,
+          f"{arch}: bf16 card vs CPU prefill {err16} (routing {routing})")
+    step_ms = 1e3 * r["decode_s"] / (SERVE["gen_tokens"] - 1)
     return dict(
-        arch=arch, layers=full.num_layers, **SERVE,
+        arch=arch, layers=served.num_layers,
+        published_layers=full.num_layers,
+        cut=(None if layers is None else
+             f"depth {layers} of {full.num_layers} layers, published widths"),
+        **SERVE,
         prefill_s=r["prefill_s"], decode_s=r["decode_s"],
-        decode_tok_per_s=r["decode_tok_per_s"],
+        decode_tok_per_s=r["decode_tok_per_s"], decode_step_ms=step_ms,
+        decode_weights_bound_ms=decode_bound_ms,
         first_tokens=r["generated"][0][:8].tolist(), peak_bytes=peak,
         agreement=dict(**AGREE, layers_bf16=runs["bf16"]["layers"],
                        layers_fp32=runs["fp32"]["layers"], rel_err_bf16=err16,
-                       rel_err_fp32=err32,
+                       rel_err_fp32=err32, routing=routing,
                        cpu_prefill_s={k: v["cpu_s"] for k, v in runs.items()}),
-        prefill_trace=dict(layers=deep.num_layers, batch=SERVE["batch"],
+        prefill_trace=dict(layers=trace_cfg.num_layers, batch=SERVE["batch"],
                            prompt_len=SERVE["prompt_len"], **prefill_trace),
-        decode_trace=dict(layers=deep.num_layers, batch=SERVE["batch"],
+        decode_trace=dict(layers=trace_cfg.num_layers, batch=SERVE["batch"],
                           **decode_trace),
         launches=launched,
     )
@@ -1134,13 +1283,22 @@ def profile(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    spans = set(MOE_SPANS.values())
     rows = []
     for e in prof.key_averages():
-        # kernel rows only: an operator's row repeats its kernels' time
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+        # kernel rows only: an operator's row repeats its kernels' time,
+        # and a span's device row its kernels' extent
+        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and e.key not in spans):
             rows.append((e.self_device_time_total, e.key, e.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
+    # each span's kernels (the host event's device time sums the kernels
+    # of every operator under it)
+    span_ms = {}
+    for e in prof.events():
+        if e.name in spans and e.device_type == DeviceType.CPU:
+            span_ms[e.name] = span_ms.get(e.name, 0.0) + e.device_time_total / 1e3
     kernels = {}
     for name in TRACED_KERNELS:
         # a forward's name is a prefix of its backward's: keep them apart
@@ -1148,12 +1306,22 @@ def profile(torch, fn) -> dict:
                  and ("bwd" in name or "bwd" not in k)) / 1e3
         if ms > 0:
             kernels[name] = dict(ms=ms, share=ms / max(device_ms, 1e-9))
-    return dict(
+    out = dict(
         wall_ms=1e3 * wall, device_ms=device_ms,
         device_busy_share=device_ms / (1e3 * wall),
         top=[dict(name=k[:80], ms=us / 1e3, calls=c) for us, k, c in rows[:8]],
         kernels=kernels,
     )
+    if span_ms:
+        layer = span_ms.get("moe.layer", 0.0)
+        experts = span_ms.get("moe.experts", 0.0)
+        parts = {"moe_layer": layer, "expert_products": experts,
+                 "routing": span_ms.get("moe.route", 0.0),
+                 # routing, the expert buffer, the combine and the aux loss
+                 "dispatch": layer - experts}
+        out["moe"] = {k: dict(ms=ms, share=ms / max(device_ms, 1e-9))
+                      for k, ms in parts.items()}
+    return out
 
 
 def check_peak(phase: str, measured: int, planned: int) -> None:
@@ -1696,7 +1864,8 @@ def main() -> int:
     from repro_torch.kernels import build, contract_gemm as cg
     from repro_torch.kernels import flash_attention as fa, mamba2_ssd as ssd
     from repro_torch.kernels import ops
-    from repro_torch.launch.decode_demo import serve
+    from repro_torch.launch import decode_demo
+    from repro_torch.models import layers as lm_layers
     from repro_torch.models import build_model
     from repro_torch.core.executor import exact_fp32_matmul
     from repro_torch.hardware import H100_SXM
@@ -1937,14 +2106,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. LM serving at full width, each model's own launches ----------
-    for arch in ("qwen3-4b", "mamba2-130m"):
-        rec = phase_serve(torch, arch, serve, build_model, get_config,
-                          lm_counts, lm_reset)
+    for arch, cut in SERVE_MODELS.items():
+        t0 = time.perf_counter()
+        rec = phase_serve(torch, arch, decode_demo, build_model, get_config,
+                          lm_counts, lm_reset, lm_layers, **cut)
         launches[f"serve:{arch}"] = rec["launches"]
-        emit(phase="serve", **rec)
+        emit(phase="serve", seconds=time.perf_counter() - t0, **rec)
         torch.cuda.empty_cache()
-    check(launches["serve:qwen3-4b"]["flash_attention"] > 0,
-          "flash_attention was not launched serving qwen3-4b")
+    for arch in SERVE_MODELS:
+        if get_config(arch).family != "ssm":
+            check(launches[f"serve:{arch}"]["flash_attention"] > 0,
+                  f"flash_attention was not launched serving {arch}")
     check(launches["serve:mamba2-130m"]["ssd_chunk"] > 0,
           "ssd_chunk was not launched serving mamba2-130m")
     ssd_routes = launches["serve:mamba2-130m"]["ssd_routes"]
@@ -1983,6 +2155,9 @@ def main() -> int:
                                "resume", "multihost", "share"))
              for k in cg.LAUNCHES}
     total["flash_attention"] = launches["serve:qwen3-4b"]["flash_attention"]
+    for name in K4_SHAPES:
+        if ":" in name:  # the other served models' K4 launches
+            total[name] = launches[f"serve:{name.split(':')[1]}"]["flash_attention"]
     total["ssd_chunk"] = launches["serve:mamba2-130m"]["ssd_chunk"]
     total["flash_attention_bwd"] = launches["train:qwen3-4b"]["flash_attention_bwd"]
     total["ssd_chunk_bwd"] = launches["train:mamba2-130m"]["ssd_chunk_bwd"]
@@ -2009,6 +2184,18 @@ def main() -> int:
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             **{k: rec[k] for k in ("simt_ms",) if k in rec},
+        ))
+    for name in K4_SHAPES:
+        if ":" not in name:
+            continue
+        rec = kern[name]
+        records.append(dict(
+            name=name, route="cuda", design=DESIGNS["flash_attention"],
+            source=SOURCES["flash_attention"],
+            replaces=TPU_KERNELS["flash_attention"], launches=total[name],
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
         ))
     for name in BF16_ROUTES:
         rec = kern[f"{name}:bf16"]

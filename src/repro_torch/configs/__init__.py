@@ -1,19 +1,36 @@
 """Architecture registry of the LM side: ``get_config(name)``.
 
-Registered: the two served models (qwen3-4b, mamba2-130m) and
-llama3.2-3b, the reference training launcher's default (a dense config,
-served and trained by the same model code).  The reference's other
-architectures (MoE, M-RoPE/VLM, the hybrid, the encoder-decoder and the
-other dense configs) wait in ROADMAP.md, queue 1 item 11.
+Registered: the dense configs (qwen3-4b, llama3.2-3b, deepseek-7b), the
+MoE configs (deepseek-moe-16b, llama4-scout-17b-a16e), the M-RoPE/VLM
+backbone qwen2-vl-72b and the SSM mamba2-130m.  The reference's other
+architectures (llama3-405b, the hybrid zamba2-7b and the
+encoder-decoder seamless-m4t-medium) wait in ROADMAP.md, queue 1 item 11.
 """
 
 from __future__ import annotations
 
-from . import llama3_2_3b, mamba2_130m, qwen3_4b
+from . import (
+    deepseek_7b,
+    deepseek_moe_16b,
+    llama3_2_3b,
+    llama4_scout_17b_a16e,
+    mamba2_130m,
+    qwen2_vl_72b,
+    qwen3_4b,
+)
 from .base import ArchConfig, smoke_shrink
 
 ARCHS: dict[str, ArchConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (qwen3_4b, mamba2_130m, llama3_2_3b)
+    m.CONFIG.name: m.CONFIG
+    for m in (
+        qwen3_4b,
+        mamba2_130m,
+        llama3_2_3b,
+        deepseek_7b,
+        deepseek_moe_16b,
+        llama4_scout_17b_a16e,
+        qwen2_vl_72b,
+    )
 }
 
 

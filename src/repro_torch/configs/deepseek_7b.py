@@ -1,0 +1,15 @@
+"""deepseek-7b [dense] — llama-arch, MHA (kv == heads) [arXiv:2401.02954; hf]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-7b",
+    family="dense",
+    num_layers=30,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=11008,
+    vocab_size=102400,
+    head_dim=128,
+    rope_theta=10000.0,
+)

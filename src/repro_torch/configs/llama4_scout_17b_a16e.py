@@ -1,0 +1,20 @@
+"""llama4-scout-17b-a16e [moe] — 16 experts top-1 + shared expert, early
+fusion [hf:meta-llama/Llama-4-Scout-17B-16E; unverified]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama4-scout-17b-a16e",
+    family="moe",
+    num_layers=48,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    d_ff=8192,
+    vocab_size=202048,
+    head_dim=128,
+    num_experts=16,
+    experts_per_token=1,
+    num_shared_experts=1,
+    moe_d_ff=8192,
+    rope_theta=500000.0,
+)

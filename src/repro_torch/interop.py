@@ -18,6 +18,7 @@ from .core.contraction_tree import ContractionTree
 from .core.executor import ContractionPlan
 from .core.tensor_network import TensorNetwork
 from .hardware import DEFAULT_HARDWARE, Hardware
+from .models.lm import num_dense_layers
 
 
 def network_from_reference(inputs, open_inds=(), ind_sizes=None) -> TensorNetwork:
@@ -77,25 +78,40 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))  # a writable copy
 
 
-def _unstack(cfg, tree: dict, leaf) -> dict:
-    """The reference's stacked tree in the port's layout: the stacked
-    group's entries cut into one dict per layer.  ``leaf(x, i)`` turns a
-    reference leaf into the port's (layer ``i``, or ``None`` for an
-    unstacked entry)."""
-    stack_key = {"dense": "dense_layers", "ssm": "layers"}.get(cfg.family)
-    if stack_key is None:
+def _stacks(cfg) -> list[tuple[str, int]]:
+    """The reference's stacked groups of ``cfg``'s layers, in layer
+    order, with their rows: ``dense_layers`` (``first_k_dense`` rows for
+    an MoE model, every layer for a dense one), then ``moe_layers``; the
+    SSM's ``layers``."""
+    if cfg.family == "ssm":
+        return [("layers", cfg.num_layers)]
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item 11)"
         )
-    out = {k: leaf(v, None) for k, v in tree.items() if k != stack_key}
-    stacked = tree[stack_key]
-    n = cfg.num_layers
-    for k, v in stacked.items():
-        rows = np.shape(v[0] if isinstance(v, tuple) else v)[0]
-        if rows != n:
-            raise ValueError(f"{stack_key}.{k}: {rows} layers, config has {n}")
-    out["layers"] = [{k: leaf(v, i) for k, v in stacked.items()}
-                     for i in range(n)]
+    n_dense = num_dense_layers(cfg)
+    return [(k, n) for k, n in (("dense_layers", n_dense),
+                                ("moe_layers", cfg.num_layers - n_dense)) if n]
+
+
+def _unstack(cfg, tree: dict, leaf) -> dict:
+    """The reference's stacked tree in the port's layout: each stacked
+    group's entries cut into one dict per layer, the groups one after
+    the other in one ``layers`` list.  ``leaf(x, i)`` turns a reference
+    leaf into the port's (row ``i`` of its group, or ``None`` for an
+    unstacked entry)."""
+    stacks = _stacks(cfg)
+    keys = {k for k, _ in stacks}
+    out = {k: leaf(v, None) for k, v in tree.items() if k not in keys}
+    out["layers"] = []
+    for key, n in stacks:
+        stacked = tree[key]
+        for k, v in stacked.items():
+            rows = np.shape(v[0] if isinstance(v, tuple) else v)[0]
+            if rows != n:
+                raise ValueError(f"{key}.{k}: {rows} layers, config has {n}")
+        out["layers"] += [{k: leaf(v, i) for k, v in stacked.items()}
+                          for i in range(n)]
     return out
 
 
@@ -109,8 +125,9 @@ def lm_params_from_numpy(cfg, tree: dict) -> dict:
     pytree as numpy arrays (bf16 ones included).
 
     The reference stacks each layer's parameters on a leading axis for
-    ``lax.scan`` (``"dense_layers"`` for the dense family, ``"layers"``
-    for the SSM); the port keeps one dict per layer.  Returns
+    ``lax.scan`` (``"dense_layers"`` for the dense family, then
+    ``"moe_layers"`` for an MoE model, ``"layers"`` for the SSM); the
+    port keeps one dict per layer, in layer order.  Returns
     ``{"embed", "final_norm", ["head"], "layers": [dict per layer]}`` of
     CPU tensors, for :func:`repro_torch.models.build_model`."""
     return _unstack(cfg, tree, _layer)

@@ -4,12 +4,16 @@ The port's twin of the reference's ``repro.launch.decode_demo`` (which
 ``examples/serve_lm.py`` drives): build the model with random weights
 from a seed, prefill a batch of random prompts into a KV or SSM state
 cache, decode ``gen_tokens`` tokens by greedy argmax, and report
-``prefill_s``, ``decode_s`` and ``decode_tok_per_s``.  Prefill attention
-runs the flash kernel and the Mamba-2 prefill the SSD chunk kernel on the
-card.
+``prefill_s``, ``decode_s`` and ``decode_tok_per_s``.  A VLM backbone
+(``embed_inputs``) takes random prompt embeddings in place of the
+vision frontend, and M-RoPE models their (3, B, S) positions, as in the
+reference.  Prefill attention runs the flash kernel and the Mamba-2
+prefill the SSD chunk kernel on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.decode_demo --arch qwen3-4b \\
         --batch 4 --prompt-len 512 --gen 32 --full
+    PYTHONPATH=src python -m repro_torch.launch.decode_demo \\
+        --arch deepseek-moe-16b --batch 4 --prompt-len 512 --full
 
 Without ``--full`` the model is the reference's smoke shrink of the
 architecture.  The default device is the card; ``--device cpu`` runs the
@@ -34,6 +38,72 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prompt_inputs(cfg, batch: int, prompt_len: int,
+                  generator: torch.Generator) -> dict:
+    """The prompt of a serve run, drawn from ``generator`` on its device
+    as the reference's demo draws it: ``tokens`` (batch, prompt_len);
+    for an ``embed_inputs`` config random fp32 ``embeds`` (batch,
+    prompt_len, d_model) (the stub frontend's output); for M-RoPE
+    ``positions`` (3, batch, prompt_len), the text positions on all
+    three axes."""
+    dev = generator.device
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                   generator=generator, device=dev)}
+    if cfg.embed_inputs:
+        out["embeds"] = torch.randn(batch, prompt_len, cfg.d_model,
+                                    generator=generator, device=dev)
+    if cfg.mrope:
+        out["positions"] = torch.arange(prompt_len, device=dev).expand(
+            3, batch, prompt_len)
+    return out
+
+
+def prefill(model, inputs: dict, max_len: int | None = None):
+    """``model.prefill`` on :func:`prompt_inputs`' dict."""
+    extra = {k: inputs[k] for k in ("embeds", "positions") if k in inputs}
+    return model.prefill(inputs["tokens"], max_len, **extra)
+
+
+def decode_step(model, cache, tokens, pos: int):
+    """``model.decode_step`` on ``tokens`` (B, 1) at ``pos``, with the
+    (3, B, 1) M-RoPE positions ``pos`` where the model uses them."""
+    if not model.cfg.mrope:
+        return model.decode_step(cache, tokens, pos)
+    mrope = torch.full((3, tokens.shape[0], 1), pos, device=tokens.device)
+    return model.decode_step(cache, tokens, pos, mrope)
+
+
+def generate(model, inputs: dict, gen_tokens: int) -> dict:
+    """Prefill ``inputs`` (:func:`prompt_inputs`), then ``gen_tokens``
+    greedy tokens, the first from the prefill's logits.  Returns what
+    :func:`serve` returns."""
+    dev = model.top.embed.device
+    batch, prompt_len = inputs["tokens"].shape
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    cache, logits = prefill(model, inputs, max_len=prompt_len + gen_tokens)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    tokens = torch.argmax(logits, -1)[:, None]
+    outs = [tokens]
+    t0 = time.perf_counter()
+    for i in range(gen_tokens - 1):
+        step_logits, cache = decode_step(model, cache, tokens, prompt_len + i)
+        tokens = torch.argmax(step_logits, -1)[:, None]
+        outs.append(tokens)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    return {
+        "generated": torch.cat(outs, dim=1).cpu().numpy(),
+        "prefill_logits": logits,
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_tok_per_s": batch * (gen_tokens - 1) / max(t_decode, 1e-9),
+    }
+
+
 def serve(
     arch: str,
     smoke: bool = True,
@@ -53,32 +123,8 @@ def serve(
         cfg = smoke_shrink(cfg)
     model = build_model(cfg, seed=seed, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                            generator=gen, device=dev)
-    max_len = prompt_len + gen_tokens
-
-    _sync(dev)
-    t0 = time.perf_counter()
-    cache, logits = model.prefill(prompts, max_len=max_len)
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
-
-    tokens = torch.argmax(logits, -1)[:, None]
-    outs = [tokens]
-    t0 = time.perf_counter()
-    for i in range(gen_tokens - 1):
-        step_logits, cache = model.decode_step(cache, tokens, prompt_len + i)
-        tokens = torch.argmax(step_logits, -1)[:, None]
-        outs.append(tokens)
-    _sync(dev)
-    t_decode = time.perf_counter() - t0
-    return {
-        "generated": torch.cat(outs, dim=1).cpu().numpy(),
-        "prefill_logits": logits,
-        "prefill_s": t_prefill,
-        "decode_s": t_decode,
-        "decode_tok_per_s": batch * (gen_tokens - 1) / max(t_decode, 1e-9),
-    }
+    return generate(model, prompt_inputs(cfg, batch, prompt_len, gen),
+                    gen_tokens)
 
 
 def main() -> None:

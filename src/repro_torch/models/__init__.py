@@ -1,8 +1,9 @@
 """The served LM architectures: ``build_model``.
 
-Only the dense (qwen3-4b) and SSM (mamba2-130m) families are ported;
-MoE, M-RoPE/VLM, the hybrid and the encoder-decoder wait in ROADMAP.md,
-queue 1 item 11.
+The dense family (with M-RoPE and embedded inputs for the VLM backbone),
+the MoE family (:class:`DecoderLM`) and the SSM family (:class:`MambaLM`)
+are ported; the hybrid and the encoder-decoder wait in ROADMAP.md, queue 1
+item 11.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def build_model(cfg: ArchConfig, params: dict | None = None, *,
         gen = None
     else:
         gen = torch.Generator(device=dev).manual_seed(seed)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return DecoderLM(cfg, params, generator=gen)
     if cfg.family == "ssm":
         return MambaLM(cfg, params, generator=gen)
@@ -41,7 +42,7 @@ def build_model(cfg: ArchConfig, params: dict | None = None, *,
 
 def param_defs(cfg: ArchConfig) -> dict:
     """The parameter declarations of ``cfg``'s model (no weights)."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return lm.param_defs(cfg)
     if cfg.family == "ssm":
         return ssm_model.param_defs(cfg)

@@ -1,16 +1,19 @@
 """Neural building blocks of the served models, as functions on tensors.
 
-Counterpart of the reference's ``models/layers.py`` for the dense and
-SSM families.  Every bf16 cast sits where the reference has it: norms
-return ``x.dtype``, SiLU runs in fp32 and casts back, the Mamba-2 mixer
-casts ``xs`` and ``y`` back to the activation type.  Prefill attention
+Counterpart of the reference's ``models/layers.py`` for the dense, MoE,
+M-RoPE/VLM and SSM families.  Every bf16 cast sits where the reference
+has it: norms return ``x.dtype``, SiLU runs in fp32 and casts back, the
+MoE router runs in fp32 and its gates are cast to the activation type
+before they multiply, the Mamba-2 mixer casts ``xs`` and ``y`` back to
+the activation type.  Prefill attention
 goes through :func:`repro_torch.kernels.ops.attention` (the flash kernel
 on the card) and the chunked SSD through
 :func:`repro_torch.kernels.ops.ssd_scan` (the SSD chunk kernel on the
 card); the reference's models run jnp versions of the same functions,
 which its Pallas kernels replace on a TPU.  Decode attention (one query)
 and the one-token SSM step stay plain PyTorch, as they are jnp in the
-reference.
+reference; so do the MoE dispatch and its expert products (batched
+library products: the reference runs them as plain ``einsum``s).
 """
 
 from __future__ import annotations
@@ -51,6 +54,32 @@ def apply_rope(
     D = x.shape[-1]
     freqs = rope_freqs(D, theta, x.device)  # (D/2,)
     ang = positions[..., None].to(F32) * freqs  # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(
+    x: torch.Tensor,  # (B, S, H, D)
+    positions: torch.Tensor,  # (3, B, S) int — temporal/height/width
+    theta: float = 1e4,
+    sections: tuple[int, int, int] = (2, 1, 1),  # D/2 split ratio t:h:w
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the D/2 frequency bands are split into
+    three sections rotated by the temporal / height / width positions."""
+    D = x.shape[-1]
+    half = D // 2
+    tot = sum(sections)
+    bounds = [half * sum(sections[: i + 1]) // tot for i in range(3)]
+    freqs = rope_freqs(D, theta, x.device)  # (half,)
+    parts = []
+    lo = 0
+    for i, hi in enumerate(bounds):
+        parts.append(positions[i][..., None].to(F32) * freqs[lo:hi])
+        lo = hi
+    ang = torch.cat(parts, dim=-1)  # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
@@ -115,6 +144,119 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     u = x @ w_up
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ w_down
+
+
+# ----------------------------------------------------------------------
+# Mixture of Experts (capacity routing)
+# ----------------------------------------------------------------------
+def moe_capacity(tokens: int, top_k: int, num_experts: int,
+                 capacity_factor: float = 1.25) -> int:
+    """Slots per expert: ``capacity_factor · T · k / E`` rounded down,
+    then up to a multiple of 8, at least 8 (the reference's rule)."""
+    cap = int(capacity_factor * tokens * top_k / num_experts)
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
+              capacity_factor: float = 1.25, dispatch: str = "sort"):
+    """The routing of :func:`moe_layer` on ``x`` (B, S, D): ``(probs (T,
+    E) fp32, gate (T, k) fp32 renormalised, ids (T, k), keep (T·k,) bool,
+    dest (T·k,), cap)``.  Slot ``(t, r)`` of the flat ``(token, rank)``
+    order goes to row ``dest = ids·cap + position-in-expert`` of the
+    expert buffer, or to the trash row ``E·cap`` when its expert is full
+    (``keep`` false)."""
+    B, S, D = x.shape
+    E = router_w.shape[1]
+    T = B * S
+    logits = x.reshape(T, D).float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)  # (T, E)
+    gate, ids = torch.topk(probs, top_k, dim=-1, sorted=True)  # (T, k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    cap = moe_capacity(T, top_k, E, capacity_factor)
+    flat_ids = ids.reshape(-1)  # (T·k,)
+    n = flat_ids.numel()
+    if dispatch == "sort":
+        sort_idx = torch.argsort(flat_ids, stable=True)
+        sorted_ids = flat_ids[sort_idx]
+        starts = torch.searchsorted(
+            sorted_ids, torch.arange(E, device=x.device))  # (E,)
+        pos_sorted = torch.arange(n, device=x.device) - starts[sorted_ids]
+        # sort_idx is a permutation: each position written once
+        mypos = torch.empty_like(pos_sorted).scatter_(0, sort_idx, pos_sorted)
+    elif dispatch == "cumsum":  # GShard's one-hot cumsum
+        onehot = (flat_ids[:, None] == torch.arange(E, device=x.device)
+                  ).long()  # (T·k, E)
+        pos_all = torch.cumsum(onehot, dim=0) - 1
+        mypos = pos_all.gather(1, flat_ids[:, None])[:, 0]
+    else:
+        raise ValueError(f"unknown dispatch {dispatch!r}")
+    keep = mypos < cap
+    dest = torch.where(keep, flat_ids * cap + mypos,
+                       torch.full_like(flat_ids, E * cap))
+    return probs, gate, ids, keep, dest, cap
+
+
+def expert_ffn(h: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """Every expert's SwiGLU on its rows: ``h`` (E, cap, D) through three
+    batched products over the experts, SiLU in fp32 cast back."""
+    gates = torch.bmm(h, w_gate)
+    ups = torch.bmm(h, w_up)
+    act = F.silu(gates.float()).to(h.dtype) * ups
+    return torch.bmm(act, w_down)
+
+
+def moe_layer(
+    x: torch.Tensor,  # (B, S, D)
+    router_w: torch.Tensor,  # (D, E)
+    w_gate: torch.Tensor,  # (E, D, F)
+    w_up: torch.Tensor,  # (E, D, F)
+    w_down: torch.Tensor,  # (E, F, D)
+    *,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    dispatch: str = "sort",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k token-choice routing with per-expert capacity (tokens over
+    capacity are dropped, Switch/GShard semantics): the reference's
+    ``moe_layer``, dropping exactly the slots it drops.
+
+    The router runs in fp32; the top-k gates are renormalised; each
+    ``(token, rank)`` slot, in flat order, takes the next free row of its
+    expert's ``cap`` rows (``dispatch`` "sort": stable argsort and
+    searchsorted; "cumsum": one-hot cumsum; the same positions) or is
+    dropped.  The expert FFN is three batched products over the experts;
+    each slot's output is scaled by its gate, cast to the activation
+    type, and the ``k`` slots of a token summed.
+
+    Static shapes and no host synchronisation: ``cap`` comes from the
+    token count, the buffer is written by ``index_copy`` (every kept slot
+    has its own row; dropped ones all land on the trash row, cut off
+    before the products, so no float is ever summed by atomics), and the
+    Switch aux loss's counts are an integer ``scatter_add_`` (exact in
+    any order; ``torch.bincount`` reads its maximum back to the host on
+    the card).  Returns (y (B, S, D), aux_loss () fp32)."""
+    B, S, D = x.shape
+    E = router_w.shape[1]
+    T = B * S
+    probs, gate, ids, keep, dest, cap = moe_route(
+        x, router_w, top_k, capacity_factor, dispatch)
+
+    # load-balance aux loss (Switch): E · Σ_e f_e · p_e over the top-1 ids
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, ids[:, 0], torch.ones_like(ids[:, 0]))
+    f_e = counts.float() / T
+    aux = E * torch.mean(f_e * torch.mean(probs, dim=0))
+
+    xf = x.reshape(T, D)
+    xin = xf[:, None].expand(T, top_k, D).reshape(T * top_k, D)  # slot rows
+    buf = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=x.device)
+    h = buf.index_copy(0, dest, xin)[: E * cap].reshape(E, cap, D)
+    out = expert_ffn(h, w_gate, w_up, w_down).reshape(E * cap, D)
+    out = torch.cat([out, out.new_zeros(1, D)], 0)
+    scale = (keep * gate.reshape(-1))[:, None].to(x.dtype)
+    y = (out[dest] * scale).reshape(T, top_k, D).sum(dim=1)
+    return y.reshape(B, S, D), aux
 
 
 # ----------------------------------------------------------------------

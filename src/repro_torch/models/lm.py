@@ -1,17 +1,22 @@
-"""Dense decoder-only LM (GQA, optional qk-norm): serving and training.
+"""Decoder-only LM (dense / MoE / VLM): serving and training.
 
-Counterpart of the reference's ``DecoderLM`` (``models/lm.py``) for
-``family == "dense"``: prefill, ``decode_step``, ``cache_spec`` and
-``init_cache``, and for training ``hidden_states`` and ``loss``.  The
-reference stacks the layers' parameters on a leading axis for
-``lax.scan``; here each layer is a module of its own and the stack is a
-Python loop, each layer under ``torch.utils.checkpoint`` when training
-(the reference's ``jax.checkpoint``: the same values, other memory).
-MoE layers and M-RoPE are not ported and raise.
+Counterpart of the reference's ``DecoderLM`` (``models/lm.py``):
+prefill, ``decode_step``, ``cache_spec`` and ``init_cache``, and for
+training ``hidden_states`` and ``loss``.  The reference stacks the
+layers' parameters on a leading axis for ``lax.scan`` (``dense_layers``,
+then ``moe_layers`` for an MoE model); here each layer is a module of
+its own in one flat list, the first ``first_k_dense`` holding a SwiGLU
+MLP and the rest the router, the routed experts and any shared experts,
+and the stack is a Python loop, each layer under
+``torch.utils.checkpoint`` when training (the reference's
+``jax.checkpoint``: the same values, other memory).  The KV cache keeps
+the reference's groups, ``"dense"`` and ``"moe"``.
 
 Serving conventions (as in the reference):
-  prefill:  tokens (B, S) → (cache, last-position logits (B, V) fp32)
-  decode:   (cache, tokens (B, 1), pos) → (logits (B, V) fp32, cache)
+  prefill:  tokens (B, S) | embeds (B, S, D) [+ positions (3, B, S) for
+            M-RoPE] → (cache, last-position logits (B, V) fp32)
+  decode:   (cache, tokens (B, 1), pos [, mrope positions (3, B, 1)])
+            → (logits (B, V) fp32, cache)
 """
 
 from __future__ import annotations
@@ -51,9 +56,33 @@ def _mlp_defs(cfg: ArchConfig) -> dict:
     }
 
 
+def _moe_defs(cfg: ArchConfig) -> dict:
+    D, E, Fm = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+    d = {
+        "router": ParamDef((D, E), scale=0.02),
+        "e_gate": ParamDef((E, D, Fm)),
+        "e_up": ParamDef((E, D, Fm)),
+        "e_down": ParamDef((E, Fm, D)),
+        "ln_mlp": ParamDef((D,), init="ones"),
+    }
+    if cfg.num_shared_experts:
+        Fs = Fm * cfg.num_shared_experts
+        d["s_gate"] = ParamDef((D, Fs))
+        d["s_up"] = ParamDef((D, Fs))
+        d["s_down"] = ParamDef((Fs, D))
+    return d
+
+
+def num_dense_layers(cfg: ArchConfig) -> int:
+    """Layers with a dense MLP, the first of the stack: ``first_k_dense``
+    for an MoE model, every layer otherwise."""
+    return cfg.first_k_dense if cfg.num_experts else cfg.num_layers
+
+
 def param_defs(cfg: ArchConfig) -> dict:
     """``{"embed", "final_norm", ["head"], "layers": [per-layer dict]}``
-    of :class:`ParamDef` (the reference's declarations, unstacked)."""
+    of :class:`ParamDef` (the reference's declarations, unstacked: its
+    ``dense_layers`` rows, then its ``moe_layers`` rows)."""
     D, V = cfg.d_model, cfg.vocab_size
     defs: dict = {
         "embed": ParamDef((V, D), scale=0.02),
@@ -61,32 +90,36 @@ def param_defs(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["head"] = ParamDef((D, V), scale=0.02)
+    n_dense = num_dense_layers(cfg)
     defs["layers"] = [
-        {**_attn_defs(cfg), **_mlp_defs(cfg)} for _ in range(cfg.num_layers)
+        {**_attn_defs(cfg),
+         **(_mlp_defs(cfg) if i < n_dense else _moe_defs(cfg))}
+        for i in range(cfg.num_layers)
     ]
     return defs
 
 
+def _promoted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type the reference's ``einsum`` promotes ``x`` and
+    ``w`` to (bf16 embeds meet fp32 weights only in an fp32 model)."""
+    return x.to(torch.promote_types(x.dtype, w.dtype))
+
+
 class DecoderLM(TrainableLM):
-    """Dense decoder-only transformer.  ``params`` is the nested dict
-    ``{"embed", "final_norm", ["head"], "layers": [per-layer dict]}`` (see
-    :func:`repro_torch.interop.lm_params_from_numpy`); without it the
-    weights are drawn from ``generator``."""
+    """Dense / MoE / VLM decoder-only transformer.  ``params`` is the
+    nested dict ``{"embed", "final_norm", ["head"], "layers": [per-layer
+    dict]}`` (see :func:`repro_torch.interop.lm_params_from_numpy`);
+    without it the weights are drawn from ``generator``."""
 
     def __init__(self, cfg: ArchConfig, params: dict | None = None, *,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: MoE is not ported (ROADMAP.md, "
-                "queue 1 item 11)"
-            )
-        if cfg.mrope or cfg.embed_inputs:
-            raise NotImplementedError(
-                "M-RoPE / embedded inputs (VLM) are not ported (ROADMAP.md, "
-                "queue 1 item 11)"
-            )
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                f"DecoderLM serves families 'dense' and 'moe', not "
+                f"{cfg.family!r}")
         self.cfg = cfg
+        self.n_dense = num_dense_layers(cfg)
         self.top, self.layers = param_modules(param_defs(cfg), params,
                                               generator)
 
@@ -94,22 +127,27 @@ class DecoderLM(TrainableLM):
         return top["embed"].T if self.cfg.tie_embeddings else top["head"]
 
     # ------------------------------------------------------------ blocks
-    def _attention(self, p, h, positions, cache=None, pos=None):
+    def _attention(self, p, h, positions, cache=None, pos=None,
+                   mrope_positions=None):
         """One attention block.  Prefill (``cache is None``) returns the
         layer's (k, v); decode writes this token's k/v into the
         preallocated ``cache`` at slot ``pos`` in place."""
         cfg = self.cfg
         B, S, D = h.shape
         hd = cfg.resolved_head_dim
-        x = L.rms_norm(h, p["ln_attn"], cfg.norm_eps)
+        x = _promoted(L.rms_norm(h, p["ln_attn"], cfg.norm_eps), p["wq"])
         q = (x @ p["wq"].reshape(D, -1)).reshape(B, S, cfg.num_heads, hd)
         k = (x @ p["wk"].reshape(D, -1)).reshape(B, S, cfg.num_kv_heads, hd)
         v = (x @ p["wv"].reshape(D, -1)).reshape(B, S, cfg.num_kv_heads, hd)
         if cfg.qk_norm:
             q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
             k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        if cfg.mrope and mrope_positions is not None:
+            q = L.apply_mrope(q, mrope_positions, cfg.rope_theta)
+            k = L.apply_mrope(k, mrope_positions, cfg.rope_theta)
+        else:
+            q = L.apply_rope(q, positions, cfg.rope_theta)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
         if cache is None:
             o = L.blockwise_attention(q, k, v, causal=True, window=cfg.window)
             kv = (k, v)
@@ -123,40 +161,87 @@ class DecoderLM(TrainableLM):
             v_cache[:, pos:pos + S] = v
             o = L.decode_attention(q, k_cache, v_cache, pos + S)
             kv = None
-        out = o.to(h.dtype).reshape(B, S, -1) @ p["wo"].reshape(-1, D)
-        return h + out, kv
+        o = _promoted(o.to(h.dtype).reshape(B, S, -1), p["wo"])
+        return h + o @ p["wo"].reshape(-1, D), kv
 
-    def _mlp(self, p, h):
-        x = L.rms_norm(h, p["ln_mlp"], self.cfg.norm_eps)
-        return h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    def _mlp(self, p, h, moe: bool):
+        """The MLP block: SwiGLU, or the routed experts plus the shared
+        ones.  Returns (h, aux) with the MoE aux loss (0 for a dense
+        layer)."""
+        cfg = self.cfg
+        x = L.rms_norm(h, p["ln_mlp"], cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if not moe:
+            y = L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        else:
+            y, aux = L.moe_layer(
+                x, p["router"], p["e_gate"], p["e_up"], p["e_down"],
+                top_k=cfg.experts_per_token,
+            )
+            if cfg.num_shared_experts:
+                y = y + L.swiglu(x, p["s_gate"], p["s_up"], p["s_down"])
+        return h + y, aux
+
+    def _embed(self, top: dict, tokens, embeds):
+        """The first hidden states: ``embeds`` cast to bf16 whatever the
+        model's type (the reference's stub frontend), else the embedding
+        rows of ``tokens``."""
+        if embeds is not None:
+            return torch.as_tensor(embeds, device=top["embed"].device).to(
+                torch.bfloat16)
+        return top["embed"][tokens]
 
     # ------------------------------------------------------------ train
-    def _block(self, p, h, positions):
-        h, _ = self._attention(p, h, positions)
-        return self._mlp(p, h)
+    def _block(self, p, h, positions, moe, mrope_positions):
+        h, _ = self._attention(p, h, positions,
+                               mrope_positions=mrope_positions)
+        return self._mlp(p, h, moe)
 
     def hidden_states(self, batch: dict):
         """Final-layer hidden states (B, S, D), normed, and the MoE aux
-        loss (0: no MoE layers)."""
+        loss summed over the MoE layers (0 without them).  ``batch``
+        holds ``tokens`` (B, S) or ``embeds`` (B, S, D), and for M-RoPE
+        ``positions`` (3, B, S)."""
         top = self.top.tensors()
-        tokens = self._tokens(batch["tokens"])
-        h = top["embed"][tokens]
-        B, S = tokens.shape
+        embeds = batch.get("embeds")
+        tokens = None if embeds is not None else self._tokens(batch["tokens"])
+        h = self._embed(top, tokens, embeds)
+        B, S = h.shape[:2]
         positions = torch.arange(S, device=h.device).expand(B, S)
-        for layer in self.layers:
-            h = checkpoint(self._block, layer.tensors(), h, positions,
-                           use_reentrant=False)
+        mrope_positions = self._positions(batch.get("positions"))
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i, layer in enumerate(self.layers):
+            h, a = checkpoint(self._block, layer.tensors(), h, positions,
+                              i >= self.n_dense, mrope_positions,
+                              use_reentrant=False)
+            aux = aux + a
         return L.rms_norm(h, top["final_norm"], self.cfg.norm_eps), aux
+
+    def _positions(self, positions):
+        """M-RoPE positions as a long tensor on the model's device (None
+        unless the model uses M-RoPE and they were given)."""
+        if not self.cfg.mrope or positions is None:
+            return None
+        return torch.as_tensor(positions, device=self.top.embed.device).long()
 
     # ------------------------------------------------------------- serve
     def cache_spec(self, batch_size: int, max_len: int) -> dict:
-        """(shape, dtype) of each cache buffer; the KV cache is bf16."""
+        """(shape, dtype) of each cache buffer, grouped as the
+        reference's: ``"dense"`` (the dense-MLP layers) and ``"moe"``
+        (the rest); the KV cache is bf16."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        return {"dense": {"k": (shape, torch.bfloat16),
-                          "v": (shape, torch.bfloat16)}}
+
+        def kv(n):
+            shape = (n, batch_size, max_len, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
+
+        spec = {}
+        if self.n_dense:
+            spec["dense"] = kv(self.n_dense)
+        if cfg.num_layers > self.n_dense:
+            spec["moe"] = kv(cfg.num_layers - self.n_dense)
+        return spec
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None) -> dict:
         """Zeroed cache on the model's device (``dtype`` overrides the
@@ -171,45 +256,61 @@ class DecoderLM(TrainableLM):
             for grp, bufs in self.cache_spec(batch_size, max_len).items()
         }
 
+    def _slot(self, cache: dict, i: int):
+        """Layer ``i``'s (k, v) buffers in ``cache``."""
+        grp, j = ("dense", i) if i < self.n_dense else ("moe", i - self.n_dense)
+        return cache[grp]["k"][j], cache[grp]["v"][j]
+
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, max_len: int | None = None):
-        """Run the prompt: returns (cache with ``max_len`` slots, the
-        first ``S`` filled, and last-position logits (B, V) fp32)."""
+    def prefill(self, tokens: torch.Tensor | None, max_len: int | None = None,
+                *, embeds: torch.Tensor | None = None,
+                positions: torch.Tensor | None = None):
+        """Run the prompt, ``tokens`` (B, S) or ``embeds`` (B, S, D),
+        with M-RoPE ``positions`` (3, B, S) where the model uses them:
+        returns (cache with ``max_len`` slots, the first ``S`` filled,
+        and last-position logits (B, V) fp32)."""
         cfg = self.cfg
         top = self.top.tensors()
-        h = top["embed"][tokens]
-        B, S = tokens.shape
+        h = self._embed(top, tokens, embeds)
+        B, S = h.shape[:2]
         max_len = max_len or S
         if max_len < S:
             raise ValueError(f"max_len {max_len} < prompt length {S}")
-        positions = torch.arange(S, device=h.device).expand(B, S)
-        cache = self.init_cache(B, max_len, dtype=h.dtype)
-        ck, cv = cache["dense"]["k"], cache["dense"]["v"]
+        pos = torch.arange(S, device=h.device).expand(B, S)
+        mrope_positions = self._positions(positions)
+        # k/v take the type of the projections' product, as the
+        # reference's prefill returns them
+        cache = self.init_cache(B, max_len, dtype=torch.promote_types(
+            h.dtype, top["embed"].dtype))
         for i, layer in enumerate(self.layers):
             p = layer.tensors()
-            h, (k, v) = self._attention(p, h, positions)
-            ck[i, :, :S] = k
-            cv[i, :, :S] = v
-            h = self._mlp(p, h)
+            h, (k, v) = self._attention(p, h, pos,
+                                        mrope_positions=mrope_positions)
+            ck, cv = self._slot(cache, i)
+            ck[:, :S] = k
+            cv[:, :S] = v
+            h, _ = self._mlp(p, h, i >= self.n_dense)
         h = L.rms_norm(h, top["final_norm"], cfg.norm_eps)
-        logits = h[:, -1] @ self.head_weights(top)
+        logits = _promoted(h[:, -1], top["embed"]) @ self.head_weights(top)
         return cache, logits.float()
 
     @torch.inference_mode()
-    def decode_step(self, cache: dict, tokens: torch.Tensor, pos: int):
-        """tokens (B, 1) at position ``pos`` → (logits (B, V) fp32, cache),
-        the cache updated in place."""
+    def decode_step(self, cache: dict, tokens: torch.Tensor, pos: int,
+                    mrope_positions: torch.Tensor | None = None):
+        """tokens (B, 1) at position ``pos`` (and M-RoPE positions (3, B,
+        1) where the model uses them) → (logits (B, V) fp32, cache), the
+        cache updated in place."""
         cfg = self.cfg
         top = self.top.tensors()
         h = top["embed"][tokens]
         B = tokens.shape[0]
         positions = torch.full((B, 1), pos, dtype=torch.long, device=h.device)
-        ck, cv = cache["dense"]["k"], cache["dense"]["v"]
+        mrope_positions = self._positions(mrope_positions)
         for i, layer in enumerate(self.layers):
             p = layer.tensors()
-            h, _ = self._attention(p, h, positions, cache=(ck[i], cv[i]),
-                                   pos=pos)
-            h = self._mlp(p, h)
+            h, _ = self._attention(p, h, positions, cache=self._slot(cache, i),
+                                   pos=pos, mrope_positions=mrope_positions)
+            h, _ = self._mlp(p, h, i >= self.n_dense)
         h = L.rms_norm(h, top["final_norm"], cfg.norm_eps)
         logits = h[:, 0] @ self.head_weights(top)
         return logits.float(), cache

@@ -86,15 +86,21 @@ def make_prefill_step(model) -> Callable:
     parameters; the reference's step takes them first)."""
 
     def prefill_step(batch: dict, max_len: int | None = None):
-        return model.prefill(model._tokens(batch["tokens"]), max_len)
+        extra = {k: batch[k] for k in ("embeds", "positions") if k in batch}
+        tokens = batch.get("tokens")
+        return model.prefill(None if tokens is None else model._tokens(tokens),
+                             max_len, **extra)
 
     return prefill_step
 
 
 def make_decode_step(model) -> Callable:
-    """``(cache, tokens, pos) -> (logits, cache)``."""
+    """``(cache, tokens, pos[, mrope_positions]) -> (logits, cache)``."""
 
-    def decode_step(cache, tokens, pos: int):
-        return model.decode_step(cache, model._tokens(tokens), pos)
+    def decode_step(cache, tokens, pos: int, mrope_positions=None):
+        if mrope_positions is None:
+            return model.decode_step(cache, model._tokens(tokens), pos)
+        return model.decode_step(cache, model._tokens(tokens), pos,
+                                 mrope_positions)
 
     return decode_step

@@ -441,6 +441,8 @@ def _rel(got, want) -> float:
     (8, 4, 512, 512, 128, True, 0),     # qwen3-4b's group and head dim
     (4, 1, 64, 1024, 96, True, 960),    # sq < sk, two partial d panels
     (4, 4, 128, 256, 128, False, 0),    # full attention, group 4
+    (64, 1, 512, 512, 128, True, 0),    # deepseek-moe-16b's serve prefill (MHA)
+    (256, 8, 512, 512, 128, True, 0),   # qwen2-vl-72b's serve prefill, group 8
 ])
 def test_flash_attention_on_card(dev, dtype, bh, group, sq, sk, d, causal,
                                  q_offset):
@@ -732,13 +734,15 @@ def test_autograd_functions_launch_backward_kernels(dev):
 
 @pytest.mark.parametrize("arch,kernel", [
     ("qwen3-4b", "flash_attention"), ("mamba2-130m", "ssd_chunk"),
+    ("deepseek-moe-16b", "flash_attention"), ("qwen2-vl-72b", "flash_attention"),
 ])
 def test_prefill_on_card_matches_cpu(dev, arch, kernel):
     """The smoke model's prefill through the kernels against the same
-    weights and tokens on the CPU (plain versions), bf16: 3e-2 of
+    weights and prompt on the CPU (plain versions), bf16: 3e-2 of
     max|logit|."""
     from repro_torch.configs import get_config, smoke_shrink
     from repro_torch.kernels import flash_attention as fa, mamba2_ssd as ssd
+    from repro_torch.launch.decode_demo import prefill, prompt_inputs
     from repro_torch.models import build_model
 
     cfg = smoke_shrink(get_config(arch))
@@ -747,14 +751,49 @@ def test_prefill_on_card_matches_cpu(dev, arch, kernel):
     params["layers"] = [{k: v.detach().cpu() for k, v in lp.tensors().items()}
                         for lp in model.layers]
     cpu_model = build_model(cfg, params, device="cpu")
-    tokens = torch.randint(0, cfg.vocab_size, (2, 128),
-                           generator=torch.Generator().manual_seed(1))
+    inputs = prompt_inputs(cfg, 2, 128, torch.Generator().manual_seed(1))
     mod = fa if kernel == "flash_attention" else ssd
     mod.reset_launches()
-    _, logits = model.prefill(tokens.to(dev))
+    _, logits = prefill(model, {k: v.to(dev) for k, v in inputs.items()})
     assert mod.LAUNCHES[kernel] == cfg.num_layers
-    _, want = cpu_model.prefill(tokens)
+    _, want = prefill(cpu_model, inputs)
     assert _rel(logits.cpu(), want) <= 3e-2
+
+
+@pytest.mark.parametrize("dispatch", ["sort", "cumsum"])
+def test_moe_layer_on_card_matches_cpu(dev, dispatch):
+    """The MoE layer on the card, fp32 with TF32 off, at deepseek-moe-16b's
+    routing (64 experts, top 6) and a skewed router that drops slots:
+    the same routing as on the CPU, outputs within 1e-4 of max|y|, aux
+    within 1e-6; and the layer makes no host synchronisation."""
+    from repro_torch.core.executor import exact_fp32_matmul
+    from repro_torch.models import layers as L
+
+    exact_fp32_matmul()
+    g = torch.Generator().manual_seed(0)
+    T, D, E, F, k = 512, 256, 64, 96, 6
+    x = torch.randn(2, T // 2, D, generator=g)
+    x[..., 0] = 1 + x[..., 0].abs()
+    router = 0.05 * torch.randn(D, E, generator=g)
+    router[0] += torch.linspace(1.0, 0.0, E)
+    ws = [torch.randn(E, a, b, generator=g) / a ** 0.5
+          for a, b in ((D, F), (D, F), (F, D))]
+    want, want_aux = L.moe_layer(x, router, *ws, top_k=k, dispatch=dispatch)
+    route = L.moe_route(x, router, k, dispatch=dispatch)
+    args = [t.to(dev) for t in (x, router, *ws)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = L.moe_layer(*args, top_k=k, dispatch=dispatch)
+        card_route = L.moe_route(args[0], args[1], k, dispatch=dispatch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool((~route[3]).any())  # slots were dropped
+    for a, b in zip(card_route[2:5], route[2:5]):
+        assert torch.equal(a.cpu(), b)
+    assert _rel(got.cpu(), want) <= 1e-4
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
 
 
 def test_sharded_resumable_multihost_on_card(dev, tmp_path):

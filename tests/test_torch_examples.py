@@ -2,7 +2,9 @@
 each ``main()`` runs end to end (its own asserts hold it against the
 port's statevector), and its amplitudes are held against what the
 reference example's calls return from the JAX package on the same
-circuit, at rtol 1e-4, atol 1e-5."""
+circuit, at rtol 1e-4, atol 1e-5.  The serving twin draws its own random
+weights (the reference's ``jax.random`` draws other numbers), so it is
+held to the reference example's models, sizes and output shapes."""
 
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from repro.core import open_amplitude_batch as ref_batch  # noqa: E402
 from repro.core import simulate_amplitude as ref_simulate  # noqa: E402
 from repro.quantum import circuits as ref_circuits  # noqa: E402
 
-from repro_torch.examples import quickstart, simulate_sycamore  # noqa: E402
+from repro_torch.examples import quickstart, serve_lm, simulate_sycamore  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -58,6 +60,21 @@ def test_simulate_sycamore_twin(capsys):
     assert len(got["bitstrings"]) == 200
 
 
+def test_serve_lm_twin(capsys):
+    from repro.launch.decode_demo import serve as ref_serve
+
+    got = serve_lm.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert tuple(got) == serve_lm.ARCHS == ("qwen3-4b", "mamba2-130m")
+    for arch, r in got.items():
+        assert arch in out
+        want = ref_serve(arch, smoke=True, batch=4, prompt_len=64,
+                         gen_tokens=24)
+        assert r["generated"].shape == want["generated"].shape == (4, 24)
+        assert ((r["generated"] >= 0) & (r["generated"] < 512)).all()
+        assert r["prefill_s"] > 0 and r["decode_tok_per_s"] > 0
+
+
 def test_twins_need_a_device_they_can_run_on():
     """Without a GPU the twins' default device raises instead of running
     on the CPU."""
@@ -65,6 +82,6 @@ def test_twins_need_a_device_they_can_run_on():
 
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
-    for main in (quickstart.main, simulate_sycamore.main):
+    for main in (quickstart.main, simulate_sycamore.main, serve_lm.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([])

@@ -1,5 +1,6 @@
-"""The port's LM serving path (configs, parameters, layers, qwen3-4b and
-mamba2-130m prefill and decode) held against the JAX package.
+"""The port's LM serving path (configs, parameters, layers, prefill and
+decode of the dense, MoE, VLM and SSM families) held against the JAX
+package.
 
 Both sides run the reference's smoke shrink of each architecture on the
 same weights: the JAX ``init_params`` pytree, carried across by
@@ -36,7 +37,8 @@ from repro_torch.models import build_model, param_defs  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.params import ParamDef, count_params, init_params  # noqa: E402
 
-MODELS = ("qwen3-4b", "mamba2-130m")
+MODELS = ("qwen3-4b", "mamba2-130m", "deepseek-7b", "deepseek-moe-16b",
+          "llama4-scout-17b-a16e", "qwen2-vl-72b")
 TOL = 2e-3
 BF16_TOL = 3e-2
 
@@ -64,34 +66,52 @@ def test_config_matches_reference(arch):
 
 def test_only_served_models_are_registered():
     """The served models and llama3.2-3b (the training launcher's
-    default) are registered; the rest wait in ROADMAP."""
+    default) are registered; llama3-405b (it needs sharding), the hybrid
+    and the encoder-decoder wait in ROADMAP."""
     assert set(ARCHS) == set(MODELS) | {"llama3.2-3b"}
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("llama3-405b")
+    for arch in ("llama3-405b", "zamba2-7b", "seamless-m4t-medium"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            get_config(arch)
+
+
+def _ref_layer_defs(ref_defs):
+    """The reference's stacked layer declarations, one dict per layer in
+    layer order: its ``dense_layers`` rows, then its ``moe_layers`` rows
+    (the SSM's ``layers``)."""
+    out = []
+    for stack in ("dense_layers", "moe_layers", "layers"):
+        if stack in ref_defs:
+            rows = next(iter(ref_defs[stack].values())).shape[0]
+            out += [{n: (d.shape[1:], d) for n, d in ref_defs[stack].items()}
+                    for _ in range(rows)]
+    return out
 
 
 @pytest.mark.parametrize("arch", MODELS)
 @pytest.mark.parametrize("smoke", [True, False])
 def test_param_defs_match_reference(arch, smoke):
-    """Every reference declaration, unstacked per layer, has the port's
-    shape, init rule and scale; the counts agree."""
+    """Every reference declaration, unstacked per layer (the dense
+    stack, then the MoE stack), has the port's shape, init rule and
+    scale; the counts agree."""
     cfg, ref_cfg = get_config(arch), ref_get_config(arch)
     if smoke:
         cfg, ref_cfg = smoke_shrink(cfg), ref_smoke_shrink(ref_cfg)
     defs = param_defs(cfg)
     ref_defs = ref_build_model(ref_cfg).param_defs()
-    stack = "dense_layers" if cfg.family == "dense" else "layers"
-    assert set(defs) == set(ref_defs) - {stack} | {"layers"}
+    stacks = {"dense_layers", "moe_layers", "layers"}
+    assert set(defs) == set(ref_defs) - stacks | {"layers"}
     for k, d in ref_defs.items():
-        mine = defs["layers"] if k == stack else [defs[k]]
-        for layer in mine:
-            pairs = (
-                [(layer[n], (ld.shape[1:], ld)) for n, ld in d.items()]
-                if k == stack else [(layer, (d.shape, d))]
-            )
-            for ours, (shape, theirs) in pairs:
-                assert ours.shape == shape
-                assert (ours.init, ours.scale) == (theirs.init, theirs.scale)
+        if k not in stacks:
+            assert defs[k].shape == d.shape
+            assert (defs[k].init, defs[k].scale) == (d.init, d.scale)
+    ref_layers = _ref_layer_defs(ref_defs)
+    assert len(defs["layers"]) == len(ref_layers) == cfg.num_layers
+    for layer, ref_layer in zip(defs["layers"], ref_layers):
+        assert set(layer) == set(ref_layer)
+        for n, (shape, theirs) in ref_layer.items():
+            assert layer[n].shape == shape, n
+            assert (layer[n].init, layer[n].scale) == (theirs.init,
+                                                       theirs.scale), n
     assert count_params(defs) == ref_count_params(ref_defs)
 
 
@@ -121,11 +141,12 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_features_raise():
+    """What stays unported: the hybrid's windowed attention and the
+    hybrid and encoder-decoder families."""
     cfg = smoke_shrink(get_config("qwen3-4b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(cfg, family="moe"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(cfg, mrope=True), device="cpu")
+    for family in ("hybrid", "encdec"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(dataclasses.replace(cfg, family=family), device="cpu")
     q = torch.zeros(1, 8, 2, 8)
     with pytest.raises(NotImplementedError, match="hybrid"):
         L.blockwise_attention(q, q, q, window=4)
@@ -239,6 +260,8 @@ def _close_cache(got, want, tol):
     ("qwen3-4b", 40),       # ragged: the naive reference's path
     ("mamba2-130m", 128),   # chunked SSD (two chunks of 64)
     ("mamba2-130m", 50),    # ragged: the sequential scan
+    ("deepseek-moe-16b", 40),       # ragged: a dense layer, then MoE
+    ("llama4-scout-17b-a16e", 40),  # ragged: MoE layers only, top-1
 ])
 def test_prefill_and_decode_match_reference_fp32(arch, S):
     ref_model, params, model = _pair(arch, "float32")
@@ -293,25 +316,46 @@ def _exact_casts(fn, *args):
         compiler_options={"xla_allow_excess_precision": False})(*args)
 
 
+def _prompt(cfg, B, S, seed):
+    """The prompt as numpy arrays: tokens, and for a VLM backbone
+    embeds (B, S, D) and M-RoPE positions (3, B, S) whose temporal,
+    height and width rows differ."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, size=(B, S),
+                                  dtype=np.int32)}
+    if cfg.embed_inputs:
+        out["embeds"] = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    if cfg.mrope:
+        t = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+        out["positions"] = np.stack([t, t // 8, t % 8])
+    return out
+
+
 @pytest.mark.parametrize("arch", MODELS)
 def test_prefill_and_decode_match_reference_bf16(arch):
     ref_model, params, model = _pair(arch, "bfloat16")
     B, S = 2, 128
     vocab = ref_model.cfg.vocab_size
-    prompts = _tokens(vocab, (B, S), seed=9)
+    prompt = _prompt(model.cfg, B, S, seed=9)
     ref_cache, ref_logits = _exact_casts(
-        lambda p, t: ref_model.prefill(p, {"tokens": t}, max_len=S + 2),
-        params, jnp.asarray(prompts))
-    cache, logits = model.prefill(torch.from_numpy(prompts).long(),
-                                  max_len=S + 2)
+        lambda p, b: ref_model.prefill(p, b, max_len=S + 2),
+        params, {k: jnp.asarray(v) for k, v in prompt.items()})
+    extra = {k: torch.from_numpy(prompt[k]) for k in ("embeds", "positions")
+             if k in prompt}
+    cache, logits = model.prefill(torch.from_numpy(prompt["tokens"]).long(),
+                                  max_len=S + 2, **extra)
     assert logits.dtype == torch.float32
     scale = float(np.abs(np.asarray(ref_logits)).max())
     err = float(np.abs(_np(logits) - np.asarray(ref_logits)).max())
     assert err <= BF16_TOL * scale, (err, scale)
     fed = _tokens(vocab, (B, 1), seed=10)
-    ref_logits, _ = _exact_casts(ref_model.decode_step, params, ref_cache,
-                                 jnp.asarray(fed), jnp.int32(S))
-    logits, _ = model.decode_step(cache, torch.from_numpy(fed).long(), S)
+    mrope = np.full((3, B, 1), S, np.int32) if model.cfg.mrope else None
+    ref_logits, _ = _exact_casts(
+        ref_model.decode_step, params, ref_cache, jnp.asarray(fed),
+        jnp.int32(S), None if mrope is None else jnp.asarray(mrope))
+    step_extra = () if mrope is None else (torch.from_numpy(mrope),)
+    logits, _ = model.decode_step(cache, torch.from_numpy(fed).long(), S,
+                                  *step_extra)
     scale = float(np.abs(np.asarray(ref_logits)).max())
     err = float(np.abs(_np(logits) - np.asarray(ref_logits)).max())
     assert err <= BF16_TOL * scale, (err, scale)
