@@ -42,9 +42,12 @@ points at full width:
                  bounded at the bf16 rate; then
                  flash_attention at the prefill shapes of qwen3-4b,
                  deepseek-moe-16b (MHA, bh 64) and qwen2-vl-72b (bh 256
-                 on 32 kv heads), batch 4 x 512 (bf16, <= 1e-2: the
-                 output's bf16 rounding alone is 2^-8; each beside SDPA
-                 and its bound), and
+                 on 32 kv heads), batch 4 x 512, and of zamba2-7b (bh 32
+                 on 32, 1 x 8192, head dim 112, window 4096: the bound
+                 counts only the pairs the window leaves; SDPA takes the
+                 band as a boolean mask) (bf16, <= 1e-2: the output's
+                 bf16 rounding alone is 2^-8; each beside SDPA and its
+                 bound), and
                  ssd_chunk at mamba2-130m's (fp32, <= 1e-4; its wgmma
                  route, the kernel alone on the profiler's device clock,
                  beside its simt route at the same shape, and an
@@ -136,7 +139,15 @@ points at full width:
                  measured peak against the certified peak (as above);
   6. serve     — for qwen3-4b, mamba2-130m and deepseek-moe-16b: the
                  full config (36, 24 and 28 layers) through
-                 repro_torch.launch.decode_demo.serve; for qwen2-vl-72b
+                 repro_torch.launch.decode_demo.serve, and zamba2-7b's
+                 (81 layers, the hybrid: its prompt 1 x 8192, twice its
+                 window, so the window binds in prefill and decode wraps
+                 its KV rings; its agreement at 7 layers, one group and
+                 the shared block and one tail layer, fp32 on 4608
+                 tokens and 4 decode steps, bf16 on 256 tokens; every K4
+                 launch of its serve the windowed wgmma kernel, of its
+                 fp32 agreement the windowed FFMA kernel, every
+                 ssd_chunk launch wgmma); for qwen2-vl-72b
                  (80 layers, 145 GB in bf16) its published widths at 16
                  layers through the same steps (decode_demo's
                  prompt_inputs, with the stub frontend's embeddings and
@@ -186,8 +197,9 @@ points at full width:
                  its design (wgmma-bf16, 3xtf32-wgmma, cluster-simt-fp32),
                  and the bf16 routes of tiled_gemm and fused_gemm
                  with their launches in the precision phase, and
-                 flash_attention at deepseek-moe-16b's and qwen2-vl-72b's
-                 shapes with their launches serving those models;
+                 flash_attention at deepseek-moe-16b's, qwen2-vl-72b's
+                 and zamba2-7b's shapes with their launches serving
+                 those models;
                  every fused_gemm launch of those phases must
                  have taken the wgmma kernel with the coalesced (uniform)
                  gather.
@@ -304,19 +316,44 @@ SERVE = dict(batch=4, prompt_len=512, gen_tokens=32, seed=0)
 # depth; qwen2-vl-72b's 80 layers hold 145 GB in bf16, 16 of them 33 GB)
 # and the depth of its traces (None: the served depth; qwen3-4b's per
 # layer the same at 2 layers)
+# zamba2-7b serves its own prompt: one sequence of 8192 tokens, twice its
+# window of 4096, so the window binds in prefill and decode wraps the ring
+# (8192 % 4096 == 0: the reference's own ring layout agrees there)
 SERVE_MODELS = {
     "qwen3-4b": dict(layers=None, trace_layers=2),
     "mamba2-130m": dict(layers=None, trace_layers=None),
     "deepseek-moe-16b": dict(layers=None, trace_layers=None),
     "qwen2-vl-72b": dict(layers=16, trace_layers=None),
+    "zamba2-7b": dict(layers=None, trace_layers=None, batch=1,
+                      prompt_len=8192),
 }
-# K4's records: the key in the kernels line -> (query heads, kv heads)
-# of the served model whose prefill shape it times
+# K4's records: the key in the kernels line -> the prefill shape of the
+# served model it times (batch B, query heads H, kv heads KV, sequence
+# S, head dim d, window; K4_DEFAULT where not given)
+K4_DEFAULT = dict(B=4, S=512, d=128, window=0)
 K4_SHAPES = {
-    "flash_attention": (32, 8),  # qwen3-4b
-    "flash_attention:deepseek-moe-16b": (16, 16),
-    "flash_attention:qwen2-vl-72b": (64, 8),
+    "flash_attention": dict(H=32, KV=8),  # qwen3-4b
+    "flash_attention:deepseek-moe-16b": dict(H=16, KV=16),
+    "flash_attention:qwen2-vl-72b": dict(H=64, KV=8),
+    "flash_attention:zamba2-7b": dict(B=1, H=32, KV=32, S=8192, d=112,
+                                      window=4096),
 }
+# the hybrid's card-against-CPU agreement: 2 layers hold no attention (the
+# shared block follows every 6th mamba layer), so it runs 7 of the 81:
+# one group of 6 and the shared block, then one tail layer.  fp32 on a
+# prompt of 4608 tokens, so the window of 4096 binds on the last 512
+# queries, and 4 decode steps after it, the ring wrapping on the side
+# where 4608 % 4096 != 0; bf16 on AGREE's prompt.  Besides the fp32
+# prefill logits, each block, in the prefill and in every decode step,
+# runs on the card from the CPU's input to it and is held to the CPU's
+# output (fp32 1e-3, bf16 3e-2 of max|value|).  That is the gate of the
+# decode steps and of bf16: the reference's init takes the head count as
+# wq's and wk's fan-in, so the shared block's attention scores reach ~740
+# (std ~113) at the published widths, hard attention that turns the
+# carried states' rounding (fp32, over the decode steps) and single bf16
+# roundings of q and k into other attention weights (PERF.md §6, PR 23);
+# those logits' readings are reported
+HYBRID_AGREE = dict(layers=7, prompt_len=4608, decode_steps=4)
 # the spans the MoE traces read: the whole layer, its routing (router,
 # top-k, positions in the experts) and its three expert products; the
 # dispatch's share is the layer's less the products'
@@ -675,14 +712,15 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
     dev = torch.device("cuda")
     out = {}
 
-    # K4 at each served model's prefill (batch 4 x 512, heads of 128,
-    # causal): qwen3-4b 32 query heads on 8 kv heads, deepseek-moe-16b
-    # 16 on 16 (MHA), qwen2-vl-72b 64 on 8
+    # K4 at each served model's prefill (causal): batch 4 x 512, heads
+    # of 128, qwen3-4b 32 query heads on 8 kv heads, deepseek-moe-16b
+    # 16 on 16 (MHA), qwen2-vl-72b 64 on 8; zamba2-7b 1 x 8192, 32 on 32
+    # heads of 112, window 4096
     # (qwen3-4b's draws from ``gen`` as before; each other shape from a
     # generator of its own, so the K5 inputs below stay the same)
-    for i, (name, (H, KV)) in enumerate(K4_SHAPES.items()):
+    for i, (name, shape) in enumerate(K4_SHAPES.items()):
         g = gen if i == 0 else torch.Generator(device="cuda").manual_seed(i)
-        out[name] = _k4_record(torch, fa, F, g, 4, H, KV, 512, 128)
+        out[name] = _k4_record(torch, fa, F, g, **{**K4_DEFAULT, **shape})
 
     # K5: mamba2-130m prefill, 24 heads of 64, state 128, chunks of 64,
     # head-free B/C (one group per batch row)
@@ -894,51 +932,66 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
     return out
 
 
-def _k4_record(torch, fa, F, gen, B, H, KV, S, d) -> dict:
+def _k4_record(torch, fa, F, gen, B, H, KV, S, d, window) -> dict:
     """K4's bf16 kernel on (B·H, S, d) queries over (B·KV, S, d) keys and
-    values, causal, against its plain version (<= FLASH_TOL of
-    max|plain|), timed beside the plain version, SDPA and its bound."""
+    values, causal, with ``window`` where it is > 0, against its plain
+    version (<= FLASH_TOL of max|plain|), timed beside the plain version,
+    SDPA (the window as a boolean band mask) and its bound."""
+    t0 = time.perf_counter()
     dev = torch.device("cuda")
     q = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
     k = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
     v = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = fa.flash_attention_plain(q, k, v, causal=True)
+    before = dict(fa.WINDOW_ROUTES)
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    check(not window or fa.WINDOW_ROUTES["wgmma"] == before["wgmma"] + 1,
+          "flash_attention: the windowed call did not take the wgmma kernel")
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     err, rel = rel_err(torch, [got.float()], [want.float()])
     shape = dict(bh=B * H, bh_kv=B * KV, sq=S, sk=S, d=d, dtype="bf16",
-                 causal=True)
+                 causal=True, window=window)
     check(bool(torch.isfinite(got).all()), f"flash_attention {shape}: non-finite")
     check(rel <= FLASH_TOL, f"flash_attention {shape} disagrees: {rel}")
-    pairs = S * (S + 1) // 2  # causal (q, k) pairs this input needs
+    # the (q, k) pairs this input needs: query q sees min(q + 1, window)
+    # keys (q + 1 without a window)
+    pairs = sum(min(i + 1, window or S) for i in range(S))
     flops = 4.0 * B * H * pairs * d  # q.k and p.v
     nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + got.numel())
     b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
     q4, k4, v4 = (t.view(B, -1, S, d) for t in (q, k, v))
+    if window:
+        pos = torch.arange(S, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                                 - window)
+        sdpa = dict(attn_mask=band)
+    else:
+        sdpa = dict(is_causal=True)
     return dict(
-        shape=shape, max_abs_err=err, rel_err=rel,
-        ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True)),
-        plain_ms=cuda_ms(
-            torch, lambda: fa.flash_attention_plain(q, k, v, causal=True)),
+        shape=shape, max_abs_err=err, rel_err=rel, pairs=pairs,
+        ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True,
+                                                     window=window)),
+        plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, window=window)),
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=KV != H)),
-        bound_ms=b_ms, bound_by=b_by,
+            q4, k4, v4, enable_gqa=KV != H, **sdpa)),
+        bound_ms=b_ms, bound_by=b_by, seconds=time.perf_counter() - t0,
     )
 
 
 def _cpu_params(model) -> dict:
-    params = {k: t.detach().cpu() for k, t in model.top.tensors().items()}
-    params["layers"] = [
-        {k: t.detach().cpu() for k, t in lp.tensors().items()}
-        for lp in model.layers
-    ]
-    return params
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), model.param_tree())
 
 
 def _cast(params: dict, dtype, layers: int) -> dict:
     """Copies of the first ``layers`` layers of ``params``, in ``dtype``
     (training updates its weights in place)."""
-    out = {k: v.to(dtype, copy=True) for k, v in params.items() if k != "layers"}
+    from repro_torch.tree import tree_map
+
+    out = tree_map(lambda v: v.to(dtype, copy=True),
+                   {k: v for k, v in params.items() if k != "layers"})
     out["layers"] = [{k: v.to(dtype, copy=True) for k, v in lp.items()}
                      for lp in params["layers"][:layers]]
     return out
@@ -982,10 +1035,62 @@ def _route_recorder(routes: list):
     return {"moe_route": outer}
 
 
+def _agree_decode(dd, model, cache, fed, start: int) -> list:
+    """Logits of decode steps fed the tokens ``fed`` (B, n) from
+    position ``start`` on, each on the host."""
+    dev = model.top.embed.device
+    out = []
+    for i in range(fed.shape[1]):
+        logits, cache = dd.decode_step(model, cache, fed[:, i:i + 1].to(dev),
+                                       start + i)
+        out.append(logits.cpu())
+    return out
+
+
+@contextlib.contextmanager
+def _hybrid_blocks(on: bool, log: list, record_inputs: bool = False,
+                   forced: list | None = None):
+    """Inside the block (when ``on``), every call of the hybrid's blocks
+    (``mamba_block`` and ``ZambaLM._shared_attn``, prefill and decode)
+    appends its output hidden states, on the host, to ``log`` (with
+    ``record_inputs``, ``(input, output)`` pairs).  With ``forced`` (a
+    log of inputs from another run of the same calls), call ``i`` takes
+    ``forced[i]``'s input as its hidden state in place of its own: each
+    block runs from the other run's input to it."""
+    if not on:
+        yield
+        return
+    from repro_torch.models import hybrid as H
+
+    calls = [0]
+
+    def step(h, run):
+        if forced is not None:
+            h = forced[calls[0]][0].to(h.device)
+        calls[0] += 1
+        out = run(h)
+        got = out[0].detach().cpu()
+        log.append((h.detach().cpu(), got) if record_inputs else got)
+        return out
+
+    def mamba(fn):
+        return lambda cfg, p, h, *a, **kw: step(
+            h, lambda x: fn(cfg, p, x, *a, **kw))
+
+    def shared(fn):
+        return lambda self, sp, h, *a, **kw: step(
+            h, lambda x: fn(self, sp, x, *a, **kw))
+
+    with _patched(H, {"mamba_block": mamba}), \
+            _patched(H.ZambaLM, {"_shared_attn": shared}):
+        yield
+
+
 def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
-                layers=None, trace_layers=None):
+                layers=None, trace_layers=None, **shape):
     """One served model: its config (the published depth, or ``layers``
-    of it) through decode_demo's serve path, then the card's prefill
+    of it) through decode_demo's serve path at SERVE's shape (``shape``
+    overrides its batch and prompt length), then the card's prefill
     against the port's CPU run on the same weights and prompt, then
     traces at ``trace_layers`` (default the served depth)."""
     import dataclasses
@@ -993,29 +1098,32 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
     from repro_torch.models import param_defs
     from repro_torch.models.params import count_params
 
+    serve_shape = {**SERVE, **shape}
     full = get_config(arch)
+    hybrid = full.family == "hybrid"
     served = full if layers is None else dataclasses.replace(full,
                                                              num_layers=layers)
     reset()
     torch.cuda.reset_peak_memory_stats()
     if layers is None:
-        r = dd.serve(arch, smoke=False, device="cuda", **SERVE)
+        r = dd.serve(arch, smoke=False, device="cuda", **serve_shape)
     else:
         # serve's own steps on the cut config: the weights from the seed,
         # the prompt from the seeded generator, prefill and greedy decode
-        model = build_model(served, seed=SERVE["seed"], device="cuda")
-        gen = torch.Generator(device="cuda").manual_seed(SERVE["seed"])
+        model = build_model(served, seed=serve_shape["seed"], device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(serve_shape["seed"])
         r = dd.generate(model, dd.prompt_inputs(
-            served, SERVE["batch"], SERVE["prompt_len"], gen),
-            SERVE["gen_tokens"])
+            served, serve_shape["batch"], serve_shape["prompt_len"], gen),
+            serve_shape["gen_tokens"])
         del model
     torch.cuda.synchronize()
     launched = counts()
     logits = r["prefill_logits"]
     check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
-    check(tuple(logits.shape) == (SERVE["batch"], full.vocab_size),
+    check(tuple(logits.shape) == (serve_shape["batch"], full.vocab_size),
           f"{arch}: prefill logits {tuple(logits.shape)}")
-    check(tuple(r["generated"].shape) == (SERVE["batch"], SERVE["gen_tokens"]),
+    check(tuple(r["generated"].shape)
+          == (serve_shape["batch"], serve_shape["gen_tokens"]),
           f"{arch}: generated {r['generated'].shape}")
     peak = torch.cuda.max_memory_allocated()
     del r["prefill_logits"]
@@ -1029,29 +1137,78 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
 
     # the fp32 agreement and the traces: attention models at full width
     # and 2 layers (the CPU half holds their weights in fp32; an MoE
-    # model's layer 0 dense, layer 1 MoE), mamba2-130m whole
-    deep = (dataclasses.replace(full, num_layers=2)
-            if full.family in ("dense", "moe") else full)
+    # model's layer 0 dense, layer 1 MoE), mamba2-130m whole, the hybrid
+    # at HYBRID_AGREE's 7 layers (bf16 too), its fp32 prompt past the
+    # window and decode steps after it
+    if full.family in ("dense", "moe"):
+        deep = dataclasses.replace(full, num_layers=2)
+    elif hybrid:
+        deep = dataclasses.replace(full, num_layers=HYBRID_AGREE["layers"])
+    else:
+        deep = full
     gen = torch.Generator().manual_seed(1)
     agree_in = dd.prompt_inputs(deep, AGREE["batch"], AGREE["prompt_len"], gen)
     params = _cpu_params(build_model(deep, seed=1, device="cuda"))
     runs = {}
-    for name, dtype, n in (("bf16", torch.bfloat16, BF16_LAYERS),
-                           ("fp32", torch.float32, deep.num_layers)):
+    agree_launches = None
+    for name, dtype, n in (
+            ("bf16", torch.bfloat16, deep.num_layers if hybrid else BF16_LAYERS),
+            ("fp32", torch.float32, deep.num_layers)):
         cfg = dataclasses.replace(full, num_layers=n)
         cast = _cast(params, dtype, n)
+        inputs, steps = agree_in, 0
+        if hybrid and name == "fp32":
+            steps = HYBRID_AGREE["decode_steps"]
+            inputs = dd.prompt_inputs(
+                deep, AGREE["batch"], HYBRID_AGREE["prompt_len"] + steps, gen)
+            fed = inputs["tokens"][:, -steps:]
+            inputs = {"tokens": inputs["tokens"][:, :-steps]}
+        S = inputs["tokens"].shape[1]
+
+        def run(model):
+            """Prefill logits and the decode steps' logits, on the host."""
+            dev = model.top.embed.device
+            cache, logits = dd.prefill(
+                model, {k: v.to(dev) for k, v in inputs.items()},
+                max_len=S + steps)
+            out = _agree_decode(dd, model, cache, fed, S) if steps else []
+            return logits.cpu(), out
+
         model = build_model(cfg, cast, device="cuda")
         card_routes, host_routes = [], []
+        reset()
         with _patched(L, _route_recorder(card_routes)):
-            _, card = dd.prefill(model, {k: v.cuda() for k, v in agree_in.items()})
-        del model
-        torch.cuda.empty_cache()
+            card, card_steps = run(model)
+        torch.cuda.synchronize()
+        if name == "fp32":
+            agree_launches = counts()
+        if not hybrid:
+            del model
+            torch.cuda.empty_cache()
         cpu_model = build_model(cfg, cast, device="cpu")
+        host_log = []
         t0 = time.perf_counter()
-        with _patched(L, _route_recorder(host_routes)):
-            _, host = dd.prefill(cpu_model, agree_in)
-        runs[name] = dict(card=card.cpu(), host=host, layers=n,
+        with _patched(L, _route_recorder(host_routes)), \
+                _hybrid_blocks(hybrid, host_log, record_inputs=True):
+            host, host_steps = run(cpu_model)
+        runs[name] = dict(card=card, host=host, layers=n, prompt_len=S,
+                          card_steps=card_steps, host_steps=host_steps,
                           cpu_s=time.perf_counter() - t0)
+        if hybrid:
+            # each block on the card from the CPU's input to it, its
+            # output against the CPU's (the gate: the reference's random
+            # init amplifies any rounding through the shared block, see
+            # HYBRID_AGREE)
+            card_log = []
+            with _hybrid_blocks(True, card_log, forced=host_log):
+                run(model)
+            runs[name]["blocks"] = [
+                float((c - h).abs().max() / h.abs().max())
+                for c, (_, h) in zip(card_log, host_log)]
+            check(len(card_log) == len(host_log) > 0,
+                  f"{arch}: {len(card_log)} card blocks, {len(host_log)} CPU")
+            del model, card_log, host_log
+            torch.cuda.empty_cache()
         if card_routes:
             # the (token, rank) decisions of the compared (last) MoE
             # layer that differ: another expert, or kept on one side and
@@ -1077,18 +1234,19 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
                  else dataclasses.replace(full, num_layers=trace_layers))
     del params
     model = build_model(trace_cfg, seed=1, device="cuda")
+    P = serve_shape["prompt_len"]
     big = {k: v.cuda() for k, v in dd.prompt_inputs(
-        trace_cfg, SERVE["batch"], SERVE["prompt_len"],
+        trace_cfg, serve_shape["batch"], P,
         torch.Generator().manual_seed(2)).items()}
     dd.prefill(model, big)
     with _patched(L, _spans(torch)):
         prefill_trace = profile(torch, lambda: dd.prefill(model, big))
-    cache, logits = dd.prefill(model, big, max_len=SERVE["prompt_len"] + 2)
+    cache, logits = dd.prefill(model, big, max_len=P + 2)
     nxt = logits.argmax(-1)[:, None]
-    dd.decode_step(model, cache, nxt, SERVE["prompt_len"])
+    dd.decode_step(model, cache, nxt, P)
     with _patched(L, _spans(torch)):
         decode_trace = profile(torch, lambda: dd.decode_step(
-            model, cache, nxt, SERVE["prompt_len"] + 1))
+            model, cache, nxt, P + 1))
     del cache, model, big
     torch.cuda.empty_cache()
 
@@ -1100,30 +1258,59 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
               f"{arch}: non-finite {name} card logits")
     err32 = rel(runs["fp32"]["card"], runs["fp32"]["host"])
     err16 = rel(runs["bf16"]["card"], runs["bf16"]["host"])
+    # each decode step's logits after the fp32 prompt (the hybrid's)
+    err32_steps = [rel(c, h) for c, h in zip(runs["fp32"]["card_steps"],
+                                            runs["fp32"]["host_steps"])]
     routing = {k: v["routing"] for k, v in runs.items() if "routing" in v}
-    check(err32 <= SERVE_TOL_FP32,
-          f"{arch}: fp32 card vs CPU prefill {err32} (routing {routing})")
-    check(err16 <= SERVE_TOL,
-          f"{arch}: bf16 card vs CPU prefill {err16} (routing {routing})")
-    step_ms = 1e3 * r["decode_s"] / (SERVE["gen_tokens"] - 1)
+    blocks = {k: v["blocks"] for k, v in runs.items() if "blocks" in v}
+    if hybrid:
+        # fp32: the prefill logits, and every block of the prefill and of
+        # the decode steps; bf16: every block (see HYBRID_AGREE); the
+        # decode steps' logits and the bf16 logits reported
+        seen = (f"prefill fp32 {err32}, bf16 {err16}; decode steps fp32 "
+                f"{err32_steps}; blocks {blocks}")
+        check(err32 <= SERVE_TOL_FP32, f"{arch}: fp32 card vs CPU: {seen}")
+        for name, tol in (("fp32", SERVE_TOL_FP32), ("bf16", SERVE_TOL)):
+            check(max(blocks[name]) <= tol, f"{arch}: {name} blocks: {seen}")
+    else:
+        check(err32 <= SERVE_TOL_FP32,
+              f"{arch}: fp32 card vs CPU prefill {err32} (routing {routing})")
+        check(err16 <= SERVE_TOL,
+              f"{arch}: bf16 card vs CPU prefill {err16} (routing {routing})")
+    step_ms = 1e3 * r["decode_s"] / (serve_shape["gen_tokens"] - 1)
+    if layers is not None:
+        cut = f"depth {layers} of {full.num_layers} layers, published widths"
+    elif hybrid:
+        cut = (f"none: all {full.num_layers} layers at the published widths; "
+               f"the card-vs-CPU agreement at {deep.num_layers} of them (one "
+               f"group of {full.attn_every} mamba layers and the shared "
+               "block, one tail layer: 2 layers hold no attention)")
+    else:
+        cut = None
     return dict(
         arch=arch, layers=served.num_layers,
-        published_layers=full.num_layers,
-        cut=(None if layers is None else
-             f"depth {layers} of {full.num_layers} layers, published widths"),
-        **SERVE,
+        published_layers=full.num_layers, cut=cut,
+        **serve_shape,
         prefill_s=r["prefill_s"], decode_s=r["decode_s"],
         decode_tok_per_s=r["decode_tok_per_s"], decode_step_ms=step_ms,
         decode_weights_bound_ms=decode_bound_ms,
         first_tokens=r["generated"][0][:8].tolist(), peak_bytes=peak,
-        agreement=dict(**AGREE, layers_bf16=runs["bf16"]["layers"],
+        agreement=dict(batch=AGREE["batch"],
+                       prompt_len_bf16=runs["bf16"]["prompt_len"],
+                       prompt_len_fp32=runs["fp32"]["prompt_len"],
+                       layers_bf16=runs["bf16"]["layers"],
                        layers_fp32=runs["fp32"]["layers"], rel_err_bf16=err16,
-                       rel_err_fp32=err32, routing=routing,
-                       cpu_prefill_s={k: v["cpu_s"] for k, v in runs.items()}),
-        prefill_trace=dict(layers=trace_cfg.num_layers, batch=SERVE["batch"],
-                           prompt_len=SERVE["prompt_len"], **prefill_trace),
-        decode_trace=dict(layers=trace_cfg.num_layers, batch=SERVE["batch"],
-                          **decode_trace),
+                       rel_err_fp32=err32,
+                       rel_err_fp32_decode_steps=err32_steps, routing=routing,
+                       blocks={k: dict(n=len(v), max=max(v), each=v)
+                               for k, v in blocks.items()},
+                       fp32_card_launches=agree_launches,
+                       cpu_s={k: v["cpu_s"] for k, v in runs.items()}),
+        prefill_trace=dict(layers=trace_cfg.num_layers,
+                           batch=serve_shape["batch"], prompt_len=P,
+                           **prefill_trace),
+        decode_trace=dict(layers=trace_cfg.num_layers,
+                          batch=serve_shape["batch"], **decode_trace),
         launches=launched,
     )
 
@@ -1875,6 +2062,7 @@ def main() -> int:
 
     def lm_counts() -> dict:
         return {**fa.LAUNCHES, **ssd.LAUNCHES,
+                "flash_window_routes": dict(fa.WINDOW_ROUTES),
                 "ssd_routes": dict(ssd.SSD_ROUTES),
                 "flash_bwd_routes": dict(fa.BWD_ROUTES),
                 "ssd_bwd_routes": dict(ssd.SSD_BWD_ROUTES)}
@@ -2111,6 +2299,8 @@ def main() -> int:
         rec = phase_serve(torch, arch, decode_demo, build_model, get_config,
                           lm_counts, lm_reset, lm_layers, **cut)
         launches[f"serve:{arch}"] = rec["launches"]
+        if arch == "zamba2-7b":
+            zamba_agree = rec["agreement"]
         emit(phase="serve", seconds=time.perf_counter() - t0, **rec)
         torch.cuda.empty_cache()
     for arch in SERVE_MODELS:
@@ -2123,6 +2313,19 @@ def main() -> int:
     check(ssd_routes["simt"] == 0
           and ssd_routes["wgmma"] == launches["serve:mamba2-130m"]["ssd_chunk"],
           f"ssd_chunk took the simt route serving mamba2-130m: {ssd_routes}")
+    # zamba2-7b: every K4 launch of its bf16 serve the wgmma kernel with
+    # the window, every ssd_chunk launch on wgmma; its fp32 agreement ran
+    # the FFMA kernel with the same window
+    zl = launches["serve:zamba2-7b"]
+    check(zl["flash_window_routes"] == {"wgmma": zl["flash_attention"],
+                                        "simt": 0},
+          f"zamba2-7b's K4 launches not all windowed wgmma: {zl}")
+    check(zl["ssd_chunk"] > 0 and zl["ssd_routes"] == {
+        "wgmma": zl["ssd_chunk"], "simt": 0},
+        f"ssd_chunk took the simt route serving zamba2-7b: {zl['ssd_routes']}")
+    za = zamba_agree["fp32_card_launches"]
+    check(za["flash_window_routes"]["simt"] == za["flash_attention"] > 0,
+          f"zamba2-7b's fp32 agreement did not run the windowed FFMA K4: {za}")
 
     # 6a. LM training at full width and depth, each model's own launches
     for arch in ("qwen3-4b", "mamba2-130m"):

@@ -2,8 +2,8 @@
 
 Registered: the dense configs (qwen3-4b, llama3.2-3b, deepseek-7b), the
 MoE configs (deepseek-moe-16b, llama4-scout-17b-a16e), the M-RoPE/VLM
-backbone qwen2-vl-72b and the SSM mamba2-130m.  The reference's other
-architectures (llama3-405b, the hybrid zamba2-7b and the
+backbone qwen2-vl-72b, the SSM mamba2-130m and the hybrid zamba2-7b.
+The reference's other architectures (llama3-405b and the
 encoder-decoder seamless-m4t-medium) wait in ROADMAP.md, queue 1 item 11.
 """
 
@@ -17,6 +17,7 @@ from . import (
     mamba2_130m,
     qwen2_vl_72b,
     qwen3_4b,
+    zamba2_7b,
 )
 from .base import ArchConfig, smoke_shrink
 
@@ -30,6 +31,7 @@ ARCHS: dict[str, ArchConfig] = {
         deepseek_moe_16b,
         llama4_scout_17b_a16e,
         qwen2_vl_72b,
+        zamba2_7b,
     )
 }
 

@@ -3,9 +3,9 @@
 Counterpart of the reference's ``configs/base.py``: one ``<arch>.py`` per
 served architecture defines ``CONFIG`` with the published
 hyperparameters, and :func:`smoke_shrink` derives a reduced config of the
-same family for CPU tests.  The fields that only the unported families
-read (hybrid, encoder-decoder) are kept so a config reads the same on
-both sides; the models raise on them.
+same family for CPU tests.  The fields that only the unported
+encoder-decoder family reads are kept so a config reads the same on both
+sides; the models raise on them.
 """
 
 from __future__ import annotations

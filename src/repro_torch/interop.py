@@ -78,38 +78,63 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))  # a writable copy
 
 
-def _stacks(cfg) -> list[tuple[str, int]]:
+def _stacks(cfg) -> list[tuple[str, tuple[int, ...]]]:
     """The reference's stacked groups of ``cfg``'s layers, in layer
-    order, with their rows: ``dense_layers`` (``first_k_dense`` rows for
-    an MoE model, every layer for a dense one), then ``moe_layers``; the
-    SSM's ``layers``."""
+    order, with their stacking axes: ``dense_layers`` (``first_k_dense``
+    rows for an MoE model, every layer for a dense one), then
+    ``moe_layers``; the SSM's ``layers``; the hybrid's ``groups``
+    (groups x ``attn_every`` rows, stacked twice), then its ``tail``."""
     if cfg.family == "ssm":
-        return [("layers", cfg.num_layers)]
-    if cfg.family not in ("dense", "moe"):
+        return [("layers", (cfg.num_layers,))]
+    if cfg.family == "hybrid":
+        ng = cfg.num_layers // cfg.attn_every
+        stacks = [("groups", (ng, cfg.attn_every)),
+                  ("tail", (cfg.num_layers - ng * cfg.attn_every,))]
+    elif cfg.family in ("dense", "moe"):
+        n_dense = num_dense_layers(cfg)
+        stacks = [("dense_layers", (n_dense,)),
+                  ("moe_layers", (cfg.num_layers - n_dense,))]
+    else:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item 11)"
         )
-    n_dense = num_dense_layers(cfg)
-    return [(k, n) for k, n in (("dense_layers", n_dense),
-                                ("moe_layers", cfg.num_layers - n_dense)) if n]
+    return [(k, axes) for k, axes in stacks if axes[0]]
+
+
+def _merged(x, axes: int):
+    """A stacked leaf with its ``axes`` leading stacking axes merged into
+    one (of an int8 moment ``(q, scale)``, ``q``'s)."""
+    if isinstance(x, tuple):
+        return (_merged(x[0], axes),) + x[1:]
+    x = np.asarray(x)
+    return x.reshape((-1,) + x.shape[axes:])
 
 
 def _unstack(cfg, tree: dict, leaf) -> dict:
     """The reference's stacked tree in the port's layout: each stacked
     group's entries cut into one dict per layer, the groups one after
-    the other in one ``layers`` list.  ``leaf(x, i)`` turns a reference
-    leaf into the port's (row ``i`` of its group, or ``None`` for an
-    unstacked entry)."""
+    the other in one ``layers`` list (a group stacked twice in row-major
+    order).  ``leaf(x, i)`` turns a reference leaf into the port's (row
+    ``i`` of its group, or ``None`` for an unstacked entry, whose dicts
+    keep their nesting)."""
+    def unstacked(v):
+        if isinstance(v, dict):
+            return {k: unstacked(x) for k, x in v.items()}
+        return leaf(v, None)
+
     stacks = _stacks(cfg)
     keys = {k for k, _ in stacks}
-    out = {k: leaf(v, None) for k, v in tree.items() if k not in keys}
+    out = {k: unstacked(v) for k, v in tree.items() if k not in keys}
     out["layers"] = []
-    for key, n in stacks:
-        stacked = tree[key]
-        for k, v in stacked.items():
-            rows = np.shape(v[0] if isinstance(v, tuple) else v)[0]
-            if rows != n:
-                raise ValueError(f"{key}.{k}: {rows} layers, config has {n}")
+    for key, axes in stacks:
+        stacked = {}
+        for k, v in tree[key].items():
+            shape = np.shape(v[0] if isinstance(v, tuple) else v)
+            if tuple(shape[:len(axes)]) != axes:
+                raise ValueError(f"{key}.{k}: stacked {shape[:len(axes)]}, "
+                                 f"config has {axes}")
+            stacked[k] = _merged(v, len(axes)) if len(axes) > 1 else v
+        n = int(np.prod(axes))
         out["layers"] += [{k: leaf(v, i) for k, v in stacked.items()}
                           for i in range(n)]
     return out
@@ -126,9 +151,10 @@ def lm_params_from_numpy(cfg, tree: dict) -> dict:
 
     The reference stacks each layer's parameters on a leading axis for
     ``lax.scan`` (``"dense_layers"`` for the dense family, then
-    ``"moe_layers"`` for an MoE model, ``"layers"`` for the SSM); the
-    port keeps one dict per layer, in layer order.  Returns
-    ``{"embed", "final_norm", ["head"], "layers": [dict per layer]}`` of
+    ``"moe_layers"`` for an MoE model, ``"layers"`` for the SSM, the
+    hybrid's ``"groups"`` on two axes and its ``"tail"``); the port
+    keeps one dict per layer, in layer order.  Returns ``{"embed",
+    "final_norm", ["head"], ["shared"], "layers": [dict per layer]}`` of
     CPU tensors, for :func:`repro_torch.models.build_model`."""
     return _unstack(cfg, tree, _layer)
 

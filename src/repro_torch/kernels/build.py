@@ -88,7 +88,7 @@ def _declare_gemm(lib: ctypes.CDLL) -> None:
 def _declare_flash_attention(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention.argtypes = [
         _P, _P, _P, _P, _P, _INT, _I64, _INT, _INT, _INT, _INT, _INT, _F32,
-        _INT, _P,
+        _INT, _INT, _P,
     ]
     lib.repro_flash_attention.restype = _INT
     lib.repro_flash_attention_bwd.argtypes = [

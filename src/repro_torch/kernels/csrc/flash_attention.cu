@@ -14,6 +14,17 @@
 //   kv = bh / group   (GQA: the kernel indexes the shared kv head, so the
 //                      wrapper makes no head-repeated copy of k and v)
 //
+// masked: key j hidden from query position p = q_offset + i where
+// causal and j > p, or, with a sliding window (window > 0, the reference
+// model's jnp blockwise_attention; its Pallas kernel has none), where
+// j <= p - window.  Both are selects before exp.  Both forward kernels
+// start a query block at the key tile of its first row's first visible
+// key (p0 - window + 1) and mask only the tiles that reach below some
+// row's window, so a window of w keys costs O(w) per row, as the
+// reference's blockwise loop skips the blocks before its `lo`.  Beyond
+// the window every query tile visits the same number of key tiles, so
+// the last-q-tile-first launch order still puts a heaviest tile first.
+//
 // Like the TPU kernel it takes whole tiles only (sq and sk multiples of
 // 64; the wrapper's dispatch sends every other shape to the reference)
 // and head dims up to 128.  The route is chosen by dtype, not by
@@ -114,7 +125,8 @@ __global__ void __launch_bounds__(FA_NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        float* __restrict__ lse, int sq, int sk, int d,
-                       int group, int q_offset, float sm_scale, int causal) {
+                       int group, int q_offset, float sm_scale, int causal,
+                       int window) {
   extern __shared__ float smem[];
   float* qt = smem;                    // [d][FA_PAD]: q rows, scaled
   float* kt = qt + d * FA_PAD;         // [d][FA_PAD]: k rows of the tile
@@ -144,6 +156,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int last = q_offset + q0 + FA_BQ;  // last q pos + 1
     n_kt = min(n_kt, (last + FA_BK - 1) / FA_BK);
   }
+  // with a window, from the tile of the first row's first visible key
+  const int t0 =
+      window > 0 ? min(max(0, q_offset + q0 - window + 1) / FA_BK, n_kt - 1)
+                 : 0;
 
   float m[4], l[4], acc[4][FA_DC];
 #pragma unroll
@@ -154,7 +170,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < FA_DC; ++c) acc[i][c] = 0.f;
   }
 
-  for (int t = 0; t < n_kt; ++t) {
+  for (int t = t0; t < n_kt; ++t) {
     const int k0 = t * FA_BK;
     __syncthreads();  // the previous tile's K, V and P are consumed
     for (int e = tid; e < FA_BK * d; e += FA_NT) {
@@ -187,7 +203,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = FA_MASKED;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (causal && qpos < k0 + tx + 16 * j) s[i][j] = FA_MASKED;
+        const int key = k0 + tx + 16 * j;
+        if ((causal && qpos < key) || (window > 0 && key <= qpos - window))
+          s[i][j] = FA_MASKED;
         mx = fmaxf(mx, s[i][j]);
       }
       mx = half_warp_max(mx);
@@ -242,7 +260,8 @@ template <typename T>
 static cudaError_t fa_launch(const void* q, const void* k, const void* v,
                              void* o, float* lse, long long bhq, int sq,
                              int sk, int d, int group, int q_offset,
-                             float sm_scale, int causal, cudaStream_t stream) {
+                             float sm_scale, int causal, int window,
+                             cudaStream_t stream) {
   const size_t smem = fa_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -251,7 +270,7 @@ static cudaError_t fa_launch(const void* q, const void* k, const void* v,
   const long long blocks = bhq * (sq / FA_BQ);
   flash_attention_kernel<T><<<(unsigned)blocks, FA_NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, sk, d, group,
-      q_offset, sm_scale, causal);
+      q_offset, sm_scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -300,7 +319,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                              __nv_bfloat16* __restrict__ o,
                              float* __restrict__ lse, int bhq, int sq, int sk,
                              int d, int group, int q_offset, float sm_scale,
-                             int causal) {
+                             int causal, int window) {
   extern __shared__ uint8_t fw_smem_raw[];
   __shared__ __align__(8) uint64_t q_full, k_full[FW_STAGES],
       v_full[FW_STAGES], kv_empty[FW_STAGES];
@@ -315,6 +334,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   const int rows = min(FW_BQ, sq - q0);  // 64 or 128
   int n_kt = (sk + FW_BKV - 1) / FW_BKV;
   if (causal) n_kt = min(n_kt, (q_offset + q0 + rows + FW_BKV - 1) / FW_BKV);
+  // with a window, from the tile of the block's first visible key; the
+  // ring's stage and phase count tiles from t0
+  const int t0 =
+      window > 0 ? min(max(0, q_offset + q0 - window + 1) / FW_BKV, n_kt - 1)
+                 : 0;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(&q_full, 1);
@@ -335,10 +359,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       hopper::mbar_arrive_expect_tx(&q_full, DP * FW_PANEL_Q);
       for (int p = 0; p < DP; ++p)
         hopper::tma_load_3d(qs + p * FW_PANEL_Q, &mq, &q_full, 64 * p, q0, bh);
-      for (int t = 0; t < n_kt; ++t) {
-        const int s = t % FW_STAGES;
-        if (t >= FW_STAGES)
-          hopper::mbar_wait(&kv_empty[s], ((t / FW_STAGES) - 1) & 1);
+      for (int t = t0; t < n_kt; ++t) {
+        const int s = (t - t0) % FW_STAGES;
+        if (t - t0 >= FW_STAGES)
+          hopper::mbar_wait(&kv_empty[s], (((t - t0) / FW_STAGES) - 1) & 1);
         uint8_t* kst = ks + s * DP * FW_PANEL_KV;
         uint8_t* vst = vs + s * DP * FW_PANEL_KV;
         hopper::mbar_arrive_expect_tx(&k_full[s], DP * FW_PANEL_KV);
@@ -372,9 +396,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   const float x_scale = sm_scale * 1.4426950408889634f;  // times log2(e)
   hopper::mbar_wait(&q_full, 0);
   const uint8_t* qw = qs + 64 * wg * 128;  // the warpgroup's 64 rows
-  for (int t = 0; t < n_kt; ++t) {
-    const int s = t % FW_STAGES;
-    const uint32_t parity = (t / FW_STAGES) & 1;
+  for (int t = t0; t < n_kt; ++t) {
+    const int s = (t - t0) % FW_STAGES;
+    const uint32_t parity = ((t - t0) / FW_STAGES) & 1;
     const uint8_t* kst = ks + s * DP * FW_PANEL_KV;
     const uint8_t* vst = vs + s * DP * FW_PANEL_KV;
 
@@ -396,10 +420,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     hopper::fence_regs(sc);
 
     // scale (into the log2 domain), mask, online softmax over the
-    // quad's 128 columns
+    // quad's 128 columns.  A tile needs the mask if it reaches past the
+    // warpgroup's first row (causal), past sk, or below its last row's
+    // window.  A row whose first visited tiles are all masked takes p = 1
+    // there; its first visible tile's alpha = 2^(-1e30 - m) = 0 then
+    // clears that sum, as in the reference's online softmax.
     const int k0 = t * FW_BKV;
-    const bool edge =
-        (causal && k0 + FW_BKV - 1 > qmin) || k0 + FW_BKV > sk;
+    const bool edge = (causal && k0 + FW_BKV - 1 > qmin) || k0 + FW_BKV > sk ||
+                      (window > 0 && k0 <= qmin + 63 - window);
     float mx[2] = {FA_MASKED, FA_MASKED};
 #pragma unroll
     for (int j = 0; j < 16; ++j)
@@ -410,7 +438,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
           float x = sc[4 * j + 2 * h + c] * x_scale;
           if (edge) {
             const int key = k0 + 8 * j + 2 * (lane % 4) + c;
-            if ((causal && key > qpos[h]) || key >= sk) x = FA_MASKED;
+            if ((causal && key > qpos[h]) || key >= sk ||
+                (window > 0 && key <= qpos[h] - window))
+              x = FA_MASKED;
           }
           sc[4 * j + 2 * h + c] = x;
           mx[h] = fmaxf(mx[h], x);
@@ -496,7 +526,8 @@ template <int DP>
 static cudaError_t fw_launch(const void* q, const void* k, const void* v,
                              void* o, float* lse, long long bhq, int sq,
                              int sk, int d, int group, int q_offset,
-                             float sm_scale, int causal, cudaStream_t stream) {
+                             float sm_scale, int causal, int window,
+                             cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* base[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
@@ -519,7 +550,7 @@ static cudaError_t fw_launch(const void* q, const void* k, const void* v,
   flash_attention_wgmma_kernel<DP><<<(unsigned)blocks, FW_THREADS, smem,
                                      stream>>>(
       maps[0], maps[1], maps[2], (__nv_bfloat16*)o, lse, (int)bhq, sq, sk, d,
-      group, q_offset, sm_scale, causal);
+      group, q_offset, sm_scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -1392,22 +1423,22 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int bf16,
                                      long long bhq, int sq, int sk, int d,
                                      int group, int q_offset, float sm_scale,
-                                     int causal, void* stream) {
+                                     int causal, int window, void* stream) {
   const long long blocks = bhq * (sq / FA_BQ);
   if (blocks <= 0 || blocks > 0x7fffffffLL || sq % FA_BQ || sk < FA_BK ||
       sk % FA_BK || d < 1 || d > FA_MAX_D || group < 1 || bhq % group != 0 ||
-      q_offset < 0)
+      q_offset < 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (!bf16)
     return (int)fa_launch<float>(q, k, v, o, lse, bhq, sq, sk, d, group,
-                                 q_offset, sm_scale, causal, st);
+                                 q_offset, sm_scale, causal, window, st);
   // TMA reads rows of d bf16 values: 16-byte strides need d % 8 == 0
   if (d % 8 || bhq > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   return (int)(d > 64 ? fw_launch<2>(q, k, v, o, lse, bhq, sq, sk, d, group,
-                                     q_offset, sm_scale, causal, st)
+                                     q_offset, sm_scale, causal, window, st)
                       : fw_launch<1>(q, k, v, o, lse, bhq, sq, sk, d, group,
-                                     q_offset, sm_scale, causal, st));
+                                     q_offset, sm_scale, causal, window, st));
 }
 
 // The backward: dq (bh, sq, d), dk and dv (bh / group, sk, d) in q's type,

@@ -14,6 +14,13 @@ scores after the product, and the probabilities enter ``P @ V`` rounded
 to bf16; it also takes the exponential as ``2^x`` of log2-domain scores
 on the SFU (see the note in the CUDA source).
 
+``window > 0`` adds the reference model's sliding window (its jnp
+``blockwise_attention``; the reference's Pallas kernel has none): key
+``kp`` is visible to query ``qp`` only if ``qp - window < kp``, a select
+before ``exp`` like the causal mask, and both kernels skip the key tiles
+wholly before a query block's first visible key.  The backward has no
+window yet (ROADMAP.md, queue 1 item 11.4b) and raises on one.
+
 GQA is an index, not a copy: ``k``/``v`` may carry fewer heads than ``q``
 (``q.shape[0]`` a multiple of ``k.shape[0]``), and query head ``bh``
 reads kv head ``bh // group``.  With as many kv heads as query heads this
@@ -64,14 +71,18 @@ MAX_HEAD_DIM = 128  # the kernel's register budget (FA_MAX_D)
 NEG_INF = -1e30  # the reference kernel's mask value
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+# forward launches with a window, by kernel: "wgmma" (bf16), "simt"
+# (fp32, FFMA)
+WINDOW_ROUTES = {"wgmma": 0, "simt": 0}
 BWD_ROUTES = {"mma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    for route in BWD_ROUTES:
-        BWD_ROUTES[route] = 0
+    for routes in (WINDOW_ROUTES, BWD_ROUTES):
+        for route in routes:
+            routes[route] = 0
 
 
 def _check(q, k, v, plain: bool = False) -> int:
@@ -109,10 +120,12 @@ def flash_attention_plain(
     *,
     causal: bool = True,
     q_offset: int = 0,
+    window: int = 0,
     return_lse: bool = False,
 ):
     """Plain version of K4: per query tile, an online softmax over key
-    tiles up to the causal limit, in fp32, with the kernel's numerics.
+    tiles from the first one the tile's window reaches (tile 0 without a
+    window) up to the causal limit, in fp32, with the kernel's numerics.
     ``return_lse`` also returns the rows' logsumexp, (bh, sq) fp32."""
     group = _check(q, k, v, plain=True)
     bh, sq, d = q.shape
@@ -129,17 +142,19 @@ def flash_attention_plain(
         n_kt = -(-sk // BK)
         if causal:
             n_kt = min(n_kt, -(-(q_offset + q0 + rows) // BK))
+        t0 = _first_tile(q_offset + q0, window, BK, n_kt)
         acc = q.new_zeros((bh, rows, d), dtype=wt)
         m_i = q.new_full((bh, rows), NEG_INF, dtype=wt)
         l_i = q.new_zeros((bh, rows), dtype=wt)
         qpos = q_offset + q0 + torch.arange(rows, device=q.device)
-        for t in range(n_kt):
+        for t in range(t0, n_kt):
             k0 = t * BK
             kj, vj = kf[:, k0:k0 + BK], vf[:, k0:k0 + BK]
             s = qi @ kj.transpose(1, 2)
-            if causal:
+            if causal or window:
                 kpos = k0 + torch.arange(kj.shape[1], device=q.device)
-                s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+                s = torch.where(_visible(qpos, kpos, causal, window), s,
+                                NEG_INF)
             m_new = torch.maximum(m_i, s.amax(dim=2))
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m_i - m_new)
@@ -153,13 +168,42 @@ def flash_attention_plain(
     return (out, lse) if return_lse else out
 
 
+def _first_tile(qpos0: int, window: int, tile: int, n_kt: int) -> int:
+    """The first key tile a query block starting at position ``qpos0``
+    visits: the one holding its first row's first visible key
+    ``qpos0 - window + 1`` (0 without a window), and at most the last
+    tile, as the reference's ``lo`` keeps at least one block."""
+    if window <= 0:
+        return 0
+    return min(max(0, qpos0 - window + 1) // tile, n_kt - 1)
+
+
+def _visible(qpos, kpos, causal: bool, window: int):
+    """(rows, keys) bool: key ``kpos`` visible to query ``qpos``."""
+    ok = (qpos[:, None] >= kpos[None, :] if causal
+          else torch.ones(len(qpos), len(kpos), dtype=torch.bool,
+                          device=qpos.device))
+    if window > 0:
+        ok = ok & (kpos[None, :] > qpos[:, None] - window)
+    return ok
+
+
+def _no_window_bwd(window: int) -> None:
+    if window:
+        raise NotImplementedError(
+            "K4's backward has no sliding window yet (ROADMAP.md, queue 1 "
+            "item 11.4b)")
+
+
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                              q_offset: int = 0):
+                              q_offset: int = 0, window: int = 0):
     """Plain version of K4's backward, the explicit formulas (not
     autograd): P = exp(scale·QKᵀ − lse), the causal mask a select before
     exp; dV = Pᵀ dO, dS = P ⊙ (dO Vᵀ − rowsum(dO ⊙ O)), dQ = scale·dS K,
     dK = scale·dSᵀ Q, then dK and dV summed over each kv head's ``group``
-    query heads.  Returns (dq, dk, dv) in q's type."""
+    query heads.  Returns (dq, dk, dv) in q's type.  ``window > 0``
+    raises (item 11.4b)."""
+    _no_window_bwd(window)
     group = _check(q, k, v, plain=True)
     bh, sq, d = q.shape
     sk = k.shape[1]
@@ -183,12 +227,14 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_tiles(q, k, v, q_offset: int) -> int:
+def _check_tiles(q, k, v, q_offset: int, window: int = 0) -> int:
     """The kernels' shape rules (forward and backward); returns the
     group."""
     group = _check(q, k, v)
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
     if q.shape[1] % BQ or k.shape[1] % BK or k.shape[1] == 0:
         raise ValueError(f"sq {q.shape[1]}, sk {k.shape[1]}: the kernel takes "
                          f"whole tiles of {BQ} only")
@@ -208,17 +254,20 @@ def flash_attention(
     *,
     causal: bool = True,
     q_offset: int = 0,
+    window: int = 0,
     return_lse: bool = False,
 ):
     """K4: q (bh, sq, d); k, v (bh_kv, sk, d) with ``bh % bh_kv == 0``;
     scores scaled by 1/sqrt(d), the reference's default.
     Returns (bh, sq, d) in ``q.dtype``, and with ``return_lse`` also the
     rows' logsumexp (bh, sq) fp32.  ``q_offset`` is the absolute
-    position of ``q[:, 0]`` (causal decode of a chunk where sq < sk)."""
-    group = _check_tiles(q, k, v, q_offset)
+    position of ``q[:, 0]`` (causal decode of a chunk where sq < sk);
+    ``window > 0`` is the sliding window (0: none)."""
+    group = _check_tiles(q, k, v, q_offset, window)
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset, return_lse=return_lse)
+                                     q_offset=q_offset, window=window,
+                                     return_lse=return_lse)
     bh, sq, d = q.shape
     sk = k.shape[1]
     q, k, v = (_contiguous_aligned(x) for x in (q, k, v))
@@ -228,14 +277,17 @@ def flash_attention(
     if o.numel() == 0:
         return (o, lse) if return_lse else o
     lib = load_library("flash_attention")
+    bf16 = q.dtype == torch.bfloat16
     rc = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if return_lse else None,
-        int(q.dtype == torch.bfloat16), bh, sq, sk, d, group, q_offset,
-        1.0 / math.sqrt(d), int(causal), cuda_stream(q.device),
+        int(bf16), bh, sq, sk, d, group, q_offset,
+        1.0 / math.sqrt(d), int(causal), window, cuda_stream(q.device),
     )
     check(lib, rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    if window:
+        WINDOW_ROUTES["wgmma" if bf16 else "simt"] += 1
     return (o, lse) if return_lse else o
 
 
@@ -263,12 +315,15 @@ def bwd_workspace(route: str, bh: int, sq: int, sk: int, d: int) -> dict:
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        q_offset: int = 0, route: str | None = None):
+                        q_offset: int = 0, window: int = 0,
+                        route: str | None = None):
     """K4's backward: (dq, dk, dv) in q's type from the forward's inputs,
     its output ``o`` and row logsumexp ``lse`` (fp32 (bh, sq)) and the
     output's gradient ``do``.  The same shape rules as the forward.
     ``route`` (``"mma"`` or ``"simt"``) overrides :func:`bwd_route`;
-    ``"mma"`` on fp32 raises."""
+    ``"mma"`` on fp32 raises.  A window raises: neither route has one
+    yet (ROADMAP.md, queue 1 item 11.4b)."""
+    _no_window_bwd(window)
     group = _check_tiles(q, k, v, q_offset)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2]:
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
@@ -315,19 +370,18 @@ class FlashAttentionFn(torch.autograd.Function):
     backward kernels for the gradients (plain versions on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool = True, q_offset: int = 0):
+    def forward(ctx, q, k, v, causal: bool = True, q_offset: int = 0,
+                window: int = 0):
+        kw = dict(causal=causal, q_offset=q_offset, window=window)
         if not any(ctx.needs_input_grad[:3]):  # serving: no lse to write
-            return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
-        o, lse = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
-                                 return_lse=True)
+            return flash_attention(q, k, v, **kw)
+        o, lse = flash_attention(q, k, v, return_lse=True, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.q_offset = causal, q_offset
+        ctx.kw = kw
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
-                                         causal=ctx.causal,
-                                         q_offset=ctx.q_offset)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None

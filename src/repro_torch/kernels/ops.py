@@ -132,8 +132,10 @@ def attention(
     *,
     causal: bool = True,
     q_offset: int = 0,
+    window: int = 0,
 ) -> torch.Tensor:
-    """Multi-head attention with GQA, (b, s, h, d) layout.
+    """Multi-head attention with GQA, (b, s, h, d) layout, with the
+    sliding ``window`` where it is > 0.
 
     The reference's dispatch rule, with its default tiles of 128: decode
     and ragged shapes (``sq``, ``sk`` or ``q_offset`` not a multiple of
@@ -152,10 +154,10 @@ def attention(
         o = ref.attention_ref(
             qf, kf.repeat_interleave(group, dim=0),
             vf.repeat_interleave(group, dim=0),
-            causal=causal, q_offset=q_offset,
+            causal=causal, q_offset=q_offset, window=window,
         )
     else:
-        o = FlashAttentionFn.apply(qf, kf, vf, causal, q_offset)
+        o = FlashAttentionFn.apply(qf, kf, vf, causal, q_offset, window)
     return o.reshape(batch, hq, sq, d).transpose(1, 2)
 
 

@@ -74,18 +74,24 @@ def attention_ref(
     *,
     causal: bool = True,
     q_offset: int = 0,
+    window: int = 0,
 ) -> torch.Tensor:
     """q: (bh, sq, d), k/v: (bh, sk, d) — naive softmax attention in fp32
     with scale 1/sqrt(d), ``q.dtype`` out (the reference's
-    ``attention_ref``)."""
+    ``attention_ref``).  ``window > 0`` hides key ``kp`` from query
+    ``qp`` unless ``qp - window < kp`` (the reference model's sliding
+    window), a select before the softmax like the causal mask."""
     sq, d = q.shape[1], q.shape[2]
     sk = k.shape[1]
     sm_scale = 1.0 / math.sqrt(d)
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
-    if causal:
+    if causal or window:
         qp = q_offset + torch.arange(sq, device=q.device)[:, None]
         kp = torch.arange(sk, device=q.device)[None, :]
-        s = torch.where(qp >= kp, s, -1e30)
+        ok = qp >= kp if causal else torch.ones_like(qp >= kp)
+        if window:
+            ok = ok & (kp > qp - window)
+        s = torch.where(ok, s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqk,bkd->bqd", p, v.float())
     return o.to(q.dtype)

@@ -7,13 +7,16 @@ cache, decode ``gen_tokens`` tokens by greedy argmax, and report
 ``prefill_s``, ``decode_s`` and ``decode_tok_per_s``.  A VLM backbone
 (``embed_inputs``) takes random prompt embeddings in place of the
 vision frontend, and M-RoPE models their (3, B, S) positions, as in the
-reference.  Prefill attention runs the flash kernel and the Mamba-2
-prefill the SSD chunk kernel on the card.
+reference.  Prefill attention runs the flash kernel (with the hybrid's
+sliding window for zamba2-7b) and the Mamba-2 prefill the SSD chunk
+kernel on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.decode_demo --arch qwen3-4b \\
         --batch 4 --prompt-len 512 --gen 32 --full
     PYTHONPATH=src python -m repro_torch.launch.decode_demo \\
         --arch deepseek-moe-16b --batch 4 --prompt-len 512 --full
+    PYTHONPATH=src python -m repro_torch.launch.decode_demo \\
+        --arch zamba2-7b --batch 1 --prompt-len 8192 --full
 
 Without ``--full`` the model is the reference's smoke shrink of the
 architecture.  The default device is the card; ``--device cpu`` runs the

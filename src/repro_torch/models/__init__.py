@@ -1,9 +1,9 @@
 """The served LM architectures: ``build_model``.
 
 The dense family (with M-RoPE and embedded inputs for the VLM backbone),
-the MoE family (:class:`DecoderLM`) and the SSM family (:class:`MambaLM`)
-are ported; the hybrid and the encoder-decoder wait in ROADMAP.md, queue 1
-item 11.
+the MoE family (:class:`DecoderLM`), the SSM family (:class:`MambaLM`)
+and the hybrid (:class:`ZambaLM`) are ported; the encoder-decoder waits
+in ROADMAP.md, queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.executor import resolve_device
 from ..tree import tree_map
-from . import lm, ssm_model
+from . import hybrid, lm, ssm_model
+from .hybrid import ZambaLM
 from .lm import DecoderLM
 from .ssm_model import MambaLM
 
@@ -35,6 +36,8 @@ def build_model(cfg: ArchConfig, params: dict | None = None, *,
         return DecoderLM(cfg, params, generator=gen)
     if cfg.family == "ssm":
         return MambaLM(cfg, params, generator=gen)
+    if cfg.family == "hybrid":
+        return ZambaLM(cfg, params, generator=gen)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item 11)"
     )
@@ -46,6 +49,8 @@ def param_defs(cfg: ArchConfig) -> dict:
         return lm.param_defs(cfg)
     if cfg.family == "ssm":
         return ssm_model.param_defs(cfg)
+    if cfg.family == "hybrid":
+        return hybrid.param_defs(cfg)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item 11)"
     )
@@ -55,4 +60,4 @@ def _to(params, device):
     return tree_map(lambda t: t.to(device), params)
 
 
-__all__ = ["build_model", "param_defs", "DecoderLM", "MambaLM"]
+__all__ = ["build_model", "param_defs", "DecoderLM", "MambaLM", "ZambaLM"]

@@ -1,8 +1,8 @@
 """Neural building blocks of the served models, as functions on tensors.
 
 Counterpart of the reference's ``models/layers.py`` for the dense, MoE,
-M-RoPE/VLM and SSM families.  Every bf16 cast sits where the reference
-has it: norms return ``x.dtype``, SiLU runs in fp32 and casts back, the
+M-RoPE/VLM, SSM and hybrid families.  Every bf16 cast sits where the
+reference has it: norms return ``x.dtype``, SiLU runs in fp32 and casts back, the
 MoE router runs in fp32 and its gates are cast to the activation type
 before they multiply, the Mamba-2 mixer casts ``xs`` and ``y`` back to
 the activation type.  Prefill attention
@@ -18,6 +18,7 @@ library products: the reference runs them as plain ``einsum``s).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -40,10 +41,21 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
 # rotary embeddings
 # ----------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (
-        theta ** (torch.arange(0, head_dim, 2, dtype=F32, device=device)
-                  / head_dim)
-    )
+    """The rotary frequencies ``theta^(-2i/head_dim)``, fp32, computed on
+    the host once per (head_dim, theta, device) and kept there: every
+    device then rotates by the same fp32 angles.  A card's ``pow`` may
+    land one ulp from the host's, and ``position · freq`` carries that
+    ulp times the position (~3e-4 rad at position 4608, which the
+    hybrid's hard attention turns into 5e-3 of its output on the H100)."""
+    return _rope_freqs(head_dim, float(theta), torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(head_dim: int, theta: float, device: torch.device):
+    with torch.inference_mode(False):  # usable by autograd later
+        freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=F32)
+                                 / head_dim))
+        return freqs.to(device)
 
 
 def apply_rope(
@@ -99,16 +111,12 @@ def blockwise_attention(
     q_offset: int = 0,
     window: int = 0,
 ) -> torch.Tensor:
-    """Prefill attention, ``q.dtype`` out.  The reference runs a jnp
-    online softmax over key blocks here; the port calls the flash kernel
-    through ``ops.attention`` (same function; its tiles are the kernel's
-    own).  Sliding windows belong to the hybrid family, not ported."""
-    if window:
-        raise NotImplementedError(
-            "windowed attention belongs to the hybrid family, which is not "
-            "ported (ROADMAP.md, queue 1 item 11)"
-        )
-    return ops.attention(q, k, v, causal=causal, q_offset=q_offset)
+    """Prefill attention, ``q.dtype`` out, with the sliding ``window``
+    where it is > 0 (the hybrid's).  The reference runs a jnp online
+    softmax over key blocks here; the port calls the flash kernel through
+    ``ops.attention`` (same function; its tiles are the kernel's own)."""
+    return ops.attention(q, k, v, causal=causal, q_offset=q_offset,
+                         window=window)
 
 
 def decode_attention(

@@ -62,17 +62,24 @@ def count_params(defs) -> int:
 
 
 class Params(nn.Module):
-    """A flat set of named tensors (one layer, or the model's top level),
+    """A set of named tensors (one layer, or the model's top level),
     readable as a dict through :meth:`tensors`; frozen until the model's
-    ``train_mode(True)``."""
+    ``train_mode(True)``.  A dict among them (the hybrid's ``shared``
+    block) is a :class:`Params` of its own, read as a nested dict."""
 
     def __init__(self, tensors: dict):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            if isinstance(t, dict):
+                self.add_module(name, Params(t))
+            else:
+                self.register_parameter(name,
+                                        nn.Parameter(t, requires_grad=False))
 
     def tensors(self) -> dict:
-        return dict(self.named_parameters(recurse=False))
+        out = dict(self.named_parameters(recurse=False))
+        out.update((name, m.tensors()) for name, m in self.named_children())
+        return out
 
 
 def _check(defs, params, where: str) -> None:
@@ -80,7 +87,9 @@ def _check(defs, params, where: str) -> None:
         raise ValueError(f"{where}: parameters {sorted(params)} != "
                          f"{sorted(defs)}")
     for k, d in defs.items():
-        if tuple(params[k].shape) != d.shape:
+        if isinstance(d, dict):
+            _check(d, params[k], f"{where}.{k}")
+        elif tuple(params[k].shape) != d.shape:
             raise ValueError(f"{where}.{k}: shape {tuple(params[k].shape)} "
                              f"!= {d.shape}")
 
@@ -106,9 +115,9 @@ def param_modules(defs: dict, params: dict | None,
 
 
 class TrainableLM(nn.Module):
-    """What the dense and SSM models share for training: a model holds
-    its weights in ``top`` (a :class:`Params`) and ``layers`` (a list of
-    them), and defines ``hidden_states(batch) -> (h, aux)`` and
+    """What the dense, SSM and hybrid models share for training: a model
+    holds its weights in ``top`` (a :class:`Params`) and ``layers`` (a
+    list of them), and defines ``hidden_states(batch) -> (h, aux)`` and
     ``head_weights(top)``."""
 
     def train_mode(self, flag: bool = True):
@@ -119,9 +128,9 @@ class TrainableLM(nn.Module):
         return self
 
     def param_tree(self) -> dict:
-        """``{"embed", "final_norm", ["head"], "layers": [dict per
-        layer]}`` of the model's own parameters (not copies): the
-        training state's ``params``."""
+        """``{"embed", "final_norm", ["head"], ["shared"], "layers":
+        [dict per layer]}`` of the model's own parameters (not copies):
+        the training state's ``params``."""
         tree = self.top.tensors()
         tree["layers"] = [lp.tensors() for lp in self.layers]
         return tree

@@ -38,6 +38,19 @@ def mamba_defs(cfg: ArchConfig) -> dict:
     }
 
 
+def mamba_block(cfg: ArchConfig, p: dict, h: torch.Tensor, ssm_state=None,
+                conv_state=None):
+    """One Mamba-2 layer on the residual stream ``h``: pre-norm, the
+    mixer, the residual add (the reference's ``_mix``, which its hybrid's
+    ``_mamba`` repeats).  Returns (h, ssm_state, (conv_x, conv_bc))."""
+    x = L.rms_norm(h, p["ln"], cfg.norm_eps)
+    y, (s2, c2) = L.mamba2_mix(
+        x, p, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+        expand=cfg.ssm_expand, ssm_state=ssm_state, conv_state=conv_state,
+    )
+    return h + y, s2, c2
+
+
 def param_defs(cfg: ArchConfig) -> dict:
     """``{"embed", "final_norm", ["head"], "layers": [per-layer dict]}``
     of :class:`ParamDef` (the reference's declarations, unstacked)."""
@@ -68,18 +81,9 @@ class MambaLM(TrainableLM):
     def head_weights(self, top: dict) -> torch.Tensor:
         return top["embed"].T if self.cfg.tie_embeddings else top["head"]
 
-    def _mix(self, p, h, ssm_state=None, conv_state=None):
-        cfg = self.cfg
-        x = L.rms_norm(h, p["ln"], cfg.norm_eps)
-        y, (s2, c2) = L.mamba2_mix(
-            x, p, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
-            expand=cfg.ssm_expand, ssm_state=ssm_state, conv_state=conv_state,
-        )
-        return h + y, s2, c2
-
     # ------------------------------------------------------------ train
     def _block(self, p, h):
-        return self._mix(p, h)[0]
+        return mamba_block(self.cfg, p, h)[0]
 
     def hidden_states(self, batch: dict):
         """Final-layer hidden states (B, S, D), normed, and aux 0."""
@@ -127,7 +131,7 @@ class MambaLM(TrainableLM):
         h = top["embed"][tokens]
         cache = self.init_cache(tokens.shape[0], max_len or tokens.shape[1])
         for i, layer in enumerate(self.layers):
-            h, s2, c2 = self._mix(layer.tensors(), h)
+            h, s2, c2 = mamba_block(self.cfg, layer.tensors(), h)
             self._store(cache, i, s2, c2)
         h = L.rms_norm(h, top["final_norm"], self.cfg.norm_eps)
         logits = h[:, -1] @ self.head_weights(top)
@@ -140,8 +144,8 @@ class MambaLM(TrainableLM):
         top = self.top.tensors()
         h = top["embed"][tokens]
         for i, layer in enumerate(self.layers):
-            h, s2, c2 = self._mix(
-                layer.tensors(), h, ssm_state=cache["ssm"][i],
+            h, s2, c2 = mamba_block(
+                self.cfg, layer.tensors(), h, ssm_state=cache["ssm"][i],
                 conv_state=(cache["conv_x"][i], cache["conv_bc"][i]),
             )
             self._store(cache, i, s2, c2)

@@ -464,6 +464,38 @@ def test_flash_attention_on_card(dev, dtype, bh, group, sq, sk, d, causal,
     assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [112, 128])
+@pytest.mark.parametrize("bh,group,sq,sk,q_offset,window", [
+    (8, 2, 512, 512, 0, 64),          # a window of 64 at s 512
+    (2, 1, 8192, 8192, 0, 4096),      # zamba2-7b's window at its prompt
+    (4, 2, 256, 1024, 768, 300),      # a chunk with q_offset, window off the tiles
+])
+def test_flash_attention_window_on_card(dev, dtype, d, bh, group, sq, sk,
+                                        q_offset, window):
+    """K4's forward kernels with a sliding window against the plain
+    version, at zamba2-7b's head dim 112 (the bf16 kernel's second
+    64-column panel half filled by TMA's zeros) and at 128: fp32 1e-4 of
+    max|plain|, bf16 1e-2 (the output's rounding alone is 2^-8); each
+    launch counted as windowed on its dtype's kernel."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(bh + sq + d + window)
+    q = torch.randn(bh, sq, d, generator=g).to(dev, dtype)
+    k = torch.randn(bh // group, sk, d, generator=g).to(dev, dtype)
+    v = torch.randn(bh // group, sk, d, generator=g).to(dev, dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    before = dict(fa.WINDOW_ROUTES)
+    got = fa.flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                             window=window)
+    assert fa.WINDOW_ROUTES[route] == before[route] + 1
+    want = fa.flash_attention_plain(q, k, v, causal=True, q_offset=q_offset,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
 @pytest.mark.parametrize("lib,kernel,hgmma", [
     ("gemm", "tiled_gemm_kernel", True),  # K1: 3xTF32 and bf16
     ("gemm", "fused_gemm_kernel", True),
@@ -511,6 +543,9 @@ def test_mma_kernels_issue_hmma(dev, kernel, hmma):
     (4, 2, 2, 64, 64, 64, 5.0, 10.0, "wgmma", None),    # overflow at L = 64, S = 64
     (8, 2, 2, 64, 128, 128, 0.01, 0.5, "wgmma", None),  # two head-dim tiles
     (6, 6, 3, 64, 64, 128, 0.01, 0.5, "simt", "simt"),  # the serve shape, forced
+    # zamba2-7b at 8192 tokens: 112 heads in one B/C group, state 64,
+    # 128 chunks (one block takes the whole group)
+    (112, 1, 128, 64, 64, 64, 0.01, 0.5, "wgmma", None),
 ])
 def test_ssd_chunk_on_card(dev, BH, G, C, L, D, S, lo, hi, route, force):
     """K5 against its plain version, 1e-4 relative (fp32, another
@@ -758,6 +793,81 @@ def test_prefill_on_card_matches_cpu(dev, arch, kernel):
     assert mod.LAUNCHES[kernel] == cfg.num_layers
     _, want = prefill(cpu_model, inputs)
     assert _rel(logits.cpu(), want) <= 3e-2
+
+
+def _hybrid_pair(dev, dtype):
+    """zamba2-7b's shrink at 7 layers (one group of 6 and the shared
+    block, one tail layer) with a window of 96, on the card and on the
+    CPU with the same weights in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_shrink
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(smoke_shrink(get_config("zamba2-7b")),
+                              num_layers=7, attn_every=6, window=96)
+    model = build_model(cfg, seed=0, device=dev)
+    params = tree_map(lambda t: t.detach().cpu().to(dtype),
+                      model.param_tree())
+    return (build_model(cfg, params, device=dev),
+            build_model(cfg, params, device="cpu"))
+
+
+def test_hybrid_prefill_and_decode_on_card_match_cpu(dev):
+    """The hybrid in fp32 on a prompt of 256: the window of 96 binds in
+    prefill and the ring wraps on the S % window != 0 side in decode.
+    Card against the CPU, prefill and two decode steps, 1e-3 of
+    max|logit|; the shared block's prefill launches the windowed K4
+    once, on the FFMA kernel."""
+    from repro_torch.kernels import flash_attention as fa
+
+    model, cpu_model = _hybrid_pair(dev, torch.float32)
+    g = torch.Generator().manual_seed(1)
+    S = 256
+    toks = torch.randint(0, model.cfg.vocab_size, (2, S + 2), generator=g)
+    fa.reset_launches()
+    cache, logits = model.prefill(toks[:, :S].to(dev), max_len=S + 2)
+    assert fa.WINDOW_ROUTES["simt"] == fa.LAUNCHES["flash_attention"] == 1
+    cpu_cache, want = cpu_model.prefill(toks[:, :S], max_len=S + 2)
+    assert _rel(logits.cpu(), want) <= 1e-3
+    for i in range(2):
+        tok = toks[:, S + i:S + i + 1]
+        logits, cache = model.decode_step(cache, tok.to(dev), S + i)
+        want, cpu_cache = cpu_model.decode_step(cpu_cache, tok, S + i)
+        assert _rel(logits.cpu(), want) <= 1e-3
+
+
+def test_hybrid_bf16_blocks_on_card_match_cpu(dev):
+    """The hybrid in bf16, block by block: each block on the card from
+    the CPU's input to it (the shared block through the windowed wgmma
+    K4), its output within 3e-2 of max|value| of the CPU's.  End to end
+    the reference's init makes the shared block's attention hard (wq's
+    and wk's fan-in is the head count), which amplifies single bf16
+    roundings far past that (0.37 of max|logit| on the H100)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.ssm_model import mamba_block
+
+    model, cpu_model = _hybrid_pair(dev, torch.bfloat16)
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(1)
+    S = 256
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=g)
+    card, host = model.param_tree(), cpu_model.param_tree()
+    h = host["embed"][toks]
+    pos = torch.arange(S).expand(2, S)
+    fa.reset_launches()
+    for j in range(cfg.num_layers):
+        want = mamba_block(cfg, host["layers"][j], h)[0]
+        got = mamba_block(cfg, card["layers"][j], h.to(dev))[0]
+        assert _rel(got.cpu(), want) <= 3e-2, j
+        h = want
+        if model._group_after(j) is not None:
+            want = cpu_model._shared_attn(host["shared"], h, pos)[0]
+            got = model._shared_attn(card["shared"], h.to(dev), pos.to(dev))[0]
+            assert _rel(got.cpu(), want) <= 3e-2, j
+            h = want
+    assert fa.WINDOW_ROUTES["wgmma"] == fa.LAUNCHES["flash_attention"] == 1
 
 
 @pytest.mark.parametrize("dispatch", ["sort", "cumsum"])

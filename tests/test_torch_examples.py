@@ -64,8 +64,10 @@ def test_serve_lm_twin(capsys):
     from repro.launch.decode_demo import serve as ref_serve
 
     got = serve_lm.main(["--device", "cpu"])
-    out = capsys.readouterr().out
     assert tuple(got) == serve_lm.ARCHS == ("qwen3-4b", "mamba2-130m")
+    # the hybrid through --arch, held to the reference's serve of it
+    got.update(serve_lm.main(["--device", "cpu", "--arch", "zamba2-7b"]))
+    out = capsys.readouterr().out
     for arch, r in got.items():
         assert arch in out
         want = ref_serve(arch, smoke=True, batch=4, prompt_len=64,
