@@ -60,7 +60,14 @@ points at full width:
                  ssd_chunk_bwd at mamba2-130m's (fp32, batch 4 x 512;
                  <= 1e-4, also at overflowing decays; its wgmma route
                  beside its simt route forced), each route run twice for
-                 the same bits;
+                 the same bits; and flash_attention_bwd with a sliding
+                 window on both routes, at a small shape (window 100,
+                 q_offset 64: bf16 mma <= 2e-2, fp32 simt <= 1e-4) and at
+                 zamba2-7b's training shape (bh 32, s 8192, d 112, window
+                 4096, bf16, <= 2e-2; the bound counts the window's pairs
+                 only; SDPA's autograd backward takes the band as a
+                 boolean mask), every call counted as windowed on its
+                 route;
   3. amplitude — simulate_amplitude on sycamore_like(5, 6, 14), 30 qubits,
                  every slice, held against the port's statevector on the
                  card (relative error <= 1e-3: fp32 sums over ~150 steps
@@ -170,15 +177,28 @@ points at full width:
                  ssd_chunk launch must take its wgmma route;
      train     — LM training on the card through make_train_step
                  (chunked cross-entropy, AdamW, each layer checkpointed):
-                 qwen3-4b at full width and depth, batch 2 x 512, and
-                 mamba2-130m, batch 4 x 512, 4 steps each: finite losses,
+                 qwen3-4b at full width and depth, batch 2 x 512,
+                 mamba2-130m, batch 4 x 512, deepseek-moe-16b at full
+                 width and 5 layers (layer 0 dense), 2 x 512, its first
+                 two steps run again from the same seed for the same
+                 bits, and zamba2-7b at full width and 7 layers (one
+                 group of 6 and the shared block, one tail layer), 1 x
+                 8192 (twice its window), 4 steps each: finite losses,
                  the first within 0.1 of ln V + d s^2 / 2 (s the head's
                  init std: the logits of a random head have variance
                  d s^2), step ms, tokens/s, peak
                  device memory, a profiler trace of one more step; the
                  card's first two steps of each at 2 layers against the
                  port's CPU run of the same weights and batch (loss and
-                 grad norm: fp32 <= 1e-3, bf16 <= 3e-2 relative); then the
+                 grad norm: fp32 <= 1e-3, bf16 <= 3e-2 relative; for the
+                 MoE each step from the card's state, the CPU taking the
+                 card's routing decisions, and a free CPU run with its
+                 routing flips reported); the hybrid at 7 layers, 256
+                 tokens, its window cut to 64: one backward held to the
+                 port's CPU run in fp64 (fp32 loss <= 1e-3, grad norm and
+                 gradients <= 1e-3 or no further than the CPU's fp32 run,
+                 every block from the fp64 input and upstream gradient
+                 <= 1e-3 in fp32 and 3e-2 in bf16); then the
                  llama3-100m example twin's configuration through the
                  launcher for 100 steps at seq 128 (finite, first loss as
                  expected), and the learning gate: llama3.2-3b's smoke
@@ -187,8 +207,10 @@ points at full width:
                  backward kernels.  flash_attention's and ssd_chunk's backward
                  kernels must be launched, qwen3-4b's bf16 steps through
                  flash_attention_bwd's mma route and every mamba2-130m
-                 backward through ssd_chunk_bwd's wgmma route (the counts
-                 are zeroed before each model and read after it);
+                 backward through ssd_chunk_bwd's wgmma route, every
+                 zamba2-7b K4 backward windowed on mma (its fp32
+                 agreement's on simt) and every K5 backward on wgmma (the
+                 counts are zeroed before each model and read after it);
   7. kernels   — one JSON line listing every kernel with its launches on
                  its path (phases 3-5, engine, search, resume and
                  multihost for the contraction kernels, the
@@ -199,7 +221,8 @@ points at full width:
                  with their launches in the precision phase, and
                  flash_attention at deepseek-moe-16b's, qwen2-vl-72b's
                  and zamba2-7b's shapes with their launches serving
-                 those models;
+                 those models, and flash_attention_bwd's windowed record
+                 with its launches training zamba2-7b;
                  every fused_gemm launch of those phases must
                  have taken the wgmma kernel with the coalesced (uniform)
                  gather.
@@ -361,11 +384,31 @@ MOE_SPANS = {"moe_layer": "moe.layer", "moe_route": "moe.route",
              "expert_ffn": "moe.experts"}
 AGREE = dict(batch=1, prompt_len=256)  # the CPU half of the agreement
 FLASH_BWD_TOL = 2e-2  # bf16 gradients: each output's rounding is 2^-8
-# training: (batch, seq) per model, steps at full depth; the agreement's
-# CPU half runs 2 layers, 2 steps, one sequence of 128 tokens
-TRAIN = {"qwen3-4b": (2, 512), "mamba2-130m": (4, 512)}
+# K4's windowed backward record: zamba2-7b's training shape (its shared
+# block's attention at 1 x 8192, twice its window)
+K4_BWD_WINDOW = dict(B=1, H=32, KV=32, S=8192, d=112, window=4096)
+# training: batch and seq per model, and its depth (None: the published
+# depth), TRAIN_STEPS steps each.  deepseek-moe-16b's 28 layers are
+# 16.4 B parameters: with bf16 weights and gradients and fp32 moments
+# (12 bytes each) ~197 GB, so it trains layer 0 (dense) and 4 MoE layers
+# (2.85 B, ~34 GB).  zamba2-7b trains one group of 6 mamba layers and the
+# shared block, then one tail layer (2 layers hold no attention), on one
+# sequence of 8192 tokens, twice its window, so the window binds in the
+# backward too
+TRAIN = {
+    "qwen3-4b": dict(batch=2, seq=512),
+    "mamba2-130m": dict(batch=4, seq=512),
+    "deepseek-moe-16b": dict(batch=2, seq=512, layers=5),
+    "zamba2-7b": dict(batch=1, seq=8192, layers=7),
+}
 TRAIN_STEPS = 4
+MOE_REPEAT = 2  # an MoE model's first steps, run twice for the same bits
+# the agreement's CPU half: 2 layers (an MoE model's layer 0 dense, layer
+# 1 MoE), 2 steps, one sequence of 128 tokens; the hybrid's one backward
+# at 7 layers (as its serve agreement) on 256 tokens, its window cut to 64
+# so that it binds (the record states it as window_cut)
 TRAIN_AGREE = dict(batch=1, seq=128, steps=2, layers=2, lr=1e-4)
+HYBRID_TRAIN_AGREE = dict(batch=1, seq=256, layers=7, window=64)
 TRAIN_TOL = {"fp32": 1e-3, "bf16": 3e-2}
 EXAMPLE_STEPS = 100  # the llama3-100m twin, seq 128
 # the learning gate: the synthetic stream (next = prev + delta mod V) is
@@ -929,7 +972,116 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
             o4, (q4, k4, v4), do4, retain_graph=True)),
         bound_ms=b_ms, bound_by=b_by,
     )
+    del q, k, v, do, o, lse, want, outs, q4, k4, v4, o4, do4
+    out["flash_attention_bwd:zamba2-7b"] = _k4_bwd_window_record(torch, fa, F)
     return out
+
+
+def _k4_bwd_window_record(torch, fa, F) -> dict:
+    """K4's backward with a sliding window on both routes: first at a
+    small shape whose window is no multiple of 64 and whose queries start
+    at q_offset > 0 (bf16 on mma, <= FLASH_BWD_TOL; fp32 on simt, <=
+    KERNEL_TOL), then at K4_BWD_WINDOW, zamba2-7b's training shape (bf16,
+    the mma route the dtype takes and the simt route forced, each <=
+    FLASH_BWD_TOL of max|plain| per gradient); every call twice for the
+    same bits and counted as windowed on its route.  Timed beside the
+    plain version, SDPA's autograd backward with the band as a boolean
+    mask, and the bound of the pairs the window leaves."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def inputs(bh, kv, sq, sk, d, dtype):
+        return [torch.randn(n, s, d, generator=gen, device=dev).to(dtype)
+                for n, s in ((bh, sq), (kv, sk), (kv, sk), (bh, sq))]
+
+    def held(q, k, v, do, routes, **kw):
+        """{route: per-gradient errors relative to max|plain|}, the
+        largest absolute error of the first route, and its gradients."""
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        rels, err, first = {}, None, None
+        for route, tol in routes:
+            force = None if route == fa.bwd_route(q.dtype) else route
+            before = dict(fa.BWD_WINDOW_ROUTES)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, route=force,
+                                         **kw)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, route=force,
+                                           **kw)
+            torch.cuda.synchronize()
+            check(fa.BWD_WINDOW_ROUTES[route] == before[route] + 2,
+                  f"flash_attention_bwd {kw}: not windowed {route}")
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"flash_attention_bwd ({route}) {kw}: non-finite")
+            rels[route] = [rel_err(torch, [g.float()], [w.float()])[1]
+                           for g, w in zip(got, want)]
+            check(max(rels[route]) <= tol,
+                  f"flash_attention_bwd ({route}) {kw} disagrees: "
+                  f"{rels[route]}")
+            check(all(torch.equal(g, h) for g, h in zip(got, again)),
+                  f"flash_attention_bwd ({route}) {kw}: two runs differ")
+            if first is None:
+                err = max(rel_err(torch, [g.float()], [w.float()])[0]
+                          for g, w in zip(got, want))
+                first = got
+            del again
+        return rels, err, first, (o, lse)
+
+    small_kw = dict(causal=True, q_offset=64, window=100)
+    small = {}
+    for route, dtype, tol in (("mma", torch.bfloat16, FLASH_BWD_TOL),
+                              ("simt", torch.float32, KERNEL_TOL)):
+        q, k, v, do = inputs(8, 2, 192, 256, 112, dtype)
+        small[route] = held(q, k, v, do, [(route, tol)], **small_kw)[0][route]
+
+    B, H, KV, S, d, W = (K4_BWD_WINDOW[x] for x in ("B", "H", "KV", "S", "d",
+                                                     "window"))
+    kw = dict(causal=True, window=W)
+    q, k, v, do = inputs(B * H, B * KV, S, S, d, torch.bfloat16)
+    rels, err, outs, (o, lse) = held(
+        q, k, v, do, [("mma", FLASH_BWD_TOL), ("simt", FLASH_BWD_TOL)], **kw)
+    # the least arithmetic: five products (S, dP, dV, dK, dQ) over the
+    # pairs the window leaves, at the bf16 rate (the simt route's at
+    # FP32's), against each input read and each output written once
+    pairs = sum(min(i + 1, W) for i in range(S))
+    flops = 10.0 * B * H * pairs * d
+    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + o.numel() + do.numel()
+                    + sum(g.numel() for g in outs)) + 4.0 * lse.numel()
+    b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
+    simt_b_ms, _ = bound(flops, nbytes, FP32_PEAK)
+    q4, k4, v4 = (t.view(B, -1, S, d).detach().requires_grad_()
+                  for t in (q, k, v))
+    pos = torch.arange(S, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band,
+                                        enable_gqa=KV != H)
+    do4 = do.view(B, H, S, d)
+
+    def k4_bwd(route=None):
+        return lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, route=route,
+                                              **kw)
+
+    return dict(
+        shape=dict(bh=B * H, bh_kv=B * KV, sq=S, sk=S, d=d, dtype="bf16",
+                   causal=True, window=W),
+        pairs=pairs, max_abs_err=err, rel_err=rels["mma"],
+        simt_rel_err=rels["simt"],
+        small=dict(shape=dict(bh=8, bh_kv=2, sq=192, sk=256, d=112,
+                              **small_kw), mma_bf16_rel_err=small["mma"],
+                   simt_fp32_rel_err=small["simt"]),
+        # the call with CUDA events (the kernel table's reading), each
+        # route; the mma route's kernels alone on the device clock
+        ms=cuda_ms(torch, k4_bwd()),
+        simt_ms=cuda_ms(torch, k4_bwd("simt")),
+        kernel_ms=device_ms(torch, k4_bwd(), "fa_bwd"),
+        plain_ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, **kw)),
+        # SDPA's backward through autograd, the band as a boolean mask
+        library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do4, retain_graph=True)),
+        bound_ms=b_ms, bound_by=b_by, simt_bound_ms=simt_b_ms,
+        seconds=time.perf_counter() - t0,
+    )
 
 
 def _k4_record(torch, fa, F, gen, B, H, KV, S, d, window) -> dict:
@@ -1333,88 +1485,459 @@ def _train_steps(torch, model, ocfg, batches):
     return losses, norms, secs, state, step
 
 
-def phase_train(torch, arch, build_model, get_config, counts, reset) -> dict:
-    """One model trained at full width and depth on the card, then the
-    card's first two steps at 2 layers against the port's CPU run."""
+def phase_train(torch, arch, build_model, get_config, counts, reset, L,
+                batch, seq, layers=None) -> dict:
+    """One model trained on the card at full width, at its published depth
+    or ``layers`` of it (batch x seq tokens a step, TRAIN_STEPS steps);
+    an MoE model's first MOE_REPEAT steps run again from the same seed
+    for the same bits; then the card's first steps at a few layers
+    against the port's CPU run (TRAIN_AGREE, the hybrid's
+    HYBRID_TRAIN_AGREE)."""
     import dataclasses
 
-    from repro_torch.data.pipeline import SyntheticTextDataset
+    from repro_torch.launch.train import train_batch, train_dataset
     from repro_torch.models import param_defs
     from repro_torch.models.params import count_params
     from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import init_state, make_train_step
 
     full = get_config(arch)
-    batch, seq = TRAIN[arch]
-    ds = SyntheticTextDataset(vocab_size=full.vocab_size, seq_len=seq,
-                              global_batch=batch, seed=0)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    moe = full.family == "moe"
+    hybrid = full.family == "hybrid"
+    ds = train_dataset(cfg, seq, batch, seed=0)
+    batches = [train_batch(cfg, ds, i) for i in range(TRAIN_STEPS + 1)]
     ocfg = opt.OptimizerConfig(learning_rate=1e-3, warmup_steps=2,
                                total_steps=100)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset()
-    model = build_model(full, seed=0, device="cuda")
+    model = build_model(cfg, seed=0, device="cuda")
     losses, norms, secs, state, step = _train_steps(
-        torch, model, ocfg, [ds.batch(i) for i in range(TRAIN_STEPS)])
+        torch, model, ocfg, batches[:TRAIN_STEPS])
     torch.cuda.synchronize()
     launched = counts()
     peak = torch.cuda.max_memory_allocated() - base
-    trace = profile(torch, lambda: float(step(state, ds.batch(TRAIN_STEPS))[1]["loss"]))
+    with _patched(L, _spans(torch) if moe else {}):
+        trace = profile(torch, lambda: float(
+            step(state, batches[TRAIN_STEPS])[1]["loss"]))
     del state, step, model
     torch.cuda.empty_cache()
     check(all(math.isfinite(x) for x in losses + norms),
           f"{arch}: non-finite training loss or grad norm {losses} {norms}")
     # a random head of std s over unit-RMS hidden states gives logits of
     # variance d s^2, so the expected first loss is ln V + d s^2 / 2
-    defs = param_defs(full)
+    defs = param_defs(cfg)
     s_head = (defs["embed"] if full.tie_embeddings else defs["head"]).scale
     expect = math.log(full.vocab_size) + full.d_model * s_head ** 2 / 2
     first = abs(losses[0] - expect)
     check(first <= 0.1, f"{arch}: first loss {losses[0]} is {first} from "
           f"ln V + d s^2 / 2 = {expect}")
     n_params = count_params(defs)
+    repeat = None
+    if moe:
+        # the dispatch's backward writes each kept gradient once (the
+        # trash row's repeats are dropped): the same steps from the same
+        # seed give the same bits
+        model = build_model(cfg, seed=0, device="cuda")
+        again = _train_steps(torch, model, ocfg, batches[:MOE_REPEAT])
+        del model
+        torch.cuda.empty_cache()
+        repeat = dict(steps=MOE_REPEAT, losses=again[0], grad_norms=again[1])
+        check(again[0] == losses[:MOE_REPEAT]
+              and again[1] == norms[:MOE_REPEAT],
+              f"{arch}: two runs of the same steps differ: {losses} {norms} "
+              f"vs {again[:2]}")
 
-    # the card against the CPU on the same weights and batch, 2 layers
-    agree = {}
-    small = dataclasses.replace(full, num_layers=TRAIN_AGREE["layers"])
+    # the card against the CPU on the same weights and batches
+    spec = HYBRID_TRAIN_AGREE if hybrid else TRAIN_AGREE
+    small = dataclasses.replace(full, num_layers=spec["layers"])
+    if hybrid:
+        small = dataclasses.replace(small, window=spec["window"])
     params = _cpu_params(build_model(small, seed=1, device="cuda"))
     torch.cuda.empty_cache()
-    ads = SyntheticTextDataset(vocab_size=full.vocab_size,
-                               seq_len=TRAIN_AGREE["seq"],
-                               global_batch=TRAIN_AGREE["batch"], seed=1)
-    abatches = [ads.batch(i) for i in range(TRAIN_AGREE["steps"])]
-    acfg = opt.OptimizerConfig(learning_rate=TRAIN_AGREE["lr"], warmup_steps=0,
-                               total_steps=TRAIN_AGREE["steps"])
-    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        runs = {}
-        for where in ("cuda", "cpu"):
-            model = build_model(small, _cast(params, dtype, small.num_layers),
-                                device=where)
-            t0 = time.perf_counter()
-            runs[where] = _train_steps(torch, model, acfg, abatches)[:2]
-            runs[where + "_s"] = time.perf_counter() - t0
-            del model
-            torch.cuda.empty_cache()
-        diffs = [abs(a - b) / max(abs(b), 1e-30)
-                 for a, b in zip(runs["cuda"][0] + runs["cuda"][1],
-                                 runs["cpu"][0] + runs["cpu"][1])]
-        check(max(diffs) <= TRAIN_TOL[name],
-              f"{arch}: {name} card vs CPU training {runs['cuda']} {runs['cpu']}")
-        agree[name] = dict(card_losses=runs["cuda"][0], cpu_losses=runs["cpu"][0],
-                           card_grad_norms=runs["cuda"][1],
-                           cpu_grad_norms=runs["cpu"][1], max_rel_err=max(diffs),
-                           cpu_s=runs["cpu_s"])
+    ads = train_dataset(small, spec["seq"], spec["batch"], seed=1)
+    if hybrid:
+        agree = _hybrid_agreement(torch, L, build_model, small, params,
+                                  train_batch(small, ads, 0), counts, reset)
+    else:
+        agree = _train_agreement(torch, L, build_model, small, params,
+                                 [train_batch(small, ads, i)
+                                  for i in range(spec["steps"])],
+                                 counts, reset, moe)
     del params
     tokens = batch * seq
+    if layers is None:
+        cut = None
+    else:
+        cut = f"depth {layers} of {full.num_layers} layers, published widths"
     return dict(
-        arch=arch, layers=full.num_layers, params=n_params, batch=batch,
-        seq=seq, steps=TRAIN_STEPS, losses=losses, grad_norms=norms,
+        arch=arch, layers=cfg.num_layers, published_layers=full.num_layers,
+        cut=cut, params=n_params, batch=batch, seq=seq, steps=TRAIN_STEPS,
+        window=cfg.window, losses=losses, grad_norms=norms,
         ln_vocab=math.log(full.vocab_size), expected_first_loss=expect,
         step_ms=[1e3 * t for t in secs],
         tokens_per_s=tokens * (len(secs) - 1) / sum(secs[1:]),
-        peak_bytes=peak, step_trace=trace,
-        agreement=dict(**TRAIN_AGREE, **agree), launches=launched,
+        peak_bytes=peak, step_trace=trace, repeat=repeat,
+        agreement=dict(**spec, **({"window_cut": spec["window"]} if hybrid
+                                  else {}), **agree),
+        launches=launched,
     )
+
+
+def _train_agreement(torch, L, build_model, small, params, batches, counts,
+                     reset, moe: bool) -> dict:
+    """TRAIN_AGREE's steps of ``small`` from ``params`` on the card and on
+    the CPU, in fp32 and in bf16: losses and grad norms, gated at
+    TRAIN_TOL.  An MoE model is chaotic in two places, where one rounding
+    flips a discrete outcome or near one: a routing decision on a near
+    tie, and its attention, near hard at the reference's init (wq and wk
+    drawn with the head count as fan-in), where the backward's
+    dS = P (dP - D) cancels on the near-one-hot rows.  So its gated CPU
+    run takes the card's routing decisions and attention inputs and,
+    before each step, its state (``_replayed``, ``_copy_state``; how far
+    its own were is reported); a second CPU run from the same weights
+    runs free, and its distance from the card and its routing decisions
+    that differ are reported, as the serve phase reports them."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    acfg = opt.OptimizerConfig(learning_rate=TRAIN_AGREE["lr"], warmup_steps=0,
+                               total_steps=len(batches))
+    sides = {"cuda": "cuda", "cpu": "cpu"}
+    if moe:
+        sides["cpu_free"] = "cpu"
+    agree = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        models = {w: build_model(small, _cast(params, dtype, small.num_layers),
+                                 device=dev) for w, dev in sides.items()}
+        states = {w: init_state(m, acfg) for w, m in models.items()}
+        steps = {w: make_train_step(m, acfg) for w, m in models.items()}
+        runs = {w: ([], []) for w in models}
+        wall = {w: 0.0 for w in models}
+        logs = {w: [] for w in models}
+        reset()
+        for i, b in enumerate(batches):
+            card_calls = len(logs["cuda"])
+            for w in models:
+                t0 = time.perf_counter()
+                with (_replayed(torch, L, logs[w], logs["cuda"][card_calls:]
+                                if w == "cpu" else None)
+                      if moe else contextlib.nullcontext()):
+                    states[w], met = steps[w](states[w], b)
+                runs[w][0].append(float(met["loss"]))
+                runs[w][1].append(float(met["grad_norm"]))
+                wall[w] += time.perf_counter() - t0
+            if moe and i + 1 < len(batches):
+                _copy_state(torch, states["cpu"], states["cuda"])
+        torch.cuda.synchronize()
+        launched = counts()
+        del models, states, steps
+
+        def rel(w, k):
+            return [abs(a - b) / max(abs(b), 1e-30)
+                    for a, b in zip(runs["cuda"][k], runs[w][k])]
+
+        gated = rel("cpu", 0) + rel("cpu", 1)
+        agree[name] = dict(card_losses=runs["cuda"][0], cpu_losses=runs["cpu"][0],
+                           card_grad_norms=runs["cuda"][1],
+                           cpu_grad_norms=runs["cpu"][1],
+                           loss_rel_errs=rel("cpu", 0),
+                           grad_norm_rel_errs=rel("cpu", 1),
+                           max_rel_err=max(gated), cpu_s=wall["cpu"],
+                           card_launches=launched)
+        if moe:
+            agree[name].update(
+                replayed=_replay_differs(logs["cuda"], logs["cpu"]),
+                free=dict(cpu_losses=runs["cpu_free"][0],
+                          cpu_grad_norms=runs["cpu_free"][1],
+                          loss_rel_errs=rel("cpu_free", 0),
+                          grad_norm_rel_errs=rel("cpu_free", 1),
+                          cpu_s=wall["cpu_free"],
+                          **_replay_differs(logs["cuda"], logs["cpu_free"])))
+        del logs
+        check(max(gated) <= TRAIN_TOL[name],
+              f"{small.name}: {name} card vs CPU training {agree[name]}")
+    return agree
+
+
+def _copy_state(torch, dst, src) -> None:
+    """``src``'s training state (parameters, moments, count, step) into
+    ``dst``'s tensors, in place, across devices."""
+    from repro_torch.tree import leaves
+
+    with torch.no_grad():
+        for d, s in zip(leaves(dst), leaves(src)):
+            d.copy_(s)
+
+
+@contextlib.contextmanager
+def _replayed(torch, L, log: list, replay: list | None = None):
+    """Inside the block, each call of the MoE routing (``moe_route``: its
+    experts, kept slots and rows) and of the prefill attention
+    (``blockwise_attention``: its q, k and v) appends its values, on the
+    host, to ``log``.  With ``replay`` (the log of another run of the same
+    calls), each call then takes the replayed values in place of its
+    own: the routing's gates are recomputed from the call's own router
+    probabilities at the replayed experts, and the attention's inputs
+    take the replayed values forward and pass their gradients back
+    unchanged."""
+    calls = [0]
+
+    class Pin(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, value):
+            return value.to(device=x.device, dtype=x.dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    def take(kind):
+        i = calls[0]
+        calls[0] += 1
+        if replay is None:
+            return None
+        check(i < len(replay) and replay[i][0] == kind,
+              f"replay: call {i} is {kind}, the log has {len(replay)} calls")
+        return replay[i][1:]
+
+    def route(fn):
+        def inner(x, router_w, top_k, *a, **kw):
+            probs, gate, ids, keep, dest, cap = fn(x, router_w, top_k, *a, **kw)
+            log.append(("route", ids.cpu(), keep.cpu(), dest.cpu()))
+            r = take("route")
+            if r is not None:
+                ids, keep, dest = (t.to(x.device) for t in r)
+                gate = probs.gather(1, ids)
+                gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+            return probs, gate, ids, keep, dest, cap
+        return inner
+
+    def attention(fn):
+        def inner(q, k, v, *a, **kw):
+            log.append(("attention",) + tuple(t.detach().cpu()
+                                              for t in (q, k, v)))
+            r = take("attention")
+            if r is not None:
+                q, k, v = (Pin.apply(t, x) for t, x in zip((q, k, v), r))
+            return fn(q, k, v, *a, **kw)
+        return inner
+
+    with _patched(L, {"moe_route": route, "blockwise_attention": attention}):
+        yield
+
+
+def _replay_differs(card: list, cpu: list) -> dict:
+    """How far the CPU's own values of the replayed calls were from the
+    card's: the routing decisions that differ (``_routing_differs``) and
+    the attention inputs' largest error over max|card value|."""
+    check(len(card) == len(cpu) > 0,
+          f"{len(card)} replayed calls on the card, {len(cpu)} on the CPU")
+    out = {}
+    routes = [(c[1:3], h[1:3]) for c, h in zip(card, cpu) if c[0] == "route"]
+    if routes:
+        out["routing"] = _routing_differs([c for c, _ in routes],
+                                          [h for _, h in routes])
+    attn = [(c[1:], h[1:]) for c, h in zip(card, cpu) if c[0] == "attention"]
+    if attn:
+        out["attention_inputs_rel_err"] = max(
+            _unit_err(h, c) for cs_, hs in attn for c, h in zip(cs_, hs))
+    return out
+
+
+def _routing_differs(card: list, cpu: list) -> dict:
+    """The (token, rank) routing decisions of two runs of the same MoE
+    calls (each call's (ids, keep) in call order, the backward's
+    recomputations included) that differ: another expert, or kept on one
+    side and dropped on the other; summed over the calls, and those of
+    the first call (its input differs only by the roundings of the dense
+    layer before it)."""
+    check(len(card) == len(cpu) > 0,
+          f"{len(card)} MoE routings on the card, {len(cpu)} on the CPU")
+    out = dict(calls=len(card), decisions=0, differ=0, expert_differs=0,
+               kept_differs=0)
+    for i, ((ci, ck), (hi, hk)) in enumerate(zip(card, cpu)):
+        expert = (ci != hi).reshape(-1)
+        kept = ck != hk
+        differ = int((expert | kept).sum())
+        out["decisions"] += int(ck.numel())
+        out["differ"] += differ
+        out["expert_differs"] += int(expert.sum())
+        out["kept_differs"] += int(kept.sum())
+        if i == 0:
+            out["first_call_differ"] = differ
+    return out
+
+
+def _grads(torch, model) -> dict:
+    """``model``'s parameter gradients by path, on the host, fp64."""
+    from repro_torch.tree import flatten
+
+    return {k: p.grad.detach().to("cpu", torch.float64)
+            for k, p in flatten(model.param_tree())}
+
+
+def _unit_err(a, b) -> float:
+    """max|a - b| over max|b|, in fp64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def _hybrid_agreement(torch, L, build_model, small, params, batch, counts,
+                      reset) -> dict:
+    """The hybrid's card-against-CPU agreement (HYBRID_TRAIN_AGREE): one
+    loss and backward of ``small`` on ``batch`` from ``params``, the
+    oracle the port's CPU run in fp64, held to by the card in fp32 and
+    bf16 and by the CPU in fp32.
+
+    Gated: fp32's loss at TRAIN_TOL; its grad norm and gradients (the
+    largest error over tensors, each over its max|fp64 grad|) at
+    TRAIN_TOL or no further from the oracle than the CPU's own fp32 run
+    is (these weights make the gradient ill-conditioned: see
+    ``witness``); bf16's loss at TRAIN_TOL; and every block
+    (``_block_grads``) from the oracle's input and upstream gradient, at
+    TRAIN_TOL: in fp32 against the oracle, in bf16 against the CPU's bf16
+    run of the block, which takes the card's attention inputs
+    (``_replayed``).  bf16's grad norm and gradients, and its blocks
+    against the oracle, are reported.  ``witness``: each block's output in the
+    CPU's and the card's fp32 chained forward against the oracle's (error
+    over max|oracle|), and the norm of layer 0's mixer output at position
+    0 against its median over the positions."""
+    from repro_torch.models.losses import chunked_cross_entropy
+
+    tokens = torch.as_tensor(batch["tokens"]).long()
+    labels = torch.as_tensor(batch["labels"]).long()
+    B, S = tokens.shape
+    t0 = time.perf_counter()
+    oracle = build_model(small, _cast(params, torch.float64, small.num_layers),
+                         device="cpu").train_mode(True)
+    top = oracle.top.tensors()
+    blocks = oracle.blocks(torch.arange(S).expand(B, S))
+    h = top["embed"][tokens]
+    inputs, outs = [], []
+    for _, fn, p in blocks:
+        inputs.append(h.detach())
+        h = fn(p, h)
+        h.retain_grad()
+        outs.append(h)
+    hn = L.rms_norm(h, top["final_norm"], small.norm_eps)
+    loss64 = chunked_cross_entropy(hn, oracle.head_weights(top), labels)
+    loss64.backward()
+    truth = _grads(torch, oracle)
+    pairs = [(x, o.grad.detach()) for x, o in zip(inputs, outs)]
+    mix0 = (outs[0] - inputs[0]).detach()[0].norm(dim=-1)
+    chain64 = [o.detach() for o in outs]
+    del outs, hn
+    oracle.zero_grad(set_to_none=True)
+    blocks64 = [[t.double() for t in gs]
+                for _, gs in _block_grads(torch, oracle, pairs)]
+    oracle_s = time.perf_counter() - t0
+    norm64 = math.sqrt(sum(float((g * g).sum()) for g in truth.values()))
+    runs, witness = {}, {}
+    for name, dtype, dev in (("cpu32", torch.float32, "cpu"),
+                             ("fp32", torch.float32, "cuda"),
+                             ("bf16", torch.bfloat16, "cuda")):
+        model = build_model(small, _cast(params, dtype, small.num_layers),
+                            device=dev).train_mode(True)
+        reset()
+        loss, _ = model.loss(batch)
+        loss.backward()
+        launched = counts()
+        g = _grads(torch, model)
+        norm = math.sqrt(sum(float((v * v).sum()) for v in g.values()))
+        errs = {k: _unit_err(v, truth[k]) for k, v in g.items()}
+        worst = max(errs, key=errs.get)
+        runs[name] = dict(loss=float(loss), grad_norm=norm,
+                          loss_rel_err=abs(float(loss) - float(loss64))
+                          / float(loss64),
+                          grad_norm_rel_err=abs(norm - norm64) / norm64,
+                          grad_rel_err=errs[worst], worst_tensor=worst)
+        if dtype == torch.float32 and dev == "cuda":
+            runs[name].update(card_launches=launched, blocks=dict(
+                against="fp64", **_block_errs(
+                    _block_grads(torch, model, pairs), blocks64)))
+        elif dtype == torch.bfloat16:
+            # in bf16 against the CPU's bf16 from the same inputs, the CPU
+            # taking the card's attention inputs (an ulp of bf16 q or k
+            # moves a near-hard score by units); against fp64 reported
+            logs = {"cuda": [], "cpu": []}
+            with _replayed(torch, L, logs["cuda"]):
+                card = list(_block_grads(torch, model, pairs))
+            host = build_model(small, _cast(params, dtype, small.num_layers),
+                               device="cpu").train_mode(True)
+            with _replayed(torch, L, logs["cpu"], logs["cuda"]):
+                cpu = [gs for _, gs in _block_grads(torch, host, pairs)]
+            del host
+            runs[name].update(
+                card_launches=launched,
+                blocks=dict(against="the CPU's bf16", **_block_errs(card, cpu),
+                            **_replay_differs(logs["cuda"], logs["cpu"])),
+                blocks_vs_fp64=_block_errs(card, blocks64))
+            del card, cpu, logs
+        if dtype == torch.float32:
+            at = model.top.embed.device
+            with torch.no_grad():
+                x = model.top.embed[tokens.to(at)]
+                chain = []
+                for (_, fn, p), y64 in zip(
+                        model.blocks(torch.arange(S, device=at).expand(B, S)),
+                        chain64):
+                    x = fn(p, x)
+                    chain.append(_unit_err(x.cpu(), y64))
+            witness[name] = chain
+        del model, g
+        torch.cuda.empty_cache()
+    del truth, blocks64
+    witness["mix0_norm"] = float(mix0[0])
+    witness["mix_median_norm"] = float(mix0.median())
+    f32, c32 = runs["fp32"], runs["cpu32"]
+    gated = dict(
+        fp32_loss=f32["loss_rel_err"] / TRAIN_TOL["fp32"],
+        bf16_loss=runs["bf16"]["loss_rel_err"] / TRAIN_TOL["bf16"],
+        fp32_grad_norm=f32["grad_norm_rel_err"] / max(
+            TRAIN_TOL["fp32"], c32["grad_norm_rel_err"]),
+        fp32_grads=f32["grad_rel_err"] / max(TRAIN_TOL["fp32"],
+                                             c32["grad_rel_err"]),
+        fp32_blocks=f32["blocks"]["max"] / TRAIN_TOL["fp32"],
+        bf16_blocks=runs["bf16"]["blocks"]["max"] / TRAIN_TOL["bf16"])
+    out = dict(oracle="the port on the CPU in fp64", loss64=float(loss64),
+               grad_norm64=norm64, oracle_s=oracle_s, gated=gated,
+               witness=witness, **runs)
+    check(max(gated.values()) <= 1.0,
+          f"{small.name}: card vs CPU training {out}")
+    return out
+
+
+def _block_grads(torch, model, pairs: list):
+    """Each of ``model``'s blocks (``ZambaLM.blocks``) backward from
+    ``pairs``' input to it and gradient of its output (cast to the
+    model's device and type): per block, its kind and the gradients of
+    its input and its parameters, on the host (one block at a time)."""
+    from repro_torch.tree import leaves
+
+    dev, dtype = model.top.embed.device, model.top.embed.dtype
+    B, S = pairs[0][0].shape[:2]
+    for (kind, fn, p), (x, g) in zip(
+            model.blocks(torch.arange(S, device=dev).expand(B, S)), pairs):
+        xi = x.to(dev, dtype).requires_grad_()
+        got = torch.autograd.grad(fn(p, xi), [xi, *leaves(p)],
+                                  g.to(dev, dtype))
+        yield kind, [t.detach().cpu() for t in got]
+
+
+def _block_errs(got, want: list) -> dict:
+    """Per block, the largest error of its input's and its parameters'
+    gradients (``_block_grads``) against ``want``'s, each over
+    max|want|."""
+    each = []
+    for (kind, gs), ws in zip(got, want):
+        errs = [_unit_err(a, b) for a, b in zip(gs, ws)]
+        each.append(dict(kind=kind, input=errs[0], params=max(errs[1:])))
+    return dict(n=len(each), max=max(max(b["input"], b["params"])
+                                     for b in each), each=each)
 
 
 def phase_train_example(torch, counts, reset) -> dict:
@@ -2065,6 +2588,7 @@ def main() -> int:
                 "flash_window_routes": dict(fa.WINDOW_ROUTES),
                 "ssd_routes": dict(ssd.SSD_ROUTES),
                 "flash_bwd_routes": dict(fa.BWD_ROUTES),
+                "flash_bwd_window_routes": dict(fa.BWD_WINDOW_ROUTES),
                 "ssd_bwd_routes": dict(ssd.SSD_BWD_ROUTES)}
 
     def lm_reset() -> None:
@@ -2327,12 +2851,16 @@ def main() -> int:
     check(za["flash_window_routes"]["simt"] == za["flash_attention"] > 0,
           f"zamba2-7b's fp32 agreement did not run the windowed FFMA K4: {za}")
 
-    # 6a. LM training at full width and depth, each model's own launches
-    for arch in ("qwen3-4b", "mamba2-130m"):
+    # 6a. LM training at full width (each model's depth in TRAIN), each
+    # model's own launches
+    train_agree = {}
+    for arch, spec in TRAIN.items():
+        t0 = time.perf_counter()
         rec = phase_train(torch, arch, build_model, get_config, lm_counts,
-                          lm_reset)
+                          lm_reset, lm_layers, **spec)
         launches[f"train:{arch}"] = rec["launches"]
-        emit(phase="train", **rec)
+        train_agree[arch] = rec["agreement"]
+        emit(phase="train", seconds=time.perf_counter() - t0, **rec)
         torch.cuda.empty_cache()
     emit(phase="train", **phase_train_example(torch, lm_counts, lm_reset))
     torch.cuda.empty_cache()
@@ -2351,6 +2879,22 @@ def main() -> int:
     check(ssd_routes["simt"] == 0 and ssd_routes["wgmma"]
           == launches["train:mamba2-130m"]["ssd_chunk_bwd"],
           f"ssd_chunk_bwd took the simt route training mamba2-130m: {ssd_routes}")
+    for arch in ("deepseek-moe-16b", "zamba2-7b"):
+        check(launches[f"train:{arch}"]["flash_attention_bwd"] > 0,
+              f"flash_attention_bwd was not launched training {arch}")
+    # zamba2-7b: every K4 backward of its bf16 run windowed on mma, of its
+    # fp32 agreement windowed on simt; every ssd_chunk_bwd launch wgmma
+    zt = launches["train:zamba2-7b"]
+    check(zt["flash_bwd_window_routes"] == {"mma": zt["flash_attention_bwd"],
+                                            "simt": 0},
+          f"zamba2-7b's K4 backward launches not all windowed mma: {zt}")
+    za = train_agree["zamba2-7b"]["fp32"]["card_launches"]
+    check(za["flash_bwd_window_routes"]["simt"] == za["flash_attention_bwd"] > 0,
+          f"zamba2-7b's fp32 agreement did not run the windowed simt "
+          f"backward: {za}")
+    check(zt["ssd_chunk_bwd"] > 0 and zt["ssd_bwd_routes"] == {
+        "wgmma": zt["ssd_chunk_bwd"], "simt": 0},
+        f"ssd_chunk_bwd took the simt route training zamba2-7b: {zt}")
 
     # 7. every kernel went through its path ---------------------------
     total = {k: sum(launches[ph][k]
@@ -2400,6 +2944,23 @@ def main() -> int:
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
         ))
+    # K4's windowed backward at zamba2-7b's training shape, with the
+    # launches of that model's training run (one a step: one shared-block
+    # application at 7 layers)
+    rec = kern["flash_attention_bwd:zamba2-7b"]
+    records.append(dict(
+        name="flash_attention_bwd:zamba2-7b", route="cuda",
+        design=DESIGNS["flash_attention_bwd"],
+        source=SOURCES["flash_attention_bwd"],
+        replaces=TPU_KERNELS["flash_attention_bwd"],
+        launches=launches["train:zamba2-7b"]["flash_attention_bwd"],
+        launches_per_step=launches["train:zamba2-7b"]["flash_attention_bwd"]
+        / TRAIN_STEPS,
+        max_abs_err=rec["max_abs_err"], ms=rec["ms"], simt_ms=rec["simt_ms"],
+        plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+        bound_by=rec["bound_by"], simt_bound_ms=rec["simt_bound_ms"],
+        library_ms=rec["library_ms"],
+    ))
     for name in BF16_ROUTES:
         rec = kern[f"{name}:bf16"]
         records.append(dict(

@@ -93,12 +93,12 @@ def _declare_flash_attention(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention.restype = _INT
     lib.repro_flash_attention_bwd.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _I64, _INT, _INT,
-        _INT, _INT, _INT, _F32, _INT, _P,
+        _INT, _INT, _INT, _F32, _INT, _INT, _P,
     ]
     lib.repro_flash_attention_bwd.restype = _INT
     lib.repro_flash_attention_bwd_mma.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT,
-        _INT, _F32, _INT, _P,
+        _INT, _F32, _INT, _INT, _P,
     ]
     lib.repro_flash_attention_bwd_mma.restype = _INT
 

@@ -581,6 +581,16 @@ static cudaError_t fw_launch(const void* q, const void* k, const void* v,
 // output columns tx + 16c (c < FA_DC); operands sit transposed in shared
 // memory with a row stride of 65 floats.  The causal mask is a select (P
 // = 0 where a query precedes a key), taken before exp, never a product.
+// A sliding window (window > 0) is the forward's: the same select also
+// hides key j from query p where j <= p - window.  Both routes then walk
+// only the band: a dK/dV block the query tiles from its key tile's
+// diagonal to the tile of position k0 + 63 + window - 1, a dQ block the
+// key tiles from its first row's first visible key (the forward's t0);
+// only tiles an edge of the band crosses are masked (fa_band_edge).  At
+// zamba2-7b's shape (s 8192, window 4096) the band holds 25.2 M of the
+// causal triangle's 33.6 M pairs (3/8 of all 8192^2).  The ordering below
+// (key tile 0, and the last query tile, first) stays as it is: past the
+// window every tile's walk is equally long.
 // What bounds it on the H100: at qwen3-4b's training shape (bh 64 on 16
 // kv heads, s 512, d 128, causal) the least work is five products over
 // the causal pairs, 10.8 GFLOP (10.9 us at bf16's 989 TFLOP/s), against
@@ -596,6 +606,39 @@ __device__ __forceinline__ float fa_f32(__nv_bfloat16 v) {
 __device__ __forceinline__ void fa_put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void fa_put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+
+// The band of both backward routes, the forward's rule: key kp is
+// visible to query qp unless causal and kp > qp, or, with a window, kp <=
+// qp - window.  Tiles are 64 x 64.  A tile that no row's band edge
+// crosses is not masked; in one that is, a hidden pair is a select (P =
+// 0) before exp, so a tile whose pairs are all hidden adds exactly zero.
+__device__ __forceinline__ bool fa_hidden(int qp, int kp, int causal,
+                                          int window) {
+  return (causal && qp < kp) || (window > 0 && kp <= qp - window);
+}
+
+// Whether the tile of queries qp0.. and keys k0.. holds a hidden pair.
+__device__ __forceinline__ bool fa_band_edge(int qp0, int k0, int causal,
+                                             int window) {
+  return (causal && qp0 < k0 + 63) ||
+         (window > 0 && (long long)k0 <= (long long)qp0 + 63 - window);
+}
+
+// One past the last query tile (of `tile` rows, the first at position
+// q_offset) that sees a key of the tile at k0: the band of its last key
+// ends at position k0 + 63 + window - 1 (every tile without a window).
+__device__ __forceinline__ int fa_band_end(int k0, int sq, int q_offset,
+                                           int window, int tile) {
+  if (window <= 0) return sq / tile;
+  const long long last = (long long)k0 + 63 + window - 1 - q_offset;
+  return last < 0 ? 0 : (int)min((long long)sq / tile, last / tile + 1);
+}
+
+// The first key tile a query tile at position qp0 visits: the tile of its
+// first row's first visible key, at most the last tile (the forward's t0).
+__device__ __forceinline__ int fa_first_tile(int qp0, int window, int n_kt) {
+  return window > 0 ? min(max(0, qp0 - window + 1) / 64, n_kt - 1) : 0;
 }
 
 static size_t fa_bwd_smem_bytes(int d, int score_tiles) {
@@ -629,8 +672,8 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ lse,
                    const float* __restrict__ dsum, float* __restrict__ dk_part,
                    float* __restrict__ dv_part, long long bhq, int sq, int sk,
-                   int d, int group, int q_offset, float sm_scale,
-                   int causal) {
+                   int d, int group, int q_offset, float sm_scale, int causal,
+                   int window) {
   extern __shared__ float smem[];
   float* kt = smem;                 // [d][65]: the block's keys
   float* vt = kt + d * FA_PAD;      // [d][65]: their values
@@ -654,12 +697,14 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     vt[f * FA_PAD + r] = fa_f32(vb[(long long)(k0 + r) * d + f]);
   }
 
-  // the first query tile that sees key k0: q_offset + q0 + 63 >= k0
+  // the first query tile that sees key k0: q_offset + q0 + 63 >= k0;
+  // with a window, the end of the tiles the band reaches
   int q_first = 0;
   if (causal) {
     const int t = k0 - q_offset - (FA_BQ - 1);
     q_first = t > 0 ? (t + FA_BQ - 1) / FA_BQ * FA_BQ : 0;
   }
+  const int q_end = fa_band_end(k0, sq, q_offset, window, FA_BQ) * FA_BQ;
 
   float adk[4][FA_DC], adv[4][FA_DC];
 #pragma unroll
@@ -669,7 +714,7 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* qb = q + bh * sq * (long long)d;
   const T* gb = dout + bh * sq * (long long)d;
-  for (int q0 = q_first; q0 < sq; q0 += FA_BQ) {
+  for (int q0 = q_first; q0 < q_end; q0 += FA_BQ) {
     __syncthreads();  // the previous tile is consumed
     for (int e = tid; e < FA_BQ * d; e += FA_NT) {
       const int r = e / d, f = e - r * d;
@@ -708,12 +753,14 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp[i][j] = fmaf(vr[i], gc[j], dp[i][j]);
         }
     }
+    const bool edge = fa_band_edge(q_offset + q0, k0, causal, window);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + ty + 16 * i, qr = tx + 16 * j;
-        const bool hidden = causal && q_offset + q0 + qr < key;
+        const bool hidden =
+            edge && fa_hidden(q_offset + q0 + qr, key, causal, window);
         const float p = hidden ? 0.f : expf(s[i][j] * sm_scale - ls[qr]);
         ps[qr * FA_PAD + ty + 16 * i] = p;
         dss[qr * FA_PAD + ty + 16 * i] = p * (dp[i][j] - ds_[qr]);
@@ -786,7 +833,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ dsum,
                  T* __restrict__ dq, int sq, int sk, int d, int group,
-                 int q_offset, float sm_scale, int causal) {
+                 int q_offset, float sm_scale, int causal, int window) {
   extern __shared__ float smem[];
   float* qt = smem;                 // [d][65]: the block's query rows
   float* gt = qt + d * FA_PAD;      // [d][65]: their dO rows
@@ -818,6 +865,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   int n_kt = sk / FA_BK;
   if (causal) n_kt = min(n_kt, (q_offset + q0 + FA_BQ + FA_BK - 1) / FA_BK);
+  const int t0 = fa_first_tile(q_offset + q0, window, n_kt);
 
   float adq[4][FA_DC];
 #pragma unroll
@@ -825,7 +873,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < FA_DC; ++c) adq[i][c] = 0.f;
 
-  for (int t = 0; t < n_kt; ++t) {
+  for (int t = t0; t < n_kt; ++t) {
     const int k0 = t * FA_BK;
     __syncthreads();  // the previous tile is consumed (and Q is loaded)
     for (int e = tid; e < FA_BK * d; e += FA_NT) {
@@ -860,12 +908,14 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp[i][j] = fmaf(gr[i], vc[j], dp[i][j]);
         }
     }
+    const bool edge = fa_band_edge(q_offset + q0, k0, causal, window);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qr = ty + 16 * i, key = k0 + tx + 16 * j;
-        const bool hidden = causal && q_offset + q0 + qr < key;
+        const bool hidden =
+            edge && fa_hidden(q_offset + q0 + qr, key, causal, window);
         const float p = hidden ? 0.f : expf(s[i][j] * sm_scale - ls[qr]);
         dss[(tx + 16 * j) * FA_PAD + qr] = p * (dp[i][j] - ds_[qr]);
       }
@@ -905,7 +955,7 @@ static cudaError_t fa_bwd_launch(const void* q, const void* k, const void* v,
                                  float* dsum, float* dk_part, float* dv_part,
                                  long long bhq, int sq, int sk, int d,
                                  int group, int q_offset, float sm_scale,
-                                 int causal, cudaStream_t stream) {
+                                 int causal, int window, cudaStream_t stream) {
   const size_t smem_kv = fa_bwd_smem_bytes(d, 2);
   const size_t smem_q = fa_bwd_smem_bytes(d, 1);
   cudaError_t err = cudaFuncSetAttribute(
@@ -925,7 +975,8 @@ static cudaError_t fa_bwd_launch(const void* q, const void* k, const void* v,
   fa_bwd_dkdv_kernel<T><<<(unsigned)(bhq * (sk / FA_BK)), FA_NT, smem_kv,
                           stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum,
-      dk_part, dv_part, bhq, sq, sk, d, group, q_offset, sm_scale, causal);
+      dk_part, dv_part, bhq, sq, sk, d, group, q_offset, sm_scale, causal,
+      window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long per_head = (long long)sk * d;
@@ -938,7 +989,7 @@ static cudaError_t fa_bwd_launch(const void* q, const void* k, const void* v,
   fa_bwd_dq_kernel<T><<<(unsigned)(bhq * (sq / FA_BQ)), FA_NT, smem_q,
                         stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum,
-      (T*)dq, sq, sk, d, group, q_offset, sm_scale, causal);
+      (T*)dq, sq, sk, d, group, q_offset, sm_scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -1097,7 +1148,9 @@ __device__ __forceinline__ void fm_scores(const float (&s)[4][4],
                                           uint8_t* p_tile, uint8_t* ds_tile,
                                           const float* lse, const float* dsum,
                                           int rw, int ch, int k_base,
-                                          int q_base, float sl2, int causal) {
+                                          int q_base, float sl2, int causal,
+                                          int window) {
+  const bool edge = fa_band_edge(q_base, k_base, causal, window);
   const int lane = threadIdx.x % 32;
   const float l2e = 1.4426950408889634f;
 #pragma unroll
@@ -1111,7 +1164,8 @@ __device__ __forceinline__ void fm_scores(const float (&s)[4][4],
       for (int c = 0; c < 2; ++c) {
         const int ql = KEY_ROWS ? col + c : row;   // query in its tile
         const int kl = KEY_ROWS ? row : col + c;   // key in its tile
-        const bool hidden = causal && q_base + ql < k_base + kl;
+        const bool hidden =
+            edge && fa_hidden(q_base + ql, k_base + kl, causal, window);
         const float x = s[nt][2 * h + c] * sl2 - lse[ql] * l2e;
         p[c] = hidden ? 0.f : fw_exp2(x);
         ds[c] = p[c] * (dp[nt][2 * h + c] - dsum[ql]);
@@ -1153,7 +1207,7 @@ __device__ void fm_dkdv(uint8_t* sm, const __nv_bfloat16* __restrict__ q,
                         __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, int blk, int bhkv,
                         int sq, int sk, int d, int group, int q_offset,
-                        float sm_scale, int causal) {
+                        float sm_scale, int causal, int window) {
   using L = FmSmem<DK>;
   const uint32_t base = hopper::smem_u32(sm);
   const uint32_t ks = base, vs = base + L::TILE;
@@ -1169,7 +1223,10 @@ __device__ void fm_dkdv(uint8_t* sm, const __nv_bfloat16* __restrict__ q,
     const int t = k0 - q_offset - 63;
     q_first = t > 0 ? (t + 63) / 64 : 0;
   }
-  const int nqt = sq / 64, per_head = max(nqt - q_first, 0);
+  // the query tiles its band reaches: from the diagonal's to the tile of
+  // position k0 + 63 + window - 1 (every later tile without a window)
+  const int q_end = fa_band_end(k0, sq, q_offset, window, 64);
+  const int per_head = max(q_end - q_first, 0);
   const int n_it = group * per_head;
   auto load = [&](int it, int buf) {
     const int bh = kvh * group + it / per_head;
@@ -1228,7 +1285,7 @@ __device__ void fm_dkdv(uint8_t* sm, const __nv_bfloat16* __restrict__ q,
     }
     const int q0 = (q_first + it % per_head) * 64;
     fm_scores<true>(st, dpt, ps, dss, vec + 64 * buf, vec + 128 + 64 * buf,
-                    kw, hw, k0, q_offset + q0, sl2, causal);
+                    kw, hw, k0, q_offset + q0, sl2, causal, window);
     __syncthreads();
 
     // dV += P^T.dO, dK += dS^T.Q: keys 16kw.., columns hw*DK/2..
@@ -1268,7 +1325,7 @@ __device__ void fm_dq(uint8_t* sm, const __nv_bfloat16* __restrict__ q,
                       const float* __restrict__ dsum,
                       __nv_bfloat16* __restrict__ dq, int blk, int bhq, int sq,
                       int sk, int d, int group, int q_offset, float sm_scale,
-                      int causal) {
+                      int causal, int window) {
   using L = FmSmem<DK>;
   const uint32_t base = hopper::smem_u32(sm);
   const uint32_t qs = base, gs = base + L::TILE;
@@ -1281,6 +1338,8 @@ __device__ void fm_dq(uint8_t* sm, const __nv_bfloat16* __restrict__ q,
   const int bh = blk % bhq, kvh = bh / group;
   int n_kt = sk / 64;
   if (causal) n_kt = min(n_kt, (q_offset + q0 + 64 + 63) / 64);
+  // from the tile of the first row's first visible key (0 without a window)
+  const int t0 = fa_first_tile(q_offset + q0, window, n_kt);
   auto load = [&](int t, int buf) {
     const long long row = (long long)kvh * sk + 64 * t;
     fm_load_rows<DK>(ks + buf * L::TILE, k + row * d, d);
@@ -1293,7 +1352,7 @@ __device__ void fm_dq(uint8_t* sm, const __nv_bfloat16* __restrict__ q,
   fm_load_rows<DK>(gs, dout + qrow * d, d);
   fm_load_vec(hopper::smem_u32(vec), lse + qrow);
   fm_load_vec(hopper::smem_u32(vec + 64), dsum + qrow);
-  load(0, 0);
+  load(t0, 0);
   cp_async_commit();
 
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -1305,8 +1364,8 @@ __device__ void fm_dq(uint8_t* sm, const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < 4; ++r) adq[nt][r] = 0.f;
 
-  for (int t = 0; t < n_kt; ++t) {
-    const int buf = t & 1;
+  for (int t = t0; t < n_kt; ++t) {
+    const int buf = (t - t0) & 1;
     if (t + 1 < n_kt) load(t + 1, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();
@@ -1336,7 +1395,7 @@ __device__ void fm_dq(uint8_t* sm, const __nv_bfloat16* __restrict__ q,
       }
     }
     fm_scores<false>(s, dp, nullptr, dss, vec, vec + 64, qw, hw, 64 * t,
-                     q_offset + q0, sl2, causal);
+                     q_offset + q0, sl2, causal, window);
     __syncthreads();
 
     // dQ += dS.K: queries 16qw.., columns hw*DK/2..
@@ -1371,15 +1430,15 @@ fa_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
                   __nv_bfloat16* __restrict__ dv, int n_dkdv, int bhq, int sq,
                   int sk, int d, int group, int q_offset, float sm_scale,
-                  int causal) {
+                  int causal, int window) {
   extern __shared__ __align__(16) uint8_t fm_smem[];
   const int blk = blockIdx.x;
   if (blk < n_dkdv)
     fm_dkdv<DK>(fm_smem, q, k, v, dout, lse, dsum, dk, dv, blk, bhq / group,
-                sq, sk, d, group, q_offset, sm_scale, causal);
+                sq, sk, d, group, q_offset, sm_scale, causal, window);
   else
     fm_dq<DK>(fm_smem, q, k, v, dout, lse, dsum, dq, blk - n_dkdv, bhq, sq,
-              sk, d, group, q_offset, sm_scale, causal);
+              sk, d, group, q_offset, sm_scale, causal, window);
 }
 
 template <int DK>
@@ -1388,7 +1447,7 @@ static cudaError_t fm_launch(const void* q, const void* k, const void* v,
                             void* dq, void* dk, void* dv, float* dsum,
                             long long bhq, int sq, int sk, int d, int group,
                             int q_offset, float sm_scale, int causal,
-                            cudaStream_t stream) {
+                            int window, cudaStream_t stream) {
   typedef __nv_bfloat16 bf;
   const int smem = FmSmem<DK>::TOTAL;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1406,7 +1465,7 @@ static cudaError_t fm_launch(const void* q, const void* k, const void* v,
   fa_bwd_mma_kernel<DK><<<(unsigned)blocks, FM_THREADS, smem, stream>>>(
       (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, dsum,
       (bf*)dq, (bf*)dk, (bf*)dv, (int)n_dkdv, (int)bhq, sq, sk, d, group,
-      q_offset, sm_scale, causal);
+      q_offset, sm_scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -1444,29 +1503,30 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // The backward: dq (bh, sq, d), dk and dv (bh / group, sk, d) in q's type,
 // from q, k, v, the forward's o and fp32 lse (bh, sq), and dout; fp32
 // scratch: dsum (bh * sq), dk_part and dv_part (bh * sk * d each, every
-// query head's share).  The same tiles, causal rule, q_offset and GQA as
-// the forward.
+// query head's share).  The same tiles, causal rule, window, q_offset and
+// GQA as the forward.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const float* lse, const void* dout, void* dq, void* dk, void* dv,
     float* dsum, float* dk_part, float* dv_part, int bf16, long long bhq,
     int sq, int sk, int d, int group, int q_offset, float sm_scale, int causal,
-    void* stream) {
+    int window, void* stream) {
   const long long rows = bhq * sq;
   if (bhq <= 0 || rows > 0x7fffffffLL * (FA_NT / 32) ||
       bhq * (sq / FA_BQ) > 0x7fffffffLL || bhq * (sk / FA_BK) > 0x7fffffffLL ||
       bhq / group * sk * (long long)d > 0x7fffffffLL * 256LL ||
       sq < FA_BQ || sq % FA_BQ || sk < FA_BK || sk % FA_BK || d < 1 ||
-      d > FA_MAX_D || group < 1 || bhq % group != 0 || q_offset < 0)
+      d > FA_MAX_D || group < 1 || bhq % group != 0 || q_offset < 0 ||
+      window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
     return (int)fa_bwd_launch<__nv_bfloat16>(
         q, k, v, o, lse, dout, dq, dk, dv, dsum, dk_part, dv_part, bhq, sq, sk,
-        d, group, q_offset, sm_scale, causal, st);
+        d, group, q_offset, sm_scale, causal, window, st);
   return (int)fa_bwd_launch<float>(q, k, v, o, lse, dout, dq, dk, dv, dsum,
                                    dk_part, dv_part, bhq, sq, sk, d, group,
-                                   q_offset, sm_scale, causal, st);
+                                   q_offset, sm_scale, causal, window, st);
 }
 
 // The bf16 backward on the tensor cores: the same outputs, inputs, tiles
@@ -1476,17 +1536,18 @@ extern "C" int repro_flash_attention_bwd_mma(
     const void* q, const void* k, const void* v, const void* o,
     const float* lse, const void* dout, void* dq, void* dk, void* dv,
     float* dsum, long long bhq, int sq, int sk, int d, int group,
-    int q_offset, float sm_scale, int causal, void* stream) {
+    int q_offset, float sm_scale, int causal, int window, void* stream) {
   if (bhq <= 0 || group < 1 || bhq % group != 0 || sq < 64 || sq % 64 ||
       sk < 64 || sk % 64 || d < 8 || d > FA_MAX_D || d % 8 || q_offset < 0 ||
+      window < 0 ||
       bhq * sq > 0x7fffffffLL || bhq / group * sk > 0x7fffffffLL ||
       bhq / group * (sk / 64) + bhq * (sq / 64) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(d > 64 ? fm_launch<128>(q, k, v, o, lse, dout, dq, dk, dv, dsum,
                                        bhq, sq, sk, d, group, q_offset,
-                                       sm_scale, causal, st)
+                                       sm_scale, causal, window, st)
                       : fm_launch<64>(q, k, v, o, lse, dout, dq, dk, dv, dsum,
                                       bhq, sq, sk, d, group, q_offset,
-                                      sm_scale, causal, st));
+                                      sm_scale, causal, window, st));
 }

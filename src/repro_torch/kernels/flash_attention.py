@@ -18,8 +18,9 @@ on the SFU (see the note in the CUDA source).
 ``blockwise_attention``; the reference's Pallas kernel has none): key
 ``kp`` is visible to query ``qp`` only if ``qp - window < kp``, a select
 before ``exp`` like the causal mask, and both kernels skip the key tiles
-wholly before a query block's first visible key.  The backward has no
-window yet (ROADMAP.md, queue 1 item 11.4b) and raises on one.
+wholly before a query block's first visible key.  Both backward routes
+take the same window: a dK/dV block walks only the query tiles its
+band reaches, a dQ block starts at the forward's first key tile.
 
 GQA is an index, not a copy: ``k``/``v`` may carry fewer heads than ``q``
 (``q.shape[0]`` a multiple of ``k.shape[0]``), and query head ``bh``
@@ -75,12 +76,14 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 # (fp32, FFMA)
 WINDOW_ROUTES = {"wgmma": 0, "simt": 0}
 BWD_ROUTES = {"mma": 0, "simt": 0}
+# backward launches with a window, by route
+BWD_WINDOW_ROUTES = {"mma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    for routes in (WINDOW_ROUTES, BWD_ROUTES):
+    for routes in (WINDOW_ROUTES, BWD_ROUTES, BWD_WINDOW_ROUTES):
         for route in routes:
             routes[route] = 0
 
@@ -188,22 +191,17 @@ def _visible(qpos, kpos, causal: bool, window: int):
     return ok
 
 
-def _no_window_bwd(window: int) -> None:
-    if window:
-        raise NotImplementedError(
-            "K4's backward has no sliding window yet (ROADMAP.md, queue 1 "
-            "item 11.4b)")
-
-
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                               q_offset: int = 0, window: int = 0):
     """Plain version of K4's backward, the explicit formulas (not
-    autograd): P = exp(scale·QKᵀ − lse), the causal mask a select before
-    exp; dV = Pᵀ dO, dS = P ⊙ (dO Vᵀ − rowsum(dO ⊙ O)), dQ = scale·dS K,
-    dK = scale·dSᵀ Q, then dK and dV summed over each kv head's ``group``
-    query heads.  Returns (dq, dk, dv) in q's type.  ``window > 0``
-    raises (item 11.4b)."""
-    _no_window_bwd(window)
+    autograd): P = exp(scale·QKᵀ − lse), the causal mask and the window
+    a select before exp; dV = Pᵀ dO, dS = P ⊙ (dO Vᵀ − rowsum(dO ⊙ O)),
+    dQ = scale·dS K, dK = scale·dSᵀ Q, then dK and dV summed over each kv
+    head's ``group`` query heads.  Returns (dq, dk, dv) in q's type.
+    Without a window all queries are one block; with one, each query
+    tile takes the key tiles from its first visible key's
+    (:func:`_first_tile`) to the causal limit, as the kernels do, so
+    memory grows with the window, not with ``sk``."""
     group = _check(q, k, v, plain=True)
     bh, sq, d = q.shape
     sk = k.shape[1]
@@ -212,25 +210,39 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     qf, of, gf = q.to(wt), o.to(wt), do.to(wt)
     kf = k.to(wt).repeat_interleave(group, dim=0)
     vf = v.to(wt).repeat_interleave(group, dim=0)
-    s = (qf @ kf.transpose(1, 2)) * scale - lse.to(wt)[..., None]
-    if causal:
-        qpos = q_offset + torch.arange(sq, device=q.device)
-        kpos = torch.arange(sk, device=q.device)
-        s = torch.where(qpos[:, None] >= kpos[None, :], s, -math.inf)
-    p = torch.exp(s)
-    dv = p.transpose(1, 2) @ gf
-    ds = p * (gf @ vf.transpose(1, 2) - (gf * of).sum(-1, keepdim=True))
-    dq = (ds @ kf) * scale
-    dk = (ds.transpose(1, 2) @ qf) * scale
+    dsum = (gf * of).sum(-1, keepdim=True)
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    rows = BQ if window > 0 else sq
+    for q0 in range(0, sq, rows):
+        r1 = min(q0 + rows, sq)
+        n_kt = -(-sk // BK)
+        if causal:
+            n_kt = min(n_kt, -(-(q_offset + r1) // BK))
+        k0, k1 = _first_tile(q_offset + q0, window, BK, n_kt) * BK, n_kt * BK
+        qi, gi = qf[:, q0:r1], gf[:, q0:r1]
+        s = (qi @ kf[:, k0:k1].transpose(1, 2)) * scale - lse[:, q0:r1].to(
+            wt)[..., None]
+        if causal or window > 0:
+            qpos = q_offset + torch.arange(q0, r1, device=q.device)
+            kpos = torch.arange(k0, min(k1, sk), device=q.device)
+            s = torch.where(_visible(qpos, kpos, causal, window), s,
+                            -math.inf)
+        p = torch.exp(s)
+        dv[:, k0:k1] += p.transpose(1, 2) @ gi
+        ds = p * (gi @ vf[:, k0:k1].transpose(1, 2) - dsum[:, q0:r1])
+        dq[:, q0:r1] = (ds @ kf[:, k0:k1]) * scale
+        dk[:, k0:k1] += (ds.transpose(1, 2) @ qi) * scale
     dk = dk.reshape(bh // group, group, sk, d).sum(1)
     dv = dv.reshape(bh // group, group, sk, d).sum(1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_tiles(q, k, v, q_offset: int, window: int = 0) -> int:
+def _check_tiles(q, k, v, q_offset: int, window: int = 0,
+                 plain: bool = False) -> int:
     """The kernels' shape rules (forward and backward); returns the
-    group."""
-    group = _check(q, k, v)
+    group.  ``plain`` (the CPU's plain versions) also takes fp64."""
+    group = _check(q, k, v, plain)
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")
     if window < 0:
@@ -262,8 +274,9 @@ def flash_attention(
     Returns (bh, sq, d) in ``q.dtype``, and with ``return_lse`` also the
     rows' logsumexp (bh, sq) fp32.  ``q_offset`` is the absolute
     position of ``q[:, 0]`` (causal decode of a chunk where sq < sk);
-    ``window > 0`` is the sliding window (0: none)."""
-    group = _check_tiles(q, k, v, q_offset, window)
+    ``window > 0`` is the sliding window (0: none).  On the CPU the
+    plain version also takes fp64."""
+    group = _check_tiles(q, k, v, q_offset, window, plain=on_cpu(q, k, v))
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset, window=window,
@@ -321,22 +334,24 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     its output ``o`` and row logsumexp ``lse`` (fp32 (bh, sq)) and the
     output's gradient ``do``.  The same shape rules as the forward.
     ``route`` (``"mma"`` or ``"simt"``) overrides :func:`bwd_route`;
-    ``"mma"`` on fp32 raises.  A window raises: neither route has one
-    yet (ROADMAP.md, queue 1 item 11.4b)."""
-    _no_window_bwd(window)
-    group = _check_tiles(q, k, v, q_offset)
+    ``"mma"`` on fp32 raises.  ``window > 0`` is the forward's sliding
+    window, on both routes.  On the CPU the plain version also takes
+    fp64."""
+    cpu = on_cpu(q, k, v, o, lse, do)
+    group = _check_tiles(q, k, v, q_offset, window, plain=cpu)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2]:
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
                          f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
     if route is None:
-        route = bwd_route(q.dtype)
+        if not (cpu and q.dtype == torch.float64):
+            route = bwd_route(q.dtype)
     elif route not in BWD_ROUTES:
         raise ValueError(f"route {route!r}: want one of {sorted(BWD_ROUTES)}")
     elif route == "mma" and q.dtype != torch.bfloat16:
         raise ValueError(f"the mma backward takes bf16, not {q.dtype}")
-    if on_cpu(q, k, v, o, lse, do):
+    if cpu:
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                         q_offset=q_offset)
+                                         q_offset=q_offset, window=window)
     bh, sq, d = q.shape
     sk = k.shape[1]
     q, k, v, o = (_contiguous_aligned(x) for x in (q, k, v, o))
@@ -352,7 +367,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), work["dsum"].data_ptr())
     shape = (bh, sq, sk, d, group, q_offset, 1.0 / math.sqrt(d), int(causal),
-             cuda_stream(q.device))
+             window, cuda_stream(q.device))
     if route == "mma":
         rc = lib.repro_flash_attention_bwd_mma(*ptrs, *shape)
     else:
@@ -362,6 +377,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     check(lib, rc, f"flash_attention_bwd ({route})")
     LAUNCHES["flash_attention_bwd"] += 1
     BWD_ROUTES[route] += 1
+    if window:
+        BWD_WINDOW_ROUTES[route] += 1
     return dq, dk, dv
 
 

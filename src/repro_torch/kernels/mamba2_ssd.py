@@ -217,8 +217,9 @@ def ssd_intra_chunk(x, dt, a, b, c, *, route: str | None = None):
     """K5: x (BH, C, L, D), dt and a (BH, C, L), b and c (G, C, L, S), all
     fp32.  Returns (y_intra (BH, C, L, D), chunk_states (BH, C, S, D)),
     fp32.  ``route`` (``"wgmma"`` or ``"simt"``) overrides
-    :func:`ssd_route`; ``"wgmma"`` on a shape it does not take raises."""
-    hpg = _check(x, dt, a, b, c)
+    :func:`ssd_route`; ``"wgmma"`` on a shape it does not take raises.
+    On the CPU the plain version also takes fp64."""
+    hpg = _check(x, dt, a, b, c, plain=on_cpu(x, dt, a, b, c))
     BH, C, L, D = x.shape
     S = b.shape[-1]
     route = _pick_route(route, L, D, S)
@@ -255,14 +256,14 @@ def ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst, *, route: str | None = None):
     outputs, gy (BH, C, L, D) and gst (BH, C, S, D), returns (gx, gdt,
     ga, gb, gc) shaped as (x, dt, a, b, c), fp32.  ``route`` as in
     :func:`ssd_intra_chunk`."""
-    hpg = _check(x, dt, a, b, c)
+    hpg = _check(x, dt, a, b, c, plain=on_cpu(x, dt, a, b, c))
     BH, C, L, D = x.shape
     G, S = b.shape[0], b.shape[-1]
     if gy.shape != x.shape or gst.shape != (BH, C, S, D):
         raise ValueError(f"gy {tuple(gy.shape)}, gst {tuple(gst.shape)} do "
                          f"not match x {tuple(x.shape)}, state size {S}")
     route = _pick_route(route, L, D, S)
-    gy, gst = gy.float(), gst.float()
+    gy, gst = gy.to(x.dtype), gst.to(x.dtype)
     if on_cpu(x, dt, a, b, c, gy, gst):
         return ssd_intra_chunk_bwd_plain(x, dt, a, b, c, gy, gst)
     x, dt, a, b, c, gy, gst = (_aligned(t) for t in (x, dt, a, b, c, gy, gst))

@@ -179,7 +179,8 @@ def ssd_scan(
     rows of ``x`` (``G == BH`` is the reference's signature; the model
     passes head-free B/C with one group per batch row).  A ``T`` that is
     not a multiple of ``chunk`` takes the sequential reference.
-    Returns (y (BH, T, D) fp32, final_state (BH, S, D) fp32)."""
+    Returns (y (BH, T, D) fp32, final_state (BH, S, D) fp32; fp64 for
+    fp64 inputs on the CPU)."""
     BH, T, D = x.shape
     G, S = b.shape[0], b.shape[-1]
     hpg = BH // G
@@ -189,17 +190,18 @@ def ssd_scan(
             c.repeat_interleave(hpg, dim=0), state0,
         )
     C = T // chunk
-    xr = x.float().reshape(BH, C, chunk, D)
-    dtr = dt.float().reshape(BH, C, chunk)
-    ar = a.float().reshape(BH, C, chunk)
-    br = b.float().reshape(G, C, chunk, S)
-    cr = c.float().reshape(G, C, chunk, S)
+    work = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xr = x.to(work).reshape(BH, C, chunk, D)
+    dtr = dt.to(work).reshape(BH, C, chunk)
+    ar = a.to(work).reshape(BH, C, chunk)
+    br = b.to(work).reshape(G, C, chunk, S)
+    cr = c.to(work).reshape(G, C, chunk, S)
     y_intra, chunk_states = SSDIntraChunkFn.apply(xr, dtr, ar, br, cr)
     cum_a = torch.cumsum(ar, dim=2)  # (BH, C, L)
     chunk_decay = torch.exp(cum_a[:, :, -1])  # (BH, C) total decay of chunk
     h = (
-        torch.zeros((BH, S, D), dtype=torch.float32, device=x.device)
-        if state0 is None else state0.float()
+        torch.zeros((BH, S, D), dtype=work, device=x.device)
+        if state0 is None else state0.to(work)
     )
     h_ins = []  # the state entering each chunk
     for ci in range(C):

@@ -52,6 +52,26 @@ class StragglerWatchdog:
         return slow
 
 
+def train_dataset(cfg, seq_len: int, global_batch: int,
+                  seed: int = 0) -> SyntheticTextDataset:
+    """The reference trainer's dataset for ``cfg``: an ``embed_inputs``
+    model (the VLM backbone) also gets stub-frontend embeddings of its
+    width, and an M-RoPE model (3, B, S) positions."""
+    return SyntheticTextDataset(
+        vocab_size=cfg.vocab_size, seq_len=seq_len,
+        global_batch=global_batch, seed=seed,
+        embed_dim=cfg.d_model if cfg.embed_inputs else 0, mrope=cfg.mrope)
+
+
+def train_batch(cfg, ds: SyntheticTextDataset, step: int) -> dict:
+    """Batch ``step`` as the reference's step takes it: without
+    ``tokens`` for an ``embed_inputs`` model, which reads ``embeds``."""
+    batch = ds.batch(step)
+    if cfg.embed_inputs:
+        del batch["tokens"]
+    return batch
+
+
 def train(
     arch: str,
     steps: int = 100,
@@ -85,8 +105,7 @@ def train(
         learning_rate=lr, warmup_steps=min(20, sched // 5 + 1),
         total_steps=sched,
     )
-    ds = SyntheticTextDataset(vocab_size=cfg.vocab_size, seq_len=seq_len,
-                              global_batch=global_batch, seed=seed)
+    ds = train_dataset(cfg, seq_len, global_batch, seed)
     state = init_state(model, ocfg)
     step_fn = make_train_step(model, ocfg)
 
@@ -100,7 +119,7 @@ def train(
     dog = StragglerWatchdog()
     losses = []
     for step in range(start_step, steps):
-        batch = ds.batch(step)
+        batch = train_batch(cfg, ds, step)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])  # waits for the step on the card

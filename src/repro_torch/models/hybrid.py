@@ -122,27 +122,33 @@ class ZambaLM(TrainableLM):
         return h + L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"]), kv
 
     # ------------------------------------------------------------ train
-    def _mamba(self, p, h):
-        return mamba_block(self.cfg, p, h)[0]
-
-    def _shared(self, sp, h, positions):
-        return self._shared_attn(sp, h, positions)[0]
+    def blocks(self, positions: torch.Tensor) -> list:
+        """The residual stream's blocks in order, as ``(kind, fn,
+        params)`` with ``h = fn(params, h)``: each mamba layer
+        (``"mamba"``), and the shared block (``"shared"``, at
+        ``positions`` (B, S)) after each group's last layer."""
+        cfg = self.cfg
+        shared = self.top.tensors()["shared"]
+        out = []
+        for j, layer in enumerate(self.layers):
+            out.append(("mamba", lambda p, h: mamba_block(cfg, p, h)[0],
+                        layer.tensors()))
+            if self._group_after(j) is not None:
+                out.append(("shared", lambda p, h: self._shared_attn(
+                    p, h, positions)[0], shared))
+        return out
 
     def hidden_states(self, batch: dict):
-        """Final-layer hidden states (B, S, D), normed, and aux 0; each
-        block under ``torch.utils.checkpoint``.  Forward only through a
-        windowed attention: K4's backward has no window yet (ROADMAP.md,
-        queue 1 item 11.4b), so a gradient through it raises."""
+        """Final-layer hidden states (B, S, D), normed, and aux 0; each of
+        :meth:`blocks` under ``torch.utils.checkpoint`` (the mamba layers
+        through K5's forward and backward, the shared block's windowed
+        attention through K4's)."""
         top = self.top.tensors()
         h = top["embed"][self._tokens(batch["tokens"])]
         B, S = h.shape[:2]
         positions = torch.arange(S, device=h.device).expand(B, S)
-        for j, layer in enumerate(self.layers):
-            h = checkpoint(self._mamba, layer.tensors(), h,
-                           use_reentrant=False)
-            if self._group_after(j) is not None:
-                h = checkpoint(self._shared, top["shared"], h, positions,
-                               use_reentrant=False)
+        for _, fn, p in self.blocks(positions):
+            h = checkpoint(fn, p, h, use_reentrant=False)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return L.rms_norm(h, top["final_norm"], self.cfg.norm_eps), aux
 

@@ -30,30 +30,41 @@ F32 = torch.float32
 SSD_CHUNK = 64  # the reference model's SSD chunk length
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type the reference computes it in, fp32, or in fp64
+    where it is fp64: on the CPU a model with fp64 weights runs fp64
+    throughout (the plain versions of the kernels included), the fp64
+    oracle that fp32 runs are held to."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
-    xf = x.float()
+    xf = wide(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * scale.float()
+    out = xf * torch.rsqrt(var + eps) * wide(scale)
     return out.to(x.dtype)
 
 
 # ----------------------------------------------------------------------
 # rotary embeddings
 # ----------------------------------------------------------------------
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """The rotary frequencies ``theta^(-2i/head_dim)``, fp32, computed on
+def rope_freqs(head_dim: int, theta: float, device=None,
+               dtype=F32) -> torch.Tensor:
+    """The rotary frequencies ``theta^(-2i/head_dim)``, fp32 (or fp64 for
+    the fp64 oracle), computed on
     the host once per (head_dim, theta, device) and kept there: every
     device then rotates by the same fp32 angles.  A card's ``pow`` may
     land one ulp from the host's, and ``position · freq`` carries that
     ulp times the position (~3e-4 rad at position 4608, which the
     hybrid's hard attention turns into 5e-3 of its output on the H100)."""
-    return _rope_freqs(head_dim, float(theta), torch.device(device or "cpu"))
+    return _rope_freqs(head_dim, float(theta), torch.device(device or "cpu"),
+                       dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def _rope_freqs(head_dim: int, theta: float, device: torch.device):
+def _rope_freqs(head_dim: int, theta: float, device: torch.device, dtype):
     with torch.inference_mode(False):  # usable by autograd later
-        freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=F32)
+        freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=dtype)
                                  / head_dim))
         return freqs.to(device)
 
@@ -64,11 +75,12 @@ def apply_rope(
     theta: float = 1e4,
 ) -> torch.Tensor:
     D = x.shape[-1]
-    freqs = rope_freqs(D, theta, x.device)  # (D/2,)
-    ang = positions[..., None].to(F32) * freqs  # (B, S, D/2)
+    xf = wide(x)
+    freqs = rope_freqs(D, theta, x.device, xf.dtype)  # (D/2,)
+    ang = positions[..., None].to(xf.dtype) * freqs  # (B, S, D/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(xf, 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
 
@@ -85,16 +97,17 @@ def apply_mrope(
     half = D // 2
     tot = sum(sections)
     bounds = [half * sum(sections[: i + 1]) // tot for i in range(3)]
-    freqs = rope_freqs(D, theta, x.device)  # (half,)
+    xf = wide(x)
+    freqs = rope_freqs(D, theta, x.device, xf.dtype)  # (half,)
     parts = []
     lo = 0
     for i, hi in enumerate(bounds):
-        parts.append(positions[i][..., None].to(F32) * freqs[lo:hi])
+        parts.append(positions[i][..., None].to(xf.dtype) * freqs[lo:hi])
         lo = hi
     ang = torch.cat(parts, dim=-1)  # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(xf, 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
 
@@ -150,7 +163,7 @@ def decode_attention(
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     g = x @ w_gate
     u = x @ w_up
-    h = F.silu(g.float()).to(x.dtype) * u
+    h = F.silu(wide(g)).to(x.dtype) * u
     return h @ w_down
 
 
@@ -176,7 +189,7 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
     B, S, D = x.shape
     E = router_w.shape[1]
     T = B * S
-    logits = x.reshape(T, D).float() @ router_w.float()
+    logits = wide(x.reshape(T, D)) @ wide(router_w)
     probs = torch.softmax(logits, dim=-1)  # (T, E)
     gate, ids = torch.topk(probs, top_k, dim=-1, sorted=True)  # (T, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -210,7 +223,7 @@ def expert_ffn(h: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     batched products over the experts, SiLU in fp32 cast back."""
     gates = torch.bmm(h, w_gate)
     ups = torch.bmm(h, w_up)
-    act = F.silu(gates.float()).to(h.dtype) * ups
+    act = F.silu(wide(gates)).to(h.dtype) * ups
     return torch.bmm(act, w_down)
 
 
@@ -284,7 +297,7 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state=None):
     else:
         xin = F.pad(x, (0, 0, K - 1, 0))
     new_state = xin[:, -(K - 1):, :]
-    xf, wf = xin.float(), w.float()
+    xf, wf = wide(xin), wide(w)
     out = xf[:, 0:S] * wf[:, 0]
     for t in range(1, K):
         out = out + xf[:, t:t + S] * wf[:, t]
@@ -315,12 +328,12 @@ def mamba2_mix(
     cs_bc = conv_state[1] if conv_state is not None else None
     xs, new_cs_x = causal_conv1d(xs, p["conv_x"], cs_x)
     bc, new_cs_bc = causal_conv1d(bc, p["conv_bc"], cs_bc)
-    xs = F.silu(xs.float()).to(x.dtype)
-    bc = F.silu(bc.float())
+    xs = F.silu(wide(xs)).to(x.dtype)
+    bc = F.silu(wide(bc))
     b_mat = bc[..., :d_state]  # (B, S, N) head-free
     c_mat = bc[..., d_state:]  # (B, S, N)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    a = -torch.exp(p["a_log"].float())  # (H,)
+    dt = F.softplus(wide(dt) + wide(p["dt_bias"]))
+    a = -torch.exp(wide(p["a_log"]))  # (H,)
     log_decay = dt * a[None, None, :]  # (B, S, H)
 
     xh = xs.reshape(B, S, nheads, head_dim)
@@ -342,7 +355,7 @@ def mamba2_mix(
     else:
         y, new_state = _ssd_seq(xh, dt, log_decay, b_mat, c_mat, ssm_state)
     y = y.reshape(B, S, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"])
+    y = rms_norm(y * F.silu(wide(z)).to(x.dtype), p["norm"])
     out = y @ p["w_out"]
     return out, (new_state, (new_cs_x, new_cs_bc))
 
@@ -377,10 +390,10 @@ def _ssd_seq(xh, dt, a, b, c, state0=None):
     B, T, H, Dh = xh.shape
     N = b.shape[-1]
     h = (
-        torch.zeros((B, H, N, Dh), dtype=F32, device=xh.device)
-        if state0 is None else state0.float()
+        torch.zeros((B, H, N, Dh), dtype=wide(xh).dtype, device=xh.device)
+        if state0 is None else wide(state0)
     )
-    xf, dt, a, b, c = (t.float() for t in (xh, dt, a, b, c))
+    xf, dt, a, b, c = (wide(t) for t in (xh, dt, a, b, c))
     ys = []
     for t in range(T):
         xdt = xf[:, t] * dt[:, t][..., None]  # (B, H, Dh)

@@ -653,6 +653,92 @@ def test_flash_attention_bwd_routes_on_card(dev, route, bh, group, sq, sk, d,
         assert torch.equal(x, z)
 
 
+FLASH_BWD_WINDOW_CASES = [
+    (8, 1, 256, 256, 0, 100),      # a window no multiple of 64
+    (8, 4, 192, 320, 128, 64),     # GQA group 4, q_offset, a tile's window
+    (4, 2, 256, 256, 0, 1),        # one key a query: dq is 0
+    (4, 1, 128, 128, 0, 500),      # a window longer than the keys
+    (4, 1, 64, 256, 192, 70),      # keys no band reaches: zero dK/dV
+]
+
+
+@pytest.mark.parametrize("d", [64, 112, 128])
+@pytest.mark.parametrize("route", ["mma", "simt"])
+@pytest.mark.parametrize("bh,group,sq,sk,q_offset,window",
+                         FLASH_BWD_WINDOW_CASES)
+def test_flash_attention_bwd_window_on_card(dev, route, d, bh, group, sq, sk,
+                                            q_offset, window):
+    """K4's backward with a sliding window, each route against the plain
+    version on the same inputs (the kernel forward's o and lse): mma on
+    bf16 2e-2 of max|plain| (bf16 outputs, P and dS bf16 operands), simt
+    on fp32 1e-4 (another summation order); the launch is counted as
+    windowed on its route, and two runs give the same bits.  d 112 is
+    zamba2-7b's head dim (the mma route's 128-column tiles, zero-filled
+    past it)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dtype = torch.bfloat16 if route == "mma" else torch.float32
+    g = torch.Generator().manual_seed(bh + sq + sk + d + window)
+    q = torch.randn(bh, sq, d, generator=g).to(dev, dtype)
+    k = torch.randn(bh // group, sk, d, generator=g).to(dev, dtype)
+    v = torch.randn(bh // group, sk, d, generator=g).to(dev, dtype)
+    do = torch.randn(bh, sq, d, generator=g).to(dev, dtype)
+    kw = dict(causal=True, q_offset=q_offset, window=window)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    before = dict(fa.BWD_WINDOW_ROUTES)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fa.BWD_WINDOW_ROUTES[route] == before[route] + 1
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-2 if route == "mma" else 1e-4
+    for i, (x, y, z) in enumerate(zip(got, want, again)):
+        assert x.dtype == dtype and torch.isfinite(x).all()
+        # at window 1 each softmax has one key, so dS, dq and dk are 0
+        # but for rounding on both sides: there they are held against
+        # max|dv|
+        ref = want[2] if window == 1 and i < 2 else y
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= tol * float(ref.float().abs().max())
+        assert torch.equal(x, z)
+    hidden = q_offset - window + 1  # the keys before the first query's band
+    if hidden > 0:
+        assert not got[1][:, :hidden].any() and not got[2][:, :hidden].any()
+
+
+def test_moe_train_steps_repeat_bitwise_on_card(dev):
+    """Two training steps of deepseek-moe-16b's smoke shrink (bf16, a
+    dense layer then an MoE layer), run twice from the same seed, give
+    the same losses and grad norms bit for bit: the dispatch's backward
+    writes each kept gradient once, and K4's backward has no atomics."""
+    from repro_torch.configs import get_config, smoke_shrink
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import train_batch, train_dataset
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = smoke_shrink(get_config("deepseek-moe-16b"))
+    ds = train_dataset(cfg, 128, 4, seed=0)
+    ocfg = opt.OptimizerConfig(learning_rate=1e-3, warmup_steps=0,
+                               total_steps=2)
+
+    def run():
+        model = build_model(cfg, seed=0, device=dev)
+        state, step = init_state(model, ocfg), make_train_step(model, ocfg)
+        out = []
+        for i in range(2):
+            state, met = step(state, train_batch(cfg, ds, i))
+            out.append((float(met["loss"]), float(met["grad_norm"])))
+        return out
+
+    fa.reset_launches()
+    first = run()
+    assert fa.LAUNCHES["flash_attention_bwd"] > 0
+    assert first == run()
+    assert all(np.isfinite(x) for pair in first for x in pair)
+
+
 @pytest.mark.parametrize("BH,G,C,L,D,S,lo,hi", [
     (6, 6, 3, 64, 64, 128, 0.01, 0.5),   # mamba2-130m cell, G == BH
     (96, 4, 8, 64, 64, 128, 0.01, 0.5),  # the training shape: 24 heads a group
@@ -733,6 +819,28 @@ def test_ssd_chunk_bwd_routes_on_card(dev, route, BH, G, C, L, D, S, lo, hi):
         assert x_.shape == y_.shape and torch.isfinite(x_).all()
         assert _rel(x_, y_) <= 1e-4
         assert torch.equal(x_, z_)
+
+
+def test_fp64_refused_on_card(dev):
+    """fp64 takes the plain versions on the CPU only: on the card K4's
+    forward and backward and K5 refuse it before any launch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+
+    def z(*shape):
+        return torch.zeros(*shape, dtype=torch.float64, device=dev)
+
+    fa.reset_launches()
+    ssd.reset_launches()
+    with pytest.raises(TypeError):
+        fa.flash_attention(z(4, 64, 16), z(2, 64, 16), z(2, 64, 16))
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd(z(4, 64, 16), z(2, 64, 16), z(2, 64, 16),
+                               z(4, 64, 16), z(4, 64), z(4, 64, 16))
+    with pytest.raises(TypeError):
+        ssd.ssd_intra_chunk(z(4, 2, 64, 64), z(4, 2, 64), z(4, 2, 64),
+                            z(1, 2, 64, 64), z(1, 2, 64, 64))
+    assert set(fa.LAUNCHES.values()) == set(ssd.LAUNCHES.values()) == {0}
 
 
 def test_autograd_functions_launch_backward_kernels(dev):

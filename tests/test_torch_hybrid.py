@@ -196,14 +196,23 @@ def test_ops_attention_window_on_both_branches(S, branch, monkeypatch):
 
 
 def test_window_backward_and_negative_window_raise():
-    """K4's backward has no window yet (item 11.4b): both its versions
-    refuse one; the forward refuses a negative window."""
-    q = torch.randn(2, 64, 16)
-    o, lse = fa.flash_attention_plain(q, q, q, window=8, return_lse=True)
-    with pytest.raises(NotImplementedError, match="11.4b"):
-        fa.flash_attention_bwd(q, q, q, o, lse, o, window=8)
-    with pytest.raises(NotImplementedError, match="11.4b"):
-        fa.flash_attention_bwd_plain(q, q, q, o, lse, o, window=8)
+    """K4's backward takes a window (item 11.4b): on CPU tensors the
+    wrapper runs the plain version, which gives autograd's gradients of
+    the windowed plain forward and launches nothing; a negative window
+    is refused by the forward and the backward."""
+    g = torch.Generator().manual_seed(8)
+    q = torch.randn(2, 64, 16, generator=g, requires_grad=True)
+    o = fa.flash_attention_plain(q, q, q, window=8)
+    do = torch.randn(o.shape, generator=g)
+    (want,) = torch.autograd.grad(o, q, do)
+    qd = q.detach()
+    o, lse = fa.flash_attention_plain(qd, qd, qd, window=8, return_lse=True)
+    fa.reset_launches()
+    dq, dk, dv = fa.flash_attention_bwd(qd, qd, qd, o, lse, do, window=8)
+    assert set(fa.LAUNCHES.values()) == {0}
+    torch.testing.assert_close(dq + dk + dv, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention_bwd(qd, qd, qd, o, lse, do, window=-1)
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention(q, q, q, window=-1)
 
@@ -450,16 +459,20 @@ def test_cache_spec_and_init_cache_types():
 
 
 def test_windowed_gradient_raises_and_forward_loss_runs():
-    """The hybrid's loss runs forward; a gradient through the windowed
-    attention raises (item 11.4b)."""
+    """The hybrid's loss runs forward, and since item 11.4b its gradient
+    runs through the windowed attention (at S = 128 the window of 64
+    binds): every parameter, the shared block's included, gets a finite
+    gradient that is not all zero."""
     model = build_model(smoke_shrink(get_config(ARCH)), seed=0, device="cpu")
     batch = {"tokens": _tokens(128, seed=6), "labels": _tokens(128, seed=7)}
     loss, parts = model.loss(batch)
     assert torch.isfinite(loss) and float(parts["aux"]) == 0.0
     model.train_mode(True)
     loss, _ = model.loss(batch)
-    with pytest.raises(NotImplementedError, match="11.4b"):
-        loss.backward()
+    loss.backward()
+    for p in model.parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all()
+        assert p.grad.any()
 
 
 @pytest.mark.parametrize("S", [64, 96, 128])

@@ -275,9 +275,11 @@ def test_cpu_calls_launch_nothing():
 def test_flash_refuses_what_it_does_not_take(bad):
     q = torch.zeros(4, 64, 16)
     k = torch.zeros(2, 64, 16)
-    if bad == "dtype":
+    if bad == "dtype":  # fp64 runs the plain version, on the CPU only
         with pytest.raises(TypeError):
-            fa.flash_attention(q.double(), k.double(), k.double())
+            fa.flash_attention(q.half(), k.half(), k.half())
+        with pytest.raises(TypeError):
+            fa.flash_attention(q, k.bfloat16(), k.bfloat16())
     elif bad == "heads":
         with pytest.raises(ValueError):
             fa.flash_attention(q, torch.zeros(3, 64, 16), torch.zeros(3, 64, 16))
@@ -298,6 +300,34 @@ def test_flash_refuses_what_it_does_not_take(bad):
     else:
         with pytest.raises(ValueError):
             fa.flash_attention(q[0], k[0], k[0])
+
+
+def test_fp64_runs_the_plain_versions_on_the_cpu():
+    """On the CPU K4's and K5's entry points take fp64 (the model's fp64
+    oracle) and give their plain versions' values in fp64."""
+    g = torch.Generator().manual_seed(3)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64)
+
+    q, k, v, do = r(4, 64, 16), r(2, 64, 16), r(2, 64, 16), r(4, 64, 16)
+    kw = dict(causal=True, window=24)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    want = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert o.dtype == lse.dtype == torch.float64
+    assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+    for got, w in zip(fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                      fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)):
+        assert got.dtype == torch.float64 and torch.equal(got, w)
+    x, dt, a = r(4, 2, 16, 8), r(4, 2, 16).abs(), -r(4, 2, 16).abs()
+    b, c = r(2, 2, 16, 4), r(2, 2, 16, 4)
+    for got, w in zip(ssd.ssd_intra_chunk(x, dt, a, b, c),
+                      ssd.ssd_intra_chunk_plain(x, dt, a, b, c)):
+        assert got.dtype == torch.float64 and torch.equal(got, w)
+    gy, gst = r(4, 2, 16, 8), r(4, 2, 4, 8)
+    for got, w in zip(ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst),
+                      ssd.ssd_intra_chunk_bwd_plain(x, dt, a, b, c, gy, gst)):
+        assert got.dtype == torch.float64 and torch.equal(got, w)
 
 
 def test_ssd_chunk_refuses_mismatched_groups():

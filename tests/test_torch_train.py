@@ -10,7 +10,10 @@ optimizer state and schedule 1e-6; the loss rtol 1e-5 and each gradient
 distance between the reference and the port's exact sequential scan, the
 fp32 noise of two evaluations of the same function, capped at 5e-4 of
 max|grad|, and holds the chunked path to that sequential scan at 1e-4
-alone); three train steps'
+alone; the hybrid's fp32 gradients are held to the reference's fp64
+ones, no further than the reference's own fp32 gradients are, and its
+fp64 gradients to the reference's at 1e-9, see HYBRID_FLOOR_CAP); three
+train steps'
 losses rtol 1e-4 (parameters are not compared after an Adam step: at step
 1 the update is about lr·sign(g), so a near-zero gradient whose sign
 differs moves a weight by 2·lr).
@@ -46,7 +49,7 @@ from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config, smoke_shrink  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTextDataset  # noqa: E402
 from repro_torch.examples import train_lm  # noqa: E402
-from repro_torch.interop import lm_params_from_numpy, opt_state_from_numpy  # noqa: E402
+from repro_torch.interop import _unstack, lm_params_from_numpy, opt_state_from_numpy  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.launch.train import StragglerWatchdog, train  # noqa: E402
@@ -69,6 +72,14 @@ GRAD_TOL = 1e-4
 # the most that the port's sequential scan may differ from the reference's
 # chunked SSD gradients, per tensor, in units of max|grad| (3.9e-4 measured)
 FLOOR_CAP = 5e-4
+# the hybrid's shrink: the reference's own fp32 gradients against its
+# fp64 ones (its fp32 casts widened), the largest over tensors in units of
+# each tensor's max|grad|, is the floor that the port's fp32 gradients are
+# held to against the reference's fp64 ones.  1.3e-3 measured (the port's
+# fp32: 5.7e-4; the port against the reference in fp32: 8.1e-4); capped
+# here.  In fp64 the port and the reference read 1.0e-12 apart: FP64_TOL
+HYBRID_FLOOR_CAP = 2e-3
+FP64_TOL = 1e-9
 
 
 def _np(x):
@@ -310,15 +321,14 @@ def _port_grads(cfg, params_np, batch):
 
 
 def _pairs(cfg, params_t, ref_grads):
-    """(name, port grad, reference grad) for every parameter."""
-    stack = "dense_layers" if cfg.family == "dense" else "layers"
-    for k, g in ref_grads.items():
-        if k == stack:
-            for n, gs in g.items():
-                for i in range(cfg.num_layers):
-                    yield f"{n}[{i}]", params_t["layers"][i][n].grad, np.asarray(gs[i])
-        else:
-            yield k, params_t[k].grad, np.asarray(g)
+    """(path, port grad, reference grad) for every parameter: the
+    reference's gradients carried into the port's layout as its weights
+    are (``interop._unstack``: stacked layers cut per layer, the
+    hybrid's shared block nested)."""
+    want = dict(tree.flatten(_unstack(
+        cfg, ref_grads, lambda x, i: np.asarray(x if i is None else x[i]))))
+    for path, p in tree.flatten(params_t):
+        yield path, p.grad, want[path]
 
 
 @pytest.mark.parametrize("arch,S", [
@@ -326,6 +336,9 @@ def _pairs(cfg, params_t, ref_grads):
     ("llama3.2-3b", 32),   # ragged: the naive reference under autograd
     ("mamba2-130m", 128),  # the chunked SSD (SSDIntraChunkFn)
     ("mamba2-130m", 40),   # ragged: the sequential scan
+    # the hybrid's shrink (4 layers, the shared block after every 2,
+    # window 64): both kernels' paths, the window binding at S 128
+    ("zamba2-7b", 128),
 ])
 def test_loss_and_grads_match_reference(arch, S):
     ref_model, params, cfg = _ref_setup(arch)
@@ -365,6 +378,10 @@ def test_loss_and_grads_match_reference(arch, S):
             assert floor[name] <= FLOOR_CAP * scale, (name, floor[name], scale)
             err = float(np.abs(_np(got) - seq[name]).max())
             assert err <= GRAD_TOL * float(np.abs(seq[name]).max()), (name, err)
+    if cfg.family == "hybrid":
+        _hybrid_grads_match_reference(ref_model, params, cfg, batch,
+                                      params_t, ref_grads)
+        return
     n = 0
     for name, got, want in _pairs(cfg, params_t, ref_grads):
         assert got is not None and got.shape == want.shape, name
@@ -373,6 +390,51 @@ def test_loss_and_grads_match_reference(arch, S):
             name, err, float(np.abs(want).max()), floor.get(name))
         n += 1
     assert n == len(tree.leaves(params_t))
+
+
+def _hybrid_grads_match_reference(ref_model, params, cfg, batch, params_t,
+                                  ref32):
+    """The hybrid shrink's gradients against the reference's in fp64 (its
+    models' fp32 casts widened to fp64, ``jax.enable_x64``; the port runs
+    fp64 on the CPU from fp64 weights): the port's fp64 gradients within
+    FP64_TOL, and its fp32 ones (``params_t``) no further than the
+    reference's own fp32 gradients (``ref32``) are, on their worst
+    tensor."""
+    from repro.models import hybrid as ref_hybrid
+    from repro.models import layers as ref_layers
+    from repro.models import lm as ref_lm
+    from repro.models import losses as ref_losses
+
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        for mod in (ref_layers, ref_hybrid, ref_losses, ref_lm):
+            mp.setattr(mod, "F32", jnp.float64)
+        ref64 = jax.jit(jax.grad(lambda p: ref_model.loss(p, jb)[0]))(
+            jax.tree.map(lambda a: a.astype(jnp.float64), params))
+        assert {a.dtype for a in jax.tree.leaves(ref64)} == {np.dtype(np.float64)}
+        ref64 = jax.tree.map(lambda a: np.asarray(a, np.float64), ref64)
+    _, _, port64 = _port_grads(
+        cfg, jax.tree.map(lambda a: np.asarray(a, np.float64), params), batch)
+
+    def unit(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    want = {name: w for name, _, w in _pairs(cfg, params_t, ref64)}
+    floor = max(unit(r, want[name]) for name, _, r in _pairs(cfg, params_t, ref32))
+    assert floor <= HYBRID_FLOOR_CAP, floor
+    n, worst64, worst32 = 0, 0.0, 0.0
+    for (name, got, w), (_, got64, _) in zip(_pairs(cfg, params_t, ref64),
+                                             _pairs(cfg, port64, ref64)):
+        assert got is not None and got.shape == w.shape, name
+        assert got64.dtype == torch.float64, name
+        worst64 = max(worst64, unit(got64.numpy(), w))
+        worst32 = max(worst32, unit(_np(got), w))
+        assert unit(got64.numpy(), w) <= FP64_TOL, (name, unit(got64.numpy(), w))
+        assert unit(_np(got), w) <= floor, (name, unit(_np(got), w), floor)
+        n += 1
+    assert n == len(tree.leaves(params_t))
+    print(f"hybrid grads against the reference's fp64: port fp64 {worst64:.2e}, "
+          f"port fp32 {worst32:.2e}, reference fp32 {floor:.2e}")
 
 
 def test_chunked_cross_entropy_matches_reference():
@@ -395,7 +457,8 @@ def test_chunked_cross_entropy_matches_reference():
         chunked_cross_entropy(ht, wt, torch.from_numpy(lab), chunk=40)
 
 
-@pytest.mark.parametrize("arch,S", [("qwen3-4b", 128), ("mamba2-130m", 128)])
+@pytest.mark.parametrize("arch,S", [("qwen3-4b", 128), ("mamba2-130m", 128),
+                                    ("deepseek-moe-16b", 128)])
 def test_three_train_steps_match_reference(arch, S):
     """Three steps of make_train_step from one converted state (fp32):
     each step's loss within rtol 1e-4 of the reference's."""
@@ -420,6 +483,46 @@ def test_three_train_steps_match_reference(arch, S):
         assert float(met["lr"]) == pytest.approx(float(rmet["lr"]), rel=1e-6)
     assert int(state.step) == 3
     assert all(p.grad is None for p in tree.leaves(state.params))
+
+
+def test_vlm_trainer_matches_reference(monkeypatch):
+    """``launch.train.train("qwen2-vl-72b")`` (the VLM backbone's smoke
+    shrink) on the reference's seed-0 weights gives the reference
+    trainer's losses: both feed the step the stub frontend's embeddings
+    with M-RoPE positions and no tokens.  bf16 weights, as both trainers
+    build them: rtol 2e-4 (the two read 4.9e-5 apart on the CPU, bf16
+    roundings of the loss's sums), where the token embeddings in place
+    of the embeds move the losses by up to 4.3e-3."""
+    from repro.launch.train import train as ref_train
+    from repro_torch.launch import train as launcher
+
+    ref_model, params, cfg = _ref_setup("qwen2-vl-72b", dtype=jnp.bfloat16)
+    weights = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, params))
+    monkeypatch.setattr(launcher, "build_model",
+                        lambda c, seed, device: build_model(c, weights,
+                                                            device=device))
+    kw = dict(steps=3, smoke=True, global_batch=2, seq_len=64)
+    losses = train("qwen2-vl-72b", device="cpu", **kw)
+    want = ref_train("qwen2-vl-72b", **kw)
+    assert len(losses) == len(want) == 3
+    np.testing.assert_allclose(losses, want, rtol=2e-4)
+
+
+def test_train_batches_follow_the_reference_rule():
+    """The trainer's dataset and batches for each family: embeddings of
+    the model's width and M-RoPE positions for the VLM, without tokens;
+    tokens alone for the others."""
+    from repro_torch.launch.train import train_batch, train_dataset
+
+    for arch, keys in (("qwen2-vl-72b", {"embeds", "positions", "labels"}),
+                       ("deepseek-moe-16b", {"tokens", "labels"}),
+                       ("zamba2-7b", {"tokens", "labels"})):
+        cfg = smoke_shrink(get_config(arch))
+        batch = train_batch(cfg, train_dataset(cfg, 16, 2), 0)
+        assert set(batch) == keys, arch
+        if "embeds" in batch:
+            assert batch["embeds"].shape == (2, 16, cfg.d_model)
+            assert batch["positions"].shape == (3, 2, 16)
 
 
 def test_opt_state_from_numpy_matches_reference_values():
