@@ -45,16 +45,20 @@ points at full width:
                  on 32 kv heads), batch 4 x 512, and of zamba2-7b (bh 32
                  on 32, 1 x 8192, head dim 112, window 4096: the bound
                  counts only the pairs the window leaves; SDPA takes the
-                 band as a boolean mask) (bf16, <= 1e-2: the output's
-                 bf16 rounding alone is 2^-8; each beside SDPA and its
-                 bound), and
+                 band as a boolean mask), and seamless-m4t-medium's
+                 encoder and cross-attention (bh 64 on 64, d 64,
+                 non-causal, s 512; the cross-attention's 512 queries on
+                 1024 keys) (bf16, <= 1e-2: the output's bf16 rounding
+                 alone is 2^-8; each beside SDPA and its bound), and
                  ssd_chunk at mamba2-130m's (fp32, <= 1e-4; its wgmma
                  route, the kernel alone on the profiler's device clock,
                  beside its simt route at the same shape, and an
                  overflowing decay through the wgmma route); the backward
                  kernels at the training shapes, each route: flash_attention_bwd
                  at qwen3-4b's (bf16, bh 64 on 16 kv heads, s 512, d 128,
-                 causal; <= 2e-2 of max|plain| per gradient; its mma
+                 causal) and at seamless-m4t-medium's encoder (bh 64 on
+                 64, s 512, d 64, non-causal) (<= 2e-2 of max|plain| per
+                 gradient; its mma
                  route, which bf16 takes, beside its simt route forced on
                  the same inputs and SDPA's autograd backward) and
                  ssd_chunk_bwd at mamba2-130m's (fp32, batch 4 x 512;
@@ -144,8 +148,9 @@ points at full width:
                  than any statevector on one card holds), run_slices on 2
                  slice ids against the einsum oracle on the same ids; its
                  measured peak against the certified peak (as above);
-  6. serve     — for qwen3-4b, mamba2-130m and deepseek-moe-16b: the
-                 full config (36, 24 and 28 layers) through
+  6. serve     — for qwen3-4b, mamba2-130m, deepseek-moe-16b and
+                 seamless-m4t-medium: the full config (36, 24, 28 and
+                 12 + 12 layers) through
                  repro_torch.launch.decode_demo.serve, and zamba2-7b's
                  (81 layers, the hybrid: its prompt 1 x 8192, twice its
                  window, so the window binds in prefill and decode wraps
@@ -168,7 +173,16 @@ points at full width:
                  attention models at 2 layers, an MoE model's layer 0
                  dense and layer 1 MoE; mamba2-130m whole) <= 1e-3, with
                  the MoE layer's routing decisions that differ between
-                 the card and the CPU counted; profiler traces of one
+                 the card and the CPU counted; the encoder-decoder at
+                 2 + 2 layers, 256 frames and 128 tokens, then 4 decode
+                 steps, prefill and every step's logits fp32 <= 1e-3,
+                 bf16 <= 3e-2, its CPU run taking the card's attention
+                 inputs (its hard attention turns one rounding of q or k
+                 into other weights; the free CPU run reported), every
+                 serve K4 launch on the wgmma kernel, 12 of them
+                 non-causal in its encoder and 12 in its
+                 cross-attention, its fp32 agreement's on the FFMA
+                 kernel; profiler traces of one
                  prefill and one decode step at the serve shapes, with
                  each kernel's share of the device time and, for MoE, the
                  shares of the expert products and the dispatch; the
@@ -183,7 +197,8 @@ points at full width:
                  two steps run again from the same seed for the same
                  bits, and zamba2-7b at full width and 7 layers (one
                  group of 6 and the shared block, one tail layer), 1 x
-                 8192 (twice its window), 4 steps each: finite losses,
+                 8192 (twice its window), and seamless-m4t-medium whole
+                 (4 x 512 frames and tokens), 4 steps each: finite losses,
                  the first within 0.1 of ln V + d s^2 / 2 (s the head's
                  init std: the logits of a random head have variance
                  d s^2), step ms, tokens/s, peak
@@ -193,7 +208,9 @@ points at full width:
                  grad norm: fp32 <= 1e-3, bf16 <= 3e-2 relative; for the
                  MoE each step from the card's state, the CPU taking the
                  card's routing decisions, and a free CPU run with its
-                 routing flips reported); the hybrid at 7 layers, 256
+                 routing flips reported; the encoder-decoder likewise,
+                 the CPU taking the card's attention inputs, 256 frames
+                 and 128 tokens); the hybrid at 7 layers, 256
                  tokens, its window cut to 64: one backward held to the
                  port's CPU run in fp64 (fp32 loss <= 1e-3, grad norm and
                  gradients <= 1e-3 or no further than the CPU's fp32 run,
@@ -209,7 +226,9 @@ points at full width:
                  flash_attention_bwd's mma route and every mamba2-130m
                  backward through ssd_chunk_bwd's wgmma route, every
                  zamba2-7b K4 backward windowed on mma (its fp32
-                 agreement's on simt) and every K5 backward on wgmma (the
+                 agreement's on simt) and every K5 backward on wgmma, every
+                 seamless-m4t-medium K4 backward on mma, 24 a step
+                 non-causal (its fp32 agreement's on simt) (the
                  counts are zeroed before each model and read after it);
   7. kernels   — one JSON line listing every kernel with its launches on
                  its path (phases 3-5, engine, search, resume and
@@ -221,8 +240,12 @@ points at full width:
                  with their launches in the precision phase, and
                  flash_attention at deepseek-moe-16b's, qwen2-vl-72b's
                  and zamba2-7b's shapes with their launches serving
-                 those models, and flash_attention_bwd's windowed record
-                 with its launches training zamba2-7b;
+                 those models, at seamless-m4t-medium's encoder and
+                 cross-attention shapes with the non-causal launches of
+                 each serving it, flash_attention_bwd's non-causal record
+                 with its non-causal launches training seamless-m4t-medium
+                 and its windowed record with its launches training
+                 zamba2-7b;
                  every fused_gemm launch of those phases must
                  have taken the wgmma kernel with the coalesced (uniform)
                  gather.
@@ -349,17 +372,34 @@ SERVE_MODELS = {
     "qwen2-vl-72b": dict(layers=16, trace_layers=None),
     "zamba2-7b": dict(layers=None, trace_layers=None, batch=1,
                       prompt_len=8192),
+    # the encoder-decoder whole (12 + 12 layers); its frames are the
+    # prompt's length, as in the reference's demo
+    "seamless-m4t-medium": dict(layers=None, trace_layers=None),
 }
 # K4's records: the key in the kernels line -> the prefill shape of the
 # served model it times (batch B, query heads H, kv heads KV, sequence
-# S, head dim d, window; K4_DEFAULT where not given)
-K4_DEFAULT = dict(B=4, S=512, d=128, window=0)
+# S, keys Sk (None: S), head dim d, window, causal; K4_DEFAULT where not
+# given).  seamless-m4t-medium's encoder (non-causal) and its
+# cross-attention, whose 512 queries here meet 1024 frames' keys (its
+# serve couples frames to the prompt, 512 each)
+K4_DEFAULT = dict(B=4, S=512, Sk=None, d=128, window=0, causal=True)
 K4_SHAPES = {
     "flash_attention": dict(H=32, KV=8),  # qwen3-4b
     "flash_attention:deepseek-moe-16b": dict(H=16, KV=16),
     "flash_attention:qwen2-vl-72b": dict(H=64, KV=8),
     "flash_attention:zamba2-7b": dict(B=1, H=32, KV=32, S=8192, d=112,
                                       window=4096),
+    "flash_attention:seamless-m4t-medium": dict(H=16, KV=16, d=64,
+                                                causal=False),
+    "flash_attention:seamless-m4t-medium:cross": dict(H=16, KV=16, d=64,
+                                                      Sk=1024, causal=False),
+}
+# K4's backward records beside qwen3-4b's: seamless-m4t-medium's encoder
+# shape at training (4 x 512, non-causal)
+K4_BWD_SHAPES = {
+    "flash_attention_bwd": dict(B=2, H=32, KV=8, S=512, d=128, causal=True),
+    "flash_attention_bwd:seamless-m4t-medium": dict(B=4, H=16, KV=16, S=512,
+                                                    d=64, causal=False),
 }
 # the hybrid's card-against-CPU agreement: 2 layers hold no attention (the
 # shared block follows every 6th mamba layer), so it runs 7 of the 81:
@@ -383,6 +423,10 @@ HYBRID_AGREE = dict(layers=7, prompt_len=4608, decode_steps=4)
 MOE_SPANS = {"moe_layer": "moe.layer", "moe_route": "moe.route",
              "expert_ffn": "moe.experts"}
 AGREE = dict(batch=1, prompt_len=256)  # the CPU half of the agreement
+# the encoder-decoder's agreement: AGREE's prompt as frames, the decoder
+# on the first 128 of its tokens (so the cross-attention's queries and
+# keys differ in length: sq 128 on sk 256), then 4 decode steps
+ENCDEC_AGREE = dict(tokens=128, decode_steps=4)
 FLASH_BWD_TOL = 2e-2  # bf16 gradients: each output's rounding is 2^-8
 # K4's windowed backward record: zamba2-7b's training shape (its shared
 # block's attention at 1 x 8192, twice its window)
@@ -400,6 +444,9 @@ TRAIN = {
     "mamba2-130m": dict(batch=4, seq=512),
     "deepseek-moe-16b": dict(batch=2, seq=512, layers=5),
     "zamba2-7b": dict(batch=1, seq=8192, layers=7),
+    # whole (977.8 M parameters, ~11.7 GB of state), 512 frames and 512
+    # tokens a sequence
+    "seamless-m4t-medium": dict(batch=4, seq=512),
 }
 TRAIN_STEPS = 4
 MOE_REPEAT = 2  # an MoE model's first steps, run twice for the same bits
@@ -896,29 +943,48 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
     )
     del x, dt, a, b, c, gy, gst, want, big_want
 
-    # K4 backward at qwen3-4b's training shape (batch 2 x 512): 32 query
-    # heads on 8 kv heads of 128, causal, bf16
-    B, H, KV, S, d = 2, 32, 8, 512, 128
+    # K4 backward at qwen3-4b's training shape (batch 2 x 512: 32 query
+    # heads on 8 kv heads of 128, causal), drawn from ``gen`` after K5's
+    # inputs, and at seamless-m4t-medium's encoder (4 x 512, 16 heads of
+    # 64, non-causal) from a generator of its own
+    for i, (name, shape) in enumerate(K4_BWD_SHAPES.items()):
+        g = gen if i == 0 else torch.Generator(device="cuda").manual_seed(
+            len(K4_SHAPES) + i)
+        out[name] = _k4_bwd_record(torch, fa, F, g, **shape)
+    out["flash_attention_bwd:zamba2-7b"] = _k4_bwd_window_record(torch, fa, F)
+    return out
+
+
+def _k4_bwd_record(torch, fa, F, gen, B, H, KV, S, d, causal) -> dict:
+    """K4's backward on bf16 (B·H, S, d) queries over (B·KV, S, d) keys
+    and values from the kernel forward's output and lse (held to the
+    plain version's lse at 1e-3): the mma route bf16 takes and the simt
+    route forced on the same inputs, each against the plain version
+    (<= FLASH_BWD_TOL of max|plain| per gradient) and twice for the same
+    bits, counted on its route (and as non-causal where it is); timed
+    beside the plain version, SDPA's autograd backward and its bound."""
+    dev = torch.device("cuda")
     q = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
     k = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
     v = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
     do = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
-    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
-    _, want_lse = fa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    _, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                           return_lse=True)
     lse_err = float((lse - want_lse).abs().max())
     check(lse_err <= 1e-3, f"flash_attention lse disagrees: {lse_err}")
-    # the mma route bf16 takes, and the simt route forced on the same
-    # inputs, each against the plain version and twice for the same bits
     rels = {}
     for route in ("mma", "simt"):
-        before = fa.BWD_ROUTES[route]
+        before = fa.BWD_ROUTES[route], fa.BWD_NONCAUSAL[route]
         force = None if route == "mma" else route
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                      route=force)
-        check(fa.BWD_ROUTES[route] == before + 1,
+        check(fa.BWD_ROUTES[route] == before[0] + 1,
               f"flash_attention_bwd: the call did not take the {route} route")
-        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+        check(causal or fa.BWD_NONCAUSAL[route] == before[1] + 1,
+              f"flash_attention_bwd ({route}): not counted as non-causal")
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                        route=force)
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(g).all()) for g in got),
@@ -926,7 +992,8 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
         rels[route] = [rel_err(torch, [g.float()], [w.float()])[1]
                        for g, w in zip(got, want)]
         check(max(rels[route]) <= FLASH_BWD_TOL,
-              f"flash_attention_bwd ({route}) disagrees: {rels[route]}")
+              f"flash_attention_bwd ({route}) causal={causal} disagrees: "
+              f"{rels[route]}")
         check(all(torch.equal(g, h) for g, h in zip(got, again)),
               f"flash_attention_bwd ({route}): two runs differ")
         if route == "mma":
@@ -934,28 +1001,28 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
                       for g, w in zip(got, want))
             outs = got
         del again
-    pairs = S * (S + 1) // 2
-    # the least arithmetic: five products over the causal pairs (S = QK^T
-    # to recompute P, dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    # the least arithmetic: five products over the pairs (S = QK^T to
+    # recompute P, dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K)
     flops = 10.0 * B * H * pairs * d
     nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + o.numel() + do.numel()
                     + sum(g.numel() for g in outs)) + 4.0 * lse.numel()
     b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
     q4, k4, v4 = (t.view(B, -1, S, d).detach().requires_grad_()
                   for t in (q, k, v))
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                        enable_gqa=True)
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                        enable_gqa=KV != H)
     do4 = do.view(B, H, S, d)
 
     def k4_bwd(route=None):
-        return lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
-                                              route=route)
+        return lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=causal, route=route)
 
-    out["flash_attention_bwd"] = dict(
+    return dict(
         shape=dict(bh=B * H, bh_kv=B * KV, sq=S, sk=S, d=d, dtype="bf16",
-                   causal=True),
+                   causal=causal),
         max_abs_err=err, rel_err=rels["mma"], simt_rel_err=rels["simt"],
-        lse_abs_err=lse_err,
+        lse_abs_err=lse_err, pairs=pairs,
         # the call with CUDA events (the kernel table's reading), each
         # route; then each route's kernels on the device clock (fa_bwd_*)
         ms=cuda_ms(torch, k4_bwd()),
@@ -963,18 +1030,16 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
         kernel_ms=device_ms(torch, k4_bwd(), "fa_bwd"),
         simt_kernel_ms=device_ms(torch, k4_bwd("simt"), "fa_bwd"),
         fwd_lse_ms=cuda_ms(torch, lambda: fa.flash_attention(
-            q, k, v, causal=True, return_lse=True)),
-        fwd_ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True)),
+            q, k, v, causal=causal, return_lse=True)),
+        fwd_ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                         causal=causal)),
         plain_ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal=True)),
+            q, k, v, o, lse, do, causal=causal)),
         # SDPA's backward through autograd on the same inputs
         library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
             o4, (q4, k4, v4), do4, retain_graph=True)),
         bound_ms=b_ms, bound_by=b_by,
     )
-    del q, k, v, do, o, lse, want, outs, q4, k4, v4, o4, do4
-    out["flash_attention_bwd:zamba2-7b"] = _k4_bwd_window_record(torch, fa, F)
-    return out
 
 
 def _k4_bwd_window_record(torch, fa, F) -> dict:
@@ -1084,47 +1149,53 @@ def _k4_bwd_window_record(torch, fa, F) -> dict:
     )
 
 
-def _k4_record(torch, fa, F, gen, B, H, KV, S, d, window) -> dict:
-    """K4's bf16 kernel on (B·H, S, d) queries over (B·KV, S, d) keys and
-    values, causal, with ``window`` where it is > 0, against its plain
-    version (<= FLASH_TOL of max|plain|), timed beside the plain version,
-    SDPA (the window as a boolean band mask) and its bound."""
+def _k4_record(torch, fa, F, gen, B, H, KV, S, Sk, d, window,
+               causal) -> dict:
+    """K4's bf16 kernel on (B·H, S, d) queries over (B·KV, Sk, d) keys and
+    values (Sk None: S), causal or not, with ``window`` where it is > 0,
+    against its plain version (<= FLASH_TOL of max|plain|), timed beside
+    the plain version, SDPA (the window as a boolean band mask) and its
+    bound."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
+    Sk = Sk or S
     q = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
-    k = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
-    v = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
-    before = dict(fa.WINDOW_ROUTES)
-    got = fa.flash_attention(q, k, v, causal=True, window=window)
-    check(not window or fa.WINDOW_ROUTES["wgmma"] == before["wgmma"] + 1,
+    k = torch.randn(B * KV, Sk, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B * KV, Sk, d, generator=gen, device=dev).bfloat16()
+    kw = dict(causal=causal, window=window)
+    before = dict(fa.WINDOW_ROUTES), dict(fa.NONCAUSAL)
+    got = fa.flash_attention(q, k, v, **kw)
+    check(not window or fa.WINDOW_ROUTES["wgmma"] == before[0]["wgmma"] + 1,
           "flash_attention: the windowed call did not take the wgmma kernel")
-    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    check(causal or fa.NONCAUSAL["wgmma"] == before[1]["wgmma"] + 1,
+          "flash_attention: the non-causal call did not take the wgmma kernel")
+    want = fa.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     err, rel = rel_err(torch, [got.float()], [want.float()])
-    shape = dict(bh=B * H, bh_kv=B * KV, sq=S, sk=S, d=d, dtype="bf16",
-                 causal=True, window=window)
+    shape = dict(bh=B * H, bh_kv=B * KV, sq=S, sk=Sk, d=d, dtype="bf16",
+                 causal=causal, window=window)
     check(bool(torch.isfinite(got).all()), f"flash_attention {shape}: non-finite")
     check(rel <= FLASH_TOL, f"flash_attention {shape} disagrees: {rel}")
-    # the (q, k) pairs this input needs: query q sees min(q + 1, window)
-    # keys (q + 1 without a window)
-    pairs = sum(min(i + 1, window or S) for i in range(S))
+    # the (q, k) pairs this input needs: causal query q sees min(q + 1,
+    # window) keys (q + 1 without a window); a non-causal one every key
+    pairs = (sum(min(i + 1, window or S) for i in range(S)) if causal
+             else S * Sk)
     flops = 4.0 * B * H * pairs * d  # q.k and p.v
     nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + got.numel())
     b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
-    q4, k4, v4 = (t.view(B, -1, S, d) for t in (q, k, v))
+    q4, k4, v4 = (t.view(B, -1, t.shape[1], d) for t in (q, k, v))
     if window:
         pos = torch.arange(S, device=dev)
         band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
                                                  - window)
         sdpa = dict(attn_mask=band)
     else:
-        sdpa = dict(is_causal=True)
+        sdpa = dict(is_causal=causal)
     return dict(
         shape=shape, max_abs_err=err, rel_err=rel, pairs=pairs,
-        ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True,
-                                                     window=window)),
-        plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(
-            q, k, v, causal=True, window=window)),
+        ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)),
+        plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
+                                                                 **kw)),
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, enable_gqa=KV != H, **sdpa)),
         bound_ms=b_ms, bound_by=b_by, seconds=time.perf_counter() - t0,
@@ -1138,15 +1209,14 @@ def _cpu_params(model) -> dict:
 
 
 def _cast(params: dict, dtype, layers: int) -> dict:
-    """Copies of the first ``layers`` layers of ``params``, in ``dtype``
-    (training updates its weights in place)."""
+    """Copies of the first ``layers`` layers of each of ``params``' layer
+    stacks (the encoder-decoder's ``enc_layers`` and ``layers``), in
+    ``dtype`` (training updates its weights in place)."""
     from repro_torch.tree import tree_map
 
-    out = tree_map(lambda v: v.to(dtype, copy=True),
-                   {k: v for k, v in params.items() if k != "layers"})
-    out["layers"] = [{k: v.to(dtype, copy=True) for k, v in lp.items()}
-                     for lp in params["layers"][:layers]]
-    return out
+    return {k: tree_map(lambda t: t.to(dtype, copy=True),
+                        v[:layers] if k in ("enc_layers", "layers") else v)
+            for k, v in params.items()}
 
 
 @contextlib.contextmanager
@@ -1185,6 +1255,28 @@ def _route_recorder(routes: list):
             return out
         return inner
     return {"moe_route": outer}
+
+
+@contextlib.contextmanager
+def _cross_counted(counts, counter: list):
+    """Inside the block, ``counter[0]`` adds up the non-causal K4 launches
+    made inside ``EncDecLM._cross_attn`` (the cross-attention's; the
+    rest of the non-causal launches are the encoder's)."""
+    from repro_torch.models.encdec import EncDecLM
+
+    def noncausal():
+        return sum(counts()["flash_noncausal"].values())
+
+    def wrap(fn):
+        def inner(*a, **kw):
+            before = noncausal()
+            out = fn(*a, **kw)
+            counter[0] += noncausal() - before
+            return out
+        return inner
+
+    with _patched(EncDecLM, {"_cross_attn": wrap}):
+        yield
 
 
 def _agree_decode(dd, model, cache, fed, start: int) -> list:
@@ -1253,12 +1345,16 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
     serve_shape = {**SERVE, **shape}
     full = get_config(arch)
     hybrid = full.family == "hybrid"
+    encdec = full.is_encdec
     served = full if layers is None else dataclasses.replace(full,
                                                              num_layers=layers)
     reset()
     torch.cuda.reset_peak_memory_stats()
+    cross = [0]
     if layers is None:
-        r = dd.serve(arch, smoke=False, device="cuda", **serve_shape)
+        with _cross_counted(counts, cross) if encdec else \
+                contextlib.nullcontext():
+            r = dd.serve(arch, smoke=False, device="cuda", **serve_shape)
     else:
         # serve's own steps on the cut config: the weights from the seed,
         # the prompt from the seeded generator, prefill and greedy decode
@@ -1270,6 +1366,8 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
         del model
     torch.cuda.synchronize()
     launched = counts()
+    if encdec:
+        launched["cross_noncausal"] = cross[0]
     logits = r["prefill_logits"]
     check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
     check(tuple(logits.shape) == (serve_shape["batch"], full.vocab_size),
@@ -1281,19 +1379,27 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
     del r["prefill_logits"]
     torch.cuda.empty_cache()
     # a decode step's least time: every weight it reads (all but the
-    # embedding table, of which it reads B rows) once, at the HBM rate
-    weights = count_params(param_defs(served))
+    # embedding table, of which it reads B rows, and an encoder-decoder's
+    # encoder, which only the prefill runs) once, at the HBM rate
+    defs = param_defs(served)
+    weights = count_params(defs)
     if not served.tie_embeddings:
         weights -= served.vocab_size * served.d_model
+    if encdec:
+        weights -= count_params([defs["enc_norm"], defs["enc_layers"]])
     decode_bound_ms = 1e3 * 2.0 * weights / HBM_BW
 
     # the fp32 agreement and the traces: attention models at full width
     # and 2 layers (the CPU half holds their weights in fp32; an MoE
     # model's layer 0 dense, layer 1 MoE), mamba2-130m whole, the hybrid
     # at HYBRID_AGREE's 7 layers (bf16 too), its fp32 prompt past the
-    # window and decode steps after it
+    # window and decode steps after it; the encoder-decoder at 2 + 2
+    # layers on ENCDEC_AGREE's tokens and AGREE's frames, with decode
+    # steps, the CPU taking the card's attention inputs
     if full.family in ("dense", "moe"):
         deep = dataclasses.replace(full, num_layers=2)
+    elif encdec:
+        deep = dataclasses.replace(full, num_layers=2, encoder_layers=2)
     elif hybrid:
         deep = dataclasses.replace(full, num_layers=HYBRID_AGREE["layers"])
     else:
@@ -1301,14 +1407,22 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
     gen = torch.Generator().manual_seed(1)
     agree_in = dd.prompt_inputs(deep, AGREE["batch"], AGREE["prompt_len"], gen)
     params = _cpu_params(build_model(deep, seed=1, device="cuda"))
+    agree_steps = 0
+    if encdec:
+        agree_steps = ENCDEC_AGREE["decode_steps"]
+        fed = torch.randint(0, full.vocab_size, (AGREE["batch"], agree_steps),
+                            generator=gen)
+        agree_in["tokens"] = agree_in["tokens"][:, :ENCDEC_AGREE["tokens"]]
     runs = {}
     agree_launches = None
     for name, dtype, n in (
             ("bf16", torch.bfloat16, deep.num_layers if hybrid else BF16_LAYERS),
             ("fp32", torch.float32, deep.num_layers)):
         cfg = dataclasses.replace(full, num_layers=n)
+        if encdec:
+            cfg = dataclasses.replace(cfg, encoder_layers=n)
         cast = _cast(params, dtype, n)
-        inputs, steps = agree_in, 0
+        inputs, steps = agree_in, agree_steps
         if hybrid and name == "fp32":
             steps = HYBRID_AGREE["decode_steps"]
             inputs = dd.prompt_inputs(
@@ -1328,8 +1442,11 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
 
         model = build_model(cfg, cast, device="cuda")
         card_routes, host_routes = [], []
+        card_attn, host_attn = [], []
         reset()
-        with _patched(L, _route_recorder(card_routes)):
+        with _patched(L, _route_recorder(card_routes)), \
+                _replayed(torch, L, card_attn) if encdec else \
+                contextlib.nullcontext():
             card, card_steps = run(model)
         torch.cuda.synchronize()
         if name == "fp32":
@@ -1341,11 +1458,23 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
         host_log = []
         t0 = time.perf_counter()
         with _patched(L, _route_recorder(host_routes)), \
-                _hybrid_blocks(hybrid, host_log, record_inputs=True):
+                _hybrid_blocks(hybrid, host_log, record_inputs=True), \
+                _replayed(torch, L, host_attn, card_attn) if encdec else \
+                contextlib.nullcontext():
             host, host_steps = run(cpu_model)
         runs[name] = dict(card=card, host=host, layers=n, prompt_len=S,
                           card_steps=card_steps, host_steps=host_steps,
                           cpu_s=time.perf_counter() - t0)
+        if encdec:
+            # the CPU's own run, free of the card's attention inputs:
+            # reported (the reference's init makes the attention near
+            # hard, and an fp32 model's first encoder layer rounds to
+            # bf16, so one rounding moves a score by units)
+            free, free_steps = run(cpu_model)
+            runs[name].update(frames=inputs["embeds"].shape[1],
+                              free=free, free_steps=free_steps,
+                              replayed=_replay_differs(card_attn, host_attn))
+            del card_attn, host_attn
         if hybrid:
             # each block on the card from the CPU's input to it, its
             # output against the CPU's (the gate: the reference's random
@@ -1410,12 +1539,29 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
               f"{arch}: non-finite {name} card logits")
     err32 = rel(runs["fp32"]["card"], runs["fp32"]["host"])
     err16 = rel(runs["bf16"]["card"], runs["bf16"]["host"])
-    # each decode step's logits after the fp32 prompt (the hybrid's)
+    # each decode step's logits after the fp32 prompt (the hybrid's; the
+    # encoder-decoder's after both prompts)
     err32_steps = [rel(c, h) for c, h in zip(runs["fp32"]["card_steps"],
                                             runs["fp32"]["host_steps"])]
+    err16_steps = [rel(c, h) for c, h in zip(runs["bf16"]["card_steps"],
+                                            runs["bf16"]["host_steps"])]
     routing = {k: v["routing"] for k, v in runs.items() if "routing" in v}
     blocks = {k: v["blocks"] for k, v in runs.items() if "blocks" in v}
-    if hybrid:
+    free = {k: dict(prefill=rel(v["card"], v["free"]),
+                    decode_steps=[rel(c, h) for c, h in zip(
+                        v["card_steps"], v["free_steps"])],
+                    replayed=v["replayed"])
+            for k, v in runs.items() if "free" in v}
+    if encdec:
+        # the prefill logits and every decode step's, the CPU taking the
+        # card's attention inputs; the free CPU run reported
+        seen = (f"prefill fp32 {err32}, bf16 {err16}; decode steps fp32 "
+                f"{err32_steps}, bf16 {err16_steps}; free CPU run {free}")
+        check(max([err32] + err32_steps) <= SERVE_TOL_FP32,
+              f"{arch}: fp32 card vs CPU: {seen}")
+        check(max([err16] + err16_steps) <= SERVE_TOL,
+              f"{arch}: bf16 card vs CPU: {seen}")
+    elif hybrid:
         # fp32: the prefill logits, and every block of the prefill and of
         # the decode steps; bf16: every block (see HYBRID_AGREE); the
         # decode steps' logits and the bf16 logits reported
@@ -1453,7 +1599,11 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
                        layers_bf16=runs["bf16"]["layers"],
                        layers_fp32=runs["fp32"]["layers"], rel_err_bf16=err16,
                        rel_err_fp32=err32,
-                       rel_err_fp32_decode_steps=err32_steps, routing=routing,
+                       rel_err_fp32_decode_steps=err32_steps,
+                       rel_err_bf16_decode_steps=err16_steps,
+                       **({"frames": runs["fp32"]["frames"],
+                           "free_cpu_run": free} if encdec else {}),
+                       routing=routing,
                        blocks={k: dict(n=len(v), max=max(v), each=v)
                                for k, v in blocks.items()},
                        fp32_card_launches=agree_launches,
@@ -1556,17 +1706,27 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
     small = dataclasses.replace(full, num_layers=spec["layers"])
     if hybrid:
         small = dataclasses.replace(small, window=spec["window"])
+    if full.is_encdec:
+        small = dataclasses.replace(small, encoder_layers=spec["layers"])
     params = _cpu_params(build_model(small, seed=1, device="cuda"))
     torch.cuda.empty_cache()
-    ads = train_dataset(small, spec["seq"], spec["batch"], seed=1)
     if hybrid:
+        ads = train_dataset(small, spec["seq"], spec["batch"], seed=1)
         agree = _hybrid_agreement(torch, L, build_model, small, params,
                                   train_batch(small, ads, 0), counts, reset)
     else:
+        # an encoder-decoder gets twice as many frames as tokens: the
+        # cross-attention's queries and keys differ in length (sq 128 on
+        # sk 256), forward and back
+        frames = 2 * spec["seq"] if full.is_encdec else spec["seq"]
+        ads = train_dataset(small, frames, spec["batch"], seed=1)
+        agree_batches = [
+            {k: v[:, :spec["seq"]] if k in ("tokens", "labels") else v
+             for k, v in train_batch(small, ads, i).items()}
+            for i in range(spec["steps"])]
         agree = _train_agreement(torch, L, build_model, small, params,
-                                 [train_batch(small, ads, i)
-                                  for i in range(spec["steps"])],
-                                 counts, reset, moe)
+                                 agree_batches, counts, reset,
+                                 replay=moe or full.is_encdec)
     del params
     tokens = batch * seq
     if layers is None:
@@ -1588,26 +1748,29 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
 
 
 def _train_agreement(torch, L, build_model, small, params, batches, counts,
-                     reset, moe: bool) -> dict:
+                     reset, replay: bool) -> dict:
     """TRAIN_AGREE's steps of ``small`` from ``params`` on the card and on
     the CPU, in fp32 and in bf16: losses and grad norms, gated at
     TRAIN_TOL.  An MoE model is chaotic in two places, where one rounding
     flips a discrete outcome or near one: a routing decision on a near
     tie, and its attention, near hard at the reference's init (wq and wk
     drawn with the head count as fan-in), where the backward's
-    dS = P (dP - D) cancels on the near-one-hot rows.  So its gated CPU
-    run takes the card's routing decisions and attention inputs and,
-    before each step, its state (``_replayed``, ``_copy_state``; how far
-    its own were is reported); a second CPU run from the same weights
-    runs free, and its distance from the card and its routing decisions
-    that differ are reported, as the serve phase reports them."""
+    dS = P (dP - D) cancels on the near-one-hot rows; so is the
+    encoder-decoder, whose attention is as hard and whose first encoder
+    layer rounds to bf16 in an fp32 model too (the embeds are bf16).  So
+    with ``replay`` the gated CPU run takes the card's routing decisions
+    and attention inputs and, before each step, its state (``_replayed``,
+    ``_copy_state``; how far its own were is reported); a second CPU run
+    from the same weights runs free, and its distance from the card and
+    its routing decisions that differ are reported, as the serve phase
+    reports them."""
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import init_state, make_train_step
 
     acfg = opt.OptimizerConfig(learning_rate=TRAIN_AGREE["lr"], warmup_steps=0,
                                total_steps=len(batches))
     sides = {"cuda": "cuda", "cpu": "cpu"}
-    if moe:
+    if replay:
         sides["cpu_free"] = "cpu"
     agree = {}
     for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -1625,12 +1788,12 @@ def _train_agreement(torch, L, build_model, small, params, batches, counts,
                 t0 = time.perf_counter()
                 with (_replayed(torch, L, logs[w], logs["cuda"][card_calls:]
                                 if w == "cpu" else None)
-                      if moe else contextlib.nullcontext()):
+                      if replay else contextlib.nullcontext()):
                     states[w], met = steps[w](states[w], b)
                 runs[w][0].append(float(met["loss"]))
                 runs[w][1].append(float(met["grad_norm"]))
                 wall[w] += time.perf_counter() - t0
-            if moe and i + 1 < len(batches):
+            if replay and i + 1 < len(batches):
                 _copy_state(torch, states["cpu"], states["cuda"])
         torch.cuda.synchronize()
         launched = counts()
@@ -1648,7 +1811,7 @@ def _train_agreement(torch, L, build_model, small, params, batches, counts,
                            grad_norm_rel_errs=rel("cpu", 1),
                            max_rel_err=max(gated), cpu_s=wall["cpu"],
                            card_launches=launched)
-        if moe:
+        if replay:
             agree[name].update(
                 replayed=_replay_differs(logs["cuda"], logs["cpu"]),
                 free=dict(cpu_losses=runs["cpu_free"][0],
@@ -1676,8 +1839,9 @@ def _copy_state(torch, dst, src) -> None:
 @contextlib.contextmanager
 def _replayed(torch, L, log: list, replay: list | None = None):
     """Inside the block, each call of the MoE routing (``moe_route``: its
-    experts, kept slots and rows) and of the prefill attention
-    (``blockwise_attention``: its q, k and v) appends its values, on the
+    experts, kept slots and rows) and of the attention (the prefill's
+    ``blockwise_attention`` and the decode step's ``decode_attention``:
+    its q, k and v, or its query and cache) appends its values, on the
     host, to ``log``.  With ``replay`` (the log of another run of the same
     calls), each call then takes the replayed values in place of its
     own: the routing's gates are recomputed from the call's own router
@@ -1726,7 +1890,8 @@ def _replayed(torch, L, log: list, replay: list | None = None):
             return fn(q, k, v, *a, **kw)
         return inner
 
-    with _patched(L, {"moe_route": route, "blockwise_attention": attention}):
+    with _patched(L, {"moe_route": route, "blockwise_attention": attention,
+                      "decode_attention": attention}):
         yield
 
 
@@ -2585,10 +2750,13 @@ def main() -> int:
 
     def lm_counts() -> dict:
         return {**fa.LAUNCHES, **ssd.LAUNCHES,
+                "flash_fwd_routes": dict(fa.FWD_ROUTES),
                 "flash_window_routes": dict(fa.WINDOW_ROUTES),
+                "flash_noncausal": dict(fa.NONCAUSAL),
                 "ssd_routes": dict(ssd.SSD_ROUTES),
                 "flash_bwd_routes": dict(fa.BWD_ROUTES),
                 "flash_bwd_window_routes": dict(fa.BWD_WINDOW_ROUTES),
+                "flash_bwd_noncausal": dict(fa.BWD_NONCAUSAL),
                 "ssd_bwd_routes": dict(ssd.SSD_BWD_ROUTES)}
 
     def lm_reset() -> None:
@@ -2825,6 +2993,8 @@ def main() -> int:
         launches[f"serve:{arch}"] = rec["launches"]
         if arch == "zamba2-7b":
             zamba_agree = rec["agreement"]
+        if arch == "seamless-m4t-medium":
+            encdec_agree = rec["agreement"]
         emit(phase="serve", seconds=time.perf_counter() - t0, **rec)
         torch.cuda.empty_cache()
     for arch in SERVE_MODELS:
@@ -2850,6 +3020,23 @@ def main() -> int:
     za = zamba_agree["fp32_card_launches"]
     check(za["flash_window_routes"]["simt"] == za["flash_attention"] > 0,
           f"zamba2-7b's fp32 agreement did not run the windowed FFMA K4: {za}")
+    # seamless-m4t-medium: one prefill, every K4 launch on the wgmma
+    # kernel, 12 non-causal in the encoder and 12 in the
+    # cross-attention; its fp32 agreement (2 + 2 layers) on the FFMA
+    # kernel, 2 + 2 of them non-causal
+    el = launches["serve:seamless-m4t-medium"]
+    n = get_config("seamless-m4t-medium").num_layers
+    check(el["flash_fwd_routes"] == {"wgmma": el["flash_attention"], "simt": 0}
+          and el["flash_attention"] == 3 * n,
+          f"seamless-m4t-medium's K4 launches not all wgmma, 3 a layer: {el}")
+    check(el["flash_noncausal"] == {"wgmma": 2 * n, "simt": 0}
+          and el["cross_noncausal"] == n,
+          f"seamless-m4t-medium's non-causal K4 launches: {el}")
+    ea = encdec_agree["fp32_card_launches"]
+    check(ea["flash_noncausal"] == {"wgmma": 0, "simt": 4}
+          and ea["flash_fwd_routes"]["simt"] == ea["flash_attention"] == 6,
+          f"seamless-m4t-medium's fp32 agreement did not run the FFMA K4 "
+          f"non-causal: {ea}")
 
     # 6a. LM training at full width (each model's depth in TRAIN), each
     # model's own launches
@@ -2895,6 +3082,20 @@ def main() -> int:
     check(zt["ssd_chunk_bwd"] > 0 and zt["ssd_bwd_routes"] == {
         "wgmma": zt["ssd_chunk_bwd"], "simt": 0},
         f"ssd_chunk_bwd took the simt route training zamba2-7b: {zt}")
+    # seamless-m4t-medium: 3 K4 backward launches a layer and step, all
+    # on mma, 2 of them non-causal (the encoder's, the cross-attention's);
+    # its fp32 agreement's on simt
+    et = launches["train:seamless-m4t-medium"]
+    n = get_config("seamless-m4t-medium").num_layers * TRAIN_STEPS
+    check(et["flash_attention_bwd"] == 3 * n
+          and et["flash_bwd_routes"] == {"mma": 3 * n, "simt": 0}
+          and et["flash_bwd_noncausal"] == {"mma": 2 * n, "simt": 0},
+          f"seamless-m4t-medium's K4 backward launches: {et}")
+    ea = train_agree["seamless-m4t-medium"]["fp32"]["card_launches"]
+    check(ea["flash_bwd_noncausal"]["simt"] > 0
+          and ea["flash_bwd_noncausal"]["mma"] == 0,
+          f"seamless-m4t-medium's fp32 agreement did not run the non-causal "
+          f"simt backward: {ea}")
 
     # 7. every kernel went through its path ---------------------------
     total = {k: sum(launches[ph][k]
@@ -2905,6 +3106,14 @@ def main() -> int:
     for name in K4_SHAPES:
         if ":" in name:  # the other served models' K4 launches
             total[name] = launches[f"serve:{name.split(':')[1]}"]["flash_attention"]
+    # seamless-m4t-medium's encoder and cross-attention launches: the
+    # serve's non-causal ones, those inside the cross-attention apart
+    el = launches["serve:seamless-m4t-medium"]
+    total["flash_attention:seamless-m4t-medium:cross"] = el["cross_noncausal"]
+    total["flash_attention:seamless-m4t-medium"] = (
+        el["flash_noncausal"]["wgmma"] - el["cross_noncausal"])
+    total["flash_attention_bwd:seamless-m4t-medium"] = launches[
+        "train:seamless-m4t-medium"]["flash_bwd_noncausal"]["mma"]
     total["ssd_chunk"] = launches["serve:mamba2-130m"]["ssd_chunk"]
     total["flash_attention_bwd"] = launches["train:qwen3-4b"]["flash_attention_bwd"]
     total["ssd_chunk_bwd"] = launches["train:mamba2-130m"]["ssd_chunk_bwd"]
@@ -2944,6 +3153,22 @@ def main() -> int:
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
         ))
+    # K4's non-causal backward at seamless-m4t-medium's encoder shape,
+    # with the non-causal backward launches of that model's training run
+    # (24 a step: 12 encoder layers, 12 cross-attentions)
+    rec = kern["flash_attention_bwd:seamless-m4t-medium"]
+    records.append(dict(
+        name="flash_attention_bwd:seamless-m4t-medium", route="cuda",
+        design=DESIGNS["flash_attention_bwd"],
+        source=SOURCES["flash_attention_bwd"],
+        replaces=TPU_KERNELS["flash_attention_bwd"],
+        launches=total["flash_attention_bwd:seamless-m4t-medium"],
+        launches_per_step=total["flash_attention_bwd:seamless-m4t-medium"]
+        / TRAIN_STEPS,
+        max_abs_err=rec["max_abs_err"], ms=rec["ms"], simt_ms=rec["simt_ms"],
+        plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+        bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+    ))
     # K4's windowed backward at zamba2-7b's training shape, with the
     # launches of that model's training run (one a step: one shared-block
     # application at 7 layers)

@@ -2,9 +2,10 @@
 
 Registered: the dense configs (qwen3-4b, llama3.2-3b, deepseek-7b), the
 MoE configs (deepseek-moe-16b, llama4-scout-17b-a16e), the M-RoPE/VLM
-backbone qwen2-vl-72b, the SSM mamba2-130m and the hybrid zamba2-7b.
-The reference's other architectures (llama3-405b and the
-encoder-decoder seamless-m4t-medium) wait in ROADMAP.md, queue 1 item 11.
+backbone qwen2-vl-72b, the SSM mamba2-130m, the hybrid zamba2-7b and
+the encoder-decoder seamless-m4t-medium.  The reference's one other
+architecture, llama3-405b, needs the sharding layer (ROADMAP.md, queue 1
+item 11.6).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from . import (
     mamba2_130m,
     qwen2_vl_72b,
     qwen3_4b,
+    seamless_m4t_medium,
     zamba2_7b,
 )
 from .base import ArchConfig, smoke_shrink
@@ -32,6 +34,7 @@ ARCHS: dict[str, ArchConfig] = {
         llama4_scout_17b_a16e,
         qwen2_vl_72b,
         zamba2_7b,
+        seamless_m4t_medium,
     )
 }
 
@@ -39,8 +42,9 @@ ARCHS: dict[str, ArchConfig] = {
 def get_config(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(
-            f"arch {name!r} is not ported (have {sorted(ARCHS)}); the "
-            "others wait in ROADMAP.md, queue 1 item 11"
+            f"arch {name!r} is not ported (have {sorted(ARCHS)}); "
+            "llama3-405b waits for the sharding layer, ROADMAP.md queue 1 "
+            "item 11.6"
         )
     return ARCHS[name]
 

@@ -3,9 +3,9 @@
 Counterpart of the reference's ``configs/base.py``: one ``<arch>.py`` per
 served architecture defines ``CONFIG`` with the published
 hyperparameters, and :func:`smoke_shrink` derives a reduced config of the
-same family for CPU tests.  The fields that only the unported
-encoder-decoder family reads are kept so a config reads the same on both
-sides; the models raise on them.
+same family for CPU tests.  The reference's input-shape cells
+(``SHAPES``, ``ShapeCell``) come with the sharding layer (ROADMAP.md,
+queue 1 item 11.6).
 """
 
 from __future__ import annotations
@@ -51,6 +51,10 @@ class ArchConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.family == "encdec"
 
 
 def smoke_shrink(cfg: ArchConfig) -> ArchConfig:

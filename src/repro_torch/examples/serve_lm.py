@@ -4,11 +4,14 @@ of ``examples/serve_lm.py``.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm [--device {cuda,cpu}]
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --arch zamba2-7b
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm --arch seamless-m4t-medium
 
 By default both of the reference example's models, each its reference
 smoke shrink (batch 4, prompt 64, 24 generated tokens); ``--arch`` serves
 another registered architecture's shrink the same way (zamba2-7b: the
-hybrid, whose shrink's window of 64 keys the prompt fills).  Served by
+hybrid, whose shrink's window of 64 keys the prompt fills;
+seamless-m4t-medium: the encoder-decoder, on as many frames as prompt
+tokens).  Served by
 :func:`repro_torch.launch.decode_demo.serve` on ``--device`` (default
 ``cuda``; with no GPU it fails unless ``--device cpu`` is given).
 """

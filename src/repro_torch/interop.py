@@ -78,15 +78,18 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))  # a writable copy
 
 
-def _stacks(cfg) -> list[tuple[str, tuple[int, ...]]]:
+def _stacks(cfg) -> list[tuple[str, tuple[int, ...], str]]:
     """The reference's stacked groups of ``cfg``'s layers, in layer
-    order, with their stacking axes: ``dense_layers`` (``first_k_dense``
-    rows for an MoE model, every layer for a dense one), then
-    ``moe_layers``; the SSM's ``layers``; the hybrid's ``groups``
-    (groups x ``attn_every`` rows, stacked twice), then its ``tail``."""
+    order, with their stacking axes and the port's list each goes to:
+    ``dense_layers`` (``first_k_dense`` rows for an MoE model, every
+    layer for a dense one), then ``moe_layers``; the SSM's ``layers``;
+    the hybrid's ``groups`` (groups x ``attn_every`` rows, stacked
+    twice), then its ``tail``, all into ``layers``; the
+    encoder-decoder's ``enc_layers`` into ``enc_layers`` and its
+    ``dec_layers`` into ``layers``."""
     if cfg.family == "ssm":
-        return [("layers", (cfg.num_layers,))]
-    if cfg.family == "hybrid":
+        stacks = [("layers", (cfg.num_layers,))]
+    elif cfg.family == "hybrid":
         ng = cfg.num_layers // cfg.attn_every
         stacks = [("groups", (ng, cfg.attn_every)),
                   ("tail", (cfg.num_layers - ng * cfg.attn_every,))]
@@ -94,11 +97,12 @@ def _stacks(cfg) -> list[tuple[str, tuple[int, ...]]]:
         n_dense = num_dense_layers(cfg)
         stacks = [("dense_layers", (n_dense,)),
                   ("moe_layers", (cfg.num_layers - n_dense,))]
+    elif cfg.family == "encdec":
+        return [("enc_layers", (cfg.encoder_layers,), "enc_layers"),
+                ("dec_layers", (cfg.num_layers,), "layers")]
     else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item 11)"
-        )
-    return [(k, axes) for k, axes in stacks if axes[0]]
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return [(k, axes, "layers") for k, axes in stacks if axes[0]]
 
 
 def _merged(x, axes: int):
@@ -113,20 +117,20 @@ def _merged(x, axes: int):
 def _unstack(cfg, tree: dict, leaf) -> dict:
     """The reference's stacked tree in the port's layout: each stacked
     group's entries cut into one dict per layer, the groups one after
-    the other in one ``layers`` list (a group stacked twice in row-major
-    order).  ``leaf(x, i)`` turns a reference leaf into the port's (row
-    ``i`` of its group, or ``None`` for an unstacked entry, whose dicts
-    keep their nesting)."""
+    the other in one list (``layers``; the encoder-decoder's encoder in
+    ``enc_layers``; a group stacked twice in row-major order).
+    ``leaf(x, i)`` turns a reference leaf into the port's (row ``i`` of
+    its group, or ``None`` for an unstacked entry, whose dicts keep their
+    nesting)."""
     def unstacked(v):
         if isinstance(v, dict):
             return {k: unstacked(x) for k, x in v.items()}
         return leaf(v, None)
 
     stacks = _stacks(cfg)
-    keys = {k for k, _ in stacks}
+    keys = {k for k, _, _ in stacks}
     out = {k: unstacked(v) for k, v in tree.items() if k not in keys}
-    out["layers"] = []
-    for key, axes in stacks:
+    for key, axes, into in stacks:
         stacked = {}
         for k, v in tree[key].items():
             shape = np.shape(v[0] if isinstance(v, tuple) else v)
@@ -135,8 +139,8 @@ def _unstack(cfg, tree: dict, leaf) -> dict:
                                  f"config has {axes}")
             stacked[k] = _merged(v, len(axes)) if len(axes) > 1 else v
         n = int(np.prod(axes))
-        out["layers"] += [{k: leaf(v, i) for k, v in stacked.items()}
-                          for i in range(n)]
+        out.setdefault(into, []).extend(
+            {k: leaf(v, i) for k, v in stacked.items()} for i in range(n))
     return out
 
 
@@ -152,10 +156,12 @@ def lm_params_from_numpy(cfg, tree: dict) -> dict:
     The reference stacks each layer's parameters on a leading axis for
     ``lax.scan`` (``"dense_layers"`` for the dense family, then
     ``"moe_layers"`` for an MoE model, ``"layers"`` for the SSM, the
-    hybrid's ``"groups"`` on two axes and its ``"tail"``); the port
+    hybrid's ``"groups"`` on two axes and its ``"tail"``, the
+    encoder-decoder's ``"enc_layers"`` and ``"dec_layers"``); the port
     keeps one dict per layer, in layer order.  Returns ``{"embed",
-    "final_norm", ["head"], ["shared"], "layers": [dict per layer]}`` of
-    CPU tensors, for :func:`repro_torch.models.build_model`."""
+    "final_norm", ["head"], ["shared"], ["enc_norm", "enc_layers": [dict
+    per encoder layer]], "layers": [dict per layer]}`` of CPU tensors,
+    for :func:`repro_torch.models.build_model`."""
     return _unstack(cfg, tree, _layer)
 
 

@@ -34,7 +34,9 @@ reference path.
 :func:`flash_attention_plain` is the same function in PyTorch, the same
 online softmax over key tiles with the same numerics.  The wrapper uses
 it only for CPU tensors; for CUDA tensors it launches the kernel or
-raises.  :data:`LAUNCHES` counts kernel launches.  What bounds the kernel
+raises.  :data:`LAUNCHES` counts kernel launches, :data:`FWD_ROUTES`
+the forward's by kernel, :data:`WINDOW_ROUTES` those with a window and
+:data:`NONCAUSAL` those without the causal mask.  What bounds the kernel
 on the H100 is noted at the top of the CUDA source.
 
 Training (the reference differentiates its jnp attention; its Pallas
@@ -52,7 +54,9 @@ stay in registers; fp32 takes ``simt``, the FFMA kernels, where each
 query head writes an fp32 share of its kv head's dK and dV and a second
 kernel sums a group's shares in head order.  ``route=`` forces one (the
 smoke times both on bf16); :func:`bwd_workspace` is the fp32 scratch
-each route allocates; :data:`BWD_ROUTES` counts launches by route.
+each route allocates; :data:`BWD_ROUTES` counts launches by route,
+:data:`BWD_WINDOW_ROUTES` and :data:`BWD_NONCAUSAL` the windowed and the
+non-causal ones.
 :class:`FlashAttentionFn` is the autograd function over the two; on CPU
 tensors it runs :func:`flash_attention_plain` and
 :func:`flash_attention_bwd_plain` (the explicit formulas, not autograd).
@@ -72,18 +76,24 @@ MAX_HEAD_DIM = 128  # the kernel's register budget (FA_MAX_D)
 NEG_INF = -1e30  # the reference kernel's mask value
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
-# forward launches with a window, by kernel: "wgmma" (bf16), "simt"
-# (fp32, FFMA)
+# forward launches by kernel: "wgmma" (bf16), "simt" (fp32, FFMA); those
+# with a window; those without the causal mask (an encoder's
+# self-attention, a cross-attention)
+FWD_ROUTES = {"wgmma": 0, "simt": 0}
 WINDOW_ROUTES = {"wgmma": 0, "simt": 0}
+NONCAUSAL = {"wgmma": 0, "simt": 0}
+# backward launches by route; those with a window; those without the
+# causal mask
 BWD_ROUTES = {"mma": 0, "simt": 0}
-# backward launches with a window, by route
 BWD_WINDOW_ROUTES = {"mma": 0, "simt": 0}
+BWD_NONCAUSAL = {"mma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    for routes in (WINDOW_ROUTES, BWD_ROUTES, BWD_WINDOW_ROUTES):
+    for routes in (FWD_ROUTES, WINDOW_ROUTES, NONCAUSAL, BWD_ROUTES,
+                   BWD_WINDOW_ROUTES, BWD_NONCAUSAL):
         for route in routes:
             routes[route] = 0
 
@@ -299,8 +309,12 @@ def flash_attention(
     )
     check(lib, rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    route = "wgmma" if bf16 else "simt"
+    FWD_ROUTES[route] += 1
     if window:
-        WINDOW_ROUTES["wgmma" if bf16 else "simt"] += 1
+        WINDOW_ROUTES[route] += 1
+    if not causal:
+        NONCAUSAL[route] += 1
     return (o, lse) if return_lse else o
 
 
@@ -379,6 +393,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     BWD_ROUTES[route] += 1
     if window:
         BWD_WINDOW_ROUTES[route] += 1
+    if not causal:
+        BWD_NONCAUSAL[route] += 1
     return dq, dk, dv
 
 

@@ -7,9 +7,13 @@ cache, decode ``gen_tokens`` tokens by greedy argmax, and report
 ``prefill_s``, ``decode_s`` and ``decode_tok_per_s``.  A VLM backbone
 (``embed_inputs``) takes random prompt embeddings in place of the
 vision frontend, and M-RoPE models their (3, B, S) positions, as in the
-reference.  Prefill attention runs the flash kernel (with the hybrid's
-sliding window for zamba2-7b) and the Mamba-2 prefill the SSD chunk
-kernel on the card.
+reference; an encoder-decoder (seamless-m4t-medium) takes as many
+random frame embeddings as prompt tokens, as the reference's demo does,
+its encoder reading the frames and its decoder the tokens.  Prefill
+attention runs the flash kernel (with the hybrid's sliding window for
+zamba2-7b, without the causal mask in the encoder-decoder's encoder and
+cross-attention) and the Mamba-2 prefill the SSD chunk kernel on the
+card.
 
     PYTHONPATH=src python -m repro_torch.launch.decode_demo --arch qwen3-4b \\
         --batch 4 --prompt-len 512 --gen 32 --full
@@ -17,6 +21,8 @@ kernel on the card.
         --arch deepseek-moe-16b --batch 4 --prompt-len 512 --full
     PYTHONPATH=src python -m repro_torch.launch.decode_demo \\
         --arch zamba2-7b --batch 1 --prompt-len 8192 --full
+    PYTHONPATH=src python -m repro_torch.launch.decode_demo \\
+        --arch seamless-m4t-medium --batch 4 --prompt-len 512 --full
 
 Without ``--full`` the model is the reference's smoke shrink of the
 architecture.  The default device is the card; ``--device cpu`` runs the
@@ -45,8 +51,9 @@ def prompt_inputs(cfg, batch: int, prompt_len: int,
                   generator: torch.Generator) -> dict:
     """The prompt of a serve run, drawn from ``generator`` on its device
     as the reference's demo draws it: ``tokens`` (batch, prompt_len);
-    for an ``embed_inputs`` config random fp32 ``embeds`` (batch,
-    prompt_len, d_model) (the stub frontend's output); for M-RoPE
+    for an ``embed_inputs`` config (the VLM backbone, the
+    encoder-decoder) random fp32 ``embeds`` (batch, prompt_len, d_model)
+    (the stub frontend's output); for M-RoPE
     ``positions`` (3, batch, prompt_len), the text positions on all
     three axes."""
     dev = generator.device

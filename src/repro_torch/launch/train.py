@@ -55,19 +55,23 @@ class StragglerWatchdog:
 def train_dataset(cfg, seq_len: int, global_batch: int,
                   seed: int = 0) -> SyntheticTextDataset:
     """The reference trainer's dataset for ``cfg``: an ``embed_inputs``
-    model (the VLM backbone) also gets stub-frontend embeddings of its
-    width, and an M-RoPE model (3, B, S) positions."""
+    model (the VLM backbone) and an encoder-decoder also get
+    stub-frontend embeddings of their width, and an M-RoPE model (3, B,
+    S) positions."""
     return SyntheticTextDataset(
         vocab_size=cfg.vocab_size, seq_len=seq_len,
         global_batch=global_batch, seed=seed,
-        embed_dim=cfg.d_model if cfg.embed_inputs else 0, mrope=cfg.mrope)
+        embed_dim=cfg.d_model if cfg.embed_inputs or cfg.is_encdec else 0,
+        mrope=cfg.mrope)
 
 
 def train_batch(cfg, ds: SyntheticTextDataset, step: int) -> dict:
     """Batch ``step`` as the reference's step takes it: without
-    ``tokens`` for an ``embed_inputs`` model, which reads ``embeds``."""
+    ``tokens`` for a decoder-only ``embed_inputs`` model, which reads
+    ``embeds``; an encoder-decoder reads both, the embeds in its encoder
+    and the tokens in its decoder."""
     batch = ds.batch(step)
-    if cfg.embed_inputs:
+    if cfg.embed_inputs and not cfg.is_encdec:
         del batch["tokens"]
     return batch
 

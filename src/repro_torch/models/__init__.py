@@ -1,9 +1,9 @@
 """The served LM architectures: ``build_model``.
 
-The dense family (with M-RoPE and embedded inputs for the VLM backbone),
-the MoE family (:class:`DecoderLM`), the SSM family (:class:`MambaLM`)
-and the hybrid (:class:`ZambaLM`) are ported; the encoder-decoder waits
-in ROADMAP.md, queue 1 item 11.
+Every family of the reference is ported: the dense family (with M-RoPE
+and embedded inputs for the VLM backbone) and the MoE family
+(:class:`DecoderLM`), the SSM family (:class:`MambaLM`), the hybrid
+(:class:`ZambaLM`) and the encoder-decoder (:class:`EncDecLM`).
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.executor import resolve_device
 from ..tree import tree_map
-from . import hybrid, lm, ssm_model
+from . import encdec, hybrid, lm, ssm_model
+from .encdec import EncDecLM
 from .hybrid import ZambaLM
 from .lm import DecoderLM
 from .ssm_model import MambaLM
@@ -38,9 +39,9 @@ def build_model(cfg: ArchConfig, params: dict | None = None, *,
         return MambaLM(cfg, params, generator=gen)
     if cfg.family == "hybrid":
         return ZambaLM(cfg, params, generator=gen)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item 11)"
-    )
+    if cfg.family == "encdec":
+        return EncDecLM(cfg, params, generator=gen)
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def param_defs(cfg: ArchConfig) -> dict:
@@ -51,13 +52,14 @@ def param_defs(cfg: ArchConfig) -> dict:
         return ssm_model.param_defs(cfg)
     if cfg.family == "hybrid":
         return hybrid.param_defs(cfg)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item 11)"
-    )
+    if cfg.family == "encdec":
+        return encdec.param_defs(cfg)
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _to(params, device):
     return tree_map(lambda t: t.to(device), params)
 
 
-__all__ = ["build_model", "param_defs", "DecoderLM", "MambaLM", "ZambaLM"]
+__all__ = ["build_model", "param_defs", "DecoderLM", "EncDecLM", "MambaLM",
+           "ZambaLM"]

@@ -78,8 +78,9 @@ class ZambaLM(TrainableLM):
         self.cfg = cfg
         self.n_groups = cfg.num_layers // cfg.attn_every
         self.n_tail = cfg.num_layers - self.n_groups * cfg.attn_every
-        self.top, self.layers = param_modules(param_defs(cfg), params,
-                                              generator)
+        self.top, stacks = param_modules(param_defs(cfg), params,
+                                         generator)
+        self.layers = stacks["layers"]
 
     def head_weights(self, top: dict) -> torch.Tensor:
         return top["head"]

@@ -39,7 +39,9 @@ def wide(x: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
-    xf = wide(x)
+    # fp32, or fp64 where either side is (a bf16 input meets fp64 weights
+    # in the fp64 oracle's first encoder or VLM layer)
+    xf = x.to(torch.promote_types(wide(x).dtype, scale.dtype))
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * wide(scale)
     return out.to(x.dtype)

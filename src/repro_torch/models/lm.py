@@ -120,8 +120,9 @@ class DecoderLM(TrainableLM):
                 f"{cfg.family!r}")
         self.cfg = cfg
         self.n_dense = num_dense_layers(cfg)
-        self.top, self.layers = param_modules(param_defs(cfg), params,
-                                              generator)
+        self.top, stacks = param_modules(param_defs(cfg), params,
+                                         generator)
+        self.layers = stacks["layers"]
 
     def head_weights(self, top: dict) -> torch.Tensor:
         return top["embed"].T if self.cfg.tie_embeddings else top["head"]

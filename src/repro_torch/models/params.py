@@ -94,31 +94,43 @@ def _check(defs, params, where: str) -> None:
                              f"!= {d.shape}")
 
 
+# the layer stacks a parameter tree may hold, in tree order: the
+# encoder-decoder's encoder layers, then every family's ``layers``
+STACKS = ("enc_layers", "layers")
+
+
 def param_modules(defs: dict, params: dict | None,
                   generator: torch.Generator | None):
-    """``(top, layers)`` modules holding a model's weights: ``params``
-    (``{..., "layers": [per-layer dict]}``) checked against the
-    declarations ``defs``, or, without them, drawn from ``generator``."""
+    """``(top, stacks)`` modules holding a model's weights: ``top`` a
+    :class:`Params` of the tree's other entries, ``stacks`` a
+    :class:`~torch.nn.ModuleList` per layer stack of :data:`STACKS` in
+    ``defs`` (``{..., "layers": [per-layer dict]}``), the weights
+    ``params`` checked against the declarations ``defs`` or, without
+    them, drawn from ``generator``."""
     if params is None:
         if generator is None:
             raise ValueError("pass params or a generator to draw them")
         params = init_params(defs, generator)
-    top_defs = {k: v for k, v in defs.items() if k != "layers"}
-    top = {k: v for k, v in params.items() if k != "layers"}
+    names = [k for k in STACKS if k in defs]
+    top_defs = {k: v for k, v in defs.items() if k not in names}
+    top = {k: v for k, v in params.items() if k not in names}
     _check(top_defs, top, "top")
-    if len(params["layers"]) != len(defs["layers"]):
-        raise ValueError(f"{len(params['layers'])} layers, config has "
-                         f"{len(defs['layers'])}")
-    for i, (d, lp) in enumerate(zip(defs["layers"], params["layers"])):
-        _check(d, lp, f"layers[{i}]")
-    return Params(top), nn.ModuleList(Params(lp) for lp in params["layers"])
+    stacks = {}
+    for name in names:
+        if len(params[name]) != len(defs[name]):
+            raise ValueError(f"{len(params[name])} {name}, config has "
+                             f"{len(defs[name])}")
+        for i, (d, lp) in enumerate(zip(defs[name], params[name])):
+            _check(d, lp, f"{name}[{i}]")
+        stacks[name] = nn.ModuleList(Params(lp) for lp in params[name])
+    return Params(top), stacks
 
 
 class TrainableLM(nn.Module):
-    """What the dense, SSM and hybrid models share for training: a model
-    holds its weights in ``top`` (a :class:`Params`) and ``layers`` (a
-    list of them), and defines ``hidden_states(batch) -> (h, aux)`` and
-    ``head_weights(top)``."""
+    """What the models share for training: a model holds its weights in
+    ``top`` (a :class:`Params`) and ``layers`` (a list of them; the
+    encoder-decoder also ``enc_layers``), and defines
+    ``hidden_states(batch) -> (h, aux)`` and ``head_weights(top)``."""
 
     def train_mode(self, flag: bool = True):
         """Make every parameter trainable (``requires_grad``), or frozen
@@ -128,11 +140,14 @@ class TrainableLM(nn.Module):
         return self
 
     def param_tree(self) -> dict:
-        """``{"embed", "final_norm", ["head"], ["shared"], "layers":
-        [dict per layer]}`` of the model's own parameters (not copies):
-        the training state's ``params``."""
+        """``{"embed", "final_norm", ["head"], ["shared"], ["enc_norm",
+        "enc_layers": [dict per encoder layer]], "layers": [dict per
+        layer]}`` of the model's own parameters (not copies): the training
+        state's ``params``."""
         tree = self.top.tensors()
-        tree["layers"] = [lp.tensors() for lp in self.layers]
+        for name in STACKS:
+            if hasattr(self, name):
+                tree[name] = [lp.tensors() for lp in getattr(self, name)]
         return tree
 
     def _tokens(self, x) -> torch.Tensor:

@@ -75,8 +75,9 @@ class MambaLM(TrainableLM):
         if cfg.family != "ssm":
             raise ValueError(f"MambaLM serves family 'ssm', not {cfg.family!r}")
         self.cfg = cfg
-        self.top, self.layers = param_modules(param_defs(cfg), params,
-                                              generator)
+        self.top, stacks = param_modules(param_defs(cfg), params,
+                                         generator)
+        self.layers = stacks["layers"]
 
     def head_weights(self, top: dict) -> torch.Tensor:
         return top["embed"].T if self.cfg.tie_embeddings else top["head"]

@@ -42,13 +42,13 @@ class OptimizerConfig:
     moment_dtype: str = "float32"  # float32 | int8
 
 
-def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
-    """Learning rate at ``step`` (int or integer tensor), fp32: linear
-    warmup, then cosine down to ``min_lr_ratio``."""
+def schedule(cfg: OptimizerConfig, step, dtype=F32) -> torch.Tensor:
+    """Learning rate at ``step`` (int or integer tensor), in ``dtype``
+    (fp32): linear warmup, then cosine down to ``min_lr_ratio``."""
     step = torch.as_tensor(step)
-    warm = torch.clamp(step.to(F32) / max(cfg.warmup_steps, 1), max=1.0)
+    warm = torch.clamp(step.to(dtype) / max(cfg.warmup_steps, 1), max=1.0)
     prog = torch.clamp(
-        (step - cfg.warmup_steps).to(F32)
+        (step - cfg.warmup_steps).to(dtype)
         / max(cfg.total_steps - cfg.warmup_steps, 1),
         0.0, 1.0,
     )
@@ -59,6 +59,12 @@ def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
 
 def _decayable(leaf: torch.Tensor) -> bool:
     return leaf.dim() >= 2
+
+
+def _work(x: torch.Tensor) -> torch.dtype:
+    """The update's arithmetic type for a tensor: fp32, or fp64 for fp64
+    (the CPU's fp64 oracle runs its steps in fp64 throughout)."""
+    return torch.promote_types(F32, x.dtype)
 
 
 def is_moment(x) -> bool:
@@ -80,8 +86,9 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def init(cfg: OptimizerConfig, params) -> dict:
-    """Zero moments shaped like ``params`` (fp32, or int8 with a 0-d fp32
-    scale) and a step count of 0, on the parameters' device."""
+    """Zero moments shaped like ``params`` (fp32, fp64 for fp64
+    parameters, or int8 with a 0-d fp32 scale) and a step count of 0, on
+    the parameters' device."""
     flat = leaves(params)
     device = flat[0].device if flat else None
     if cfg.moment_dtype == "int8":
@@ -90,7 +97,7 @@ def init(cfg: OptimizerConfig, params) -> dict:
                     torch.zeros((), dtype=F32, device=p.device))
     elif cfg.moment_dtype == "float32":
         def zero(p):
-            return torch.zeros(p.shape, dtype=F32, device=p.device)
+            return torch.zeros(p.shape, dtype=_work(p), device=p.device)
     else:
         raise ValueError(f"moment_dtype {cfg.moment_dtype!r}: want float32 "
                          "or int8")
@@ -103,23 +110,32 @@ def init(cfg: OptimizerConfig, params) -> dict:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum, over the leaves in order, of each leaf's sum of
-    squares in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
+    squares in fp32 (fp64 for fp64 leaves)."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(_work(g))))
                           for g in leaves(tree)))
 
 
 @torch.no_grad()
 def update(cfg: OptimizerConfig, grads, state: dict, params):
     """One AdamW step.  Returns ``(params, state, metrics)`` with
-    ``metrics = {"grad_norm", "lr"}`` (0-d fp32 tensors); ``params`` and
-    the fp32 moments are updated in place and returned."""
+    ``metrics = {"grad_norm", "lr"}`` (0-d fp32 tensors; the norm fp64
+    for fp64 gradients); ``params`` and the fp32 moments are updated in
+    place and returned.  fp64 tensors are updated in fp64 throughout."""
     count = state["count"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-    lr = schedule(cfg, count)
     int8 = cfg.moment_dtype == "int8"
-    bc1 = 1.0 - cfg.b1 ** count.to(F32)
-    bc2 = 1.0 - cfg.b2 ** count.to(F32)
+    consts = {}
+
+    def at(dtype):
+        """(lr, 1 - b1^t, 1 - b2^t) in ``dtype``, each computed once."""
+        if dtype not in consts:
+            t = count.to(dtype)
+            consts[dtype] = (schedule(cfg, count, dtype), 1.0 - cfg.b1 ** t,
+                             1.0 - cfg.b2 ** t)
+        return consts[dtype]
+
+    lr = at(F32)[0]
 
     flat_p = leaves(params)
     flat_g = leaves(grads)
@@ -129,7 +145,8 @@ def update(cfg: OptimizerConfig, grads, state: dict, params):
         raise ValueError("params, grads and moments differ in structure")
     new_m, new_v = [], []
     for g, p, m, v in zip(flat_g, flat_p, flat_m, flat_v):
-        g = g.to(F32) * clip
+        lr_p, bc1, bc2 = at(_work(p))
+        g = g.to(_work(p)) * clip
         m_f = _dequantize(*m) if int8 else m
         v_f = _dequantize(*v) if int8 else v
         m_f = m_f.mul_(cfg.b1).add_((1 - cfg.b1) * g)
@@ -137,8 +154,8 @@ def update(cfg: OptimizerConfig, grads, state: dict, params):
         del g
         upd = (m_f / bc1).div_(torch.sqrt(v_f / bc2).add_(cfg.eps))
         if cfg.weight_decay and _decayable(p):
-            upd.add_(cfg.weight_decay * p.to(F32))
-        p.copy_(p.to(F32) - lr * upd)
+            upd.add_(cfg.weight_decay * p.to(upd.dtype))
+        p.copy_(p.to(upd.dtype) - lr_p * upd)
         del upd
         new_m.append(_quantize(m_f) if int8 else m_f)
         new_v.append(_quantize(v_f) if int8 else v_f)

@@ -443,6 +443,8 @@ def _rel(got, want) -> float:
     (4, 4, 128, 256, 128, False, 0),    # full attention, group 4
     (64, 1, 512, 512, 128, True, 0),    # deepseek-moe-16b's serve prefill (MHA)
     (256, 8, 512, 512, 128, True, 0),   # qwen2-vl-72b's serve prefill, group 8
+    (64, 1, 512, 512, 64, False, 0),    # seamless-m4t-medium's encoder
+    (64, 1, 512, 1024, 64, False, 0),   # its cross-attention, sq != sk
 ])
 def test_flash_attention_on_card(dev, dtype, bh, group, sq, sk, d, causal,
                                  q_offset):
@@ -580,6 +582,8 @@ FLASH_BWD_CASES = [
     (6, 3, 64, 192, 24, False, 0),      # full attention, odd head dim
     (8, 4, 512, 512, 128, True, 0),     # qwen3-4b's group and head dim
     (4, 1, 64, 256, 16, True, 0),       # keys no query sees: zero dK/dV
+    (64, 1, 512, 512, 64, False, 0),    # seamless-m4t-medium's encoder
+    (64, 1, 512, 1024, 64, False, 0),   # its cross-attention, sq != sk
 ]
 
 
@@ -901,6 +905,88 @@ def test_prefill_on_card_matches_cpu(dev, arch, kernel):
     assert mod.LAUNCHES[kernel] == cfg.num_layers
     _, want = prefill(cpu_model, inputs)
     assert _rel(logits.cpu(), want) <= 3e-2
+
+
+def _encdec_pair(dev, dtype):
+    """seamless-m4t-medium's shrink (2 + 2 layers) on the card and on the
+    CPU with the same weights in ``dtype``."""
+    from repro_torch.configs import get_config, smoke_shrink
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    cfg = smoke_shrink(get_config("seamless-m4t-medium"))
+    params = tree_map(lambda t: t.detach().cpu().to(dtype),
+                      build_model(cfg, seed=0, device=dev).param_tree())
+    return (build_model(cfg, params, device=dev),
+            build_model(cfg, params, device="cpu"))
+
+
+def test_encdec_prefill_on_card_counts_noncausal_launches(dev, monkeypatch):
+    """The encoder-decoder shrink's bf16 prefill on 256 frames and 128
+    tokens: 6 K4 launches, all on the wgmma kernel, 4 of them non-causal
+    (2 encoder layers, 2 cross-attentions, sq 128 on sk 256); its logits
+    within 3e-2 of max|logit| of the CPU's on the same weights, the CPU
+    taking the card's attention inputs (at the reference's init the
+    attention is near hard: one bf16 rounding of q or k moves a score by
+    units, and the free runs part by half of max|logit|)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+
+    model, cpu_model = _encdec_pair(dev, torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 128), generator=g)
+    embeds = torch.randn(2, 256, model.cfg.d_model, generator=g)
+    attention, card_inputs = L.blockwise_attention, []
+
+    def recorded(q, k, v, **kw):
+        card_inputs.append((q.cpu(), k.cpu(), v.cpu()))
+        return attention(q, k, v, **kw)
+
+    monkeypatch.setattr(L, "blockwise_attention", recorded)
+    fa.reset_launches()
+    _, logits = model.prefill(toks.to(dev), embeds=embeds.to(dev))
+    assert fa.LAUNCHES["flash_attention"] == 6
+    assert fa.FWD_ROUTES == {"wgmma": 6, "simt": 0}
+    assert fa.NONCAUSAL == {"wgmma": 4, "simt": 0}
+    replay = iter(card_inputs)
+    monkeypatch.setattr(L, "blockwise_attention",
+                        lambda q, k, v, **kw: attention(*next(replay), **kw))
+    _, want = cpu_model.prefill(toks, embeds=embeds)
+    assert next(replay, None) is None
+    assert _rel(logits.cpu(), want) <= 3e-2
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "simt")])
+def test_encdec_train_step_on_card_counts_noncausal_backward(dev, dtype,
+                                                             route):
+    """One training step of the encoder-decoder shrink (256 frames, 128
+    tokens): 6 K4 backward
+    launches on the dtype's route, 4 of them non-causal (the encoder's
+    and the cross-attention's, whose dK and dV reach the encoder); the
+    loss within 1e-3 (fp32) or 3e-2 (bf16) of the CPU's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    model, cpu_model = _encdec_pair(dev, dtype)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, 512, size=(1, 129), dtype=np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "embeds": rng.normal(size=(1, 256, 64)).astype(np.float32)}
+    ocfg = opt.OptimizerConfig(learning_rate=1e-4, warmup_steps=0)
+    fa.reset_launches()
+    _, met = make_train_step(model, ocfg)(init_state(model, ocfg), batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd"] == 6
+    assert fa.BWD_ROUTES[route] == 6
+    assert fa.BWD_NONCAUSAL[route] == 4
+    _, want = make_train_step(cpu_model, ocfg)(init_state(cpu_model, ocfg),
+                                               batch)
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    assert abs(float(met["loss"]) - float(want["loss"])) <= tol * abs(
+        float(want["loss"]))
+    assert np.isfinite(float(met["grad_norm"]))
 
 
 def _hybrid_pair(dev, dtype):

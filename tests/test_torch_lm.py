@@ -65,15 +65,14 @@ def test_config_matches_reference(arch):
 
 
 def test_only_served_models_are_registered():
-    """The served models (the hybrid zamba2-7b among them) and
-    llama3.2-3b (the training launcher's default) are registered;
-    llama3-405b (it needs sharding) and the encoder-decoder wait in
-    ROADMAP."""
-    assert set(ARCHS) == set(MODELS) | {"llama3.2-3b"}
+    """The served models (the hybrid zamba2-7b among them), the
+    encoder-decoder seamless-m4t-medium (``tests/test_torch_encdec.py``)
+    and llama3.2-3b (the training launcher's default) are registered;
+    llama3-405b (it needs sharding) waits in ROADMAP."""
+    assert set(ARCHS) == set(MODELS) | {"llama3.2-3b", "seamless-m4t-medium"}
     assert "zamba2-7b" in ARCHS
-    for arch in ("llama3-405b", "seamless-m4t-medium"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_config(arch)
+    with pytest.raises(KeyError, match="ROADMAP"):
+        get_config("llama3-405b")
 
 
 # the reference's stacked layer groups, each with its stacking axes: the
@@ -161,11 +160,22 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_features_raise():
-    """What stays unported: the encoder-decoder family.  The gradient
-    through a sliding window, unported until item 11.4b, now runs."""
+    """What stays unported: llama3-405b (its config waits for the
+    sharding layer) and training on a mesh of more than one device.  The
+    encoder-decoder family, unported until item 11.5, now builds, and
+    the gradient through a sliding window (item 11.4b) runs."""
+    from repro_torch.launch.train import train
+
+    with pytest.raises(KeyError, match="11.6"):
+        get_config("llama3-405b")
+    with pytest.raises(NotImplementedError, match="11.6"):
+        train("seamless-m4t-medium", steps=1, mesh_shape=(2, 1),
+              device="cpu")
     cfg = smoke_shrink(get_config("qwen3-4b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(cfg, family="encdec"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, family="vit"), device="cpu")
+    encdec = smoke_shrink(get_config("seamless-m4t-medium"))
+    assert type(build_model(encdec, device="cpu")).__name__ == "EncDecLM"
     q = torch.zeros(1, 128, 2, 8, requires_grad=True)
     out = L.blockwise_attention(q, q, q, window=4)
     out.sum().backward()

@@ -19,6 +19,7 @@ losses rtol 1e-4 (parameters are not compared after an Adam step: at step
 differs moves a weight by 2·lr).
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -52,7 +53,12 @@ from repro_torch.examples import train_lm  # noqa: E402
 from repro_torch.interop import _unstack, lm_params_from_numpy, opt_state_from_numpy  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
-from repro_torch.launch.train import StragglerWatchdog, train  # noqa: E402
+from repro_torch.launch.train import (  # noqa: E402
+    StragglerWatchdog,
+    train,
+    train_batch,
+    train_dataset,
+)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.losses import chunked_cross_entropy  # noqa: E402
@@ -67,6 +73,8 @@ from repro_torch.train.train_step import (  # noqa: E402
     make_train_step,
 )
 
+from test_torch_encdec import looped_encode, x64_reference  # noqa: E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRAD_TOL = 1e-4
 # the most that the port's sequential scan may differ from the reference's
@@ -80,6 +88,15 @@ FLOOR_CAP = 5e-4
 # here.  In fp64 the port and the reference read 1.0e-12 apart: FP64_TOL
 HYBRID_FLOOR_CAP = 2e-3
 FP64_TOL = 1e-9
+# the encoder-decoder's shrink in fp32 is bf16 where its input is (the
+# first encoder layer normalises the bf16 embeds into bf16 and casts its
+# attention output to bf16) and its attention is hard, so two fp32
+# evaluations part by whole bf16 steps: the reference's own fp32
+# gradients sit up to 7.4e-2 of a tensor's max|grad| from its fp64 ones
+# (the port's fp32 3.5e-2 from the reference's fp32).  Each port fp32
+# gradient is held to the reference's fp32 no further than that floor,
+# capped here; the fp64 gradients within FP64_TOL
+ENCDEC_FLOOR_CAP = 1e-1
 
 
 def _np(x):
@@ -302,14 +319,22 @@ def _ref_setup(arch, dtype=jnp.float32, key=0):
     ref_model = ref_build_model(ref_cfg)
     params = ref_init_params(ref_model.param_defs(), jax.random.PRNGKey(key))
     params = jax.tree.map(lambda a: a.astype(dtype), params)
+    if ref_cfg.is_encdec and dtype != jnp.bfloat16:
+        # its encoder's scan refuses wider weights than the bf16 embeds
+        ref_model.encode = looped_encode(ref_model)
     cfg = smoke_shrink(get_config(arch))
     return ref_model, params, cfg
 
 
-def _batch(vocab, B, S, seed):
-    toks = np.random.default_rng(seed).integers(0, vocab, size=(B, S + 1),
-                                                dtype=np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+def _batch(cfg, B, S, seed):
+    """Tokens and labels (B, S) drawn from ``seed``; for an
+    encoder-decoder also frame embeddings (B, S, d_model)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1), dtype=np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encdec:
+        out["embeds"] = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def _port_grads(cfg, params_np, batch):
@@ -339,10 +364,14 @@ def _pairs(cfg, params_t, ref_grads):
     # the hybrid's shrink (4 layers, the shared block after every 2,
     # window 64): both kernels' paths, the window binding at S 128
     ("zamba2-7b", 128),
+    # the encoder-decoder's shrink (2 + 2 layers) on 512 frames and
+    # tokens: K4's non-causal plain version in the encoder and the
+    # cross-attention, causal in the decoder
+    ("seamless-m4t-medium", 512),
 ])
 def test_loss_and_grads_match_reference(arch, S):
     ref_model, params, cfg = _ref_setup(arch)
-    batch = _batch(cfg.vocab_size, 2, S, seed=S)
+    batch = _batch(cfg, 2, S, seed=S)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     (ref_loss, ref_met), ref_grads = jax.jit(jax.value_and_grad(
         lambda p: ref_model.loss(p, jb), has_aux=True))(params)
@@ -382,6 +411,10 @@ def test_loss_and_grads_match_reference(arch, S):
         _hybrid_grads_match_reference(ref_model, params, cfg, batch,
                                       params_t, ref_grads)
         return
+    if cfg.is_encdec:
+        _encdec_grads_match_reference(ref_model, params, cfg, batch,
+                                      params_t, ref_grads)
+        return
     n = 0
     for name, got, want in _pairs(cfg, params_t, ref_grads):
         assert got is not None and got.shape == want.shape, name
@@ -392,49 +425,80 @@ def test_loss_and_grads_match_reference(arch, S):
     assert n == len(tree.leaves(params_t))
 
 
-def _hybrid_grads_match_reference(ref_model, params, cfg, batch, params_t,
-                                  ref32):
-    """The hybrid shrink's gradients against the reference's in fp64 (its
-    models' fp32 casts widened to fp64, ``jax.enable_x64``; the port runs
-    fp64 on the CPU from fp64 weights): the port's fp64 gradients within
-    FP64_TOL, and its fp32 ones (``params_t``) no further than the
-    reference's own fp32 gradients (``ref32``) are, on their worst
-    tensor."""
+def _grads64(ref_model, params, cfg, batch):
+    """The reference's gradients in fp64 (its models' fp32 casts widened
+    to fp64, ``jax.enable_x64``) and the port's from fp64 weights (it
+    runs fp64 on the CPU), each as numpy fp64."""
     from repro.models import hybrid as ref_hybrid
-    from repro.models import layers as ref_layers
     from repro.models import lm as ref_lm
-    from repro.models import losses as ref_losses
 
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
-        for mod in (ref_layers, ref_hybrid, ref_losses, ref_lm):
-            mp.setattr(mod, "F32", jnp.float64)
+    with x64_reference(ref_hybrid, ref_lm):
         ref64 = jax.jit(jax.grad(lambda p: ref_model.loss(p, jb)[0]))(
             jax.tree.map(lambda a: a.astype(jnp.float64), params))
         assert {a.dtype for a in jax.tree.leaves(ref64)} == {np.dtype(np.float64)}
         ref64 = jax.tree.map(lambda a: np.asarray(a, np.float64), ref64)
     _, _, port64 = _port_grads(
         cfg, jax.tree.map(lambda a: np.asarray(a, np.float64), params), batch)
+    return ref64, port64
 
-    def unit(got, want):
-        return float(np.abs(got - want).max() / np.abs(want).max())
 
+def _unit(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _hybrid_grads_match_reference(ref_model, params, cfg, batch, params_t,
+                                  ref32):
+    """The hybrid shrink's gradients against the reference's in fp64
+    (:func:`_grads64`): the port's fp64 gradients within FP64_TOL, and
+    its fp32 ones (``params_t``) no further than the reference's own fp32
+    gradients (``ref32``) are, on their worst tensor."""
+    ref64, port64 = _grads64(ref_model, params, cfg, batch)
     want = {name: w for name, _, w in _pairs(cfg, params_t, ref64)}
-    floor = max(unit(r, want[name]) for name, _, r in _pairs(cfg, params_t, ref32))
+    floor = max(_unit(r, want[name])
+                for name, _, r in _pairs(cfg, params_t, ref32))
     assert floor <= HYBRID_FLOOR_CAP, floor
     n, worst64, worst32 = 0, 0.0, 0.0
     for (name, got, w), (_, got64, _) in zip(_pairs(cfg, params_t, ref64),
                                              _pairs(cfg, port64, ref64)):
         assert got is not None and got.shape == w.shape, name
         assert got64.dtype == torch.float64, name
-        worst64 = max(worst64, unit(got64.numpy(), w))
-        worst32 = max(worst32, unit(_np(got), w))
-        assert unit(got64.numpy(), w) <= FP64_TOL, (name, unit(got64.numpy(), w))
-        assert unit(_np(got), w) <= floor, (name, unit(_np(got), w), floor)
+        worst64 = max(worst64, _unit(got64.numpy(), w))
+        worst32 = max(worst32, _unit(_np(got), w))
+        assert _unit(got64.numpy(), w) <= FP64_TOL, (name, _unit(got64.numpy(), w))
+        assert _unit(_np(got), w) <= floor, (name, _unit(_np(got), w), floor)
         n += 1
     assert n == len(tree.leaves(params_t))
     print(f"hybrid grads against the reference's fp64: port fp64 {worst64:.2e}, "
           f"port fp32 {worst32:.2e}, reference fp32 {floor:.2e}")
+
+
+def _encdec_grads_match_reference(ref_model, params, cfg, batch, params_t,
+                                  ref32):
+    """The encoder-decoder shrink's gradients: the port's fp64 ones
+    within FP64_TOL of the reference's fp64 ones (:func:`_grads64`), and
+    its fp32 ones (``params_t``) no further from the reference's fp32
+    ones (``ref32``) than those are from fp64, on their worst tensor
+    (ENCDEC_FLOOR_CAP)."""
+    ref64, port64 = _grads64(ref_model, params, cfg, batch)
+    want = {name: w for name, _, w in _pairs(cfg, params_t, ref64)}
+    floor = max(_unit(r, want[name])
+                for name, _, r in _pairs(cfg, params_t, ref32))
+    assert floor <= ENCDEC_FLOOR_CAP, floor
+    n, worst64, worst32 = 0, 0.0, 0.0
+    for (name, got, r), (_, got64, w) in zip(_pairs(cfg, params_t, ref32),
+                                             _pairs(cfg, port64, ref64)):
+        assert got is not None and got.shape == r.shape, name
+        assert got64.dtype == torch.float64, name
+        worst64 = max(worst64, _unit(got64.numpy(), w))
+        worst32 = max(worst32, _unit(_np(got), r))
+        assert _unit(got64.numpy(), w) <= FP64_TOL, (name, _unit(got64.numpy(), w))
+        assert _unit(_np(got), r) <= floor, (name, _unit(_np(got), r), floor)
+        n += 1
+    assert n == len(tree.leaves(params_t))
+    print(f"encdec grads: port fp64 against the reference's fp64 "
+          f"{worst64:.2e}; port fp32 against the reference's fp32 "
+          f"{worst32:.2e}, the reference's fp32 against its fp64 {floor:.2e}")
 
 
 def test_chunked_cross_entropy_matches_reference():
@@ -458,31 +522,52 @@ def test_chunked_cross_entropy_matches_reference():
 
 
 @pytest.mark.parametrize("arch,S", [("qwen3-4b", 128), ("mamba2-130m", 128),
-                                    ("deepseek-moe-16b", 128)])
+                                    ("deepseek-moe-16b", 128),
+                                    ("seamless-m4t-medium", 512)])
 def test_three_train_steps_match_reference(arch, S):
-    """Three steps of make_train_step from one converted state (fp32):
-    each step's loss within rtol 1e-4 of the reference's."""
+    """Three steps of make_train_step from one converted state (fp32),
+    on the launcher's batches: each step's loss within rtol 1e-4 of the
+    reference's.  The encoder-decoder's steps run in fp64 on both sides
+    (the port's update then works in fp64 too) and without weight decay:
+    in fp32 its first encoder layer's bf16 casts part two evaluations by
+    whole bf16 steps (see ENCDEC_FLOOR_CAP), and Adam's first steps,
+    about lr·sign(g), carry the gradients' differences into the weights
+    (the two packages' fp32 losses part by 4.4e-4 at step 2); the
+    reference decays its stacked norms (ROADMAP.md, "Divergences kept as
+    found"), which moves them by lr·wd and, through the same casts, the
+    losses.  In fp64 without decay the losses read 1.4e-16, 2.2e-10 and
+    1.7e-6 apart on this CPU."""
+    fp64 = arch == "seamless-m4t-medium"
     ref_model, params, cfg = _ref_setup(arch)
-    kw = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    width = np.float64 if fp64 else np.float32
+    kw = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+              **({"weight_decay": 0.0} if fp64 else {}))
     rcfg, ocfg = ref_opt.OptimizerConfig(**kw), opt.OptimizerConfig(**kw)
-    rstate = RefTrainState(params, ref_opt.init(rcfg, params),
-                           jnp.zeros((), jnp.int32))
-    rstep = jax.jit(ref_make_train_step(ref_model, rcfg))
     model = build_model(cfg, lm_params_from_numpy(
-        cfg, jax.tree.map(np.asarray, params)), device="cpu")
+        cfg, jax.tree.map(lambda a: np.asarray(a, width), params)),
+        device="cpu")
     state = init_state(model, ocfg)
     step = make_train_step(model, ocfg)
-    ds = SyntheticTextDataset(vocab_size=cfg.vocab_size, seq_len=S,
-                              global_batch=2, seed=4)
-    for i in range(3):
-        batch = ds.batch(i)
-        rstate, rmet = rstep(rstate, {k: jnp.asarray(v) for k, v in batch.items()})
-        state, met = step(state, batch)
-        assert set(met) == {"loss", "xent", "aux", "grad_norm", "lr"}
-        assert float(met["loss"]) == pytest.approx(float(rmet["loss"]), rel=1e-4)
-        assert float(met["lr"]) == pytest.approx(float(rmet["lr"]), rel=1e-6)
+    ds = train_dataset(cfg, S, 2, seed=4)
+    with x64_reference(ref_opt) if fp64 else contextlib.nullcontext():
+        params = jax.tree.map(lambda a: jnp.asarray(a, width), params)
+        rstate = RefTrainState(params, ref_opt.init(rcfg, params),
+                               jnp.zeros((), jnp.int32))
+        rstep = jax.jit(ref_make_train_step(ref_model, rcfg))
+        for i in range(3):
+            batch = train_batch(cfg, ds, i)
+            rstate, rmet = rstep(rstate, {k: jnp.asarray(v)
+                                          for k, v in batch.items()})
+            state, met = step(state, batch)
+            assert set(met) == {"loss", "xent", "aux", "grad_norm", "lr"}
+            assert float(met["loss"]) == pytest.approx(float(rmet["loss"]),
+                                                       rel=1e-4)
+            assert float(met["lr"]) == pytest.approx(float(rmet["lr"]),
+                                                      rel=1e-6)
     assert int(state.step) == 3
     assert all(p.grad is None for p in tree.leaves(state.params))
+    if fp64:
+        assert {p.dtype for p in tree.leaves(state.params)} == {torch.float64}
 
 
 def test_vlm_trainer_matches_reference(monkeypatch):
@@ -511,10 +596,11 @@ def test_vlm_trainer_matches_reference(monkeypatch):
 def test_train_batches_follow_the_reference_rule():
     """The trainer's dataset and batches for each family: embeddings of
     the model's width and M-RoPE positions for the VLM, without tokens;
-    tokens alone for the others."""
-    from repro_torch.launch.train import train_batch, train_dataset
-
+    frame embeddings and tokens for the encoder-decoder (its encoder
+    reads the one, its decoder the other); tokens alone for the
+    others."""
     for arch, keys in (("qwen2-vl-72b", {"embeds", "positions", "labels"}),
+                       ("seamless-m4t-medium", {"embeds", "tokens", "labels"}),
                        ("deepseek-moe-16b", {"tokens", "labels"}),
                        ("zamba2-7b", {"tokens", "labels"})):
         cfg = smoke_shrink(get_config(arch))
@@ -522,7 +608,38 @@ def test_train_batches_follow_the_reference_rule():
         assert set(batch) == keys, arch
         if "embeds" in batch:
             assert batch["embeds"].shape == (2, 16, cfg.d_model)
+        if "positions" in batch:
             assert batch["positions"].shape == (3, 2, 16)
+
+
+def test_encdec_step_changes_every_encoder_parameter(tmp_path):
+    """The encoder-decoder's training state holds its encoder: one step
+    of the launcher's batch changes every encoder parameter (and every
+    other), each with its moments, and a checkpoint of the state stores
+    and restores the encoder's tensors."""
+    cfg = smoke_shrink(get_config("seamless-m4t-medium"))
+    model = build_model(cfg, seed=0, device="cpu")
+    # lr 1e-2: a bf16 norm weight of 1 moves by less than its ulp at 1e-3
+    ocfg = opt.OptimizerConfig(learning_rate=1e-2, warmup_steps=0)
+    state = init_state(model, ocfg)
+    before = {k: v.clone() for k, v in tree.flatten(state.params)}
+    enc = [k for k in before if k.startswith(("enc_layers/", "enc_norm"))]
+    assert len(enc) == 1 + cfg.encoder_layers * 9
+    assert all(k in dict(tree.flatten(state.opt["m"])) for k in enc)
+    batch = train_batch(cfg, train_dataset(cfg, 128, 2), 0)
+    state, met = make_train_step(model, ocfg)(state, batch)
+    assert np.isfinite(float(met["loss"]))
+    after = dict(tree.flatten(state.params))
+    unchanged = [k for k, v in before.items() if torch.equal(v, after[k])]
+    assert not unchanged, unchanged
+    moments = dict(tree.flatten(state.opt["v"]))
+    assert all(float(moments[k].abs().max()) > 0 for k in enc)
+    CheckpointManager(str(tmp_path)).save(1, state, blocking=True)
+    fresh = init_state(build_model(cfg, seed=1, device="cpu"), ocfg)
+    restored = load_state(fresh, CheckpointManager(str(tmp_path)).restore(
+        fresh, device="cpu"))
+    for k, v in tree.flatten(restored.params):
+        assert torch.equal(v, after[k]), k
 
 
 def test_opt_state_from_numpy_matches_reference_values():
