@@ -16,6 +16,16 @@ points at full width:
                  instantiations of tiled_gemm's in-place kernel and of
                  fused_gemm among them; flash_attention_bwd's bf16 kernel
                  (mma.sync) must hold HMMA;
+     dryrun    — the dry-run matrix (repro_torch.launch.dryrun) on the
+                 meta device: every (arch x shape) cell of the ten
+                 architectures on both production meshes (16 x 16 and
+                 2 x 16 x 16) at each arch's sharding recipe, 64 records
+                 and 16 skips (long_500k for the 8 full-attention archs,
+                 exactly cell_applicable's); no cell errors, every tensor
+                 any operation returned on the meta device (a dispatch
+                 mode watches), torch.cuda.memory_allocated unmoved; a few
+                 cells' per-rank bytes, bound and dominant term, and the
+                 phase's seconds, printed;
   2. kernels   — each contraction kernel (tiled_gemm, fused_gemm,
                  chain_gemm) at the shapes of the 30-qubit plan (its
                  largest tiled step, largest fused step, longest chain),
@@ -188,7 +198,14 @@ points at full width:
                  shares of the expert products and the dispatch; the
                  phase's flash_attention launches (every attention
                  model) and ssd_chunk launches must be > 0, and every
-                 ssd_chunk launch must take its wgmma route;
+                 ssd_chunk launch must take its wgmma route; after each
+                 serve, the served model's parameters and a cache at the
+                 serve's batch and length (init_cache) held leaf by leaf
+                 to their abstract trees (meta tensors, shape and dtype),
+                 their per-rank bytes on a 1 x 1 mesh equal to the card's
+                 tensors' bytes exactly (world size 1); the prefill's
+                 analytic bound on the H100 at batch x prompt beside its
+                 prefill_s (a report, not a gate);
      train     — LM training on the card through make_train_step
                  (chunked cross-entropy, AdamW, each layer checkpointed):
                  qwen3-4b at full width and depth, batch 2 x 512,
@@ -203,6 +220,11 @@ points at full width:
                  init std: the logits of a random head have variance
                  d s^2), step ms, tokens/s, peak
                  device memory, a profiler trace of one more step; the
+                 training state after the steps held to abstract_state
+                 leaf by leaf (every parameter, moment, count and step;
+                 its bytes on a 1 x 1 mesh exact: world size 1), and a
+                 step's analytic bound on the H100 beside the mean of
+                 steps 2-4 (a report); the
                  card's first two steps of each at 2 layers against the
                  port's CPU run of the same weights and batch (loss and
                  grad norm: fp32 <= 1e-3, bf16 <= 3e-2 relative; for the
@@ -1330,6 +1352,83 @@ def _hybrid_blocks(on: bool, log: list, record_inputs: bool = False,
         yield
 
 
+# the world-size-1 checks: abstract trees (meta tensors) against the real
+# ones on the card, and their per-rank bytes on a 1 x 1 mesh
+ONE_MESH = ((1, 1), ("data", "model"))
+
+
+def _world_size_one(abstract, logical, real, what: str) -> dict:
+    """``abstract`` (meta tensors) against ``real`` (the card's tensors)
+    leaf by leaf, shape and dtype, and its per-rank bytes on a 1 x 1 mesh
+    against the sum of the real tensors' bytes: both exact."""
+    from repro_torch import tree
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.parallel.sharding import rank_bytes
+
+    want, got = dict(tree.flatten(abstract)), dict(tree.flatten(real))
+    check(set(want) == set(got),
+          f"{what}: abstract leaves {sorted(set(want) ^ set(got))[:8]} "
+          "unmatched")
+    bad = [p for p, a in want.items()
+           if (tuple(a.shape), a.dtype) != (tuple(got[p].shape), got[p].dtype)
+           or a.device.type != "meta"]
+    check(not bad, f"{what}: abstract leaves differ from the card's: "
+          f"{[(p, want[p], tuple(got[p].shape), got[p].dtype) for p in bad[:4]]}")
+    nbytes = sum(t.numel() * t.element_size() for t in got.values())
+    per_rank = rank_bytes(abstract, logical, MeshShape(*ONE_MESH))
+    check(per_rank == nbytes, f"{what}: per-rank bytes on 1 x 1 {per_rank} "
+          f"!= the card's {nbytes}")
+    return dict(leaves=len(got), bytes=nbytes, per_rank_bytes=per_rank)
+
+
+def _roofline(cfg, kind: str, batch: int, seq: int, measured_s: float,
+              n_params: int) -> dict:
+    """The analytic bound on one H100 of a ``kind`` step of ``cfg`` at
+    ``batch`` x ``seq`` (the dry run's model, on a 1-device mesh) beside
+    the measured time: a report, not a gate."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.roofline.analysis import analytic_roofline
+
+    r = analytic_roofline(cfg, ShapeCell("smoke", seq, batch, kind),
+                          n_params, 1)
+    return dict(kind=kind, batch=batch, seq=seq, flops=r.flops,
+                hbm_bytes=r.bytes_accessed, compute_s=r.compute_s,
+                memory_s=r.memory_s, bound_s=r.bound_s, dominant=r.dominant,
+                measured_s=measured_s, multiple=measured_s / r.bound_s)
+
+
+def _serve_checked(torch, checks: dict):
+    """A wrapper of ``decode_demo.generate`` that, after the serve, holds
+    the model's parameters and a cache at the serve's batch and length
+    (``init_cache``, the spec's types) to their abstract trees
+    (:func:`_world_size_one`), recording the results in ``checks``."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.models import param_defs
+    from repro_torch.models.params import abstract_params, param_specs
+
+    def outer(fn):
+        def inner(model, inputs, gen_tokens):
+            out = fn(model, inputs, gen_tokens)
+            defs = param_defs(model.cfg)
+            checks["params"] = _world_size_one(
+                abstract_params(defs), param_specs(defs), model.param_tree(),
+                f"{model.cfg.name} parameters")
+            batch, prompt = inputs["tokens"].shape
+            max_len = prompt + gen_tokens
+            abs_in, log_in = input_specs(
+                model.cfg, ShapeCell("serve", max_len, batch, "decode"))
+            cache = model.init_cache(batch, max_len)
+            checks["cache"] = dict(batch=batch, max_len=max_len,
+                                   **_world_size_one(
+                                       abs_in["cache"], log_in["cache"],
+                                       cache, f"{model.cfg.name} cache"))
+            del cache
+            return out
+        return inner
+    return {"generate": outer}
+
+
 def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
                 layers=None, trace_layers=None, **shape):
     """One served model: its config (the published depth, or ``layers``
@@ -1351,19 +1450,28 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
     reset()
     torch.cuda.reset_peak_memory_stats()
     cross = [0]
-    if layers is None:
-        with _cross_counted(counts, cross) if encdec else \
-                contextlib.nullcontext():
-            r = dd.serve(arch, smoke=False, device="cuda", **serve_shape)
-    else:
-        # serve's own steps on the cut config: the weights from the seed,
-        # the prompt from the seeded generator, prefill and greedy decode
-        model = build_model(served, seed=serve_shape["seed"], device="cuda")
-        gen = torch.Generator(device="cuda").manual_seed(serve_shape["seed"])
-        r = dd.generate(model, dd.prompt_inputs(
-            served, serve_shape["batch"], serve_shape["prompt_len"], gen),
-            serve_shape["gen_tokens"])
-        del model
+    # after the serve, the served model's parameters and a cache of its
+    # batch and length against their abstract trees (world size 1)
+    ws1 = {}
+    with _patched(dd, _serve_checked(torch, ws1)):
+        if layers is None:
+            with _cross_counted(counts, cross) if encdec else \
+                    contextlib.nullcontext():
+                r = dd.serve(arch, smoke=False, device="cuda", **serve_shape)
+        else:
+            # serve's own steps on the cut config: the weights from the
+            # seed, the prompt from the seeded generator, prefill and
+            # greedy decode
+            model = build_model(served, seed=serve_shape["seed"],
+                                device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(
+                serve_shape["seed"])
+            r = dd.generate(model, dd.prompt_inputs(
+                served, serve_shape["batch"], serve_shape["prompt_len"], gen),
+                serve_shape["gen_tokens"])
+            del model
+    check(set(ws1) == {"params", "cache"},
+          f"{arch}: the world-size-1 checks did not run: {ws1}")
     torch.cuda.synchronize()
     launched = counts()
     if encdec:
@@ -1592,6 +1700,10 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
         prefill_s=r["prefill_s"], decode_s=r["decode_s"],
         decode_tok_per_s=r["decode_tok_per_s"], decode_step_ms=step_ms,
         decode_weights_bound_ms=decode_bound_ms,
+        world_size_one=ws1,
+        prefill_roofline=_roofline(served, "prefill", serve_shape["batch"],
+                                   serve_shape["prompt_len"], r["prefill_s"],
+                                   count_params(defs)),
         first_tokens=r["generated"][0][:8].tolist(), peak_bytes=peak,
         agreement=dict(batch=AGREE["batch"],
                        prompt_len_bf16=runs["bf16"]["prompt_len"],
@@ -1649,7 +1761,7 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
     from repro_torch.models import param_defs
     from repro_torch.models.params import count_params
     from repro_torch.train import optimizer as opt
-    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.train.train_step import abstract_state, state_logical
 
     full = get_config(arch)
     cfg = full if layers is None else dataclasses.replace(full,
@@ -1670,6 +1782,10 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
     torch.cuda.synchronize()
     launched = counts()
     peak = torch.cuda.max_memory_allocated() - base
+    # the training state on the card against its abstract twin (world
+    # size 1): every parameter, moment, count and step
+    ws1 = _world_size_one(abstract_state(cfg, ocfg), state_logical(cfg, ocfg),
+                          state, f"{arch} training state")
     with _patched(L, _spans(torch) if moe else {}):
         trace = profile(torch, lambda: float(
             step(state, batches[TRAIN_STEPS])[1]["loss"]))
@@ -1740,6 +1856,9 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
         ln_vocab=math.log(full.vocab_size), expected_first_loss=expect,
         step_ms=[1e3 * t for t in secs],
         tokens_per_s=tokens * (len(secs) - 1) / sum(secs[1:]),
+        world_size_one=ws1,
+        step_roofline=_roofline(cfg, "train", batch, seq,
+                                sum(secs[1:]) / (len(secs) - 1), n_params),
         peak_bytes=peak, step_trace=trace, repeat=repeat,
         agreement=dict(**spec, **({"window_cut": spec["window"]} if hybrid
                                   else {}), **agree),
@@ -2144,6 +2263,83 @@ def phase_train_example(torch, counts, reset) -> dict:
                 step_ms=1e3 * wall / len(losses),
                 learn=dict(**LEARN, first_loss=learn[0], last_loss=learn[-1],
                            drop=drop, wall_s=learn_s, launches=learn_launches))
+
+
+# the dry run's cells printed by the smoke: (arch, shape, multi-pod,
+# moments); the int8 cell is the sweep's llama3-405b training cell
+DRYRUN_SHOWN = (("llama3-405b", "train_4k", False, "float32"),
+                ("llama3-405b", "train_4k", True, "int8"),
+                ("qwen3-4b", "decode_32k", False, "float32"),
+                ("deepseek-moe-16b", "prefill_32k", True, "float32"),
+                ("mamba2-130m", "long_500k", False, "float32"))
+
+
+def phase_dryrun(torch) -> dict:
+    """Every (arch x shape) cell on both production meshes at each arch's
+    recipe, on the meta device: no cell errors, the skips exactly
+    ``cell_applicable``'s, every tensor any operation returned on the
+    meta device, and the card's allocated bytes unmoved."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs import ARCHS, SHAPES, all_cells
+    from repro_torch.launch import dryrun
+
+    class Devices(TorchDispatchMode):
+        """The devices of every tensor any operation returns."""
+
+        def __init__(self):
+            super().__init__()
+            self.seen, self.ops = set(), 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.ops += 1
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor):
+                    self.seen.add(t.device.type)
+            return out
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mode = Devices()
+    records, skips = {}, {}
+    with mode:
+        for multi in (False, True):
+            for arch in ARCHS:
+                for shape in SHAPES:
+                    rec = dryrun.dryrun_cell(arch, shape, multi_pod=multi)
+                    key = (arch, shape, dryrun.mesh_label(multi))
+                    if "skipped" in rec:
+                        skips[key] = rec["skipped"]
+                    else:
+                        records[key] = rec
+        shown = {f"{a}__{s}__{dryrun.mesh_label(m)}__{mo}":
+                 dryrun.dryrun_cell(a, s, multi_pod=m, moment_dtype=mo)
+                 for a, s, m, mo in DRYRUN_SHOWN}
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    want = {(a, s, dryrun.mesh_label(m)): why for m in (False, True)
+            for a, s, ok, why in all_cells() if not ok}
+    check(len(records) == 64 and len(skips) == 16,
+          f"dry run: {len(records)} records, {len(skips)} skips")
+    check(skips == want, f"dry run: skips {sorted(skips)} != "
+          f"cell_applicable's {sorted(want)}")
+    check(mode.seen == {"meta"} and mode.ops > 0,
+          f"dry run: tensors on {mode.seen} ({mode.ops} operations)")
+    check(after == before, f"dry run: allocated bytes moved {before} -> "
+          f"{after}")
+    return dict(
+        cells=len(records) + len(skips), records=len(records),
+        skips=len(skips), operations=mode.ops, devices=sorted(mode.seen),
+        allocated_before=before, allocated_after=after, seconds=seconds,
+        shown={k: dict(params=r["params"],
+                       argument_split=r["memory"]["argument_split"],
+                       bound_s=r["roofline"]["bound_s"],
+                       dominant=r["roofline"]["dominant"],
+                       recipe=r["recipe"])
+               for k, r in shown.items()})
 
 
 def profile(torch, fn) -> dict:
@@ -2789,6 +2985,9 @@ def main() -> int:
     for name in BF16_INSTANCES:
         bf16 = [k for k in hgmma[name] if k.endswith("Lb1EEv9FusedArgs")]
         check(len(bf16) == 4, f"{name}: bf16 instantiations {bf16}")
+
+    # 1a. the dry-run matrix on the meta device (nothing on the card)
+    emit(phase="dryrun", **phase_dryrun(torch))
 
     # 2. kernels against their plain versions at the main path's shapes
     rows, cols, cycles, target = 5, 6, 14, 28

@@ -1,11 +1,12 @@
-"""Architecture registry of the LM side: ``get_config(name)``.
+"""Architecture registry of the LM side: ``get_config(name)``, ``ARCHS``
+and the dry run's cells (:func:`all_cells`).
 
-Registered: the dense configs (qwen3-4b, llama3.2-3b, deepseek-7b), the
-MoE configs (deepseek-moe-16b, llama4-scout-17b-a16e), the M-RoPE/VLM
-backbone qwen2-vl-72b, the SSM mamba2-130m, the hybrid zamba2-7b and
-the encoder-decoder seamless-m4t-medium.  The reference's one other
-architecture, llama3-405b, needs the sharding layer (ROADMAP.md, queue 1
-item 11.6).
+Registered, in the reference's order: llama3-405b (built only
+abstractly, by the dry run), the dense configs (llama3.2-3b, qwen3-4b,
+deepseek-7b), the hybrid zamba2-7b, the encoder-decoder
+seamless-m4t-medium, the MoE configs (deepseek-moe-16b,
+llama4-scout-17b-a16e), the M-RoPE/VLM backbone qwen2-vl-72b and the SSM
+mamba2-130m.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from . import (
     deepseek_7b,
     deepseek_moe_16b,
     llama3_2_3b,
+    llama3_405b,
     llama4_scout_17b_a16e,
     mamba2_130m,
     qwen2_vl_72b,
@@ -21,32 +23,48 @@ from . import (
     seamless_m4t_medium,
     zamba2_7b,
 )
-from .base import ArchConfig, smoke_shrink
+from .base import SHAPES, ArchConfig, ShapeCell, cell_applicable, smoke_shrink
 
 ARCHS: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (
-        qwen3_4b,
-        mamba2_130m,
+        llama3_405b,
         llama3_2_3b,
+        qwen3_4b,
         deepseek_7b,
+        zamba2_7b,
+        seamless_m4t_medium,
         deepseek_moe_16b,
         llama4_scout_17b_a16e,
         qwen2_vl_72b,
-        zamba2_7b,
-        seamless_m4t_medium,
+        mamba2_130m,
     )
 }
 
 
 def get_config(name: str) -> ArchConfig:
     if name not in ARCHS:
-        raise KeyError(
-            f"arch {name!r} is not ported (have {sorted(ARCHS)}); "
-            "llama3-405b waits for the sharding layer, ROADMAP.md queue 1 "
-            "item 11.6"
-        )
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ArchConfig", "get_config", "smoke_shrink"]
+def all_cells() -> list[tuple[str, str, bool, str]]:
+    """Every (arch, shape) cell with its applicability and skip reason."""
+    out = []
+    for aname, cfg in ARCHS.items():
+        for sname, shape in SHAPES.items():
+            ok, why = cell_applicable(cfg, shape)
+            out.append((aname, sname, ok, why))
+    return out
+
+
+__all__ = [
+    "ARCHS",
+    "SHAPES",
+    "ArchConfig",
+    "ShapeCell",
+    "all_cells",
+    "cell_applicable",
+    "get_config",
+    "smoke_shrink",
+]

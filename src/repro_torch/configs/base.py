@@ -1,11 +1,11 @@
-"""Architecture configuration schema (the LM serving side).
+"""Architecture configuration schema and input-shape cells.
 
 Counterpart of the reference's ``configs/base.py``: one ``<arch>.py`` per
-served architecture defines ``CONFIG`` with the published
-hyperparameters, and :func:`smoke_shrink` derives a reduced config of the
-same family for CPU tests.  The reference's input-shape cells
-(``SHAPES``, ``ShapeCell``) come with the sharding layer (ROADMAP.md,
-queue 1 item 11.6).
+architecture defines ``CONFIG`` with the published hyperparameters, and
+:func:`smoke_shrink` derives a reduced config of the same family for CPU
+tests.  The input-shape cells (:data:`SHAPES`) are the dry run's matrix
+(``repro_torch.launch.dryrun``); a full config too large for one card
+(llama3-405b) is only ever built abstractly, as meta tensors.
 """
 
 from __future__ import annotations
@@ -47,6 +47,9 @@ class ArchConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    # production sharding recipe (parallel.sharding.RECIPES), per arch:
+    # a small model is not sharded over hundreds of devices
+    sharding_recipe: str = "default"
 
     @property
     def resolved_head_dim(self) -> int:
@@ -55,6 +58,30 @@ class ArchConfig:
     @property
     def is_encdec(self) -> bool:
         return self.family == "encdec"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeCell) -> tuple[bool, str]:
+    """Whether the dry run takes ``cfg`` at ``shape``, and the reason
+    when it does not (the reference's skip rule)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "pure full-attention arch: 500k context is quadratic"
+    return True, ""
 
 
 def smoke_shrink(cfg: ArchConfig) -> ArchConfig:

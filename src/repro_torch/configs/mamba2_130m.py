@@ -15,4 +15,7 @@ CONFIG = ArchConfig(
     ssm_head_dim=64,
     ssm_expand=2,
     sub_quadratic=True,
+    # at 130M parameters sharding over hundreds of devices costs more in
+    # gathers than it saves: pure data parallelism
+    sharding_recipe="dp_only",
 )

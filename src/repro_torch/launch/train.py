@@ -12,8 +12,9 @@ step's batch, which the deterministic pipeline makes safe).
 The default device is the card; ``--device cpu`` runs the kernels' plain
 versions on the host.  Without ``--full`` the model is the reference's
 smoke shrink of the architecture.  One device only: a mesh of several
-(the reference's sharded jit) waits for the sharding layer, ROADMAP.md
-queue 1 item 11.6.
+(the reference's sharded jit) waits for training over several processes,
+ROADMAP.md queue 1 item 11.6.3 (the specs it needs are
+``parallel.sharding``'s).
 """
 
 from __future__ import annotations
@@ -97,7 +98,8 @@ def train(
     if math.prod(mesh_shape) > 1:
         raise NotImplementedError(
             f"mesh {tuple(mesh_shape)}: training on more than one device "
-            "needs the sharding layer (ROADMAP.md, queue 1 item 11.6)"
+            "needs training over several processes (ROADMAP.md, queue 1 "
+            "item 11.6.3)"
         )
     dev = resolve_device(device)
     cfg = get_config(arch)

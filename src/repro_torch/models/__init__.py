@@ -57,9 +57,25 @@ def param_defs(cfg: ArchConfig) -> dict:
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
+def cache_spec(cfg: ArchConfig, batch_size: int, max_len: int,
+               enc_len: int = 0) -> dict:
+    """(shape, dtype, logical axes) of each cache buffer of ``cfg``'s
+    model at ``batch_size`` x ``max_len`` (no model built; the
+    encoder-decoder's memory ``enc_len`` long, default ``max_len``)."""
+    if cfg.family in ("dense", "moe"):
+        return lm.cache_spec(cfg, batch_size, max_len)
+    if cfg.family == "ssm":
+        return ssm_model.cache_spec(cfg, batch_size, max_len)
+    if cfg.family == "hybrid":
+        return hybrid.cache_spec(cfg, batch_size, max_len)
+    if cfg.family == "encdec":
+        return encdec.cache_spec(cfg, batch_size, max_len, enc_len)
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
 def _to(params, device):
     return tree_map(lambda t: t.to(device), params)
 
 
-__all__ = ["build_model", "param_defs", "DecoderLM", "EncDecLM", "MambaLM",
-           "ZambaLM"]
+__all__ = ["build_model", "cache_spec", "param_defs", "DecoderLM", "EncDecLM",
+           "MambaLM", "ZambaLM"]

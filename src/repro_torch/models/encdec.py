@@ -51,20 +51,20 @@ def _block_defs(cfg: ArchConfig, cross: bool) -> dict:
     D, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     d = {
-        "wq": ParamDef((D, H, hd)),
-        "wk": ParamDef((D, KV, hd)),
-        "wv": ParamDef((D, KV, hd)),
-        "wo": ParamDef((H, hd, D)),
-        "ln_attn": ParamDef((D,), init="ones"),
+        "wq": ParamDef((D, H, hd), logical=("fsdp", "tp", None)),
+        "wk": ParamDef((D, KV, hd), logical=("fsdp", "tp", None)),
+        "wv": ParamDef((D, KV, hd), logical=("fsdp", "tp", None)),
+        "wo": ParamDef((H, hd, D), logical=("tp", None, "fsdp")),
+        "ln_attn": ParamDef((D,), init="ones", logical=(None,)),
         **_mlp_defs(cfg),
     }
     if cross:
         d.update({
-            "xq": ParamDef((D, H, hd)),
-            "xk": ParamDef((D, KV, hd)),
-            "xv": ParamDef((D, KV, hd)),
-            "xo": ParamDef((H, hd, D)),
-            "ln_x": ParamDef((D,), init="ones"),
+            "xq": ParamDef((D, H, hd), logical=("fsdp", "tp", None)),
+            "xk": ParamDef((D, KV, hd), logical=("fsdp", "tp", None)),
+            "xv": ParamDef((D, KV, hd), logical=("fsdp", "tp", None)),
+            "xo": ParamDef((H, hd, D), logical=("tp", None, "fsdp")),
+            "ln_x": ParamDef((D,), init="ones", logical=(None,)),
         })
     return d
 
@@ -75,15 +75,31 @@ def param_defs(cfg: ArchConfig) -> dict:
     declarations, its ``enc_layers`` and ``dec_layers`` rows unstacked)."""
     D, V = cfg.d_model, cfg.vocab_size
     return {
-        "embed": ParamDef((V, D), scale=0.02),
-        "enc_norm": ParamDef((D,), init="ones"),
-        "final_norm": ParamDef((D,), init="ones"),
-        "head": ParamDef((D, V), scale=0.02),
+        "embed": ParamDef((V, D), scale=0.02, logical=("tp", "fsdp")),
+        "enc_norm": ParamDef((D,), init="ones", logical=(None,)),
+        "final_norm": ParamDef((D,), init="ones", logical=(None,)),
+        "head": ParamDef((D, V), scale=0.02, logical=("fsdp", "tp")),
         "enc_layers": [_block_defs(cfg, cross=False)
                        for _ in range(cfg.encoder_layers)],
         "layers": [_block_defs(cfg, cross=True)
                    for _ in range(cfg.num_layers)],
     }
+
+
+def cache_spec(cfg: ArchConfig, batch_size: int, max_len: int,
+               enc_len: int = 0) -> dict:
+    """(shape, dtype, logical axes) of each cache buffer, the reference's
+    keys: the decoder's self-attention k/v over ``max_len`` slots and the
+    cross-attention's over ``enc_len`` (default ``max_len``), bf16."""
+    enc_len = enc_len or max_len
+
+    def kv(s):
+        return ((cfg.num_layers, batch_size, s, cfg.num_kv_heads,
+                 cfg.resolved_head_dim), torch.bfloat16,
+                ("layer", "dp", "sp", None, None))
+
+    return {"self_k": kv(max_len), "self_v": kv(max_len),
+            "cross_k": kv(enc_len), "cross_v": kv(enc_len)}
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -212,18 +228,9 @@ class EncDecLM(TrainableLM):
     # ------------------------------------------------------------- serve
     def cache_spec(self, batch_size: int, max_len: int,
                    enc_len: int = 0) -> dict:
-        """(shape, dtype) of each cache buffer, the reference's keys:
-        the decoder's self-attention k/v over ``max_len`` slots and the
-        cross-attention's over ``enc_len`` (default ``max_len``), bf16."""
-        cfg = self.cfg
-        enc_len = enc_len or max_len
-
-        def kv(s):
-            return ((cfg.num_layers, batch_size, s, cfg.num_kv_heads,
-                     cfg.resolved_head_dim), torch.bfloat16)
-
-        return {"self_k": kv(max_len), "self_v": kv(max_len),
-                "cross_k": kv(enc_len), "cross_v": kv(enc_len)}
+        """(shape, dtype) of each cache buffer (:func:`cache_spec`)."""
+        return {name: leaf[:2] for name, leaf in
+                cache_spec(self.cfg, batch_size, max_len, enc_len).items()}
 
     def init_cache(self, batch_size: int, max_len: int, enc_len: int = 0,
                    dtype=None) -> dict:

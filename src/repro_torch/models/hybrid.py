@@ -54,12 +54,40 @@ def param_defs(cfg: ArchConfig) -> dict:
     ``groups`` and ``tail`` rows unstacked in layer order)."""
     D, V = cfg.d_model, cfg.vocab_size
     return {
-        "embed": ParamDef((V, D), scale=0.02),
-        "final_norm": ParamDef((D,), init="ones"),
-        "head": ParamDef((D, V), scale=0.02),
+        "embed": ParamDef((V, D), scale=0.02, logical=("tp", "fsdp")),
+        "final_norm": ParamDef((D,), init="ones", logical=(None,)),
+        "head": ParamDef((D, V), scale=0.02, logical=("fsdp", "tp")),
         "shared": {**_attn_defs(cfg), **_mlp_defs(cfg)},
         "layers": [mamba_defs(cfg) for _ in range(cfg.num_layers)],
     }
+
+
+def cache_spec(cfg: ArchConfig, batch_size: int, max_len: int) -> dict:
+    """(shape, dtype, logical axes) of each cache buffer, the reference's
+    keys and types; the rings hold ``min(window, max_len)`` slots."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nheads = d_inner // cfg.ssm_head_dim
+    K, N = cfg.ssm_conv, cfg.ssm_state
+    n_groups = cfg.num_layers // cfg.attn_every
+    n_tail = cfg.num_layers - n_groups * cfg.attn_every
+    eff = min(cfg.window, max_len) if cfg.window else max_len
+    kv = ((n_groups, batch_size, eff, cfg.num_kv_heads,
+           cfg.resolved_head_dim), torch.bfloat16,
+          ("layer", "dp", "sp", None, None))
+    spec = {}
+    for pre, lead, axes in (("", (n_groups, cfg.attn_every), ("layer", None)),
+                            ("tail_", (n_tail,), ("layer",))):
+        if lead[0] == 0:
+            continue
+        spec[pre + "ssm"] = (lead + (batch_size, nheads, N, cfg.ssm_head_dim),
+                             torch.float32, axes + ("dp", "tp", None, None))
+        spec[pre + "conv_x"] = (lead + (batch_size, K - 1, d_inner),
+                                torch.bfloat16, axes + ("dp", None, "tp"))
+        spec[pre + "conv_bc"] = (lead + (batch_size, K - 1, 2 * N),
+                                 torch.bfloat16, axes + ("dp", None, "tp"))
+        if not pre:
+            spec["attn_k"] = spec["attn_v"] = kv
+    return spec
 
 
 class ZambaLM(TrainableLM):
@@ -155,29 +183,9 @@ class ZambaLM(TrainableLM):
 
     # ------------------------------------------------------------- serve
     def cache_spec(self, batch_size: int, max_len: int) -> dict:
-        """(shape, dtype) of each cache buffer, the reference's keys and
-        types; the rings hold ``min(window, max_len)`` slots."""
-        cfg = self.cfg
-        d_inner = cfg.ssm_expand * cfg.d_model
-        nheads = d_inner // cfg.ssm_head_dim
-        K, N = cfg.ssm_conv, cfg.ssm_state
-        eff = min(cfg.window, max_len) if cfg.window else max_len
-        kv = (self.n_groups, batch_size, eff, cfg.num_kv_heads,
-              cfg.resolved_head_dim)
-        spec = {}
-        for pre, lead in (("", (self.n_groups, cfg.attn_every)),
-                          ("tail_", (self.n_tail,))):
-            if lead[0] == 0:
-                continue
-            spec[pre + "ssm"] = (lead + (batch_size, nheads, N,
-                                         cfg.ssm_head_dim), torch.float32)
-            spec[pre + "conv_x"] = (lead + (batch_size, K - 1, d_inner),
-                                    torch.bfloat16)
-            spec[pre + "conv_bc"] = (lead + (batch_size, K - 1, 2 * N),
-                                     torch.bfloat16)
-            if not pre:
-                spec["attn_k"] = spec["attn_v"] = (kv, torch.bfloat16)
-        return spec
+        """(shape, dtype) of each cache buffer (:func:`cache_spec`)."""
+        return {name: leaf[:2] for name, leaf in
+                cache_spec(self.cfg, batch_size, max_len).items()}
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None) -> dict:
         """Zeroed cache on the model's device; ``dtype`` overrides the

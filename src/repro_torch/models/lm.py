@@ -34,42 +34,42 @@ def _attn_defs(cfg: ArchConfig) -> dict:
         cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
     )
     d = {
-        "wq": ParamDef((D, H, hd)),
-        "wk": ParamDef((D, KV, hd)),
-        "wv": ParamDef((D, KV, hd)),
-        "wo": ParamDef((H, hd, D)),
-        "ln_attn": ParamDef((D,), init="ones"),
+        "wq": ParamDef((D, H, hd), logical=("fsdp", "tp", None)),
+        "wk": ParamDef((D, KV, hd), logical=("fsdp", "tp", None)),
+        "wv": ParamDef((D, KV, hd), logical=("fsdp", "tp", None)),
+        "wo": ParamDef((H, hd, D), logical=("tp", None, "fsdp")),
+        "ln_attn": ParamDef((D,), init="ones", logical=(None,)),
     }
     if cfg.qk_norm:
-        d["q_norm"] = ParamDef((hd,), init="ones")
-        d["k_norm"] = ParamDef((hd,), init="ones")
+        d["q_norm"] = ParamDef((hd,), init="ones", logical=(None,))
+        d["k_norm"] = ParamDef((hd,), init="ones", logical=(None,))
     return d
 
 
 def _mlp_defs(cfg: ArchConfig) -> dict:
     D, F = cfg.d_model, cfg.d_ff
     return {
-        "w_gate": ParamDef((D, F)),
-        "w_up": ParamDef((D, F)),
-        "w_down": ParamDef((F, D)),
-        "ln_mlp": ParamDef((D,), init="ones"),
+        "w_gate": ParamDef((D, F), logical=("fsdp", "tp")),
+        "w_up": ParamDef((D, F), logical=("fsdp", "tp")),
+        "w_down": ParamDef((F, D), logical=("tp", "fsdp")),
+        "ln_mlp": ParamDef((D,), init="ones", logical=(None,)),
     }
 
 
 def _moe_defs(cfg: ArchConfig) -> dict:
     D, E, Fm = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
     d = {
-        "router": ParamDef((D, E), scale=0.02),
-        "e_gate": ParamDef((E, D, Fm)),
-        "e_up": ParamDef((E, D, Fm)),
-        "e_down": ParamDef((E, Fm, D)),
-        "ln_mlp": ParamDef((D,), init="ones"),
+        "router": ParamDef((D, E), scale=0.02, logical=("fsdp", None)),
+        "e_gate": ParamDef((E, D, Fm), logical=("ep", "fsdp", None)),
+        "e_up": ParamDef((E, D, Fm), logical=("ep", "fsdp", None)),
+        "e_down": ParamDef((E, Fm, D), logical=("ep", None, "fsdp")),
+        "ln_mlp": ParamDef((D,), init="ones", logical=(None,)),
     }
     if cfg.num_shared_experts:
         Fs = Fm * cfg.num_shared_experts
-        d["s_gate"] = ParamDef((D, Fs))
-        d["s_up"] = ParamDef((D, Fs))
-        d["s_down"] = ParamDef((Fs, D))
+        d["s_gate"] = ParamDef((D, Fs), logical=("fsdp", "tp"))
+        d["s_up"] = ParamDef((D, Fs), logical=("fsdp", "tp"))
+        d["s_down"] = ParamDef((Fs, D), logical=("tp", "fsdp"))
     return d
 
 
@@ -85,11 +85,11 @@ def param_defs(cfg: ArchConfig) -> dict:
     ``dense_layers`` rows, then its ``moe_layers`` rows)."""
     D, V = cfg.d_model, cfg.vocab_size
     defs: dict = {
-        "embed": ParamDef((V, D), scale=0.02),
-        "final_norm": ParamDef((D,), init="ones"),
+        "embed": ParamDef((V, D), scale=0.02, logical=("tp", "fsdp")),
+        "final_norm": ParamDef((D,), init="ones", logical=(None,)),
     }
     if not cfg.tie_embeddings:
-        defs["head"] = ParamDef((D, V), scale=0.02)
+        defs["head"] = ParamDef((D, V), scale=0.02, logical=("fsdp", "tp"))
     n_dense = num_dense_layers(cfg)
     defs["layers"] = [
         {**_attn_defs(cfg),
@@ -97,6 +97,27 @@ def param_defs(cfg: ArchConfig) -> dict:
         for i in range(cfg.num_layers)
     ]
     return defs
+
+
+def cache_spec(cfg: ArchConfig, batch_size: int, max_len: int) -> dict:
+    """(shape, dtype, logical axes) of each KV cache buffer, grouped as
+    the reference's: ``"dense"`` (the dense-MLP layers) and ``"moe"``
+    (the rest), bf16, ``max_len`` slots (no registered config of this
+    family has a window; the reference takes ``min(window, max_len)``)."""
+    n_dense = num_dense_layers(cfg)
+
+    def kv(n):
+        shape = (n, batch_size, max_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        leaf = (shape, torch.bfloat16, ("layer", "dp", "sp", None, None))
+        return {"k": leaf, "v": leaf}
+
+    spec = {}
+    if n_dense:
+        spec["dense"] = kv(n_dense)
+    if cfg.num_layers > n_dense:
+        spec["moe"] = kv(cfg.num_layers - n_dense)
+    return spec
 
 
 def _promoted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -227,22 +248,10 @@ class DecoderLM(TrainableLM):
 
     # ------------------------------------------------------------- serve
     def cache_spec(self, batch_size: int, max_len: int) -> dict:
-        """(shape, dtype) of each cache buffer, grouped as the
-        reference's: ``"dense"`` (the dense-MLP layers) and ``"moe"``
-        (the rest); the KV cache is bf16."""
-        cfg = self.cfg
-
-        def kv(n):
-            shape = (n, batch_size, max_len, cfg.num_kv_heads,
-                     cfg.resolved_head_dim)
-            return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
-
-        spec = {}
-        if self.n_dense:
-            spec["dense"] = kv(self.n_dense)
-        if cfg.num_layers > self.n_dense:
-            spec["moe"] = kv(cfg.num_layers - self.n_dense)
-        return spec
+        """(shape, dtype) of each cache buffer (:func:`cache_spec`)."""
+        return {grp: {name: leaf[:2] for name, leaf in bufs.items()}
+                for grp, bufs in cache_spec(self.cfg, batch_size,
+                                            max_len).items()}
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None) -> dict:
         """Zeroed cache on the model's device (``dtype`` overrides the

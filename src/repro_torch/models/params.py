@@ -1,9 +1,16 @@
-"""Parameter declarations and their random initialisation.
+"""Parameter declarations, their random initialisation and their
+abstract (meta-device) form.
 
-Counterpart of the reference's ``ParamDef``/``init_params``
-(``src/repro/parallel/sharding.py``) without the sharding: a declaration
-keeps the shape, the ``normal``/``zeros``/``ones`` rule, the default scale
-``1/sqrt(fan_in)`` (fan-in the second-to-last axis) and the bf16 default.
+Counterpart of the reference's ``ParamDef``/``init_params``/
+``abstract_params``/``param_specs`` (``src/repro/parallel/sharding.py``):
+a declaration keeps the shape, the ``normal``/``zeros``/``ones`` rule, the
+default scale ``1/sqrt(fan_in)`` (fan-in the second-to-last axis), the
+bf16 default and the logical axis of each dimension (``"fsdp"``,
+``"tp"``, ``"ep"`` or ``None``), which :mod:`repro_torch.parallel.sharding`
+resolves against a mesh.  A per-layer declaration of the port carries the
+reference's logical tuple without its leading stacking axes (always
+``None`` there).
+
 Random values come from a :class:`torch.Generator` on the target device,
 so a model of billions of parameters is drawn on the card, not copied
 from the host.  Same seed, same weights on one device; the reference's
@@ -19,6 +26,8 @@ import math
 import torch
 from torch import nn
 
+from ..tree import tree_map
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
@@ -26,6 +35,7 @@ class ParamDef:
     init: str = "normal"  # normal | zeros | ones
     scale: float | None = None  # stddev; default 1/sqrt(fan_in)
     dtype: torch.dtype = torch.bfloat16
+    logical: tuple = ()  # logical axis per dimension (or None)
 
     def initializer(self, generator: torch.Generator) -> torch.Tensor:
         device = generator.device
@@ -42,6 +52,22 @@ class ParamDef:
         w = torch.randn(self.shape, generator=generator, dtype=torch.float32,
                         device=device)
         return (w.mul_(scale)).to(self.dtype)
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def abstract_params(defs):
+    """``defs`` with each declaration replaced by a meta tensor of its
+    shape and dtype: the dry run's parameters (nothing allocated)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs, is_leaf=is_def)
+
+
+def param_specs(defs):
+    """``defs`` with each declaration replaced by its logical axes."""
+    return tree_map(lambda d: d.logical, defs, is_leaf=is_def)
 
 
 def init_params(defs, generator: torch.Generator):

@@ -24,17 +24,19 @@ def mamba_defs(cfg: ArchConfig) -> dict:
     nheads = d_inner // cfg.ssm_head_dim
     N2 = 2 * cfg.ssm_state
     return {
-        "w_z": ParamDef((D, d_inner)),
-        "w_x": ParamDef((D, d_inner)),
-        "w_bc": ParamDef((D, N2)),
-        "w_dt": ParamDef((D, nheads)),
-        "conv_x": ParamDef((d_inner, cfg.ssm_conv), scale=0.5),
-        "conv_bc": ParamDef((N2, cfg.ssm_conv), scale=0.5),
-        "dt_bias": ParamDef((nheads,), init="zeros"),
-        "a_log": ParamDef((nheads,), init="zeros"),
-        "norm": ParamDef((d_inner,), init="ones"),
-        "w_out": ParamDef((d_inner, D)),
-        "ln": ParamDef((D,), init="ones"),
+        "w_z": ParamDef((D, d_inner), logical=("fsdp", "tp")),
+        "w_x": ParamDef((D, d_inner), logical=("fsdp", "tp")),
+        "w_bc": ParamDef((D, N2), logical=("fsdp", "tp")),
+        "w_dt": ParamDef((D, nheads), logical=("fsdp", "tp")),
+        "conv_x": ParamDef((d_inner, cfg.ssm_conv), scale=0.5,
+                           logical=("tp", None)),
+        "conv_bc": ParamDef((N2, cfg.ssm_conv), scale=0.5,
+                            logical=("tp", None)),
+        "dt_bias": ParamDef((nheads,), init="zeros", logical=("tp",)),
+        "a_log": ParamDef((nheads,), init="zeros", logical=("tp",)),
+        "norm": ParamDef((d_inner,), init="ones", logical=("tp",)),
+        "w_out": ParamDef((d_inner, D), logical=("tp", "fsdp")),
+        "ln": ParamDef((D,), init="ones", logical=(None,)),
     }
 
 
@@ -55,13 +57,33 @@ def param_defs(cfg: ArchConfig) -> dict:
     """``{"embed", "final_norm", ["head"], "layers": [per-layer dict]}``
     of :class:`ParamDef` (the reference's declarations, unstacked)."""
     defs: dict = {
-        "embed": ParamDef((cfg.vocab_size, cfg.d_model), scale=0.02),
-        "final_norm": ParamDef((cfg.d_model,), init="ones"),
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), scale=0.02,
+                          logical=("tp", "fsdp")),
+        "final_norm": ParamDef((cfg.d_model,), init="ones",
+                               logical=(None,)),
     }
     if not cfg.tie_embeddings:
-        defs["head"] = ParamDef((cfg.d_model, cfg.vocab_size), scale=0.02)
+        defs["head"] = ParamDef((cfg.d_model, cfg.vocab_size), scale=0.02,
+                                logical=("fsdp", "tp"))
     defs["layers"] = [mamba_defs(cfg) for _ in range(cfg.num_layers)]
     return defs
+
+
+def cache_spec(cfg: ArchConfig, batch_size: int, max_len: int) -> dict:
+    """(shape, dtype, logical axes) of each state buffer: the SSM state
+    fp32, the conv carries bf16 (independent of ``max_len``: the state is
+    O(1) in the sequence)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nheads = d_inner // cfg.ssm_head_dim
+    n, K = cfg.num_layers, cfg.ssm_conv
+    return {
+        "ssm": ((n, batch_size, nheads, cfg.ssm_state, cfg.ssm_head_dim),
+                torch.float32, ("layer", "dp", "tp", None, None)),
+        "conv_x": ((n, batch_size, K - 1, d_inner), torch.bfloat16,
+                   ("layer", "dp", None, "tp")),
+        "conv_bc": ((n, batch_size, K - 1, 2 * cfg.ssm_state),
+                    torch.bfloat16, ("layer", "dp", None, "tp")),
+    }
 
 
 class MambaLM(TrainableLM):
@@ -98,19 +120,9 @@ class MambaLM(TrainableLM):
 
     # ------------------------------------------------------------- serve
     def cache_spec(self, batch_size: int, max_len: int) -> dict:
-        """(shape, dtype) of each state buffer (independent of
-        ``max_len``: the state is O(1) in the sequence)."""
-        cfg = self.cfg
-        d_inner = cfg.ssm_expand * cfg.d_model
-        nheads = d_inner // cfg.ssm_head_dim
-        n, K = cfg.num_layers, cfg.ssm_conv
-        return {
-            "ssm": ((n, batch_size, nheads, cfg.ssm_state, cfg.ssm_head_dim),
-                    torch.float32),
-            "conv_x": ((n, batch_size, K - 1, d_inner), torch.bfloat16),
-            "conv_bc": ((n, batch_size, K - 1, 2 * cfg.ssm_state),
-                        torch.bfloat16),
-        }
+        """(shape, dtype) of each state buffer (:func:`cache_spec`)."""
+        return {name: leaf[:2] for name, leaf in
+                cache_spec(self.cfg, batch_size, max_len).items()}
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         device = self.top.embed.device

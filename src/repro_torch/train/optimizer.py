@@ -15,6 +15,10 @@ parameters is not copied each step.  The int8 moments are new tensors
 each step, as the reference's.  A tensor of the port is one layer's
 (the reference stacks a family's layers into one tensor), so an int8
 moment's scale is per layer tensor.
+
+:func:`opt_state_abstract` and :func:`opt_state_logical` give the state's
+meta tensors and logical axes from the parameter declarations, for the
+dry run: nothing is allocated.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import dataclasses
 import math
 import torch
 
+from ..models.params import is_def
 from ..tree import leaves, tree_map, with_leaves
 
 F32 = torch.float32
@@ -166,3 +171,35 @@ def update(cfg: OptimizerConfig, grads, state: dict, params):
         "count": count,
     }
     return params, state2, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_logical(defs, cfg: OptimizerConfig) -> dict:
+    """Logical axes of the optimizer state of ``defs``: each moment
+    sharded as its parameter (ZeRO-3), an int8 moment's scale
+    replicated."""
+    if cfg.moment_dtype == "int8":
+        mom = tree_map(lambda d: (d.logical, ()), defs, is_leaf=is_def)
+    else:
+        mom = tree_map(lambda d: d.logical, defs, is_leaf=is_def)
+    return {"m": mom, "v": mom, "count": ()}
+
+
+def opt_state_abstract(defs, cfg: OptimizerConfig) -> dict:
+    """:func:`init`'s state for parameters declared by ``defs``, as meta
+    tensors: fp32 moments (fp64 for fp64 declarations), or int8 with a
+    0-d fp32 scale, and an int32 count."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cfg.moment_dtype == "int8":
+        def mom(d):
+            return meta(d.shape, torch.int8), meta((), F32)
+    elif cfg.moment_dtype == "float32":
+        def mom(d):
+            return meta(d.shape, torch.promote_types(F32, d.dtype))
+    else:
+        raise ValueError(f"moment_dtype {cfg.moment_dtype!r}: want float32 "
+                         "or int8")
+    return {"m": tree_map(mom, defs, is_leaf=is_def),
+            "v": tree_map(mom, defs, is_leaf=is_def),
+            "count": meta((), torch.int32)}

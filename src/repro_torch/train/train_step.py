@@ -9,9 +9,9 @@ reference's step is a pure function of its state; here the state's
 step updates in place, so ``state`` and ``model`` must belong together
 (:func:`init_state` makes them so).
 
-``abstract_state`` and ``state_logical`` (the sharded jit and dry-run's
-abstract trees) come with the sharding layer, ROADMAP.md queue 1 item
-11.6.
+``abstract_state`` and ``state_logical`` give the training state's meta
+tensors and logical axes from a config (or a model's), allocating
+nothing: the dry run's state (``repro_torch.launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -22,6 +22,9 @@ from typing import Any, Callable
 import torch
 
 from .. import tree
+from ..configs.base import ArchConfig
+from ..models import param_defs
+from ..models.params import abstract_params, param_specs
 from . import optimizer as opt
 
 
@@ -39,6 +42,28 @@ def init_state(model, opt_cfg: opt.OptimizerConfig) -> TrainState:
     return TrainState(params, opt.init(opt_cfg, params),
                       torch.zeros((), dtype=torch.int32,
                                   device=model.top.embed.device))
+
+
+def _defs(model_or_cfg) -> dict:
+    cfg = (model_or_cfg if isinstance(model_or_cfg, ArchConfig)
+           else model_or_cfg.cfg)
+    return param_defs(cfg)
+
+
+def abstract_state(model_or_cfg, opt_cfg: opt.OptimizerConfig) -> TrainState:
+    """:func:`init_state`'s state for a config (or a model's config) as
+    meta tensors of the declared shapes and dtypes."""
+    defs = _defs(model_or_cfg)
+    return TrainState(abstract_params(defs),
+                      opt.opt_state_abstract(defs, opt_cfg),
+                      torch.empty((), dtype=torch.int32, device="meta"))
+
+
+def state_logical(model_or_cfg, opt_cfg: opt.OptimizerConfig) -> TrainState:
+    """The logical axes of :func:`abstract_state`'s leaves."""
+    defs = _defs(model_or_cfg)
+    return TrainState(param_specs(defs), opt.opt_state_logical(defs, opt_cfg),
+                      ())
 
 
 @torch.no_grad()

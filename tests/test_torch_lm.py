@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCHS as ref_archs  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.configs import smoke_shrink as ref_smoke_shrink  # noqa: E402
 from repro.models import build_model as ref_build_model  # noqa: E402
@@ -28,6 +29,7 @@ from repro.models import layers as jL  # noqa: E402
 from repro.parallel.sharding import count_params as ref_count_params  # noqa: E402
 from repro.parallel.sharding import init_params as ref_init_params  # noqa: E402
 
+from repro_torch import tree  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, smoke_shrink  # noqa: E402
 from repro_torch.interop import lm_params_from_numpy  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -54,7 +56,7 @@ def _t(x):
 
 
 # --------------------------------------------------------------- configs
-@pytest.mark.parametrize("arch", MODELS)
+@pytest.mark.parametrize("arch", MODELS + ("llama3-405b",))
 def test_config_matches_reference(arch):
     ours, theirs = get_config(arch), ref_get_config(arch)
     for f in dataclasses.fields(ours):
@@ -66,13 +68,16 @@ def test_config_matches_reference(arch):
 
 def test_only_served_models_are_registered():
     """The served models (the hybrid zamba2-7b among them), the
-    encoder-decoder seamless-m4t-medium (``tests/test_torch_encdec.py``)
-    and llama3.2-3b (the training launcher's default) are registered;
-    llama3-405b (it needs sharding) waits in ROADMAP."""
-    assert set(ARCHS) == set(MODELS) | {"llama3.2-3b", "seamless-m4t-medium"}
+    encoder-decoder seamless-m4t-medium (``tests/test_torch_encdec.py``),
+    llama3.2-3b (the training launcher's default) and llama3-405b (the
+    dry run's, built only abstractly) are registered: the reference's
+    ten, in its order; an unknown name raises."""
+    assert list(ARCHS) == list(ref_archs)
+    assert set(ARCHS) == set(MODELS) | {"llama3.2-3b", "seamless-m4t-medium",
+                                        "llama3-405b"}
     assert "zamba2-7b" in ARCHS
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("llama3-405b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama3-1t")
 
 
 # the reference's stacked layer groups, each with its stacking axes: the
@@ -160,15 +165,21 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_features_raise():
-    """What stays unported: llama3-405b (its config waits for the
-    sharding layer) and training on a mesh of more than one device.  The
-    encoder-decoder family, unported until item 11.5, now builds, and
-    the gradient through a sliding window (item 11.4b) runs."""
+    """What stays unported: training on a mesh of more than one device
+    (item 11.6.3).  llama3-405b, unported until item 11.6.1, is
+    registered and its abstract build runs (meta tensors, nothing
+    allocated); the encoder-decoder family, unported until item 11.5,
+    builds, and the gradient through a sliding window (item 11.4b)
+    runs."""
     from repro_torch.launch.train import train
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import abstract_state
 
-    with pytest.raises(KeyError, match="11.6"):
-        get_config("llama3-405b")
-    with pytest.raises(NotImplementedError, match="11.6"):
+    big = get_config("llama3-405b")
+    state = abstract_state(big, opt.OptimizerConfig(moment_dtype="int8"))
+    assert count_params(param_defs(big)) == 405_853_388_800
+    assert {str(t.device) for t in tree.leaves(state)} == {"meta"}
+    with pytest.raises(NotImplementedError, match="11.6.3"):
         train("seamless-m4t-medium", steps=1, mesh_shape=(2, 1),
               device="cpu")
     cfg = smoke_shrink(get_config("qwen3-4b"))
