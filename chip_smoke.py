@@ -206,7 +206,10 @@ points at full width:
                  tensors' bytes exactly (world size 1); the prefill's
                  analytic bound on the H100 at batch x prompt beside its
                  prefill_s (a report, not a gate);
-     train     — LM training on the card through make_train_step
+     train     — LM training on the card through the sharded step on a
+                 one-rank nccl mesh (1, 1) ("data", "model"; the state's
+                 blocks are the model's own tensors, the batch's rows the
+                 whole batch), make_train_step with a TrainLayout
                  (chunked cross-entropy, AdamW, each layer checkpointed):
                  qwen3-4b at full width and depth, batch 2 x 512,
                  mamba2-130m, batch 4 x 512, deepseek-moe-16b at full
@@ -218,8 +221,17 @@ points at full width:
                  (4 x 512 frames and tokens), 4 steps each: finite losses,
                  the first within 0.1 of ln V + d s^2 / 2 (s the head's
                  init std: the logits of a random head have variance
-                 d s^2), step ms, tokens/s, peak
-                 device memory, a profiler trace of one more step; the
+                 d s^2), each parameter block the model's own tensor
+                 (the same storage), step ms, tokens/s, peak
+                 device memory (within 1% of the plain step's peak for
+                 the same model and shapes, PLAIN_TRAIN_PEAK: bytes that
+                 an earlier run measured, so the gate is tied to the
+                 PyTorch and allocator of that run), a profiler
+                 trace of one more step; the sharded step against the
+                 plain one at 2
+                 layers (TRAIN_AGREE's batch, seq and steps, bf16):
+                 losses, grad norms and every parameter after 2 steps
+                 equal bit for bit; the
                  training state after the steps held to abstract_state
                  leaf by leaf (every parameter, moment, count and step;
                  its bytes on a 1 x 1 mesh exact: world size 1), and a
@@ -252,6 +264,16 @@ points at full width:
                  seamless-m4t-medium K4 backward on mma, 24 a step
                  non-causal (its fp32 agreement's on simt) (the
                  counts are zeroed before each model and read after it);
+     pipeline  — parallel.pipeline.pipeline_forward at world size 1 (a
+                 one-rank "pod" axis on nccl) over 2 decoder layers of
+                 qwen3-4b's published widths, 4 microbatches of 1 x 512
+                 (K4 and its backward): the schedule's loop and its
+                 broadcast (forward and backward) on the card, with no
+                 hand-off (send/recv needs two stages: the CPU tests
+                 run those); the output equal bit for bit to the layer
+                 stack applied to each microbatch, one backward's
+                 gradients equal to the stack's, bubble_fraction as the
+                 GPipe formula; its seconds and launches;
   7. kernels   — one JSON line listing every kernel with its launches on
                  its path (phases 3-5, engine, search, resume and
                  multihost for the contraction kernels, the
@@ -488,6 +510,25 @@ EXAMPLE_STEPS = 100  # the llama3-100m twin, seq 128
 # steps its loss must drop > 0.1 on the card.  Sequences of 128 take
 # the flash kernel's forward and backward, which must launch.
 LEARN = dict(arch="llama3.2-3b", steps=200, batch=4, seq=128, lr=5e-3)
+# the train phase's peak device memory of each model through the plain
+# step, as this script measured it before the steps went through the
+# sharded one (NVIDIA H100 80GB HBM3 at 700 W; the same bytes in two
+# calls): the sharded step on one rank must stay within PEAK_SAME of it,
+# its blocks being the model's own tensors.  The bytes are that run's
+# PyTorch and allocator's: another version may move them with no change
+# here (the storage itself is checked block by block)
+PLAIN_TRAIN_PEAK = {
+    "qwen3-4b": 59465043456,
+    "mamba2-130m": 3832926208,
+    "deepseek-moe-16b": 37617935872,
+    "zamba2-7b": 15025669632,
+    "seamless-m4t-medium": 20416514048,
+}
+PEAK_SAME = 0.01
+ONE_RANK = ((1, 1), ("data", "model"))  # the train phase's live mesh
+# the pipeline phase: 2 decoder layers of qwen3-4b, 4 microbatches of
+# 1 x 512, on a one-rank "pod" axis
+PIPELINE = dict(arch="qwen3-4b", layers=2, n_micro=4, mb=1, seq=512)
 
 
 class SmokeFailure(RuntimeError):
@@ -1729,17 +1770,30 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
     )
 
 
-def _train_steps(torch, model, ocfg, batches):
-    """Run ``batches`` through a fresh training state of ``model``:
+def _layout(cfg, ocfg, device="cuda"):
+    """The sharded step's layout of ``cfg``'s state on the one-rank mesh
+    (``nccl`` on the card)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.train_step import TrainLayout
+
+    return TrainLayout(cfg, ocfg, make_host_mesh(*ONE_RANK, device),
+                       cfg.sharding_recipe)
+
+
+def _train_steps(torch, model, ocfg, batches, layout=None):
+    """Run ``batches`` through a fresh training state of ``model`` (the
+    sharded step's, with ``layout``; each batch cut to the rank's rows):
     (losses, grad norms, step seconds, state, step function), each step
     ended by a device sync (``float`` of its loss)."""
     from repro_torch.train.train_step import init_state, make_train_step
 
-    state = init_state(model, ocfg)
-    step = make_train_step(model, ocfg)
+    state = init_state(model, ocfg, layout)
+    step = make_train_step(model, ocfg, layout)
     losses, norms, secs = [], [], []
     for batch in batches:
         t0 = time.perf_counter()
+        if layout is not None:
+            batch = layout.rows(batch)
         state, met = step(state, batch)
         losses.append(float(met["loss"]))
         secs.append(time.perf_counter() - t0)
@@ -1757,6 +1811,7 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
     HYBRID_TRAIN_AGREE)."""
     import dataclasses
 
+    from repro_torch import tree
     from repro_torch.launch.train import train_batch, train_dataset
     from repro_torch.models import param_defs
     from repro_torch.models.params import count_params
@@ -1772,23 +1827,36 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
     batches = [train_batch(cfg, ds, i) for i in range(TRAIN_STEPS + 1)]
     ocfg = opt.OptimizerConfig(learning_rate=1e-3, warmup_steps=2,
                                total_steps=100)
+    layout = _layout(cfg, ocfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset()
     model = build_model(cfg, seed=0, device="cuda")
     losses, norms, secs, state, step = _train_steps(
-        torch, model, ocfg, batches[:TRAIN_STEPS])
+        torch, model, ocfg, batches[:TRAIN_STEPS], layout)
     torch.cuda.synchronize()
     launched = counts()
     peak = torch.cuda.max_memory_allocated() - base
+    # on one rank each parameter block is the model's own tensor
+    own = dict(tree.flatten(model.param_tree()))
+    blocks = dict(tree.flatten(state.params))
+    copies = [p for p, b in blocks.items()
+              if b.data_ptr() != own[p].data_ptr()]
+    check(set(blocks) == set(own) and not copies,
+          f"{arch}: {len(copies)} parameter blocks on the one-rank mesh "
+          f"are not the model's own tensors: {copies[:4]}")
+    want_peak = PLAIN_TRAIN_PEAK[arch]
+    check(abs(peak - want_peak) <= PEAK_SAME * want_peak,
+          f"{arch}: the sharded step's peak {peak} is not within "
+          f"{PEAK_SAME:.0%} of the plain step's {want_peak}")
     # the training state on the card against its abstract twin (world
     # size 1): every parameter, moment, count and step
     ws1 = _world_size_one(abstract_state(cfg, ocfg), state_logical(cfg, ocfg),
                           state, f"{arch} training state")
     with _patched(L, _spans(torch) if moe else {}):
         trace = profile(torch, lambda: float(
-            step(state, batches[TRAIN_STEPS])[1]["loss"]))
+            step(state, layout.rows(batches[TRAIN_STEPS]))[1]["loss"]))
     del state, step, model
     torch.cuda.empty_cache()
     check(all(math.isfinite(x) for x in losses + norms),
@@ -1808,7 +1876,8 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
         # trash row's repeats are dropped): the same steps from the same
         # seed give the same bits
         model = build_model(cfg, seed=0, device="cuda")
-        again = _train_steps(torch, model, ocfg, batches[:MOE_REPEAT])
+        again = _train_steps(torch, model, ocfg, batches[:MOE_REPEAT],
+                             layout)
         del model
         torch.cuda.empty_cache()
         repeat = dict(steps=MOE_REPEAT, losses=again[0], grad_norms=again[1])
@@ -1816,6 +1885,8 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
               and again[1] == norms[:MOE_REPEAT],
               f"{arch}: two runs of the same steps differ: {losses} {norms} "
               f"vs {again[:2]}")
+
+    sharded = _sharded_matches_plain(torch, build_model, full)
 
     # the card against the CPU on the same weights and batches
     spec = HYBRID_TRAIN_AGREE if hybrid else TRAIN_AGREE
@@ -1857,6 +1928,11 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
         step_ms=[1e3 * t for t in secs],
         tokens_per_s=tokens * (len(secs) - 1) / sum(secs[1:]),
         world_size_one=ws1,
+        sharded=dict(mesh=list(ONE_RANK[0]), axes=list(ONE_RANK[1]),
+                     recipe=cfg.sharding_recipe,
+                     batch_axes=list(layout.batch_axes),
+                     own_blocks=len(blocks), plain_peak_bytes=want_peak,
+                     peak_vs_plain=peak / want_peak, against_plain=sharded),
         step_roofline=_roofline(cfg, "train", batch, seq,
                                 sum(secs[1:]) / (len(secs) - 1), n_params),
         peak_bytes=peak, step_trace=trace, repeat=repeat,
@@ -1864,6 +1940,45 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
                                   else {}), **agree),
         launches=launched,
     )
+
+
+def _sharded_matches_plain(torch, build_model, full, device="cuda") -> dict:
+    """``full`` at TRAIN_AGREE's 2 layers (the encoder-decoder's 2 + 2),
+    its bf16 weights drawn from seed 1 twice: TRAIN_AGREE's steps through
+    the plain step and through the sharded step on the one-rank mesh.
+    The losses, grad norms and every parameter after the steps must be
+    equal bit for bit."""
+    from repro_torch import tree
+    from repro_torch.launch.train import train_batch, train_dataset
+    from repro_torch.train import optimizer as opt
+
+    small = dataclasses.replace(full, num_layers=TRAIN_AGREE["layers"])
+    if full.is_encdec:
+        small = dataclasses.replace(small,
+                                    encoder_layers=TRAIN_AGREE["layers"])
+    ocfg = opt.OptimizerConfig(learning_rate=TRAIN_AGREE["lr"],
+                               warmup_steps=0,
+                               total_steps=TRAIN_AGREE["steps"])
+    ds = train_dataset(small, TRAIN_AGREE["seq"], TRAIN_AGREE["batch"], seed=1)
+    batches = [train_batch(small, ds, i) for i in range(TRAIN_AGREE["steps"])]
+    runs = {}
+    for how, layout in (("plain", None),
+                        ("sharded", _layout(small, ocfg, device))):
+        model = build_model(small, seed=1, device=device)
+        losses, norms, _, state, _ = _train_steps(torch, model, ocfg, batches,
+                                                  layout)
+        runs[how] = (losses, norms, [t.clone() for t in
+                                     tree.leaves(state.params)])
+        del model, state
+    same = [torch.equal(a, b) for a, b in zip(runs["plain"][2],
+                                               runs["sharded"][2])]
+    out = dict(layers=small.num_layers, steps=TRAIN_AGREE["steps"],
+               losses=runs["sharded"][0], grad_norms=runs["sharded"][1],
+               params=len(same), params_equal=sum(same))
+    check(runs["plain"][:2] == runs["sharded"][:2] and all(same),
+          f"{full.name}: the sharded step on one rank is not the plain "
+          f"step: {out}, plain {runs['plain'][:2]}")
+    return out
 
 
 def _train_agreement(torch, L, build_model, small, params, batches, counts,
@@ -2222,6 +2337,86 @@ def _block_errs(got, want: list) -> dict:
         each.append(dict(kind=kind, input=errs[0], params=max(errs[1:])))
     return dict(n=len(each), max=max(max(b["input"], b["params"])
                                      for b in each), each=each)
+
+
+def phase_pipeline(torch, build_model, get_config, counts, reset,
+                   device="cuda") -> dict:
+    """PIPELINE's decoder layers through ``pipeline_forward`` on a
+    one-rank "pod" axis (its schedule and its broadcast on ``nccl``; no
+    hand-off, which needs two stages), forward and one backward, against
+    the same layers applied to each microbatch in order: output and
+    gradients equal bit for bit; ``bubble_fraction`` as (P-1)/(n+P-1)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.pipeline import bubble_fraction, pipeline_forward
+
+    spec = PIPELINE
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              num_layers=spec["layers"])
+    model = build_model(cfg, seed=0, device=device).train_mode(True)
+    mesh = make_host_mesh((1,), ("pod",), device)
+    S = spec["seq"]
+    pos = torch.arange(S, device=device).expand(spec["mb"], S)
+    gen = torch.Generator(device).manual_seed(0)
+    x = torch.randn(spec["n_micro"], spec["mb"], S, cfg.d_model,
+                    generator=gen, device=device).to(torch.bfloat16)
+    layers = [lp.tensors() for lp in model.layers]
+    weights = [t for lp in layers for t in lp.values()]
+
+    def layer_apply(p, h):
+        return model._block(p, h, pos, False, None)[0]
+
+    def run(fn):
+        for t in weights:
+            t.grad = None
+        out = fn()
+        out.float().square().sum().backward()
+        return out.detach(), [t.grad for t in weights]
+
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    got, got_g = run(lambda: pipeline_forward(layer_apply, layers, x, mesh,
+                                              axis="pod"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+
+    def stack():
+        outs = []
+        for m in range(spec["n_micro"]):
+            h = x[m]
+            for p in layers:
+                h = layer_apply(p, h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    want, want_g = run(stack)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(got_g, want_g)]
+    bubbles = {f"{n}x{p}": bubble_fraction(n, p)
+               for n, p in ((spec["n_micro"], 1), (spec["n_micro"], 2),
+                            (spec["n_micro"], 4), (8, 2))}
+    del model, layers, weights, got_g, want_g
+    torch.cuda.empty_cache()
+    n_k4 = spec["layers"] * spec["n_micro"]
+    check(torch.equal(got, want),
+          f"pipeline: the output is not the layer stack's "
+          f"(max diff {float((got.float() - want.float()).abs().max())})")
+    check(all(same), f"pipeline: {same.count(False)} of {len(same)} "
+          "gradients differ from the layer stack's")
+    check(bubbles == {k: (p - 1) / (n + p - 1) for k, (n, p) in zip(
+        bubbles, ((spec["n_micro"], 1), (spec["n_micro"], 2),
+                  (spec["n_micro"], 4), (8, 2)))},
+          f"pipeline: bubble fractions {bubbles}")
+    check(launched["flash_attention"] >= n_k4
+          and launched["flash_attention_bwd"] >= n_k4,
+          f"pipeline: K4 and its backward not launched for each layer and "
+          f"microbatch: {launched}")
+    return dict(arch=spec["arch"], layers=spec["layers"],
+                n_micro=spec["n_micro"], microbatch=[spec["mb"], S],
+                stages=1, seconds=seconds, output_equal=True,
+                gradients_equal=len(same), bubble_fraction=bubbles,
+                launches=launched)
 
 
 def phase_train_example(torch, counts, reset) -> dict:
@@ -3250,6 +3445,15 @@ def main() -> int:
         torch.cuda.empty_cache()
     emit(phase="train", **phase_train_example(torch, lm_counts, lm_reset))
     torch.cuda.empty_cache()
+    emit(phase="sharded_train", mesh=list(ONE_RANK[0]), axes=list(ONE_RANK[1]),
+         launches={arch: launches[f"train:{arch}"] for arch in TRAIN})
+    t0 = time.perf_counter()
+    pipe = phase_pipeline(torch, build_model, get_config, lm_counts, lm_reset)
+    launches["pipeline"] = pipe["launches"]
+    emit(phase="pipeline", wall_s=time.perf_counter() - t0, **pipe)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the one-rank run of train and pipeline
     check(launches["train:qwen3-4b"]["flash_attention_bwd"] > 0,
           "flash_attention_bwd was not launched training qwen3-4b")
     check(launches["train:mamba2-130m"]["ssd_chunk_bwd"] > 0,
@@ -3328,6 +3532,17 @@ def main() -> int:
     for name in BF16_ROUTES:
         check(prec["bf16_launches"][name] > 0,
               f"{name}'s bf16 route was not launched in the precision phase")
+    # the LM kernels' launches in the sharded train phase (every trained
+    # model) and in the pipeline phase, beside their path's count
+    extra = {name: dict(sharded_train_launches=sum(
+        launches[f"train:{arch}"][name] for arch in TRAIN))
+        for name in ("flash_attention", "flash_attention_bwd", "ssd_chunk",
+                     "ssd_chunk_bwd")}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        extra[name]["pipeline_launches"] = launches["pipeline"][name]
+    for name in ("flash_attention_bwd", "ssd_chunk_bwd"):
+        check(extra[name]["sharded_train_launches"] > 0,
+              f"{name} was not launched by the sharded train phase")
     records = []
     for name in TPU_KERNELS:
         rec = kern[name]
@@ -3339,6 +3554,7 @@ def main() -> int:
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             **{k: rec[k] for k in ("simt_ms",) if k in rec},
+            **extra.get(name, {}),
         ))
     for name in K4_SHAPES:
         if ":" not in name:

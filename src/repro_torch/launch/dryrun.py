@@ -53,9 +53,10 @@ NOT_MEASURED = {
                          "and hand-written kernels",
     "useful_ratio": "needs a compiled program's FLOP count; the roofline's "
                     "FLOPs are the analytic model's",
-    "roofline.collective_s": "needs a compiled program's collectives "
-                             "(training over several processes is "
-                             "ROADMAP item 11.6.3)",
+    "roofline.collective_s": "needs a compiled program's collectives; "
+                             "the eager sharded step's all-gathers and "
+                             "all-reduces are not counted into the dry "
+                             "run",
 }
 
 

@@ -66,8 +66,10 @@ def make_host_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
     """A live ``DeviceMesh`` of ``shape`` over the processes of the
     ``torch.distributed`` run (its world size must be the product of
     ``shape``).  One process needs no run: a one-rank group is made in
-    process.  ``device_type`` is ``"cuda"`` (``nccl``) or ``"cpu"``
+    process.  ``device_type`` is ``"cuda"`` (``nccl``; each process
+    takes the card of its rank, one process per card) or ``"cpu"``
     (``gloo``)."""
+    import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -78,6 +80,8 @@ def make_host_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
                 "processes: call distributed.init_multi_host first")
         dist.init_process_group(_backend(device_type), store=dist.HashStore(),
                                 rank=0, world_size=1)
+    if device_type == "cuda":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
 
@@ -114,9 +118,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     rank, size = init_multi_host(args.coordinator, args.num_processes,
                                  args.process_id, _backend(args.device))
-    if args.device == "cuda":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
-    mesh = multi_host_mesh(device_type=args.device)
+    mesh = multi_host_mesh(device_type=args.device)  # picks the card
     tp = CollectiveTransport(chunks=1, group=mesh.get_group())
     tp.push(torch.tensor([float(rank + 1)]))
     total = tp.finalize()

@@ -210,11 +210,12 @@ class EncDecLM(TrainableLM):
         return L.rms_norm(h, top["enc_norm"], self.cfg.norm_eps)
 
     # ------------------------------------------------------------ train
-    def hidden_states(self, batch: dict):
+    def hidden_states(self, batch: dict, group=None):
         """Final decoder hidden states (B, S, D), normed, and aux 0.
         ``batch`` holds ``embeds`` (B, S_enc, D) for the encoder and
         ``tokens`` (B, S) for the decoder; every layer of both stacks runs
-        under ``torch.utils.checkpoint``."""
+        under ``torch.utils.checkpoint``.  ``group`` (the
+        batch's process group) is unused: nothing is routed."""
         top = self.top.tensors()
         mem = self.encode(batch["embeds"], checkpointed=True)
         h = top["embed"][self._tokens(batch["tokens"])]

@@ -167,11 +167,12 @@ class ZambaLM(TrainableLM):
                     p, h, positions)[0], shared))
         return out
 
-    def hidden_states(self, batch: dict):
+    def hidden_states(self, batch: dict, group=None):
         """Final-layer hidden states (B, S, D), normed, and aux 0; each of
         :meth:`blocks` under ``torch.utils.checkpoint`` (the mamba layers
         through K5's forward and backward, the shared block's windowed
-        attention through K4's)."""
+        attention through K4's).  ``group`` (the
+        batch's process group) is unused: nothing is routed."""
         top = self.top.tensors()
         h = top["embed"][self._tokens(batch["tokens"])]
         B, S = h.shape[:2]

@@ -22,6 +22,7 @@ import functools
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..kernels import ops
@@ -181,13 +182,20 @@ def moe_capacity(tokens: int, top_k: int, num_experts: int,
 
 
 def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
-              capacity_factor: float = 1.25, dispatch: str = "sort"):
+              capacity_factor: float = 1.25, dispatch: str = "sort",
+              group=None):
     """The routing of :func:`moe_layer` on ``x`` (B, S, D): ``(probs (T,
     E) fp32, gate (T, k) fp32 renormalised, ids (T, k), keep (T·k,) bool,
     dest (T·k,), cap)``.  Slot ``(t, r)`` of the flat ``(token, rank)``
     order goes to row ``dest = ids·cap + position-in-expert`` of the
     expert buffer, or to the trash row ``E·cap`` when its expert is full
-    (``keep`` false)."""
+    (``keep`` false).
+
+    With ``group`` (the process group the batch is split over, its ranks
+    holding the batch's rows in order, each the same count) the routing
+    is the whole batch's: every rank's top-k ids are gathered, the
+    capacity is that of the global token count and the positions run in
+    global token order; this rank's slots are returned."""
     B, S, D = x.shape
     E = router_w.shape[1]
     T = B * S
@@ -196,8 +204,18 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
     gate, ids = torch.topk(probs, top_k, dim=-1, sorted=True)  # (T, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
-    cap = moe_capacity(T, top_k, E, capacity_factor)
     flat_ids = ids.reshape(-1)  # (T·k,)
+    mine = slice(None)
+    if group is not None:
+        ranks = dist.get_world_size(group)
+        parts = [torch.empty(flat_ids.shape, dtype=torch.int32,
+                             device=x.device) for _ in range(ranks)]
+        dist.all_gather(parts, flat_ids.to(torch.int32), group=group)
+        start = dist.get_rank(group) * flat_ids.numel()
+        mine = slice(start, start + flat_ids.numel())
+        flat_ids = torch.cat(parts).long()
+        T = T * ranks
+    cap = moe_capacity(T, top_k, E, capacity_factor)
     n = flat_ids.numel()
     if dispatch == "sort":
         sort_idx = torch.argsort(flat_ids, stable=True)
@@ -214,6 +232,7 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
         mypos = pos_all.gather(1, flat_ids[:, None])[:, 0]
     else:
         raise ValueError(f"unknown dispatch {dispatch!r}")
+    flat_ids, mypos = flat_ids[mine], mypos[mine]
     keep = mypos < cap
     dest = torch.where(keep, flat_ids * cap + mypos,
                        torch.full_like(flat_ids, E * cap))
@@ -239,6 +258,7 @@ def moe_layer(
     top_k: int,
     capacity_factor: float = 1.25,
     dispatch: str = "sort",
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k token-choice routing with per-expert capacity (tokens over
     capacity are dropped, Switch/GShard semantics): the reference's
@@ -258,18 +278,35 @@ def moe_layer(
     before the products, so no float is ever summed by atomics), and the
     Switch aux loss's counts are an integer ``scatter_add_`` (exact in
     any order; ``torch.bincount`` reads its maximum back to the host on
-    the card).  Returns (y (B, S, D), aux_loss () fp32)."""
+    the card).  Returns (y (B, S, D), aux_loss () fp32).
+
+    With ``group`` the routing is the whole batch's (:func:`moe_route`),
+    and so is the aux loss: the top-1 counts and the probability sums are
+    all-reduced over the group.  Its value is the global one on every
+    rank, its gradient the group's size times this rank's share of the
+    global one, so that the mean of the ranks' gradients (the sharded
+    train step's reduction) is the global gradient."""
     B, S, D = x.shape
     E = router_w.shape[1]
     T = B * S
     probs, gate, ids, keep, dest, cap = moe_route(
-        x, router_w, top_k, capacity_factor, dispatch)
+        x, router_w, top_k, capacity_factor, dispatch, group=group)
 
     # load-balance aux loss (Switch): E · Σ_e f_e · p_e over the top-1 ids
     counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
         0, ids[:, 0], torch.ones_like(ids[:, 0]))
-    f_e = counts.float() / T
-    aux = E * torch.mean(f_e * torch.mean(probs, dim=0))
+    if group is None:
+        f_e = counts.float() / T
+        aux = E * torch.mean(f_e * torch.mean(probs, dim=0))
+    else:
+        ranks = dist.get_world_size(group)
+        dist.all_reduce(counts, group=group)
+        part = ranks * probs.sum(dim=0)
+        total = probs.sum(dim=0).detach()
+        dist.all_reduce(total, group=group)
+        f_e = counts.float() / (T * ranks)
+        p_e = (total + (part - part.detach())) / (T * ranks)
+        aux = E * torch.mean(f_e * p_e)
 
     xf = x.reshape(T, D)
     xin = xf[:, None].expand(T, top_k, D).reshape(T * top_k, D)  # slot rows

@@ -186,10 +186,11 @@ class DecoderLM(TrainableLM):
         o = _promoted(o.to(h.dtype).reshape(B, S, -1), p["wo"])
         return h + o @ p["wo"].reshape(-1, D), kv
 
-    def _mlp(self, p, h, moe: bool):
+    def _mlp(self, p, h, moe: bool, group=None):
         """The MLP block: SwiGLU, or the routed experts plus the shared
-        ones.  Returns (h, aux) with the MoE aux loss (0 for a dense
-        layer)."""
+        ones, routed over the batch's process ``group`` where one is given
+        (:func:`~repro_torch.models.layers.moe_layer`).  Returns (h, aux)
+        with the MoE aux loss (0 for a dense layer)."""
         cfg = self.cfg
         x = L.rms_norm(h, p["ln_mlp"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -198,7 +199,7 @@ class DecoderLM(TrainableLM):
         else:
             y, aux = L.moe_layer(
                 x, p["router"], p["e_gate"], p["e_up"], p["e_down"],
-                top_k=cfg.experts_per_token,
+                top_k=cfg.experts_per_token, group=group,
             )
             if cfg.num_shared_experts:
                 y = y + L.swiglu(x, p["s_gate"], p["s_up"], p["s_down"])
@@ -214,16 +215,17 @@ class DecoderLM(TrainableLM):
         return top["embed"][tokens]
 
     # ------------------------------------------------------------ train
-    def _block(self, p, h, positions, moe, mrope_positions):
+    def _block(self, p, h, positions, moe, mrope_positions, group=None):
         h, _ = self._attention(p, h, positions,
                                mrope_positions=mrope_positions)
-        return self._mlp(p, h, moe)
+        return self._mlp(p, h, moe, group)
 
-    def hidden_states(self, batch: dict):
+    def hidden_states(self, batch: dict, group=None):
         """Final-layer hidden states (B, S, D), normed, and the MoE aux
         loss summed over the MoE layers (0 without them).  ``batch``
         holds ``tokens`` (B, S) or ``embeds`` (B, S, D), and for M-RoPE
-        ``positions`` (3, B, S)."""
+        ``positions`` (3, B, S); ``group`` is the process group the batch
+        is split over, if any, which the MoE layers route over."""
         top = self.top.tensors()
         embeds = batch.get("embeds")
         tokens = None if embeds is not None else self._tokens(batch["tokens"])
@@ -234,7 +236,7 @@ class DecoderLM(TrainableLM):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, layer in enumerate(self.layers):
             h, a = checkpoint(self._block, layer.tensors(), h, positions,
-                              i >= self.n_dense, mrope_positions,
+                              i >= self.n_dense, mrope_positions, group,
                               use_reentrant=False)
             aux = aux + a
         return L.rms_norm(h, top["final_norm"], self.cfg.norm_eps), aux

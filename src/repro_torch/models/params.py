@@ -156,7 +156,8 @@ class TrainableLM(nn.Module):
     """What the models share for training: a model holds its weights in
     ``top`` (a :class:`Params`) and ``layers`` (a list of them; the
     encoder-decoder also ``enc_layers``), and defines
-    ``hidden_states(batch) -> (h, aux)`` and ``head_weights(top)``."""
+    ``hidden_states(batch, group=None) -> (h, aux)`` and
+    ``head_weights(top)``."""
 
     def train_mode(self, flag: bool = True):
         """Make every parameter trainable (``requires_grad``), or frozen
@@ -179,14 +180,16 @@ class TrainableLM(nn.Module):
     def _tokens(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.top.embed.device).long()
 
-    def loss(self, batch: dict):
+    def loss(self, batch: dict, group=None):
         """``(loss, {"xent", "aux"})`` on ``batch`` (``tokens`` and
         ``labels``, (B, S), numpy or tensors): the final hidden states
         through the chunked cross-entropy against the head, plus
-        ``0.01 · aux`` (0 for the dense and SSM families)."""
+        ``0.01 · aux`` (0 for the dense and SSM families).  ``group`` is
+        the process group the global batch is split over, where this
+        batch is one rank's rows: the MoE layers route over it."""
         from .losses import chunked_cross_entropy
 
-        h, aux = self.hidden_states(batch)
+        h, aux = self.hidden_states(batch, group)
         xent = chunked_cross_entropy(h, self.head_weights(self.top.tensors()),
                                      self._tokens(batch["labels"]))
         return xent + 0.01 * aux, {"xent": xent, "aux": aux}

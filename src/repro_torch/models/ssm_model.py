@@ -108,8 +108,10 @@ class MambaLM(TrainableLM):
     def _block(self, p, h):
         return mamba_block(self.cfg, p, h)[0]
 
-    def hidden_states(self, batch: dict):
-        """Final-layer hidden states (B, S, D), normed, and aux 0."""
+    def hidden_states(self, batch: dict, group=None):
+        """Final-layer hidden states (B, S, D), normed, and aux 0.
+        ``group`` (the batch's process group) is unused: nothing is
+        routed."""
         top = self.top.tensors()
         h = top["embed"][self._tokens(batch["tokens"])]
         for layer in self.layers:

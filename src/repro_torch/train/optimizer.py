@@ -25,7 +25,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+
 import torch
+import torch.distributed as dist
 
 from ..models.params import is_def
 from ..tree import leaves, tree_map, with_leaves
@@ -80,8 +82,15 @@ def is_moment(x) -> bool:
 # --------------------------------------------------------------------
 # int8 moment quantization (per-tensor absmax scaling + fp32 scale)
 # --------------------------------------------------------------------
-def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+def _quantize(x: torch.Tensor, groups=()) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` as int8 and its fp32 scale ``max|x| / 127``.  ``x`` may be
+    one rank's block of a tensor split over the process ``groups``: the
+    max is then all-reduced over them, so every block shares the scale
+    that the whole tensor has."""
+    amax = x.abs().max()
+    for group in groups:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.to(F32)
 
@@ -113,21 +122,38 @@ def init(cfg: OptimizerConfig, params) -> dict:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, placements=None) -> torch.Tensor:
     """sqrt of the sum, over the leaves in order, of each leaf's sum of
-    squares in fp32 (fp64 for fp64 leaves)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(_work(g))))
-                          for g in leaves(tree)))
+    squares in fp32 (fp64 for fp64 leaves).  With ``placements`` (one
+    :class:`~repro_torch.parallel.sharding.Placement` per leaf, on a mesh
+    that spans the run) the leaves are this rank's blocks: each leaf's
+    sum is all-reduced over the run, a block that several ranks hold
+    (the leaf replicated over an axis) counted once, and the norm is
+    that of the whole tensors."""
+    sq = [torch.sum(torch.square(g.to(_work(g)))) for g in leaves(tree)]
+    if placements and placements[0].mesh.size() > 1:
+        per_leaf = torch.stack([s if p.counted else torch.zeros_like(s)
+                                for s, p in zip(sq, placements)])
+        dist.all_reduce(per_leaf)
+        sq = per_leaf.unbind()
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
-def update(cfg: OptimizerConfig, grads, state: dict, params):
+def update(cfg: OptimizerConfig, grads, state: dict, params,
+           placements=None):
     """One AdamW step.  Returns ``(params, state, metrics)`` with
     ``metrics = {"grad_norm", "lr"}`` (0-d fp32 tensors; the norm fp64
     for fp64 gradients); ``params`` and the fp32 moments are updated in
-    place and returned.  fp64 tensors are updated in fp64 throughout."""
+    place and returned.  fp64 tensors are updated in fp64 throughout.
+
+    With ``placements`` (one per parameter leaf) ``params``, ``grads``
+    and the moments are this rank's blocks of a sharded state: the
+    clipping norm and each int8 scale are those of the whole tensors
+    (:func:`global_norm`, :func:`_quantize`), so every rank steps as the
+    one-process update would."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, placements)
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     int8 = cfg.moment_dtype == "int8"
     consts = {}
@@ -148,8 +174,10 @@ def update(cfg: OptimizerConfig, grads, state: dict, params):
     flat_v = leaves(state["v"], is_moment)
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("params, grads and moments differ in structure")
+    groups = [()] * len(flat_p) if placements is None else [
+        [pl.mesh.get_group(a) for a in pl.split_axes] for pl in placements]
     new_m, new_v = [], []
-    for g, p, m, v in zip(flat_g, flat_p, flat_m, flat_v):
+    for g, p, m, v, grp in zip(flat_g, flat_p, flat_m, flat_v, groups):
         lr_p, bc1, bc2 = at(_work(p))
         g = g.to(_work(p)) * clip
         m_f = _dequantize(*m) if int8 else m
@@ -162,8 +190,8 @@ def update(cfg: OptimizerConfig, grads, state: dict, params):
             upd.add_(cfg.weight_decay * p.to(upd.dtype))
         p.copy_(p.to(upd.dtype) - lr_p * upd)
         del upd
-        new_m.append(_quantize(m_f) if int8 else m_f)
-        new_v.append(_quantize(v_f) if int8 else v_f)
+        new_m.append(_quantize(m_f, grp) if int8 else m_f)
+        new_v.append(_quantize(v_f, grp) if int8 else v_f)
 
     state2 = {
         "m": with_leaves(state["m"], new_m, is_moment),

@@ -203,11 +203,16 @@ def test_argument_bytes_match_reference(arch):
 KEYS = {"arch", "shape", "mesh", "n_devices", "kind", "params",
         "active_params", "moment_dtype", "recipe", "memory", "roofline",
         "model_flops_global", "useful_ratio"}
+# the process's own peak (VmHWM): its ru_maxrss would also hold the
+# peak of the test process that started it, which the kernel carries
+# across the exec
 CLI = r"""
-import resource, sys
+import sys
 from repro_torch.launch.dryrun import main
 rc = main(sys.argv[1:])
-print("maxrss_kb", resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+with open("/proc/self/status") as fh:
+    print("maxrss_kb", next(int(line.split()[1]) for line in fh
+                            if line.startswith("VmHWM:")))
 sys.exit(rc)
 """
 

@@ -165,11 +165,12 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_features_raise():
-    """What stays unported: training on a mesh of more than one device
-    (item 11.6.3).  llama3-405b, unported until item 11.6.1, is
-    registered and its abstract build runs (meta tensors, nothing
-    allocated); the encoder-decoder family, unported until item 11.5,
-    builds, and the gradient through a sliding window (item 11.4b)
+    """What was unported runs or is refused with a reason: a mesh of
+    more than one device trains over its processes and is refused on a
+    run of one process.  llama3-405b, unported until item
+    11.6.1, is registered and its abstract build runs (meta tensors,
+    nothing allocated); the encoder-decoder family, unported until item
+    11.5, builds, and the gradient through a sliding window (item 11.4b)
     runs."""
     from repro_torch.launch.train import train
     from repro_torch.train import optimizer as opt
@@ -179,7 +180,7 @@ def test_unported_features_raise():
     state = abstract_state(big, opt.OptimizerConfig(moment_dtype="int8"))
     assert count_params(param_defs(big)) == 405_853_388_800
     assert {str(t.device) for t in tree.leaves(state)} == {"meta"}
-    with pytest.raises(NotImplementedError, match="11.6.3"):
+    with pytest.raises(ValueError, match="run of 1 processes"):
         train("seamless-m4t-medium", steps=1, mesh_shape=(2, 1),
               device="cpu")
     cfg = smoke_shrink(get_config("qwen3-4b"))

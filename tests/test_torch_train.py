@@ -743,10 +743,17 @@ def test_train_state_checkpoint_roundtrip(tmp_path, moments):
 
 
 def test_train_refuses_a_mesh_and_defaults_to_the_card():
-    with pytest.raises(NotImplementedError, match="11.6"):
+    """A mesh of 2 needs a run of 2 processes (tests/test_torch_train_mesh.py
+    trains on them); a mesh of one runs the sharded step on a one-rank
+    group it starts and leaves; the default device is the card."""
+    import torch.distributed as dist
+
+    with pytest.raises(ValueError, match="run of 1"):
         train("llama3.2-3b", steps=1, mesh_shape=(2, 1), device="cpu")
+    assert not dist.is_initialized()
     train("llama3.2-3b", steps=1, global_batch=2, seq_len=16,
           mesh_shape=(1, 1), device="cpu")
+    assert not dist.is_initialized()
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
     with pytest.raises(RuntimeError, match="device='cpu'"):

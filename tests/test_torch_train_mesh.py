@@ -1,0 +1,359 @@
+"""Training over several processes: ``launch.train.train(mesh_shape=)``
+on 2 and 4 ``gloo`` processes on the CPU (the sharded step,
+``train.train_step.TrainLayout``), held against two yardsticks on the
+same fp32 weights (the reference's ``init_params`` carried across with
+``lm_params_from_numpy``) and the same batches:
+
+  * the port's one-process run: the losses of 3 steps within rtol 1e-5
+    and the step-0 grad norm within rtol 1e-6 (the two differ only in
+    the order of a reduction);
+  * the reference's sharded jit on the same mesh (its launcher's
+    ``in_shardings``/``out_shardings``, run in a subprocess with 4
+    forced XLA host devices): the losses within rtol 1e-4, the tolerance
+    of ``tests/test_torch_train.py``'s three steps.  The reference's
+    fp32 sharded losses are checked against its own unsharded ones at
+    1e-4 first (its bf16 mesh runs differ among themselves at step 0).
+
+The cases: qwen3-4b's shrink on meshes (2, 1) and (2, 2), mamba2-130m's
+(its ``dp_only`` recipe: the batch splits over "data" and "model"),
+deepseek-moe-16b's at a batch where the capacity binds (the global
+routing drops the tokens the one-process run drops, at least one), int8
+moments on (2, 1), and a checkpoint of a 2-process run resumed to the
+straight run's losses.  One 2-process and one 4-process launch run every
+case of their mesh, started with the reference's subprocess.
+"""
+
+import json
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.configs import smoke_shrink as ref_smoke_shrink  # noqa: E402
+from repro.models import build_model as ref_build_model  # noqa: E402
+from repro.parallel.sharding import init_params as ref_init_params  # noqa: E402
+
+from repro_torch.configs import get_config, smoke_shrink  # noqa: E402
+from repro_torch.interop import lm_params_from_numpy  # noqa: E402
+from repro_torch.launch import train as launcher  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+
+from test_torch_pipeline import REPO, collect, start_gloo  # noqa: E402
+
+STEPS, SCHEDULE = 3, 10
+LOSS_TOL = 1e-5  # N processes against one: the order of a reduction
+NORM_TOL = 1e-6
+REF_TOL = 1e-4  # against the reference (its three-step tolerance)
+# name: (arch, mesh, global batch, seq, moments, learning rate).  The
+# int8 case runs at lr 1e-4: at 1e-3 its third loss jumps (6.24 to 7.4,
+# the reference's too), where quantizing each second moment with one
+# scale per tensor zeroes its small entries, so that one moment entry
+# rounded the other way moves its weight by up to lr: two runs that
+# differ in the order of a sum part there by 1e-2
+CASES = {
+    "dense_2x1": ("qwen3-4b", (2, 1), 4, 32, "float32", 1e-3),
+    "dense_2x2": ("qwen3-4b", (2, 2), 4, 32, "float32", 1e-3),
+    "ssm_2x1": ("mamba2-130m", (2, 1), 4, 32, "float32", 1e-3),
+    # T = 64 tokens: 40 slots per expert of 4 (top-2), 32 on average
+    "moe_2x1": ("deepseek-moe-16b", (2, 1), 2, 32, "float32", 1e-3),
+    "int8_2x1": ("qwen3-4b", (2, 1), 4, 32, "int8", 1e-4),
+}
+RESUME = "dense_2x1"  # resumed after 2 steps, on its mesh
+# the reference alone, its weights in bf16 (its default), on the
+# launcher's llama3.2-3b (tied embeddings): on a mesh its first step is
+# not its unsharded one (ROADMAP.md, "Divergences kept as found")
+BF16 = ("llama3.2-3b", (2, 1), 4, 32, "float32", 1e-3)
+
+
+def _kw(case):
+    arch, mesh, B, S, moments, lr = CASES.get(case, BF16)
+    return dict(steps=STEPS, global_batch=B, seq_len=S, lr=lr,
+                schedule_steps=SCHEDULE, device="cpu", moment_dtype=moments)
+
+
+def _ref_params(arch) -> dict:
+    """The reference's seed-0 smoke-shrink weights, fp32, as numpy."""
+    model = ref_build_model(ref_smoke_shrink(ref_get_config(arch)))
+    params = ref_init_params(model.param_defs(), jax.random.PRNGKey(0))
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+
+
+# what a run records: each step's metrics (through make_train_step) and
+# each routing call's dropped slots on this rank (through moe_route);
+# and a case's launcher arguments (its moment type goes in through the
+# launcher's optimizer config, whose moments the launcher leaves at the
+# default)
+RECORDING = r"""
+import functools, types
+import numpy as np, torch
+from repro_torch.launch import train as launcher
+from repro_torch.models import layers as L
+from repro_torch.train import optimizer as opt
+
+def launch_kw(kw):
+    kw = dict(kw)
+    launcher.opt = types.SimpleNamespace(OptimizerConfig=functools.partial(
+        opt.OptimizerConfig, moment_dtype=kw.pop("moment_dtype")))
+    return kw
+
+def recording(runs):
+    plain_step, plain_route = launcher.make_train_step, L.moe_route
+
+    def make_train_step(*a, **k):
+        step = plain_step(*a, **k)
+        def wrapped(state, batch):
+            state, met = step(state, batch)
+            runs[-1]["metrics"].append({k: float(v) for k, v in met.items()})
+            return state, met
+        return wrapped
+
+    def moe_route(*a, **k):
+        out = plain_route(*a, **k)
+        runs[-1]["drops"].append(int((~out[3]).sum()))
+        return out
+
+    launcher.make_train_step, L.moe_route = make_train_step, moe_route
+"""
+
+WORKER = RECORDING + r"""
+import json, pickle, sys
+import torch.distributed as dist
+from repro_torch.configs import get_config, smoke_shrink
+from repro_torch.interop import lm_params_from_numpy
+from repro_torch.models import build_model
+rank, n, port, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=n, rank=rank)
+with open(path, "rb") as fh:
+    job = pickle.load(fh)
+runs = []
+recording(runs)
+for name, (arch, mesh, kw) in job["cases"].items():
+    if mesh[0] * mesh[1] != n or name.startswith("bf16:"):
+        continue
+    cfg = smoke_shrink(get_config(arch))
+    weights = job["params"][arch]
+    launcher.build_model = lambda c, seed, device: build_model(
+        c, lm_params_from_numpy(c, weights), device=device)
+    for part, extra in ((name, {}),) + (
+            (("first", dict(steps=2, ckpt_dir=job["ckpt"], ckpt_every=2)),
+             ("rest", dict(ckpt_dir=job["ckpt"], ckpt_every=2)))
+            if name == job["resume"] else ()):
+        runs.append({"case": part, "metrics": [], "drops": []})
+        runs[-1]["losses"] = launcher.train(arch, mesh_shape=tuple(mesh),
+                                            **{**launch_kw(kw), **extra})
+print("OUT" + json.dumps({"rank": rank, "runs": runs}))
+dist.destroy_process_group()
+"""
+
+# the reference's launcher step (its sharded jit) on each case's mesh and
+# without shardings, from the same fp32 weights: each step's loss and
+# grad norm
+REF = r"""
+import os, pickle, sys, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_config, smoke_shrink
+from repro.data.pipeline import SyntheticTextDataset
+from repro.launch.mesh import make_host_mesh
+from repro.models import build_model
+from repro.parallel.sharding import logical_shardings
+from repro.train import optimizer as opt
+from repro.train.train_step import (TrainState, abstract_state,
+                                    make_train_step, state_logical)
+with open(sys.argv[1], "rb") as fh:
+    job = pickle.load(fh)
+name = sys.argv[2]
+arch, mesh_shape, kw = job["cases"][name]
+cfg = smoke_shrink(get_config(arch))
+model = build_model(cfg)
+ocfg = opt.OptimizerConfig(
+    learning_rate=kw["lr"], warmup_steps=min(20, kw["schedule_steps"] // 5 + 1),
+    total_steps=kw["schedule_steps"], moment_dtype=kw["moment_dtype"])
+ds = SyntheticTextDataset(vocab_size=cfg.vocab_size, seq_len=kw["seq_len"],
+                          global_batch=kw["global_batch"], seed=0)
+bf16 = name.startswith("bf16:")
+params = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16 if bf16 else jnp.float32),
+                      job["params"][arch])
+runs = {}
+for how in ("sharded", "unsharded"):
+    state = TrainState(params, opt.init(ocfg, params), jnp.zeros((), jnp.int32))
+    if how == "sharded":
+        mesh = make_host_mesh(tuple(mesh_shape), ("data", "model"))
+        recipe = cfg.sharding_recipe
+        st_sh = logical_shardings(abstract_state(model, ocfg),
+                                  state_logical(model, ocfg), mesh, recipe)
+        b0 = ds.batch(0)
+        b_sh = logical_shardings(
+            jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), b0),
+            {k: ("dp",) + (None,) * (v.ndim - 1) for k, v in b0.items()},
+            mesh, recipe)
+        step = jax.jit(make_train_step(model, ocfg),
+                       in_shardings=(st_sh, b_sh), out_shardings=(st_sh, None))
+        state = jax.device_put(state, st_sh)
+    else:
+        step = jax.jit(make_train_step(model, ocfg))
+    mets = []
+    for i in range(kw["steps"]):
+        state, met = step(state, {k: jnp.asarray(v) for k, v in ds.batch(i).items()})
+        mets.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])})
+    runs[how] = mets
+with open(sys.argv[3], "w") as fh:
+    json.dump(runs, fh)
+print("DONE")
+"""
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case: the reference's runs, the port's N-process runs (by
+    rank) and its one-process runs, the three started together."""
+    d = tmp_path_factory.mktemp("train_mesh")
+    job = {
+        "cases": {name: (arch, mesh, _kw(name))
+                  for name, (arch, mesh, *_) in CASES.items()},
+        "params": {arch: _ref_params(arch)
+                   for arch in {c[0] for c in [*CASES.values(), BF16]}},
+        "resume": RESUME, "ckpt": str(d / "ckpt"),
+    }
+    job["cases"]["bf16:"] = (BF16[0], BF16[1], _kw("bf16:"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    with open(d / "job.pkl", "wb") as fh:
+        pickle.dump(job, fh)
+    refs = {name: subprocess.Popen(
+        [sys.executable, "-c", REF, str(d / "job.pkl"), name,
+         str(d / f"{name}.json")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
+        for name in job["cases"]}
+    procs = {n: start_gloo(WORKER, n, str(d / "job.pkl")) for n in (2, 4)}
+    want = {}
+    try:
+        one = _one_process(job)
+        sharded = {n: collect(p, timeout=300) for n, p in procs.items()}
+        for name, ref in refs.items():
+            out, err = ref.communicate(timeout=300)
+            assert "DONE" in out, err[-4000:]
+            with open(d / f"{name}.json") as fh:
+                want[name] = json.load(fh)
+    finally:
+        for p in [*refs.values(), *procs[2], *procs[4]]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return one, sharded, want
+
+
+def _one_process(job) -> dict:
+    """Each case's port run in this process, without a mesh."""
+    rec: list = []
+    namespace: dict = {}
+    exec(RECORDING, namespace)
+    plain = (launcher.make_train_step, L.moe_route, launcher.build_model,
+             launcher.opt)
+    try:
+        namespace["recording"](rec)
+        for name in CASES:
+            arch, _, kw = job["cases"][name]
+            cfg = smoke_shrink(get_config(arch))
+            weights = lm_params_from_numpy(cfg, job["params"][arch])
+            launcher.build_model = (lambda c, seed, device, w=weights:
+                                    build_model(c, w, device=device))
+            rec.append({"case": name, "metrics": [], "drops": []})
+            rec[-1]["losses"] = launcher.train(arch,
+                                               **namespace["launch_kw"](kw))
+    finally:
+        (launcher.make_train_step, L.moe_route, launcher.build_model,
+         launcher.opt) = plain
+    return {r["case"]: r for r in rec}
+
+
+def _sharded(sharded, case) -> list[dict]:
+    """Every rank's record of ``case``."""
+    n = 4 if CASES.get(case, CASES[RESUME])[1] == (2, 2) else 2
+    return [next(r for r in rank["runs"] if r["case"] == case)
+            for rank in sharded[n]]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_run_matches_one_process(runs, case):
+    """Every rank reports the global batch's losses: within rtol 1e-5 of
+    the one-process run's; the step-0 grad norm within rtol 1e-6."""
+    one, sharded, _ = runs
+    want = one[case]
+    assert len(want["losses"]) == STEPS
+    for rec in _sharded(sharded, case):
+        np.testing.assert_allclose(rec["losses"], want["losses"],
+                                   rtol=LOSS_TOL)
+        np.testing.assert_allclose(rec["metrics"][0]["grad_norm"],
+                                   want["metrics"][0]["grad_norm"],
+                                   rtol=NORM_TOL)
+        assert [m["lr"] for m in rec["metrics"]] == [
+            m["lr"] for m in want["metrics"]]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_run_matches_reference(runs, case):
+    """The port's sharded losses within rtol 1e-4 of the reference's
+    sharded jit on the same mesh, whose fp32 losses are themselves within
+    1e-4 of its unsharded ones."""
+    _, sharded, want = runs
+    ref = [m["loss"] for m in want[case]["sharded"]]
+    plain = [m["loss"] for m in want[case]["unsharded"]]
+    np.testing.assert_allclose(ref, plain, rtol=REF_TOL)
+    for rec in _sharded(sharded, case):
+        np.testing.assert_allclose(rec["losses"], ref, rtol=REF_TOL)
+
+
+def test_moe_routing_is_global_and_drops(runs):
+    """The MoE case's capacity binds: the one-process run drops slots
+    (in its second and third steps; each routing runs twice a step, the
+    checkpointed layer's forward again in the backward), and the ranks'
+    dropped slots add up to the same count at every routing call
+    (per-rank capacities would drop others)."""
+    one, sharded, _ = runs
+    want = one["moe_2x1"]["drops"]
+    assert len(want) == 2 * STEPS and sum(want) >= 1, want
+    ranks = [rec["drops"] for rec in _sharded(sharded, "moe_2x1")]
+    assert [sum(d) for d in zip(*ranks)] == want
+
+
+def test_checkpoint_resume_matches_straight_run(runs):
+    """2 steps with a checkpoint, then a run resumed from it on the same
+    2-process mesh: the straight run's 3 losses."""
+    _, sharded, _ = runs
+    straight = _sharded(sharded, RESUME)
+    first, rest = _sharded(sharded, "first"), _sharded(sharded, "rest")
+    for s, a, b in zip(straight, first, rest):
+        assert len(a["losses"]) == 2 and len(b["losses"]) == 1
+        np.testing.assert_allclose(a["losses"] + b["losses"], s["losses"],
+                                   rtol=LOSS_TOL)
+
+
+def test_reference_bf16_first_step_depends_on_the_mesh(runs):
+    """The reference's own bf16 step (its default weights' type) of
+    llama3.2-3b's shrink on the (2, 1) mesh is not its unsharded step:
+    the first losses part by more than 1e-4 (its fp32 runs agree within
+    that, above) and the grad norms by more than 10% (21.6 against 16.0
+    on this CPU), which is why the tests hold the port to fp32 runs."""
+    _, _, want = runs
+    got = want["bf16:"]
+    loss = [r[0]["loss"] for r in (got["sharded"], got["unsharded"])]
+    norm = [r[0]["grad_norm"] for r in (got["sharded"], got["unsharded"])]
+    assert abs(loss[0] - loss[1]) > REF_TOL * abs(loss[1]), loss
+    assert abs(norm[0] - norm[1]) > 0.1 * norm[1], norm
+
+
+def test_a_mesh_needs_its_processes():
+    """A mesh of 2 on a run of 1 process is refused before any step."""
+    with pytest.raises(ValueError, match="run of 1"):
+        launcher.train("qwen3-4b", steps=1, mesh_shape=(2, 1), device="cpu")
