@@ -23,9 +23,11 @@ points at full width:
                  and 16 skips (long_500k for the 8 full-attention archs,
                  exactly cell_applicable's); no cell errors, every tensor
                  any operation returned on the meta device (a dispatch
-                 mode watches), torch.cuda.memory_allocated unmoved; a few
-                 cells' per-rank bytes, bound and dominant term, and the
-                 phase's seconds, printed;
+                 mode watches), torch.cuda.memory_allocated unmoved, every
+                 record's collective term a number (the sharded step's
+                 collectives counted from the resolved specs); a few
+                 cells' per-rank bytes, bound, collective term and
+                 dominant term, and the phase's seconds, printed;
   2. kernels   — each contraction kernel (tiled_gemm, fused_gemm,
                  chain_gemm) at the shapes of the 30-qubit plan (its
                  largest tiled step, largest fused step, longest chain),
@@ -264,6 +266,20 @@ points at full width:
                  seamless-m4t-medium K4 backward on mma, 24 a step
                  non-causal (its fp32 agreement's on simt) (the
                  counts are zeroed before each model and read after it);
+     tp_local  — the sharded step's products split over "model", rank by
+                 rank: qwen3-4b's published widths, 2 of its 36 layers,
+                 2 x 512 tokens; for P in 2, 4, 8, 16 each rank's
+                 attention (its H/P q heads, its kv heads or the one its
+                 q heads read: 2 on 1 at P = 16) and SwiGLU (F/P
+                 columns) run alone (parallel.tp_local, no group: each
+                 conjugate all-reduce the identity), their outputs,
+                 input gradients and weight gradients summed (or laid
+                 side by side) against the whole blocks' in fp32 (1e-5
+                 of max|whole|) and bf16 (3e-2); K4 and its backward
+                 launched once for each whole attention and once for
+                 each rank's, on the type's route (fp32 simt, bf16
+                 wgmma and mma), the counts zeroed before each P and
+                 read after it;
      pipeline  — parallel.pipeline.pipeline_forward at world size 1 (a
                  one-rank "pod" axis on nccl) over 2 decoder layers of
                  qwen3-4b's published widths, 4 microbatches of 1 x 512
@@ -289,7 +305,9 @@ points at full width:
                  each serving it, flash_attention_bwd's non-causal record
                  with its non-causal launches training seamless-m4t-medium
                  and its windowed record with its launches training
-                 zamba2-7b;
+                 zamba2-7b, and flash_attention and flash_attention_bwd
+                 on one rank's heads of qwen3-4b for each P of tp_local
+                 with their bf16 launches there (one a layer and rank);
                  every fused_gemm launch of those phases must
                  have taken the wgmma kernel with the coalesced (uniform)
                  gather.
@@ -526,6 +544,16 @@ PLAIN_TRAIN_PEAK = {
 }
 PEAK_SAME = 0.01
 ONE_RANK = ((1, 1), ("data", "model"))  # the train phase's live mesh
+# the sharded step's products split over "model" (tp_local): qwen3-4b at
+# its published widths, 2 of its 36 layers, 2 x 512 tokens; each of P
+# ranks' attention (H/P q heads; its kv heads where 8 divides P, else the
+# one its q heads read: 2 q heads on 1 at P = 16) and SwiGLU (F/P
+# columns) run alone on the card, their partial outputs and input
+# gradients summed, held against the whole blocks in fp32 (1e-5 of
+# max|whole|) and bf16 (TRAIN_TOL's 3e-2)
+TP_LOCAL = dict(arch="qwen3-4b", layers=2, batch=2, seq=512,
+                sizes=(2, 4, 8, 16))
+TP_TOL = {"fp32": 1e-5, "bf16": 3e-2}
 # the pipeline phase: 2 decoder layers of qwen3-4b, 4 microbatches of
 # 1 x 512, on a one-rank "pod" axis
 PIPELINE = dict(arch="qwen3-4b", layers=2, n_micro=4, mb=1, seq=512)
@@ -1015,7 +1043,32 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
             len(K4_SHAPES) + i)
         out[name] = _k4_bwd_record(torch, fa, F, g, **shape)
     out["flash_attention_bwd:zamba2-7b"] = _k4_bwd_window_record(torch, fa, F)
+
+    # K4 and its backward on one rank's heads of qwen3-4b split over
+    # "model" (TP_LOCAL's shapes, each P from a generator of its own)
+    for size in TP_LOCAL["sizes"]:
+        H, KV = _tp_heads(size)
+        g = torch.Generator(device="cuda").manual_seed(100 + size)
+        shape = dict(B=TP_LOCAL["batch"], H=H, KV=KV, S=TP_LOCAL["seq"],
+                     d=128)
+        out[f"flash_attention:{_tp_name(size)}"] = _k4_record(
+            torch, fa, F, g, **{**K4_DEFAULT, **shape})
+        out[f"flash_attention_bwd:{_tp_name(size)}"] = _k4_bwd_record(
+            torch, fa, F, g, causal=True, **shape)
     return out
+
+
+def _tp_name(size: int) -> str:
+    """A K4 record's suffix at one rank's heads of TP_LOCAL's split."""
+    return f"{TP_LOCAL['arch']}:tp{size}"
+
+
+def _tp_heads(size: int) -> tuple[int, int]:
+    """(q heads, kv heads) of one rank of qwen3-4b's 32 on 8 split over
+    ``size`` ranks: the kv heads split where 8 divides ``size``, else the
+    one kv head its q heads read."""
+    H, KV = 32, 8
+    return H // size, KV // size if KV % size == 0 else 1
 
 
 def _k4_bwd_record(torch, fa, F, gen, B, H, KV, S, d, causal) -> dict:
@@ -1942,6 +1995,87 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
     )
 
 
+def phase_tp_local(torch, build_model, get_config, counts, reset, L,
+                   device="cuda") -> dict:
+    """TP_LOCAL: for each P, every rank's share of each layer's attention
+    and SwiGLU blocks on the card (``parallel.tp_local.check_block``, no
+    group: each conjugate op the identity), summed and held against the
+    whole block, forward and backward, in fp32 and bf16; K4 and its
+    backward launched once for the whole attention and once for each
+    rank's heads, on the route of the type (fp32 simt, bf16 wgmma/mma)."""
+    from repro_torch.parallel import tp_local
+
+    t0 = time.perf_counter()
+    spec = TP_LOCAL
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              num_layers=spec["layers"])
+    model = build_model(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    shape = (spec["batch"], spec["seq"], cfg.d_model)
+    h = torch.randn(shape, generator=gen, device=device)
+    dy = torch.randn(shape, generator=gen, device=device)
+    heads: list = []
+
+    def recorded(fn):
+        def inner(q, k, v, **kw):
+            heads.append((q.shape[2], k.shape[2]))
+            return fn(q, k, v, **kw)
+        return inner
+
+    out = {}
+    with _patched(L, {"blockwise_attention": recorded}):
+        for name, dtype in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            layers = [{k: v.to(dtype) for k, v in lay.tensors().items()}
+                      for lay in model.layers]
+            for size in spec["sizes"]:
+                heads.clear()
+                reset()
+                worst = {}
+                for i, params in enumerate(layers):
+                    for block in ("attention", "mlp"):
+                        got = tp_local.check_block(
+                            model, i, block, h.to(dtype), dy.to(dtype), size,
+                            params)
+                        errs = dict(out=got["out"], dx=got["dx"],
+                                    grads=max(got["grads"].values()))
+                        for k, e in errs.items():
+                            key = f"{block}_{k}"
+                            worst[key] = max(worst.get(key, 0.0), e)
+                torch.cuda.synchronize()
+                launched = counts()
+                n = cfg.num_layers * (1 + size)
+                fwd = "simt" if name == "fp32" else "wgmma"
+                bwd = "simt" if name == "fp32" else "mma"
+                hq, kv = _tp_heads(size)
+                rec = dict(errors=worst, heads_per_rank=[hq, kv],
+                    flash_attention=launched["flash_attention"],
+                    flash_attention_bwd=launched["flash_attention_bwd"],
+                    fwd_routes=launched["flash_fwd_routes"],
+                    bwd_routes=launched["flash_bwd_routes"])
+                out[f"{name}:P{size}"] = rec
+                check(max(worst.values()) <= TP_TOL[name],
+                      f"tp_local {name} P={size}: the ranks' sums are not "
+                      f"the whole block's: {worst}")
+                check(heads == ([(cfg.num_heads, cfg.num_kv_heads)]
+                                + [(hq, kv)] * size) * cfg.num_layers,
+                      f"tp_local {name} P={size}: attention heads {heads}")
+                check(launched["flash_fwd_routes"][fwd] == n
+                      and launched["flash_bwd_routes"][bwd] == n
+                      and launched["flash_attention"] == n
+                      and launched["flash_attention_bwd"] == n,
+                      f"tp_local {name} P={size}: K4 launches {rec}, want "
+                      f"{n} on {fwd} and {bwd}")
+            del layers
+    del model
+    torch.cuda.empty_cache()
+    return dict(arch=spec["arch"], layers=cfg.num_layers,
+                published_layers=get_config(spec["arch"]).num_layers,
+                batch=spec["batch"], seq=spec["seq"], sizes=spec["sizes"],
+                tolerance=TP_TOL, checks=out,
+                seconds=time.perf_counter() - t0)
+
+
 def _sharded_matches_plain(torch, build_model, full, device="cuda") -> dict:
     """``full`` at TRAIN_AGREE's 2 layers (the encoder-decoder's 2 + 2),
     its bf16 weights drawn from seed 1 twice: TRAIN_AGREE's steps through
@@ -2525,6 +2659,11 @@ def phase_dryrun(torch) -> dict:
           f"dry run: tensors on {mode.seen} ({mode.ops} operations)")
     check(after == before, f"dry run: allocated bytes moved {before} -> "
           f"{after}")
+    # the collective term: the sharded step's collectives counted from
+    # the resolved specs, a number in every record
+    unset = [k for k, r in records.items()
+             if not isinstance(r["roofline"]["collective_s"], float)]
+    check(not unset, f"dry run: no collective term in {unset[:4]}")
     return dict(
         cells=len(records) + len(skips), records=len(records),
         skips=len(skips), operations=mode.ops, devices=sorted(mode.seen),
@@ -2532,6 +2671,9 @@ def phase_dryrun(torch) -> dict:
         shown={k: dict(params=r["params"],
                        argument_split=r["memory"]["argument_split"],
                        bound_s=r["roofline"]["bound_s"],
+                       collective_s=r["roofline"]["collective_s"],
+                       collective_bytes=r["roofline"][
+                           "collective_bytes_per_device"],
                        dominant=r["roofline"]["dominant"],
                        recipe=r["recipe"])
                for k, r in shown.items()})
@@ -3445,6 +3587,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     emit(phase="train", **phase_train_example(torch, lm_counts, lm_reset))
     torch.cuda.empty_cache()
+    # the sharded step's products split over "model": each rank's share
+    # of qwen3-4b's layers against the whole layers (TP_LOCAL)
+    tpl = phase_tp_local(torch, build_model, get_config, lm_counts, lm_reset,
+                         lm_layers)
+    emit(phase="tp_local", **tpl)
     emit(phase="sharded_train", mesh=list(ONE_RANK[0]), axes=list(ONE_RANK[1]),
          launches={arch: launches[f"train:{arch}"] for arch in TRAIN})
     t0 = time.perf_counter()
@@ -3601,6 +3748,28 @@ def main() -> int:
         bound_by=rec["bound_by"], simt_bound_ms=rec["simt_bound_ms"],
         library_ms=rec["library_ms"],
     ))
+    # K4 and its backward on one rank's heads (TP_LOCAL): the bf16
+    # launches of the tp_local phase at that shape (one a layer and rank),
+    # beside its fp32 launches on the simt kernels
+    for size in TP_LOCAL["sizes"]:
+        for base in ("flash_attention", "flash_attention_bwd"):
+            name = f"{base}:{_tp_name(size)}"
+            rec = kern[name]
+            local = TP_LOCAL["layers"] * size
+            records.append(dict(
+                name=name, route="cuda", design=DESIGNS[base],
+                source=SOURCES[base], replaces=TPU_KERNELS[base],
+                launches=tpl["checks"][f"bf16:P{size}"][base]
+                - TP_LOCAL["layers"],
+                simt_launches=tpl["checks"][f"fp32:P{size}"][base]
+                - TP_LOCAL["layers"], launches_per_rank_layer=1,
+                max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+                plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+                shape=rec["shape"],
+            ))
+            check(records[-1]["launches"] == local,
+                  f"{name}: {records[-1]['launches']} launches, want {local}")
     for name in BF16_ROUTES:
         rec = kern[f"{name}:bf16"]
         records.append(dict(

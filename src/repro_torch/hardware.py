@@ -66,6 +66,11 @@ _H100_KERNEL_FLOPS = 78e12  # K1/K2 3xTF32, best of the plans' compute-bound ste
 _H100_KERNEL_BF16_FLOPS = 107e12  # K1/K2 bf16 routes, the same steps
 _H100_LIBRARY_FLOPS = 55.5e12  # torch.matmul complex64, no TF32, the same steps
 _H100_HBM_BW = 3.35e12  # data sheet: 80 GB HBM3 at 3.35 TB/s
+# NVIDIA H100 Tensor Core GPU data sheet, SXM: NVLink 900 GB/s in total
+# (18 fourth-generation links), 450 GB/s each way; a ring step sends and
+# receives at once, so a collective's bytes leave a card at 450 GB/s.
+# The dry run's collective term (roofline/analysis.py) reads it
+H100_NVLINK_BW = 450e9
 _H100_L2_BYTES = 50 * 1024 * 1024  # white paper: 50 MB L2 cache
 _H100_SMEM_PER_BLOCK = 227 * 1024  # white paper: 227 KB shared memory per block
 

@@ -8,10 +8,13 @@ meta tensors of the declared shapes and dtypes (nothing allocated, no
 model built, no forward pass), their logical axes resolved on the mesh
 description under the cell's sharding recipe (``parallel.sharding``).
 It records each rank's argument bytes, split into parameters, optimizer
-state, inputs and cache, and the analytic roofline on the H100
-(``roofline``).  What only a compiled program measures (temporaries,
-code size, its FLOP count, its collectives) is recorded as ``null`` with
-its reason under ``not_measured``, never as 0.
+state, inputs and cache, and the roofline on the H100 (``roofline``):
+the analytic compute and memory terms, and the collective term from the
+sharded step's own collectives on the cell's mesh, counted from the
+resolved specs (``roofline.collectives``; a serving cell counts that
+compute's forward).  What only a compiled program measures (temporaries,
+code size, its FLOP count) is recorded as ``null`` with its reason under
+``not_measured``, never as 0.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-405b \\
         --shape train_4k --mesh multi --moments int8
@@ -39,6 +42,7 @@ from ..roofline.analysis import (
     analytic_roofline,
     model_flops,
 )
+from ..roofline.collectives import step_collectives
 from ..train import optimizer as opt
 from ..train.train_step import abstract_state, state_logical
 from .mesh import make_production_mesh
@@ -53,10 +57,6 @@ NOT_MEASURED = {
                          "and hand-written kernels",
     "useful_ratio": "needs a compiled program's FLOP count; the roofline's "
                     "FLOPs are the analytic model's",
-    "roofline.collective_s": "needs a compiled program's collectives; "
-                             "the eager sharded step's all-gathers and "
-                             "all-reduces are not counted into the dry "
-                             "run",
 }
 
 
@@ -122,7 +122,9 @@ def dryrun_cell(
     n_meta = _meta_leaves(*trees)
     build_s = time.perf_counter() - t0
 
-    roof = analytic_roofline(cfg, shape, n_params, mesh.size)
+    coll = step_collectives(cfg, mesh, recipe, shape.global_batch,
+                            shape.seq_len, shape.kind, moment_dtype)
+    roof = analytic_roofline(cfg, shape, n_params, mesh.size, coll)
     n_active = active_param_count(cfg, n_params)
     return {
         "arch": arch,
@@ -195,6 +197,7 @@ def main(argv=None) -> int:
         f"OK {tag}: per rank params={m['params']} optimizer={m['optimizer']} "
         f"inputs={m['inputs']} cache={m['cache']} bytes; "
         f"compute={r['compute_s']:.3e}s memory={r['memory_s']:.3e}s "
+        f"collective={r['collective_s']:.3e}s "
         f"dominant={r['dominant']} bound={r['bound_s']:.3e}s",
         tag=tag)
     return 0

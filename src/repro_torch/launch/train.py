@@ -23,9 +23,14 @@ process per card):
 
 (and ``--process-id 1``).  Each rank takes its rows of the global batch
 and steps its blocks of the state (``train.train_step.TrainLayout``,
-the architecture's sharding recipe); checkpoints hold the whole state,
-so a run resumes on any mesh.  A mesh of one process runs the same
-sharded step on a one-rank group.
+the architecture's sharding recipe), computing as the reference's
+recipe: each layer gathered over "data" inside its checkpointed block,
+and for the decoder-only families (dense, MoE, the VLM backbone) the
+heads, FFN columns and vocabulary split over "model"; the SSM, the
+hybrid and the encoder-decoder run their products whole.  The launcher
+logs which axes do what.  Checkpoints hold the whole state, so a run
+resumes on any mesh.  A mesh of one process runs the same sharded step
+on a one-rank group.
 """
 
 from __future__ import annotations
@@ -170,6 +175,8 @@ def _train(cfg, steps, global_batch, seq_len, ckpt_dir, ckpt_every,
     layout = None
     if mesh is not None:
         layout = TrainLayout(model, ocfg, mesh, cfg.sharding_recipe)
+        obs_log.info(f"sharded step: {layout.describe_compute()}",
+                     compute_axes=layout.compute_axes)
     state = init_state(model, ocfg, layout)
     step_fn = make_train_step(model, ocfg, layout)
     # one process writes the checkpoints; every rank gathers the state

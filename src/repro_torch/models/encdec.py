@@ -179,10 +179,14 @@ class EncDecLM(TrainableLM):
         return h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
     def _enc_block(self, p, h, positions):
+        # each block gathers its layer first (the sharded step; the
+        # products run whole), inside the checkpoint when training
+        p = self._gathered(p)
         h, _ = self._self_attn(p, h, positions, causal=False)
         return self._mlp(p, h)
 
     def _dec_block(self, p, h, positions, mem):
+        p = self._gathered(p)
         h, _ = self._self_attn(p, h, positions, causal=True)
         h = self._cross_attn(p, h, *self._mem_kv(p, mem))
         return self._mlp(p, h)
@@ -207,7 +211,8 @@ class EncDecLM(TrainableLM):
                                use_reentrant=False)
             else:
                 h = self._enc_block(layer.tensors(), h, positions)
-        return L.rms_norm(h, top["enc_norm"], self.cfg.norm_eps)
+        return L.rms_norm(h, self._gathered(top["enc_norm"]),
+                          self.cfg.norm_eps)
 
     # ------------------------------------------------------------ train
     def hidden_states(self, batch: dict, group=None):
@@ -218,13 +223,14 @@ class EncDecLM(TrainableLM):
         batch's process group) is unused: nothing is routed."""
         top = self.top.tensors()
         mem = self.encode(batch["embeds"], checkpointed=True)
-        h = top["embed"][self._tokens(batch["tokens"])]
+        h = self._gathered(top["embed"])[self._tokens(batch["tokens"])]
         positions = self._positions(h)
         for layer in self.layers:
             h = checkpoint(self._dec_block, layer.tensors(), h, positions,
                            mem, use_reentrant=False)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        return L.rms_norm(h, top["final_norm"], self.cfg.norm_eps), aux
+        return L.rms_norm(h, self._gathered(top["final_norm"]),
+                          self.cfg.norm_eps), aux
 
     # ------------------------------------------------------------- serve
     def cache_spec(self, batch_size: int, max_len: int,

@@ -155,16 +155,18 @@ class ZambaLM(TrainableLM):
         """The residual stream's blocks in order, as ``(kind, fn,
         params)`` with ``h = fn(params, h)``: each mamba layer
         (``"mamba"``), and the shared block (``"shared"``, at
-        ``positions`` (B, S)) after each group's last layer."""
+        ``positions`` (B, S)) after each group's last layer.  Each ``fn``
+        gathers its blocks first (the sharded step; the products run
+        whole), so that under a checkpoint nothing whole outlives it."""
         cfg = self.cfg
         shared = self.top.tensors()["shared"]
         out = []
         for j, layer in enumerate(self.layers):
-            out.append(("mamba", lambda p, h: mamba_block(cfg, p, h)[0],
-                        layer.tensors()))
+            out.append(("mamba", lambda p, h: mamba_block(
+                cfg, self._gathered(p), h)[0], layer.tensors()))
             if self._group_after(j) is not None:
                 out.append(("shared", lambda p, h: self._shared_attn(
-                    p, h, positions)[0], shared))
+                    self._gathered(p), h, positions)[0], shared))
         return out
 
     def hidden_states(self, batch: dict, group=None):
@@ -174,13 +176,14 @@ class ZambaLM(TrainableLM):
         attention through K4's).  ``group`` (the
         batch's process group) is unused: nothing is routed."""
         top = self.top.tensors()
-        h = top["embed"][self._tokens(batch["tokens"])]
+        h = self._gathered(top["embed"])[self._tokens(batch["tokens"])]
         B, S = h.shape[:2]
         positions = torch.arange(S, device=h.device).expand(B, S)
         for _, fn, p in self.blocks(positions):
             h = checkpoint(fn, p, h, use_reentrant=False)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        return L.rms_norm(h, top["final_norm"], self.cfg.norm_eps), aux
+        return L.rms_norm(h, self._gathered(top["final_norm"]),
+                          self.cfg.norm_eps), aux
 
     # ------------------------------------------------------------- serve
     def cache_spec(self, batch_size: int, max_len: int) -> dict:

@@ -26,6 +26,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel import sharding
 
 F32 = torch.float32
 SSD_CHUNK = 64  # the reference model's SSD chunk length
@@ -158,6 +159,38 @@ def decode_attention(
     pg = p.reshape(B, Hkv, group, 1, S)
     o = torch.einsum("bhgqk,bkhd->bqhgd", pg, v_cache.float())
     return o.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def kv_heads_of(wk: torch.Tensor, wv: torch.Tensor, first: int, heads: int,
+                num_heads: int, tp):
+    """``wk``/``wv`` (D, KV, hd) replicated over "model", reduced to the
+    kv heads that the q heads ``[first, first + heads)`` of ``num_heads``
+    read (GQA: q head ``h`` reads kv head ``h // (num_heads / KV)``):
+    their distinct heads where each serves the same count of this rank's
+    q heads, as K4's GQA takes them, else one kv head per q head.  Both
+    pass :func:`~repro_torch.parallel.sharding.tp_enter` first: each
+    rank's gradient of them is partial."""
+    group = num_heads // wk.shape[1]
+    want = [h // group for h in range(first, first + heads)]
+    distinct = sorted(set(want))
+    if heads % len(distinct) == 0 and want == [
+            distinct[i // (heads // len(distinct))] for i in range(heads)]:
+        want = distinct
+    idx = torch.tensor(want, device=wk.device)
+    return (sharding.tp_enter(wk, tp).index_select(1, idx),
+            sharding.tp_enter(wv, tp).index_select(1, idx))
+
+
+def embed_rows(w: torch.Tensor, ids: torch.Tensor, tp) -> torch.Tensor:
+    """Vocabulary-parallel embedding lookup: ``w`` holds this rank's rows
+    ``[r·V/P, (r+1)·V/P)`` of the table; the ids outside them are masked
+    to zero rows, and the ranks' rows all-reduced over "model"."""
+    n = w.shape[0]
+    local = ids - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    rows = w[torch.where(mine, local, torch.zeros_like(local))]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return sharding.tp_leave(rows, tp)
 
 
 # ----------------------------------------------------------------------

@@ -150,20 +150,50 @@ class DecoderLM(TrainableLM):
 
     # ------------------------------------------------------------ blocks
     def _attention(self, p, h, positions, cache=None, pos=None,
-                   mrope_positions=None):
+                   mrope_positions=None, tp=None):
         """One attention block.  Prefill (``cache is None``) returns the
         layer's (k, v); decode writes this token's k/v into the
-        preallocated ``cache`` at slot ``pos`` in place."""
+        preallocated ``cache`` at slot ``pos`` in place.  With ``tp``
+        (the sharded step) the heads may be this rank's share
+        (:meth:`_attend`), their partial output all-reduced."""
+        o, kv = self._attend(p, h, positions, cache, pos, mrope_positions,
+                             tp)
+        if tp is not None and tp.split(p["wo"].shape[0], self.cfg.num_heads):
+            o = L.sharding.tp_leave(o, tp)
+        return h + o, kv
+
+    def _attend(self, p, h, positions, cache=None, pos=None,
+                mrope_positions=None, tp=None):
+        """The attention block's output projection (before the residual)
+        and its (k, v).  Where ``wq``/``wo`` hold this rank's heads of
+        ``tp`` (``wq`` (D, H/P, hd)), the block runs on them: ``wk``/``wv``
+        are the rank's kv heads where their kv dimension is split, else
+        cut to the kv heads its q heads read (:func:`~repro_torch.models.
+        layers.kv_heads_of`); the output is the rank's partial sum over
+        its heads (a row-parallel product)."""
         cfg = self.cfg
         B, S, D = h.shape
         hd = cfg.resolved_head_dim
+        heads = p["wq"].shape[1]
+        split = tp is not None and tp.split(heads, cfg.num_heads)
         x = _promoted(L.rms_norm(h, p["ln_attn"], cfg.norm_eps), p["wq"])
-        q = (x @ p["wq"].reshape(D, -1)).reshape(B, S, cfg.num_heads, hd)
-        k = (x @ p["wk"].reshape(D, -1)).reshape(B, S, cfg.num_kv_heads, hd)
-        v = (x @ p["wv"].reshape(D, -1)).reshape(B, S, cfg.num_kv_heads, hd)
+        wk, wv = p["wk"], p["wv"]
+        q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+        if split:
+            x = L.sharding.tp_enter(x, tp)
+            if not tp.split(wk.shape[1], cfg.num_kv_heads):
+                wk, wv = L.kv_heads_of(wk, wv, tp.rank * heads, heads,
+                                       cfg.num_heads, tp)
+            if cfg.qk_norm:
+                q_norm = L.sharding.tp_enter(q_norm, tp)
+                k_norm = L.sharding.tp_enter(k_norm, tp)
+        kv_heads = wk.shape[1]
+        q = (x @ p["wq"].reshape(D, -1)).reshape(B, S, heads, hd)
+        k = (x @ wk.reshape(D, -1)).reshape(B, S, kv_heads, hd)
+        v = (x @ wv.reshape(D, -1)).reshape(B, S, kv_heads, hd)
         if cfg.qk_norm:
-            q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
-            k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+            q = L.rms_norm(q, q_norm, cfg.norm_eps)
+            k = L.rms_norm(k, k_norm, cfg.norm_eps)
         if cfg.mrope and mrope_positions is not None:
             q = L.apply_mrope(q, mrope_positions, cfg.rope_theta)
             k = L.apply_mrope(k, mrope_positions, cfg.rope_theta)
@@ -184,41 +214,64 @@ class DecoderLM(TrainableLM):
             o = L.decode_attention(q, k_cache, v_cache, pos + S)
             kv = None
         o = _promoted(o.to(h.dtype).reshape(B, S, -1), p["wo"])
-        return h + o @ p["wo"].reshape(-1, D), kv
+        return o @ p["wo"].reshape(-1, D), kv
 
-    def _mlp(self, p, h, moe: bool, group=None):
+    def _ffn(self, x, w_gate, w_up, w_down, width: int, tp=None):
+        """A SwiGLU of ``width`` hidden columns, or of this rank's share
+        of them where ``tp`` splits ``w_gate``'s (column-parallel gate
+        and up, row-parallel down, one all-reduce)."""
+        if tp is None or not tp.split(w_gate.shape[1], width):
+            return L.swiglu(x, w_gate, w_up, w_down)
+        y = L.swiglu(L.sharding.tp_enter(x, tp), w_gate, w_up, w_down)
+        return L.sharding.tp_leave(y, tp)
+
+    def _mlp(self, p, h, moe: bool, group=None, tp=None):
         """The MLP block: SwiGLU, or the routed experts plus the shared
         ones, routed over the batch's process ``group`` where one is given
         (:func:`~repro_torch.models.layers.moe_layer`).  Returns (h, aux)
-        with the MoE aux loss (0 for a dense layer)."""
+        with the MoE aux loss (0 for a dense layer).  With ``tp`` the
+        SwiGLUs (the dense one, the shared experts) may run on the rank's
+        columns (:meth:`_ffn`); the routed experts run whole."""
         cfg = self.cfg
         x = L.rms_norm(h, p["ln_mlp"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if not moe:
-            y = L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+            y = self._ffn(x, p["w_gate"], p["w_up"], p["w_down"], cfg.d_ff,
+                          tp)
         else:
             y, aux = L.moe_layer(
                 x, p["router"], p["e_gate"], p["e_up"], p["e_down"],
                 top_k=cfg.experts_per_token, group=group,
             )
             if cfg.num_shared_experts:
-                y = y + L.swiglu(x, p["s_gate"], p["s_up"], p["s_down"])
+                width = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
+                y = y + self._ffn(x, p["s_gate"], p["s_up"], p["s_down"],
+                                  width, tp)
         return h + y, aux
 
     def _embed(self, top: dict, tokens, embeds):
         """The first hidden states: ``embeds`` cast to bf16 whatever the
         model's type (the reference's stub frontend), else the embedding
-        rows of ``tokens``."""
+        rows of ``tokens`` (vocabulary-parallel where the sharded step
+        splits the table over "model")."""
         if embeds is not None:
             return torch.as_tensor(embeds, device=top["embed"].device).to(
                 torch.bfloat16)
-        return top["embed"][tokens]
+        w = self._gathered(top["embed"])
+        tp = self._tp
+        if tp is not None and tp.split(w.shape[0], self.cfg.vocab_size):
+            return L.embed_rows(w, tokens, tp)
+        return w[tokens]
 
     # ------------------------------------------------------------ train
     def _block(self, p, h, positions, moe, mrope_positions, group=None):
+        """One layer in training: its blocks gathered here, inside the
+        checkpoint, so that the recomputation gathers them again and
+        nothing whole outlives the layer."""
+        p = self._gathered(p)
         h, _ = self._attention(p, h, positions,
-                               mrope_positions=mrope_positions)
-        return self._mlp(p, h, moe, group)
+                               mrope_positions=mrope_positions, tp=self._tp)
+        return self._mlp(p, h, moe, group, self._tp)
 
     def hidden_states(self, batch: dict, group=None):
         """Final-layer hidden states (B, S, D), normed, and the MoE aux
@@ -239,7 +292,8 @@ class DecoderLM(TrainableLM):
                               i >= self.n_dense, mrope_positions, group,
                               use_reentrant=False)
             aux = aux + a
-        return L.rms_norm(h, top["final_norm"], self.cfg.norm_eps), aux
+        return L.rms_norm(h, self._gathered(top["final_norm"]),
+                          self.cfg.norm_eps), aux
 
     def _positions(self, positions):
         """M-RoPE positions as a long tensor on the model's device (None

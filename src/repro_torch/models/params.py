@@ -26,6 +26,7 @@ import math
 import torch
 from torch import nn
 
+from ..tree import leaves as tree_leaves
 from ..tree import tree_map
 
 
@@ -157,7 +158,47 @@ class TrainableLM(nn.Module):
     ``top`` (a :class:`Params`) and ``layers`` (a list of them; the
     encoder-decoder also ``enc_layers``), and defines
     ``hidden_states(batch, group=None) -> (h, aux)`` and
-    ``head_weights(top)``."""
+    ``head_weights(top)``.
+
+    Placed on a sharded step's layout (:meth:`place`), the model holds
+    this rank's blocks as its parameters and computes on them through
+    ``sharded`` (a :class:`~repro_torch.parallel.sharding.ShardedCompute`):
+    each layer's blocks gathered inside its checkpointed block, the
+    products a family splits over "model" on the rank's shard."""
+
+    sharded = None  # the sharded step's compute, once placed
+    layout = None
+
+    def place(self, layout) -> None:
+        """Hold this rank's blocks of every parameter under ``layout``
+        (a ``train.train_step.TrainLayout``; on one rank the blocks are
+        the tensors themselves, and nothing changes) and compute on
+        them.  A model is placed once."""
+        if self.layout is layout:
+            return
+        if self.layout is not None:
+            raise ValueError("the model is placed on another layout")
+        with torch.no_grad():
+            for p, place in zip(tree_leaves(self.param_tree()),
+                                layout.param_places(self.param_tree())):
+                data = p.data
+                block = place.block(data)
+                if block is not data:
+                    p.data = block
+        self.layout = layout
+        self.sharded = layout.compute(self)
+
+    def _gathered(self, x):
+        """A parameter (or a dict of them) as the compute reads it: the
+        blocks gathered for the sharded step (:meth:`place`), else
+        ``x``."""
+        return x if self.sharded is None else self.sharded.gather(x)
+
+    @property
+    def _tp(self):
+        """The rank's place along "model" where the products are split
+        over it (the sharded step), else ``None``."""
+        return None if self.sharded is None else self.sharded.tp
 
     def train_mode(self, flag: bool = True):
         """Make every parameter trainable (``requires_grad``), or frozen
@@ -183,13 +224,21 @@ class TrainableLM(nn.Module):
     def loss(self, batch: dict, group=None):
         """``(loss, {"xent", "aux"})`` on ``batch`` (``tokens`` and
         ``labels``, (B, S), numpy or tensors): the final hidden states
-        through the chunked cross-entropy against the head, plus
+        through the chunked cross-entropy against the head (vocabulary-
+        parallel where the sharded step splits the head over "model"), plus
         ``0.01 · aux`` (0 for the dense and SSM families).  ``group`` is
         the process group the global batch is split over, where this
         batch is one rank's rows: the MoE layers route over it."""
         from .losses import chunked_cross_entropy
 
         h, aux = self.hidden_states(batch, group)
-        xent = chunked_cross_entropy(h, self.head_weights(self.top.tensors()),
-                                     self._tokens(batch["labels"]))
+        top = self.top.tensors()
+        name = "head" if "head" in top else "embed"  # tied to the embedding
+        head = self.head_weights({name: self._gathered(top[name])})
+        tp = self._tp
+        if tp is not None and not tp.split(head.shape[1],
+                                           self.cfg.vocab_size):
+            tp = None
+        xent = chunked_cross_entropy(h, head, self._tokens(batch["labels"]),
+                                     tp=tp)
         return xent + 0.01 * aux, {"xent": xent, "aux": aux}

@@ -106,19 +106,22 @@ class MambaLM(TrainableLM):
 
     # ------------------------------------------------------------ train
     def _block(self, p, h):
-        return mamba_block(self.cfg, p, h)[0]
+        # the layer's blocks gathered inside the checkpoint (the sharded
+        # step; the products run whole)
+        return mamba_block(self.cfg, self._gathered(p), h)[0]
 
     def hidden_states(self, batch: dict, group=None):
         """Final-layer hidden states (B, S, D), normed, and aux 0.
         ``group`` (the batch's process group) is unused: nothing is
         routed."""
         top = self.top.tensors()
-        h = top["embed"][self._tokens(batch["tokens"])]
+        h = self._gathered(top["embed"])[self._tokens(batch["tokens"])]
         for layer in self.layers:
             h = checkpoint(self._block, layer.tensors(), h,
                            use_reentrant=False)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        return L.rms_norm(h, top["final_norm"], self.cfg.norm_eps), aux
+        return L.rms_norm(h, self._gathered(top["final_norm"]),
+                          self.cfg.norm_eps), aux
 
     # ------------------------------------------------------------- serve
     def cache_spec(self, batch_size: int, max_len: int) -> dict:

@@ -28,6 +28,16 @@ cuts this rank's block of a tensor under its resolved spec, gathers the
 whole tensor from the blocks, and reduces a gradient over the batch axes
 to this rank's block.  On a mesh of one rank each is the identity on the
 same storage.
+
+The sharded step computes on the blocks as the reference's ``default``
+recipe does (FSDP + TP): :func:`gather_for_compute` all-gathers one
+parameter's block over the dimensions the compute does not keep split
+(its backward: this rank's block of the sum over the ranks that hold
+other batch rows), and :class:`TensorParallel` carries a rank's place
+along "model" for the products split over it, with the two Megatron
+conjugates :func:`tp_enter` (identity forward, all-reduce backward) and
+:func:`tp_leave` (all-reduce forward, identity backward).  Only
+``all_gather`` on lists and ``all_reduce`` are used.
 """
 
 from __future__ import annotations
@@ -232,9 +242,16 @@ class Placement:
     as ``NamedSharding`` cuts it.  An axis of size 1 splits nothing, so
     on a mesh of one rank :meth:`block`, :meth:`gather` and
     :meth:`reduce` return the tensor they were given: no copy and no
-    collective."""
+    collective.
 
-    def __init__(self, mesh, spec: tuple):
+    For a parameter, ``keep`` names the dimensions the sharded step's
+    compute keeps split (those of the logical "tp" in a family whose
+    products are split over "model"); :func:`gather_for_compute` gathers
+    the others, and over those of ``batch_axes`` among their axes its
+    backward sums already (:attr:`summed`)."""
+
+    def __init__(self, mesh, spec: tuple, keep: tuple[int, ...] = (),
+                 batch_axes: tuple[str, ...] = ()):
         self.mesh = mesh
         self.spec = tuple(spec)
         self.sizes = describe(mesh).shape
@@ -248,31 +265,47 @@ class Placement:
         self.counted = all(mesh.get_local_rank(a) == 0
                            for a in mesh.mesh_dim_names
                            if a not in self.split_axes)
+        # the dimensions gathered for the compute, and the batch axes
+        # among theirs, over which the gather's backward sums
+        self.gathered = [(d, axes) for d, axes in self.splits
+                         if d not in keep]
+        self.summed = tuple(a for _, axes in self.gathered for a in axes
+                            if a in batch_axes)
+
+    def _index(self, axes: tuple[str, ...]) -> int:
+        i = 0
+        for a in axes:
+            i = i * self.sizes[a] + self.mesh.get_local_rank(a)
+        return i
+
+    def _cut(self, full: torch.Tensor, splits) -> torch.Tensor:
+        """A view of ``full`` narrowed to this rank's block along
+        ``splits`` ((dimension, axes) pairs)."""
+        out = full
+        for d, axes in splits:
+            n = math.prod(self.sizes[a] for a in axes)
+            if full.shape[d] % n:
+                raise ValueError(f"dimension {d} of {tuple(full.shape)} does "
+                                 f"not split over {axes} ({n})")
+            size = full.shape[d] // n
+            out = out.narrow(d, self._index(axes) * size, size)
+        return out
 
     def block(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's block of ``full``: a tensor of its own (``full``
         itself where the spec splits nothing here)."""
         if not self.splits:
             return full
-        out = full
-        for d, axes in self.splits:
-            n = math.prod(self.sizes[a] for a in axes)
-            if full.shape[d] % n:
-                raise ValueError(f"dimension {d} of {tuple(full.shape)} does "
-                                 f"not split over {axes} ({n})")
-            i = 0
-            for a in axes:
-                i = i * self.sizes[a] + self.mesh.get_local_rank(a)
-            size = full.shape[d] // n
-            out = out.narrow(d, i * size, size)
-        return out.clone(memory_format=torch.contiguous_format)
+        return self._cut(full, self.splits).clone(
+            memory_format=torch.contiguous_format)
 
-    def gather(self, block: torch.Tensor) -> torch.Tensor:
+    def gather(self, block: torch.Tensor, splits=None) -> torch.Tensor:
         """The whole tensor from every rank's ``block``: one all-gather
         per split axis, the fastest first (``block`` itself where the
-        spec splits nothing here)."""
+        spec splits nothing here).  ``splits`` (default: all) gathers
+        only those (dimension, axes) pairs."""
         out = block
-        for d, axes in self.splits:
+        for d, axes in (self.splits if splits is None else splits):
             for a in reversed(axes):
                 parts = [torch.empty_like(out) for _ in range(self.sizes[a])]
                 dist.all_gather(parts, out.contiguous(),
@@ -280,15 +313,143 @@ class Placement:
                 out = torch.cat(parts, d)
         return out
 
-    def reduce(self, grad: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+    def reduce(self, grad: torch.Tensor, axes: tuple[str, ...],
+               of_block: bool = False) -> torch.Tensor:
         """This rank's block of the mean of ``grad`` over the ranks along
         ``axes`` (the batch axes): summed in place by one all-reduce per
-        axis of size > 1, then divided by their product."""
+        axis of size > 1, then divided by their product.  ``grad`` is a
+        whole tensor's gradient, or with ``of_block`` (the sharded step)
+        this rank's block's through :func:`gather_for_compute`, whose
+        backward summed over :attr:`summed` already: those axes are not
+        summed again."""
+        done = self.summed if of_block else ()
         n = 1
         for a in axes:
             if self.sizes[a] > 1:
-                dist.all_reduce(grad, group=self.mesh.get_group(a))
+                if a not in done:
+                    dist.all_reduce(grad, group=self.mesh.get_group(a))
                 n *= self.sizes[a]
         if n > 1:
             grad.div_(n)
-        return self.block(grad)
+        return grad if of_block else self.block(grad)
+
+
+class _GatherForCompute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, place):
+        ctx.place = place
+        return place.gather(block.detach(), place.gathered)
+
+    @staticmethod
+    def backward(ctx, grad):
+        place = ctx.place
+        grad = grad.contiguous().clone()
+        for a in place.summed:
+            dist.all_reduce(grad, group=place.mesh.get_group(a))
+        return place._cut(grad, place.gathered).contiguous(), None
+
+
+def gather_for_compute(block: torch.Tensor, place: Placement) -> torch.Tensor:
+    """``block`` (a parameter's, this rank's) all-gathered over the
+    dimensions the compute does not keep split, as autograd sees it: the
+    backward is this rank's block of the gradient's sum over the batch
+    axes among them (the ranks that hold other rows; along an axis whose
+    ranks hold the same rows, as "model" for the routed experts, the
+    gradients are equal and the block is taken).  ``block`` itself where
+    nothing is gathered here."""
+    if not place.gathered:
+        return block
+    return _GatherForCompute.apply(block, place)
+
+
+class TensorParallel:
+    """A rank's place along "model" for the products split over it: its
+    index ``rank`` of ``size`` and the process ``group`` the conjugate
+    ops all-reduce over.  Without a group (one rank's local block run
+    alone, as ``parallel.tp_local`` runs it) every all-reduce is the
+    identity: :func:`tp_enter` and :func:`tp_leave` then return their
+    input."""
+
+    def __init__(self, rank: int, size: int, group=None):
+        self.rank, self.size, self.group = rank, size, group
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> None:
+        """``x`` summed (or its maximum taken) over the group, in place."""
+        if self.group is not None:
+            dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                            else dist.ReduceOp.SUM, group=self.group)
+
+    def split(self, local: int, whole: int) -> bool:
+        """Whether a dimension of ``whole`` entries held as ``local`` on
+        this rank is split over "model" (else it is replicated: its
+        product runs whole on every rank)."""
+        if local == whole:
+            return False
+        if local * self.size != whole:
+            raise ValueError(f"{local} of {whole} on {self.size} ranks")
+        return True
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        ctx.tp.all_reduce(grad)
+        return grad, None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        x = x.contiguous().clone()
+        tp.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def tp_enter(x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:
+    """Megatron's ``f`` at the entry of a region split over "model":
+    identity forward, all-reduce backward (the ranks' partial input
+    gradients summed).  Also applied to a tensor replicated over "model"
+    that the region reads (a replicated ``wk``, the q/k norms), whose
+    ranks' gradients are partial."""
+    if tp is None or tp.group is None:
+        return x
+    return _Enter.apply(x, tp)
+
+
+def tp_leave(x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:
+    """Megatron's ``g`` at the exit of a row-parallel product: the ranks'
+    partial outputs all-reduced forward, identity backward."""
+    if tp is None or tp.group is None:
+        return x
+    return _Leave.apply(x, tp)
+
+
+class ShardedCompute:
+    """What a model computes with on a rank of the sharded step: the
+    :class:`Placement` of each of its parameters (by the tensor's
+    identity: the parameters are this rank's blocks) and ``tp``, the
+    rank's :class:`TensorParallel` (``None`` where no product is split
+    over "model")."""
+
+    def __init__(self, places: dict[int, Placement],
+                 tp: TensorParallel | None):
+        self.places = places
+        self.tp = tp
+
+    def gather(self, x):
+        """A parameter (or a dict of them, nested) as the compute reads
+        it: :func:`gather_for_compute` of each block."""
+        if isinstance(x, dict):
+            return {k: self.gather(v) for k, v in x.items()}
+        place = self.places.get(id(x))
+        return x if place is None else gather_for_compute(x, place)

@@ -8,12 +8,13 @@ Counterpart of the reference's ``roofline/analysis.py``.  The reference
 fills the three terms from a compiled XLA module (its cost analysis and
 the collectives in its HLO text).  The port compiles no module: the dry
 run (``repro_torch.launch.dryrun``) fills the compute and memory terms
-from the analytic model (:mod:`.analytic`), and the collective term,
-which only a compiled program's collectives give, stays unmeasured
-(``coll_bytes=None``: the term reads ``None``, never 0, and the bound is
-the larger of the other two).  :func:`shape_bytes` and
-:func:`collective_bytes` are the reference's HLO-text parsers, kept for
-HLO text from any source.
+from the analytic model (:mod:`.analytic`), and the collective term
+from the sharded step's own collectives, counted from the resolved specs
+(:mod:`.collectives`) at the H100 SXM's NVLink rate (``hardware.py``).
+A :class:`Roofline` built with ``coll_bytes=None`` reads ``None`` there,
+never 0, and its bound is the larger of the other two.
+:func:`shape_bytes` and :func:`collective_bytes` are the reference's
+HLO-text parsers, kept for HLO text from any source.
 """
 
 from __future__ import annotations
@@ -21,10 +22,12 @@ from __future__ import annotations
 import dataclasses
 import re
 
+from ..hardware import H100_NVLINK_BW
+
 # H100 SXM, NVIDIA's data sheet, dense rates at the 700 W limit
 PEAK_FLOPS = 989e12  # bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12  # 80 GB HBM3 at 3.35 TB/s (hardware.py's _H100_HBM_BW)
-LINK_BW = 450e9  # NVLink 4: 900 GB/s total, 450 GB/s each way
+LINK_BW = H100_NVLINK_BW  # NVLink 4: 900 GB/s total, 450 GB/s each way
 
 _DTYPE_BYTES = {
     "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "f16": 2, "bf16": 2,
@@ -126,17 +129,18 @@ class Roofline:
         }
 
 
-def analytic_roofline(cfg, shape, n_params: int, n_devices: int) -> Roofline:
+def analytic_roofline(cfg, shape, n_params: int, n_devices: int,
+                      coll_bytes: dict[str, int] | None = None) -> Roofline:
     """The cell's analytic FLOPs and HBM bytes (:mod:`.analytic`) split
-    evenly over ``n_devices``, the collective term unmeasured.  An even
-    split is the least each device could do: replicated weights (the
-    ``dp_only`` recipe) or gathered ones (FSDP) make each device read
-    more."""
+    evenly over ``n_devices``, and ``coll_bytes`` (per device, by kind;
+    ``None``: the collective term unmeasured).  An even split is the
+    least each device could do: replicated weights (the ``dp_only``
+    recipe) or gathered ones (FSDP) make each device read more."""
     from .analytic import cell_flops, cell_hbm_bytes
 
     return Roofline(cell_flops(cfg, shape) / n_devices,
                     cell_hbm_bytes(cfg, shape, n_params) / n_devices,
-                    None, n_devices)
+                    coll_bytes, n_devices)
 
 
 def model_flops(cfg, shape, active_params: int) -> float:

@@ -14,29 +14,45 @@ tensors and logical axes from a config (or a model's), allocating
 nothing: the dry run's state (``repro_torch.launch.dryrun``).
 
 Over several processes (the reference's one ``jax.jit`` with
-``in_shardings``/``out_shardings`` from the logical specs) a
-:class:`TrainLayout` places the state on a live mesh
-(``launch.mesh.make_host_mesh``): each rank keeps its blocks of the
-parameters and moments under their resolved specs
-(``parallel.sharding.Placement``) and a step
+``in_shardings``/``out_shardings`` from the logical specs, under its
+``default`` recipe "FSDP + TP (MaxText-style)") a :class:`TrainLayout`
+places the state on a live mesh (``launch.mesh.make_host_mesh``): the
+model holds this rank's blocks of the parameters as its own tensors, and
+the optimizer its blocks of the moments, under their resolved specs
+(``parallel.sharding.Placement``).  A step
 
-  * gathers the blocks into the model's own tensors,
   * runs the forward and ``loss.backward()`` on this rank's rows of the
     global batch (the MoE layers route over the batch's process group),
-  * reduces each gradient to the mean over the batch axes, cut to this
-    rank's block (a rank's loss is a mean over its tokens, so the mean of
-    the ranks' gradients is the gradient of the global batch's mean), and
+    each layer gathering its blocks over the FSDP axes ("data") inside
+    its checkpointed block, so that the recomputation gathers them again
+    and no layer's whole weights outlive it (``sharding.
+    gather_for_compute``; its backward is this rank's block of the sum
+    over "data");
+  * for ``DecoderLM`` (dense, MoE, the VLM backbone), computes every
+    product split over "model" on the rank's shard, as XLA's partitioner
+    computes the reference's: the heads of ``wq``/``wo`` (``wk``/``wv``
+    too where their kv heads divide "model", else the kv heads its q
+    heads read), the FFN columns of ``w_gate``/``w_up``/``w_down`` and of
+    the shared experts, the vocabulary of the embedding and the head,
+    with Megatron's conjugate all-reduces (``sharding.tp_enter``,
+    ``tp_leave``) and a vocabulary-parallel loss.  The routed experts
+    are gathered whole along "model"; the SSM, the hybrid and the
+    encoder-decoder gather every product whole along "model"
+    (:attr:`TrainLayout.compute_axes` states which, per family);
+  * sums each gradient over the ranks that hold other batch rows once
+    (the gather's backward did it over "data"; ``Placement.reduce``
+    over the batch axes left) and takes the mean (a rank's loss is a
+    mean over its tokens, so the mean of the ranks' gradients is the
+    gradient of the global batch's mean); a tensor replicated over
+    "model" but read inside a split region gets its whole gradient
+    through ``tp_enter``, and each product split over "model" gives its
+    block's own; and
   * updates its blocks, the clipping norm and the int8 scales those of
     the whole tensors.
 
-Ranks along "model" hold the same batch rows under the default recipe
-("dp" resolves to ("pod", "data")): their gradients are equal and are
-not summed.  "model" splits only the storage of the weights and moments
-here: each is gathered whole for the compute (no Megatron-style product
-split over "model", and the whole model is gathered before the forward,
-not layer by layer).  On a mesh of one rank every block is the model's
-own tensor and the step is :func:`make_train_step`'s plain step, bit for
-bit.
+On a mesh of one rank every block is the model's own tensor, every
+gather and conjugate the identity, and the step is
+:func:`make_train_step`'s plain step, bit for bit.
 """
 
 from __future__ import annotations
@@ -53,10 +69,13 @@ from ..models import param_defs
 from ..models.params import abstract_params, param_specs
 from ..parallel.sharding import (
     Placement,
+    ShardedCompute,
+    TensorParallel,
     axes_group,
     batch_axes,
     describe,
     flat_specs,
+    is_logical,
     resolve_spec,
 )
 from . import optimizer as opt
@@ -72,12 +91,13 @@ class TrainState:
 def init_state(model, opt_cfg: opt.OptimizerConfig,
                layout: TrainLayout | None = None) -> TrainState:
     """The training state of ``model`` (made trainable): its parameters,
-    zero moments, step 0.  With ``layout``, this rank's blocks of them
-    (on one rank, the model's own tensors)."""
-    params = model.train_mode(True).param_tree()
+    zero moments, step 0.  With ``layout``, the model is placed on it
+    first (``TrainableLM.place``): its parameters become this rank's
+    blocks (on one rank, its tensors as they were)."""
+    model.train_mode(True)
     if layout is not None:
-        params = tree.tree_map(lambda p, pl: pl.block(p), params,
-                               layout.places.params)
+        model.place(layout)
+    params = model.param_tree()
     return TrainState(params, opt.init(opt_cfg, params),
                       torch.zeros((), dtype=torch.int32,
                                   device=model.top.embed.device))
@@ -105,6 +125,11 @@ def state_logical(model_or_cfg, opt_cfg: opt.OptimizerConfig) -> TrainState:
                       ())
 
 
+# the families whose products the sharded step splits over "model" (the
+# others gather them whole along it)
+TP_FAMILIES = ("dense", "moe")
+
+
 class TrainLayout:
     """A training state's and a batch's layout on a live mesh (a
     ``torch.distributed`` ``DeviceMesh`` spanning the run, axes among
@@ -112,19 +137,70 @@ class TrainLayout:
     Placement` for every leaf of the state under ``recipe``'s resolved
     specs (``places``, a :class:`TrainState` of them), the batch's mesh
     axes (``batch_axes``, the logical "dp") and their process group
-    (``group``, ``None`` where the batch is not split)."""
+    (``group``, ``None`` where the batch is not split), and what the
+    compute splits (:attr:`compute_axes`, :meth:`compute`)."""
 
     def __init__(self, model_or_cfg, opt_cfg: opt.OptimizerConfig, mesh,
                  recipe: str = "default"):
         self.mesh = mesh
         self.recipe = recipe
-        template = abstract_state(model_or_cfg, opt_cfg)
-        specs = flat_specs(template, state_logical(model_or_cfg, opt_cfg),
-                           describe(mesh), recipe)
-        self.places = tree.unflatten(template, {
-            path: Placement(mesh, spec) for path, _, spec in specs})
+        cfg = (model_or_cfg if isinstance(model_or_cfg, ArchConfig)
+               else model_or_cfg.cfg)
         self.batch_axes = batch_axes(mesh, recipe)
+        sizes = describe(mesh).shape
+        tp_axes = resolve_spec(("tp",), describe(mesh), None, recipe)[0]
+        self.tp = (cfg.family in TP_FAMILIES and tp_axes == "model"
+                   and sizes["model"] > 1)
+        template = abstract_state(model_or_cfg, opt_cfg)
+        logical = state_logical(model_or_cfg, opt_cfg)
+        specs = flat_specs(template, logical, describe(mesh), recipe)
+        logical = dict(tree.flatten(logical, is_logical))
+        places = {}
+        for path, _, spec in specs:
+            # a parameter's "tp" dimensions stay split in a TP family's
+            # compute
+            keep = tuple(d for d, ax in enumerate(logical[path])
+                         if ax == "tp") if (
+                self.tp and path.startswith("params/")) else ()
+            places[path] = Placement(mesh, spec, keep, self.batch_axes)
+        self.places = tree.unflatten(template, places)
         self.group = axes_group(mesh, self.batch_axes)
+        gathered = {a for path, pl in places.items()
+                    if path.startswith("params/")
+                    for _, axes in pl.gathered for a in axes}
+        # the mesh axes of size > 1 by their role in the compute
+        self.compute_axes = {
+            "batch": tuple(a for a in self.batch_axes if sizes[a] > 1),
+            "gathered": tuple(a for a in describe(mesh).axis_names
+                              if a in gathered),
+            "split": ("model",) if self.tp else (),
+        }
+        self.family = cfg.family
+
+    def describe_compute(self) -> str:
+        """One line: which mesh axes split the batch, which the step
+        gathers each layer over, and which split the products."""
+        ax = self.compute_axes
+        split = (f"products split over {ax['split']} (heads, FFN columns, "
+                 "vocabulary)" if ax["split"]
+                 else "every product whole on each rank")
+        return (f"{self.family} under {self.recipe!r}: batch over "
+                f"{ax['batch'] or '()'}, layers gathered over "
+                f"{ax['gathered'] or '()'}, {split}")
+
+    def compute(self, model) -> ShardedCompute:
+        """The compute of ``model`` placed on this layout: each of its
+        parameters' placement, and the rank's place along "model" where
+        the family's products split over it."""
+        params = model.param_tree()
+        places = {id(p): pl for p, pl in zip(tree.leaves(params),
+                                             self.param_places(params))}
+        tp = None
+        if self.tp:
+            tp = TensorParallel(self.mesh.get_local_rank("model"),
+                                describe(self.mesh).shape["model"],
+                                self.mesh.get_group("model"))
+        return ShardedCompute(places, tp)
 
     def rows(self, batch: dict) -> dict:
         """This rank's rows of a global batch (numpy arrays or tensors),
@@ -196,21 +272,15 @@ def make_train_step(model, opt_cfg: opt.OptimizerConfig,
     metrics are the global batch's."""
     group = None if layout is None else layout.group
 
+    if layout is not None and model.layout is not layout:
+        raise ValueError("place the model on the layout first (init_state "
+                         "with the same layout)")
+
     def train_step(state: TrainState, batch: dict):
+        # the model's own tensors (this rank's blocks under a layout)
         leaves = tree.leaves(state.params)
-        places = None
-        if layout is not None:
-            # the model's own tensors, and the placements, in the order
-            # of the state's blocks
-            own = dict(tree.flatten(model.param_tree()))
-            leaves = [own[path] for path, _ in tree.flatten(state.params)]
-            places = layout.param_places(state.params)
-            with torch.no_grad():
-                for p, pl, b in zip(leaves, places,
-                                    tree.leaves(state.params)):
-                    full = pl.gather(b)
-                    if full is not p:
-                        p.copy_(full)
+        places = None if layout is None else layout.param_places(
+            state.params)
         for p in leaves:
             p.grad = None
         loss, metrics = model.loss(batch, group)
@@ -218,7 +288,7 @@ def make_train_step(model, opt_cfg: opt.OptimizerConfig,
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in leaves]
         if layout is not None:
-            grads = [pl.reduce(g, layout.batch_axes)
+            grads = [pl.reduce(g, layout.batch_axes, of_block=True)
                      for pl, g in zip(places, grads)]
         grads = tree.with_leaves(state.params, grads)
         params, opt_state, opt_metrics = opt.update(

@@ -128,8 +128,11 @@ def test_dryrun_matrix_records_and_skips(multi_pod):
                 assert rec["meta_tensors"] > 0
                 assert rec["recipe"] == get_config(arch).sharding_recipe
                 r = rec["roofline"]
-                assert r["bound_s"] == max(r["compute_s"], r["memory_s"]) > 0
-                assert r["collective_s"] is None and rec["useful_ratio"] is None
+                assert r["bound_s"] == max(r["compute_s"], r["memory_s"],
+                                           r["collective_s"]) > 0
+                assert r["collective_s"] == sum(
+                    r["collective_bytes_per_device"].values()) / 450e9
+                assert rec["useful_ratio"] is None
     assert (records, skips) == (32, 8)
     assert mode.devices == {"meta"} and mode.ops > 0
 
@@ -239,8 +242,9 @@ def test_cli_writes_reference_tag_and_keys(tmp_path):
     mem = rec["memory"]
     assert {"argument_bytes", "output_bytes", "temp_bytes",
             "code_bytes"} <= set(mem)
+    assert rec["roofline"]["collective_s"] > 0
     for key in ("memory.output_bytes", "memory.temp_bytes",
-                "memory.code_bytes", "useful_ratio", "roofline.collective_s"):
+                "memory.code_bytes", "useful_ratio"):
         section, _, name = key.rpartition(".")
         assert (rec[section] if section else rec)[name] is None, key
         assert rec["not_measured"][key], key

@@ -1,7 +1,7 @@
 """The encoder-decoder's training cases of ``tests/test_torch_train.py``
-(its loss and gradients, and three train steps, against the JAX
-package), in a file of their own so that another worker runs them: the
-same checks, shapes, data and tolerances, on the smoke shrink (2 + 2
+and ``tests/test_torch_train_steps.py`` (its loss and gradients, and
+three train steps, against the JAX package), in a file of their own so
+that another worker runs them: the same checks, shapes, data and tolerances, on the smoke shrink (2 + 2
 layers) at 512 frames and tokens (the reference agrees only at multiples
 of 512 frames, ``tests/test_torch_encdec.py``)."""
 
@@ -9,7 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_train import check_loss_and_grads, check_three_train_steps  # noqa: E402
+from test_torch_train import check_loss_and_grads  # noqa: E402
+from test_torch_train_steps import check_three_train_steps  # noqa: E402
 
 
 # K4's non-causal plain version in the encoder and the cross-attention,

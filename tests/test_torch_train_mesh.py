@@ -17,10 +17,22 @@ same fp32 weights (the reference's ``init_params`` carried across with
 The cases: qwen3-4b's shrink on meshes (2, 1) and (2, 2), mamba2-130m's
 (its ``dp_only`` recipe: the batch splits over "data" and "model"),
 deepseek-moe-16b's at a batch where the capacity binds (the global
-routing drops the tokens the one-process run drops, at least one), int8
-moments on (2, 1), and a checkpoint of a 2-process run resumed to the
-straight run's losses.  One 2-process and one 4-process launch run every
-case of their mesh, started with the reference's subprocess.
+routing drops the tokens the one-process run drops, at least one) and on
+(2, 2), int8 moments on (2, 1), and a checkpoint of a 2-process run
+resumed to the straight run's losses.  One 2-process and one 4-process
+launch run every case of their mesh, started with the reference's
+subprocess.
+
+On (2, 2) the step computes as the reference's ``default`` recipe: each
+layer gathered over "data" inside its checkpointed block, the heads, FFN
+columns (the MoE's shared experts') and vocabulary split over "model"
+(qwen3-4b's one kv head replicated, each rank's two q heads reading it;
+the MoE's routed experts gathered whole).  The recorded runs show each
+rank's attention on H/P q heads, the gathered weights alive at each
+block's entry (weak references to what the gathers returned) never
+above one layer's plus the top-level tensors', and the bytes of every
+collective of a ``dense_2x2`` step equal to the dry run's count
+(``roofline.collectives.step_collectives``).
 """
 
 import json
@@ -33,6 +45,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+dist = pytest.importorskip("torch.distributed")
 
 import jax  # noqa: E402
 
@@ -45,7 +58,11 @@ from repro_torch.configs import get_config, smoke_shrink  # noqa: E402
 from repro_torch.interop import lm_params_from_numpy  # noqa: E402
 from repro_torch.launch import train as launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models.lm import DecoderLM  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
+from repro_torch.roofline.collectives import step_collectives  # noqa: E402
 
 from test_torch_pipeline import REPO, collect, start_gloo  # noqa: E402
 
@@ -65,6 +82,7 @@ CASES = {
     "ssm_2x1": ("mamba2-130m", (2, 1), 4, 32, "float32", 1e-3),
     # T = 64 tokens: 40 slots per expert of 4 (top-2), 32 on average
     "moe_2x1": ("deepseek-moe-16b", (2, 1), 2, 32, "float32", 1e-3),
+    "moe_2x2": ("deepseek-moe-16b", (2, 2), 2, 32, "float32", 1e-3),
     "int8_2x1": ("qwen3-4b", (2, 1), 4, 32, "int8", 1e-4),
 }
 RESUME = "dense_2x1"  # resumed after 2 steps, on its mesh
@@ -88,15 +106,21 @@ def _ref_params(arch) -> dict:
 
 
 # what a run records: each step's metrics (through make_train_step) and
-# each routing call's dropped slots on this rank (through moe_route);
-# and a case's launcher arguments (its moment type goes in through the
-# launcher's optimizer config, whose moments the launcher leaves at the
-# default)
+# the bytes of its collectives by kind (a gather's result, a reduce's
+# tensor), each routing call's dropped slots on this rank (through
+# moe_route), each attention call's (q, kv) heads, and at each block's
+# entry the bytes of the gathered weights still alive, beside each
+# block's and each step's top-level gathers; and a case's launcher
+# arguments (its moment type goes in through the launcher's optimizer
+# config, whose moments the launcher leaves at the default)
 RECORDING = r"""
-import functools, types
+import functools, types, weakref
 import numpy as np, torch
+import torch.distributed as dist
 from repro_torch.launch import train as launcher
 from repro_torch.models import layers as L
+from repro_torch.models.lm import DecoderLM
+from repro_torch.parallel import sharding
 from repro_torch.train import optimizer as opt
 
 def launch_kw(kw):
@@ -107,12 +131,22 @@ def launch_kw(kw):
 
 def recording(runs):
     plain_step, plain_route = launcher.make_train_step, L.moe_route
+    plain_attn, plain_gather = L.blockwise_attention, sharding.gather_for_compute
+    plain_block = DecoderLM._block
+    plain_ag, plain_ar = dist.all_gather, dist.all_reduce
+    live = {"step": None, "gathered": [], "block": None}
 
     def make_train_step(*a, **k):
         step = plain_step(*a, **k)
         def wrapped(state, batch):
+            run = runs[-1]
+            live["step"] = {"all-gather": 0, "all-reduce": 0}
+            live["gathered"] = []
+            run["top_bytes"].append(0)
             state, met = step(state, batch)
-            runs[-1]["metrics"].append({k: float(v) for k, v in met.items()})
+            run["collectives"].append(live["step"])
+            live["step"] = None
+            run["metrics"].append({k: float(v) for k, v in met.items()})
             return state, met
         return wrapped
 
@@ -121,7 +155,52 @@ def recording(runs):
         runs[-1]["drops"].append(int((~out[3]).sum()))
         return out
 
+    def blockwise_attention(q, k, v, **kw):
+        runs[-1]["heads"].append([q.shape[2], k.shape[2]])
+        return plain_attn(q, k, v, **kw)
+
+    def gather_for_compute(block, place):
+        out = plain_gather(block, place)
+        if out is not block:
+            n = out.numel() * out.element_size()
+            live["gathered"].append((weakref.ref(out), n))
+            if live["block"] is None:
+                runs[-1]["top_bytes"][-1] += n
+            else:
+                live["block"] += n
+        return out
+
+    def _block(self, *a, **k):
+        runs[-1]["alive"].append(sum(n for ref, n in live["gathered"]
+                                     if ref() is not None))
+        live["block"] = 0
+        try:
+            return plain_block(self, *a, **k)
+        finally:
+            runs[-1]["layer_bytes"].append(live["block"])
+            live["block"] = None
+
+    def all_gather(parts, x, *a, **k):
+        if live["step"] is not None:
+            live["step"]["all-gather"] += sum(t.numel() * t.element_size()
+                                              for t in parts)
+        return plain_ag(parts, x, *a, **k)
+
+    def all_reduce(x, *a, **k):
+        if live["step"] is not None:
+            live["step"]["all-reduce"] += x.numel() * x.element_size()
+        return plain_ar(x, *a, **k)
+
     launcher.make_train_step, L.moe_route = make_train_step, moe_route
+    L.blockwise_attention = blockwise_attention
+    sharding.gather_for_compute = gather_for_compute
+    DecoderLM._block = _block
+    dist.all_gather, dist.all_reduce = all_gather, all_reduce
+
+def new_run(case):
+    return {"case": case, "metrics": [], "drops": [], "heads": [],
+            "alive": [], "layer_bytes": [], "top_bytes": [],
+            "collectives": []}
 """
 
 WORKER = RECORDING + r"""
@@ -149,7 +228,7 @@ for name, (arch, mesh, kw) in job["cases"].items():
             (("first", dict(steps=2, ckpt_dir=job["ckpt"], ckpt_every=2)),
              ("rest", dict(ckpt_dir=job["ckpt"], ckpt_every=2)))
             if name == job["resume"] else ()):
-        runs.append({"case": part, "metrics": [], "drops": []})
+        runs.append(new_run(part))
         runs[-1]["losses"] = launcher.train(arch, mesh_shape=tuple(mesh),
                                             **{**launch_kw(kw), **extra})
 print("OUT" + json.dumps({"rank": rank, "runs": runs}))
@@ -259,7 +338,8 @@ def _one_process(job) -> dict:
     namespace: dict = {}
     exec(RECORDING, namespace)
     plain = (launcher.make_train_step, L.moe_route, launcher.build_model,
-             launcher.opt)
+             launcher.opt, L.blockwise_attention, sharding.gather_for_compute,
+             DecoderLM._block, dist.all_gather, dist.all_reduce)
     try:
         namespace["recording"](rec)
         for name in CASES:
@@ -268,12 +348,13 @@ def _one_process(job) -> dict:
             weights = lm_params_from_numpy(cfg, job["params"][arch])
             launcher.build_model = (lambda c, seed, device, w=weights:
                                     build_model(c, w, device=device))
-            rec.append({"case": name, "metrics": [], "drops": []})
+            rec.append(namespace["new_run"](name))
             rec[-1]["losses"] = launcher.train(arch,
                                                **namespace["launch_kw"](kw))
     finally:
         (launcher.make_train_step, L.moe_route, launcher.build_model,
-         launcher.opt) = plain
+         launcher.opt, L.blockwise_attention, sharding.gather_for_compute,
+         DecoderLM._block, dist.all_gather, dist.all_reduce) = plain
     return {r["case"]: r for r in rec}
 
 
@@ -357,3 +438,50 @@ def test_a_mesh_needs_its_processes():
     """A mesh of 2 on a run of 1 process is refused before any step."""
     with pytest.raises(ValueError, match="run of 1"):
         launcher.train("qwen3-4b", steps=1, mesh_shape=(2, 1), device="cpu")
+
+
+@pytest.mark.parametrize("case", [c for c, v in CASES.items()
+                                  if v[0] != "mamba2-130m"])
+def test_each_rank_attends_with_its_heads(runs, case):
+    """Every attention call of a rank (forward and recomputation) runs on
+    H/P q heads of a "model" axis of P, over KV/P kv heads where the kv
+    heads divide P, else over the one kv head its q heads read; on P = 1
+    on every head."""
+    _, sharded, _ = runs
+    arch, (_, size), *_ = CASES[case]
+    cfg = smoke_shrink(get_config(arch))
+    kv = cfg.num_kv_heads // size if cfg.num_kv_heads % size == 0 else 1
+    for rec in _sharded(sharded, case):
+        assert rec["heads"], case
+        assert {tuple(h) for h in rec["heads"]} == {
+            (cfg.num_heads // size, kv)}, rec["heads"][:4]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_one_layer_of_whole_weights_at_a_time(runs, case):
+    """At each block's entry (forward and recomputation), the gathered
+    weights still alive on a rank come to at most one layer's plus the
+    top-level tensors' gathered in the step; each layer is gathered where
+    "data" splits its weights."""
+    _, sharded, _ = runs
+    for rec in _sharded(sharded, case):
+        layer = max(rec["layer_bytes"], default=0)
+        top = max(rec["top_bytes"])
+        if CASES[case][0] != "mamba2-130m":  # dp_only: nothing gathered
+            assert layer > 0 and top > 0, case
+        assert max(rec["alive"], default=0) <= layer + top, (
+            case, max(rec["alive"]), layer, top)
+
+
+def test_collective_bytes_match_the_dry_run_count(runs):
+    """Every step of ``dense_2x2`` moves, on each rank, the bytes the dry
+    run counts from the resolved specs: each all-gather's result and each
+    all-reduce's tensor, by kind."""
+    _, sharded, _ = runs
+    arch, mesh, B, S, moments, _ = CASES["dense_2x2"]
+    want = step_collectives(smoke_shrink(get_config(arch)),
+                            MeshShape(mesh, ("data", "model")), "default",
+                            B, S, "train", moments, torch.float32)
+    assert want["all-gather"] > 0 and want["all-reduce"] > 0
+    for rec in _sharded(sharded, "dense_2x2"):
+        assert rec["collectives"] == [want] * STEPS
