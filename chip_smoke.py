@@ -267,19 +267,35 @@ points at full width:
                  non-causal (its fp32 agreement's on simt) (the
                  counts are zeroed before each model and read after it);
      tp_local  — the sharded step's products split over "model", rank by
-                 rank: qwen3-4b's published widths, 2 of its 36 layers,
-                 2 x 512 tokens; for P in 2, 4, 8, 16 each rank's
-                 attention (its H/P q heads, its kv heads or the one its
-                 q heads read: 2 on 1 at P = 16) and SwiGLU (F/P
-                 columns) run alone (parallel.tp_local, no group: each
-                 conjugate all-reduce the identity), their outputs,
-                 input gradients and weight gradients summed (or laid
-                 side by side) against the whole blocks' in fp32 (1e-5
-                 of max|whole|) and bf16 (3e-2); K4 and its backward
-                 launched once for each whole attention and once for
-                 each rank's, on the type's route (fp32 simt, bf16
-                 wgmma and mma), the counts zeroed before each P and
-                 read after it;
+                 rank, at published widths: qwen3-4b, 2 of its 36
+                 layers, 2 x 512 tokens; seamless-m4t-medium, 1 encoder
+                 and 1 decoder layer, 2 x 512 tokens on 1024 frames;
+                 zamba2-7b, 1 mamba layer and the shared block, 1 x
+                 8192.  For P in 2, 4, 8, 16 each rank's blocks
+                 (parallel.tp_local.BLOCKS: every attention on its H/P
+                 q heads and its kv heads or the one its q heads read —
+                 2 on 1 at P = 16 for qwen3-4b —, the encoder's
+                 non-causal, the decoder's causal, the cross-attention's
+                 sq 512 on sk 1024, the shared block's windowed at d
+                 112; every SwiGLU on F/P columns; the Mamba-2 mixer on
+                 112/P SSD heads) run alone (no group: each conjugate
+                 all-reduce the identity; the mixer's norm statistic
+                 replayed from the ranks' sums, its ranks in three
+                 passes), their outputs, input gradients (the memory's
+                 too) and weight gradients summed (or laid side by side)
+                 against the whole blocks' in fp32 (1e-5 of max|whole|)
+                 and bf16 (3e-2) — in fp32 seamless-m4t-medium's and
+                 zamba2-7b's attention blocks run on the ranks' own
+                 inputs (reported) and then with the whole block's
+                 q, k and v replayed into each rank (held, the ranks'
+                 own within 1e-5 of them); K4 and its backward launched
+                 once for each whole attention and once for each rank's
+                 in each run, on the type's route (fp32 simt, bf16 wgmma
+                 and mma) and
+                 non-causal or windowed as the block is, K5 and its
+                 backward on wgmma once for the whole mixer and once for
+                 each rank in each pass, the heads of every call
+                 recorded;
      pipeline  — parallel.pipeline.pipeline_forward at world size 1 (a
                  one-rank "pod" axis on nccl) over 2 decoder layers of
                  qwen3-4b's published widths, 4 microbatches of 1 x 512
@@ -306,8 +322,11 @@ points at full width:
                  with its non-causal launches training seamless-m4t-medium
                  and its windowed record with its launches training
                  zamba2-7b, and flash_attention and flash_attention_bwd
-                 on one rank's heads of qwen3-4b for each P of tp_local
-                 with their bf16 launches there (one a layer and rank);
+                 on one rank's heads of qwen3-4b, of seamless-m4t-medium's
+                 encoder and cross-attention and of zamba2-7b's shared
+                 block, and ssd_chunk and ssd_chunk_bwd on one rank's
+                 heads of zamba2-7b's mixer, for each P of tp_local with
+                 their bf16 launches there (one a layer, rank and pass);
                  every fused_gemm launch of those phases must
                  have taken the wgmma kernel with the coalesced (uniform)
                  gather.
@@ -544,16 +563,69 @@ PLAIN_TRAIN_PEAK = {
 }
 PEAK_SAME = 0.01
 ONE_RANK = ((1, 1), ("data", "model"))  # the train phase's live mesh
-# the sharded step's products split over "model" (tp_local): qwen3-4b at
-# its published widths, 2 of its 36 layers, 2 x 512 tokens; each of P
-# ranks' attention (H/P q heads; its kv heads where 8 divides P, else the
-# one its q heads read: 2 q heads on 1 at P = 16) and SwiGLU (F/P
-# columns) run alone on the card, their partial outputs and input
-# gradients summed, held against the whole blocks in fp32 (1e-5 of
-# max|whole|) and bf16 (TRAIN_TOL's 3e-2)
-TP_LOCAL = dict(arch="qwen3-4b", layers=2, batch=2, seq=512,
-                sizes=(2, 4, 8, 16))
+# the sharded step's products split over "model" (tp_local), at published
+# widths, each of P ranks' blocks (parallel.tp_local.BLOCKS) run alone on
+# the card, their partial outputs and input gradients summed, held
+# against the whole blocks in fp32 (1e-5 of max|whole|) and bf16
+# (TRAIN_TOL's 3e-2): qwen3-4b, 2 of its 36 layers, 2 x 512 tokens (H/P q
+# heads; its kv heads where 8 divides P, else the one its q heads read: 2
+# q heads on 1 at P = 16; F/P columns); seamless-m4t-medium, 1 encoder
+# and 1 decoder layer, 2 x 512 tokens on 1024 frames (16/P heads of 64:
+# the encoder's non-causal attention at 1024, the decoder's causal one at
+# 512, the cross-attention's 512 queries on 1024 keys; F/P columns);
+# zamba2-7b, 1 mamba layer and the shared block, 1 x 8192 (the mixer on
+# 112/P SSD heads, 3 passes of its ranks; the shared block's windowed
+# attention on 32/P heads of 112, F/P columns).  With ``replay`` the fp32
+# checks feed each rank's attention the whole block's q, k and v of its
+# heads (the rank's own held to them at 1e-5 apart; gradients flow to the
+# rank's projections), as the train phase's agreements replay attention
+# inputs: without q/k norms the reference's init makes these attentions
+# near hard (scores of std ~64 and ~112), and a rank's own q and k, one
+# rounding from the whole's (cuBLAS takes other kernels for other product
+# widths), move the summed blocks by ~1e-4 of max|whole| where the
+# projections and SwiGLUs read 1e-6: those runs on the ranks' own inputs
+# go first and are reported (``own_inputs_errors``), not held.  bf16 runs
+# each rank on its own inputs, held
+TP_LOCAL = {
+    "qwen3-4b": dict(layers=2, batch=2, seq=512, blocks=("attention", "mlp")),
+    "seamless-m4t-medium": dict(
+        layers=1, encoder_layers=1, batch=2, seq=512, frames=1024,
+        blocks=("enc_attention", "enc_mlp", "self_attention",
+                "cross_attention", "mlp"), replay=True),
+    "zamba2-7b": dict(layers=1, batch=1, seq=8192,
+                      blocks=("mamba", "shared_attention", "shared_mlp"),
+                      replay=True),
+}
+TP_SIZES = (2, 4, 8, 16)
 TP_TOL = {"fp32": 1e-5, "bf16": 3e-2}
+# K4 and its backward, K5 and its backward, on one rank's heads of the
+# tp_local models at P ranks (each head count divided by P): the key in
+# the kernels line (its suffix, before ":tp<P>") -> the shape
+TP_K4_SHAPES = {
+    "qwen3-4b": dict(B=2, H=32, KV=8, S=512, d=128),
+    # the encoder's non-causal attention, the cross-attention (sq != sk)
+    "seamless-m4t-medium": dict(B=2, H=16, KV=16, S=1024, d=64,
+                                causal=False),
+    "seamless-m4t-medium:cross": dict(B=2, H=16, KV=16, S=512, Sk=1024, d=64,
+                                      causal=False),
+    # the shared block's windowed attention
+    "zamba2-7b": dict(B=1, H=32, KV=32, S=8192, d=112, window=4096),
+}
+# zamba2-7b's mixer: 1 x 8192 in chunks of 64, 112 heads of 64, state 64
+TP_K5_SHAPE = dict(B=1, H=112, C=128, L=64, D=64, N=64)
+# each head-subset record's model and the tp_local block whose launches it
+# counts, and the kernels each block launches
+TP_RECORD_BLOCKS = {
+    "qwen3-4b": ("qwen3-4b", "attention"),
+    "seamless-m4t-medium": ("seamless-m4t-medium", "enc_attention"),
+    "seamless-m4t-medium:cross": ("seamless-m4t-medium", "cross_attention"),
+    "zamba2-7b": ("zamba2-7b", "shared_attention"),
+    "zamba2-7b:mixer": ("zamba2-7b", "mamba"),
+}
+KERNEL_BASES = {block: ("flash_attention", "flash_attention_bwd")
+                for block in ("attention", "enc_attention", "cross_attention",
+                              "shared_attention")}
+KERNEL_BASES["mamba"] = ("ssd_chunk", "ssd_chunk_bwd")
 # the pipeline phase: 2 decoder layers of qwen3-4b, 4 microbatches of
 # 1 x 512, on a one-rank "pod" axis
 PIPELINE = dict(arch="qwen3-4b", layers=2, n_micro=4, mb=1, seq=512)
@@ -592,6 +664,8 @@ def cuda_ms(torch, fn) -> float:
     end.record()
     torch.cuda.synchronize()
     once = max(start.elapsed_time(end), 1e-3)
+    if once >= 200.0:  # a call this long is its own mean
+        return once
     n = int(max(3, min(50, 200.0 / once)))
     start.record()
     for _ in range(n):
@@ -601,24 +675,42 @@ def cuda_ms(torch, fn) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms(torch, fn, name: str, n: int = 20) -> float:
+def device_ms(torch, fn, name: str, n: int = 20, tries: int = 3) -> float:
     """Mean milliseconds on the card's own clock of the kernels whose name
     holds ``name``, over ``n`` calls of ``fn`` under the profiler (a
     launch shorter than the host's issue time is not measured by events
-    around back-to-back calls)."""
+    around back-to-back calls).
+
+    The profiler now and then reports no kernel record for a launch of a
+    few microseconds; it is asked again up to ``tries`` times, and if it
+    never sees one the time is taken with CUDA events around the ``n``
+    calls instead (an upper bound: it holds the host's issue gaps), and a
+    ``device_ms_fallback`` line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as _profile
 
     fn()
     torch.cuda.synchronize()
-    with _profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key)
-    check(us > 0, f"no device time for {name}")
-    return us / 1e3 / n
+    for _ in range(tries):
+        with _profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and name in e.key)
+        if us > 0:
+            return us / 1e3 / n
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    check(ms > 0, f"no device time for {name}")
+    emit(phase="device_ms_fallback", name=name, tries=tries, events_ms=ms)
+    return ms
 
 
 def bound(flops: float, nbytes: float, peak: float = FP32_PEAK):
@@ -938,11 +1030,7 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
     tri = L * (L + 1) // 2  # the lower triangle the decay mask keeps
     nbytes = 4.0 * (x.numel() + dt.numel() + a.numel() + b.numel() + c.numel()
                     + got[0].numel() + got[1].numel())
-    # the least arithmetic: C B^T once per (group, chunk), the masked y
-    # product and the state product per cell, each as three TF32 products
-    # (3xTF32) at the TF32 rate, against the bytes
-    flops = B * C * 2.0 * tri * N + cells * (2.0 * tri * D + 2.0 * N * D * L)
-    b_ms, b_by = bound(3.0 * flops, nbytes, TF32_PEAK)
+    b_ms, b_by = _k5_bound(B, H, C, L, D, N, nbytes)
     # the simt kernel's bound: C B^T for every cell, fp32 on the CUDA cores
     ffma = cells * (2.0 * tri * (N + D) + 2.0 * N * D * L + N * L + L * D)
     ffma_ms, _ = bound(ffma, nbytes)
@@ -998,15 +1086,9 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
         del got, again, big
     # each input read once, each output (want's shapes) written once
     nbytes = 4.0 * sum(t.numel() for t in (x, dt, a, b, c, gy, gst, *want))
-    # the least arithmetic: C B^T once per (group, chunk); per cell the
-    # masked products gM = gy Xd^T, M^T gy, G B, G^T C (lower triangle)
-    # and the full B gst and Xd gst^T, each as three TF32 products
-    # (3xTF32) at the TF32 rate, as the forward's bound; ffma_bound_ms is
-    # the same arithmetic as fp32 on the CUDA cores
-    flops = B * C * 2.0 * tri * N + cells * (
-        2.0 * tri * (2 * D + 2 * N) + 4.0 * L * N * D)
-    b_ms, b_by = bound(3.0 * flops, nbytes, TF32_PEAK)
-    ffma_ms, _ = bound(flops, nbytes, FP32_PEAK)
+    b_ms, b_by = _k5_bound(B, H, C, L, D, N, nbytes, backward=True)
+    ffma_ms, _ = _k5_bound(B, H, C, L, D, N, nbytes, backward=True,
+                           peak=FP32_PEAK)
 
     def k5_bwd(route=None):
         return lambda: ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst,
@@ -1044,71 +1126,170 @@ def phase_lm_kernels(torch, fa, ssd) -> dict:
         out[name] = _k4_bwd_record(torch, fa, F, g, **shape)
     out["flash_attention_bwd:zamba2-7b"] = _k4_bwd_window_record(torch, fa, F)
 
-    # K4 and its backward on one rank's heads of qwen3-4b split over
-    # "model" (TP_LOCAL's shapes, each P from a generator of its own)
-    for size in TP_LOCAL["sizes"]:
-        H, KV = _tp_heads(size)
-        g = torch.Generator(device="cuda").manual_seed(100 + size)
-        shape = dict(B=TP_LOCAL["batch"], H=H, KV=KV, S=TP_LOCAL["seq"],
-                     d=128)
-        out[f"flash_attention:{_tp_name(size)}"] = _k4_record(
-            torch, fa, F, g, **{**K4_DEFAULT, **shape})
-        out[f"flash_attention_bwd:{_tp_name(size)}"] = _k4_bwd_record(
-            torch, fa, F, g, causal=True, **shape)
+    out.update(_tp_kernel_records(torch, fa, F, ssd))
     return out
 
 
-def _tp_name(size: int) -> str:
-    """A K4 record's suffix at one rank's heads of TP_LOCAL's split."""
-    return f"{TP_LOCAL['arch']}:tp{size}"
+def _tp_kernel_records(torch, fa, F, ssd) -> dict:
+    """K4 and its backward on one rank's heads of each tp_local model
+    split over "model" (TP_K4_SHAPES at each P, each from a generator of
+    its own; qwen3-4b's backward also timed on the simt route and its
+    kernels alone), then K5 and its backward on zamba2-7b's mixer's."""
+    out = {}
+    for i, (model, base) in enumerate(TP_K4_SHAPES.items()):
+        for size in TP_SIZES:
+            H, KV = _tp_heads(base["H"], base["KV"], size)
+            g = torch.Generator(device="cuda").manual_seed(
+                100 + 20 * i + size)
+            shape = {**K4_DEFAULT, **base, "H": H, "KV": KV}
+            out[f"flash_attention:{model}:tp{size}"], given = _k4_record(
+                torch, fa, F, g, keep=True, **shape)
+            out[f"flash_attention_bwd:{model}:tp{size}"] = _k4_bwd_record(
+                torch, fa, F, g, timed_routes=i == 0, given=given, **shape)
+            del given
+    for size in TP_SIZES:
+        g = torch.Generator(device="cuda").manual_seed(200 + size)
+        shape = {**TP_K5_SHAPE, "H": TP_K5_SHAPE["H"] // size}
+        (out[f"ssd_chunk:zamba2-7b:mixer:tp{size}"],
+         out[f"ssd_chunk_bwd:zamba2-7b:mixer:tp{size}"]) = _k5_records(
+            torch, ssd, g, **shape)
+    return out
 
 
-def _tp_heads(size: int) -> tuple[int, int]:
-    """(q heads, kv heads) of one rank of qwen3-4b's 32 on 8 split over
-    ``size`` ranks: the kv heads split where 8 divides ``size``, else the
-    one kv head its q heads read."""
-    H, KV = 32, 8
+def _k5_bound(B, H, C, L, D, N, nbytes, backward=False, peak=None):
+    """K5's (or its backward's) least time at (B groups of H heads, C
+    chunks of L, head dim D, state N) against ``nbytes``: the forward's
+    arithmetic C B^T once per (group, chunk), the masked y product and the
+    state product per cell; the backward's C B^T once per (group, chunk)
+    and per cell the masked products gM = gy Xd^T, M^T gy, G B, G^T C
+    (lower triangle) and the full B gst and Xd gst^T; each as three TF32
+    products (3xTF32) at the TF32 rate, or once at ``peak``."""
+    cells = B * H * C
+    tri = L * (L + 1) // 2  # the lower triangle the decay mask keeps
+    if backward:
+        flops = B * C * 2.0 * tri * N + cells * (
+            2.0 * tri * (2 * D + 2 * N) + 4.0 * L * N * D)
+    else:
+        flops = B * C * 2.0 * tri * N + cells * (2.0 * tri * D
+                                                 + 2.0 * N * D * L)
+    if peak is not None:
+        return bound(flops, nbytes, peak)
+    return bound(3.0 * flops, nbytes, TF32_PEAK)
+
+
+def _k5_records(torch, ssd, gen, B, H, C, L, D, N) -> tuple[dict, dict]:
+    """K5 and its backward at (B groups of H heads, C chunks of L, head
+    dim D, state N) on the route the shape takes, each against its plain
+    version (<= KERNEL_TOL of max|plain|; the backward twice for the same
+    bits), timed beside the plain version and its bound."""
+    dev = torch.device("cuda")
+    x = torch.randn(B * H, C, L, D, generator=gen, device=dev)
+    dt = 0.1 + 0.9 * torch.rand(B * H, C, L, generator=gen, device=dev)
+    a = -(0.01 + 0.49 * torch.rand(B * H, C, L, generator=gen, device=dev))
+    b = torch.randn(B, C, L, N, generator=gen, device=dev)
+    c = torch.randn(B, C, L, N, generator=gen, device=dev)
+    gy = torch.randn(B * H, C, L, D, generator=gen, device=dev)
+    gst = torch.randn(B * H, C, N, D, generator=gen, device=dev)
+    route = ssd.ssd_route(L, D, N)
+    shape = dict(BH=B * H, C=C, L=L, D=D, S=N, groups=B, route=route,
+                 heads_per_block=ssd.heads_per_block(
+                     H, B * C, torch.cuda.get_device_properties(
+                         dev).multi_processor_count))
+    before = dict(ssd.SSD_ROUTES), dict(ssd.SSD_BWD_ROUTES)
+    got = ssd.ssd_intra_chunk(x, dt, a, b, c)
+    want = ssd.ssd_intra_chunk_plain(x, dt, a, b, c)
+    gb = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)
+    again = ssd.ssd_intra_chunk_bwd(x, dt, a, b, c, gy, gst)
+    want_b = ssd.ssd_intra_chunk_bwd_plain(x, dt, a, b, c, gy, gst)
+    torch.cuda.synchronize()
+    check(ssd.SSD_ROUTES[route] == before[0][route] + 1
+          and ssd.SSD_BWD_ROUTES[route] == before[1][route] + 2,
+          f"ssd_chunk {shape}: not on the {route} route")
+    err, rel = rel_err(torch, got, want)
+    bwd_err, bwd_rel = rel_err(torch, gb, want_b)
+    check(all(bool(torch.isfinite(t).all()) for t in (*got, *gb)),
+          f"ssd_chunk {shape}: non-finite")
+    check(rel <= KERNEL_TOL and bwd_rel <= KERNEL_TOL,
+          f"ssd_chunk {shape} disagrees: {rel}, backward {bwd_rel}")
+    check(all(torch.equal(g, h) for g, h in zip(gb, again)),
+          f"ssd_chunk_bwd {shape}: two runs differ")
+    nbytes = 4.0 * sum(t.numel() for t in (x, dt, a, b, c, *got))
+    b_ms, b_by = _k5_bound(B, H, C, L, D, N, nbytes)
+    fwd = dict(shape=shape, max_abs_err=err, rel_err=rel,
+               ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk(x, dt, a, b, c)),
+               plain_ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk_plain(
+                   x, dt, a, b, c)),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    nbytes = 4.0 * sum(t.numel() for t in (x, dt, a, b, c, gy, gst, *want_b))
+    b_ms, b_by = _k5_bound(B, H, C, L, D, N, nbytes, backward=True)
+    bwd = dict(shape=shape, max_abs_err=bwd_err, rel_err=bwd_rel,
+               ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk_bwd(
+                   x, dt, a, b, c, gy, gst)),
+               plain_ms=cuda_ms(torch, lambda: ssd.ssd_intra_chunk_bwd_plain(
+                   x, dt, a, b, c, gy, gst)),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return fwd, bwd
+
+
+def _tp_heads(H: int, KV: int, size: int) -> tuple[int, int]:
+    """(q heads, kv heads) of one rank of H q heads on KV kv heads split
+    over ``size`` ranks: the kv heads split where KV divides ``size``,
+    else the one kv head its q heads read."""
     return H // size, KV // size if KV % size == 0 else 1
 
 
-def _k4_bwd_record(torch, fa, F, gen, B, H, KV, S, d, causal) -> dict:
-    """K4's backward on bf16 (B·H, S, d) queries over (B·KV, S, d) keys
-    and values from the kernel forward's output and lse (held to the
-    plain version's lse at 1e-3): the mma route bf16 takes and the simt
-    route forced on the same inputs, each against the plain version
-    (<= FLASH_BWD_TOL of max|plain| per gradient) and twice for the same
-    bits, counted on its route (and as non-causal where it is); timed
-    beside the plain version, SDPA's autograd backward and its bound."""
+def _k4_bwd_record(torch, fa, F, gen, B, H, KV, S, d, causal, Sk=None,
+                   window=0, timed_routes=True, given=None) -> dict:
+    """K4's backward on bf16 (B·H, S, d) queries over (B·KV, Sk, d) keys
+    and values (Sk None: S), causal or not, with ``window`` where it is >
+    0, from the kernel forward's output and lse (held to the plain
+    version's lse at 1e-3): the mma route bf16 takes and the simt route
+    forced on the same inputs, each against the plain version (<=
+    FLASH_BWD_TOL of max|plain| per gradient) and twice for the same
+    bits, counted on its route (and as non-causal or windowed where it
+    is); timed beside the plain version, SDPA's autograd backward (the
+    window as a boolean band mask) and its bound, and with
+    ``timed_routes`` the simt route, each route's kernels alone and the
+    forward too.  ``given`` (q, k, v and the plain forward's lse, from
+    :func:`_k4_record`) spares drawing them and the plain forward again."""
     dev = torch.device("cuda")
-    q = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
-    k = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
-    v = torch.randn(B * KV, S, d, generator=gen, device=dev).bfloat16()
+    Sk = Sk or S
+    if given is None:
+        q = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B * KV, Sk, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B * KV, Sk, d, generator=gen, device=dev).bfloat16()
+    else:
+        q, k, v, want_lse = given
     do = torch.randn(B * H, S, d, generator=gen, device=dev).bfloat16()
-    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
-    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
-    _, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
-                                           return_lse=True)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    if given is None:
+        _, want_lse = fa.flash_attention_plain(q, k, v, return_lse=True,
+                                               **kw)
     lse_err = float((lse - want_lse).abs().max())
     check(lse_err <= 1e-3, f"flash_attention lse disagrees: {lse_err}")
     rels = {}
     for route in ("mma", "simt"):
-        before = fa.BWD_ROUTES[route], fa.BWD_NONCAUSAL[route]
+        before = (fa.BWD_ROUTES[route], fa.BWD_NONCAUSAL[route],
+                  fa.BWD_WINDOW_ROUTES[route])
         force = None if route == "mma" else route
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                     route=force)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, route=force, **kw)
         check(fa.BWD_ROUTES[route] == before[0] + 1,
               f"flash_attention_bwd: the call did not take the {route} route")
         check(causal or fa.BWD_NONCAUSAL[route] == before[1] + 1,
               f"flash_attention_bwd ({route}): not counted as non-causal")
-        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                       route=force)
+        check(not window or fa.BWD_WINDOW_ROUTES[route] == before[2] + 1,
+              f"flash_attention_bwd ({route}): not counted as windowed")
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, route=force,
+                                       **kw)
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(g).all()) for g in got),
               f"flash_attention_bwd ({route}): non-finite")
         rels[route] = [rel_err(torch, [g.float()], [w.float()])[1]
                        for g, w in zip(got, want)]
         check(max(rels[route]) <= FLASH_BWD_TOL,
-              f"flash_attention_bwd ({route}) causal={causal} disagrees: "
+              f"flash_attention_bwd ({route}) {kw} disagrees: "
               f"{rels[route]}")
         check(all(torch.equal(g, h) for g, h in zip(got, again)),
               f"flash_attention_bwd ({route}): two runs differ")
@@ -1117,40 +1298,53 @@ def _k4_bwd_record(torch, fa, F, gen, B, H, KV, S, d, causal) -> dict:
                       for g, w in zip(got, want))
             outs = got
         del again
-    pairs = S * (S + 1) // 2 if causal else S * S
+    # the (q, k) pairs: causal query q sees min(q + 1, window) keys (q + 1
+    # without a window), a non-causal one every key
+    pairs = (sum(min(i + 1, window or S) for i in range(S)) if causal
+             else S * Sk)
     # the least arithmetic: five products over the pairs (S = QK^T to
     # recompute P, dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K)
     flops = 10.0 * B * H * pairs * d
     nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + o.numel() + do.numel()
                     + sum(g.numel() for g in outs)) + 4.0 * lse.numel()
     b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
-    q4, k4, v4 = (t.view(B, -1, S, d).detach().requires_grad_()
+    q4, k4, v4 = (t.view(B, -1, t.shape[1], d).detach().requires_grad_()
                   for t in (q, k, v))
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
-                                        enable_gqa=KV != H)
+    if window:
+        pos = torch.arange(S, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                                 - window)
+        sdpa = dict(attn_mask=band)
+    else:
+        sdpa = dict(is_causal=causal)
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=KV != H,
+                                        **sdpa)
     do4 = do.view(B, H, S, d)
 
     def k4_bwd(route=None):
         return lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                              causal=causal, route=route)
+                                              route=route, **kw)
 
+    timed = {}
+    if timed_routes:
+        # each route's kernels on the device clock (fa_bwd_*), and the
+        # forward with and without its lse
+        timed = dict(
+            simt_ms=cuda_ms(torch, k4_bwd("simt")),
+            kernel_ms=device_ms(torch, k4_bwd(), "fa_bwd"),
+            simt_kernel_ms=device_ms(torch, k4_bwd("simt"), "fa_bwd"),
+            fwd_lse_ms=cuda_ms(torch, lambda: fa.flash_attention(
+                q, k, v, return_lse=True, **kw)),
+            fwd_ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)))
     return dict(
-        shape=dict(bh=B * H, bh_kv=B * KV, sq=S, sk=S, d=d, dtype="bf16",
-                   causal=causal),
+        shape=dict(bh=B * H, bh_kv=B * KV, sq=S, sk=Sk, d=d, dtype="bf16",
+                   causal=causal, window=window),
         max_abs_err=err, rel_err=rels["mma"], simt_rel_err=rels["simt"],
         lse_abs_err=lse_err, pairs=pairs,
-        # the call with CUDA events (the kernel table's reading), each
-        # route; then each route's kernels on the device clock (fa_bwd_*)
-        ms=cuda_ms(torch, k4_bwd()),
-        simt_ms=cuda_ms(torch, k4_bwd("simt")),
-        kernel_ms=device_ms(torch, k4_bwd(), "fa_bwd"),
-        simt_kernel_ms=device_ms(torch, k4_bwd("simt"), "fa_bwd"),
-        fwd_lse_ms=cuda_ms(torch, lambda: fa.flash_attention(
-            q, k, v, causal=causal, return_lse=True)),
-        fwd_ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v,
-                                                         causal=causal)),
+        # the call with CUDA events (the kernel table's reading)
+        ms=cuda_ms(torch, k4_bwd()), **timed,
         plain_ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal=causal)),
+            q, k, v, o, lse, do, **kw)),
         # SDPA's backward through autograd on the same inputs
         library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
             o4, (q4, k4, v4), do4, retain_graph=True)),
@@ -1266,12 +1460,14 @@ def _k4_bwd_window_record(torch, fa, F) -> dict:
 
 
 def _k4_record(torch, fa, F, gen, B, H, KV, S, Sk, d, window,
-               causal) -> dict:
+               causal, keep=False):
     """K4's bf16 kernel on (B·H, S, d) queries over (B·KV, Sk, d) keys and
     values (Sk None: S), causal or not, with ``window`` where it is > 0,
     against its plain version (<= FLASH_TOL of max|plain|), timed beside
-    the plain version, SDPA (the window as a boolean band mask) and its
-    bound."""
+    the plain version (a call of 200 ms or more timed once, the check's
+    own), SDPA (the window as a boolean band mask) and its bound.  With
+    ``keep``, returns (the record, (q, k, v, the plain version's lse))
+    for :func:`_k4_bwd_record`."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     Sk = Sk or S
@@ -1285,8 +1481,12 @@ def _k4_record(torch, fa, F, gen, B, H, KV, S, Sk, d, window,
           "flash_attention: the windowed call did not take the wgmma kernel")
     check(causal or fa.NONCAUSAL["wgmma"] == before[1]["wgmma"] + 1,
           "flash_attention: the non-causal call did not take the wgmma kernel")
-    want = fa.flash_attention_plain(q, k, v, **kw)
-    torch.cuda.synchronize()
+    def plain():
+        return fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+
+    (want, want_lse), plain_ms = _timed(torch, plain)
+    if plain_ms < 200.0:
+        plain_ms = cuda_ms(torch, plain)
     err, rel = rel_err(torch, [got.float()], [want.float()])
     shape = dict(bh=B * H, bh_kv=B * KV, sq=S, sk=Sk, d=d, dtype="bf16",
                  causal=causal, window=window)
@@ -1307,15 +1507,27 @@ def _k4_record(torch, fa, F, gen, B, H, KV, S, Sk, d, window,
         sdpa = dict(attn_mask=band)
     else:
         sdpa = dict(is_causal=causal)
-    return dict(
+    rec = dict(
         shape=shape, max_abs_err=err, rel_err=rel, pairs=pairs,
         ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)),
-        plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
-                                                                 **kw)),
+        plain_ms=plain_ms,
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, enable_gqa=KV != H, **sdpa)),
         bound_ms=b_ms, bound_by=b_by, seconds=time.perf_counter() - t0,
     )
+    return (rec, (q, k, v, want_lse)) if keep else rec
+
+
+def _timed(torch, fn):
+    """``fn()``'s result and its milliseconds on the card (CUDA events
+    around one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _cpu_params(model) -> dict:
@@ -1997,83 +2209,203 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
 
 def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                    device="cuda") -> dict:
-    """TP_LOCAL: for each P, every rank's share of each layer's attention
-    and SwiGLU blocks on the card (``parallel.tp_local.check_block``, no
-    group: each conjugate op the identity), summed and held against the
-    whole block, forward and backward, in fp32 and bf16; K4 and its
-    backward launched once for the whole attention and once for each
-    rank's heads, on the route of the type (fp32 simt, bf16 wgmma/mma)."""
+    """TP_LOCAL: for each model and P, every rank's share of each of its
+    blocks on the card (``parallel.tp_local.check_block``, no group: each
+    conjugate op the identity, the mixer's norm statistic replayed from
+    the ranks' sums), summed and held against the whole block, forward
+    and backward, in fp32 and bf16; each attention block's K4 and its
+    backward launched once for the whole block and once for each rank's
+    heads, on the route of the type (fp32 simt, bf16 wgmma/mma; non-causal
+    and windowed where the block is), each mixer's K5 and its backward
+    once for the whole and once for each rank in each pass, on wgmma.
+    The counts are zeroed before each model, type and P and read after;
+    each block's launches are kept apart."""
+    from repro_torch.kernels import ops
     from repro_torch.parallel import tp_local
 
     t0 = time.perf_counter()
-    spec = TP_LOCAL
-    cfg = dataclasses.replace(get_config(spec["arch"]),
-                              num_layers=spec["layers"])
-    model = build_model(cfg, seed=0, device=device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    shape = (spec["batch"], spec["seq"], cfg.d_model)
-    h = torch.randn(shape, generator=gen, device=device)
-    dy = torch.randn(shape, generator=gen, device=device)
-    heads: list = []
+    attn_heads, ssd_heads = [], []
+    # the attention inputs replayed into the ranks' calls: the whole
+    # block's (its first call), the next rank, the rank's own inputs'
+    # largest distance from them
+    replay = {"on": False, "whole": None, "rank": 0, "input_err": 0.0}
 
-    def recorded(fn):
+    def recorded_attention(fn):
         def inner(q, k, v, **kw):
-            heads.append((q.shape[2], k.shape[2]))
+            attn_heads.append((q.shape[2], k.shape[2]))
+            if replay["on"]:
+                if replay["whole"] is None:
+                    replay["whole"] = (q.detach(), k.detach(), v.detach())
+                else:
+                    r, replay["rank"] = replay["rank"], replay["rank"] + 1
+                    subs = [w[:, :, r * t.shape[2]:(r + 1) * t.shape[2]]
+                            for w, t in zip(replay["whole"], (q, k, v))]
+                    replay["input_err"] = max(
+                        replay["input_err"],
+                        *(float((t.detach() - w).abs().max()
+                                / w.abs().max().clamp_min(1e-30))
+                          for t, w in zip((q, k, v), subs)))
+                    # the whole's values, the rank's gradients
+                    q, k, v = (w + (t - t.detach())
+                               for t, w in zip((q, k, v), subs))
             return fn(q, k, v, **kw)
         return inner
 
-    out = {}
-    with _patched(L, {"blockwise_attention": recorded}):
-        for name, dtype in (("fp32", torch.float32),
-                            ("bf16", torch.bfloat16)):
-            layers = [{k: v.to(dtype) for k, v in lay.tensors().items()}
-                      for lay in model.layers]
-            for size in spec["sizes"]:
-                heads.clear()
-                reset()
-                worst = {}
-                for i, params in enumerate(layers):
-                    for block in ("attention", "mlp"):
-                        got = tp_local.check_block(
-                            model, i, block, h.to(dtype), dy.to(dtype), size,
-                            params)
-                        errs = dict(out=got["out"], dx=got["dx"],
-                                    grads=max(got["grads"].values()))
-                        for k, e in errs.items():
-                            key = f"{block}_{k}"
-                            worst[key] = max(worst.get(key, 0.0), e)
-                torch.cuda.synchronize()
-                launched = counts()
-                n = cfg.num_layers * (1 + size)
-                fwd = "simt" if name == "fp32" else "wgmma"
-                bwd = "simt" if name == "fp32" else "mma"
-                hq, kv = _tp_heads(size)
-                rec = dict(errors=worst, heads_per_rank=[hq, kv],
-                    flash_attention=launched["flash_attention"],
-                    flash_attention_bwd=launched["flash_attention_bwd"],
-                    fwd_routes=launched["flash_fwd_routes"],
-                    bwd_routes=launched["flash_bwd_routes"])
-                out[f"{name}:P{size}"] = rec
-                check(max(worst.values()) <= TP_TOL[name],
-                      f"tp_local {name} P={size}: the ranks' sums are not "
-                      f"the whole block's: {worst}")
-                check(heads == ([(cfg.num_heads, cfg.num_kv_heads)]
-                                + [(hq, kv)] * size) * cfg.num_layers,
-                      f"tp_local {name} P={size}: attention heads {heads}")
-                check(launched["flash_fwd_routes"][fwd] == n
-                      and launched["flash_bwd_routes"][bwd] == n
-                      and launched["flash_attention"] == n
-                      and launched["flash_attention_bwd"] == n,
-                      f"tp_local {name} P={size}: K4 launches {rec}, want "
-                      f"{n} on {fwd} and {bwd}")
-            del layers
-    del model
-    torch.cuda.empty_cache()
-    return dict(arch=spec["arch"], layers=cfg.num_layers,
-                published_layers=get_config(spec["arch"]).num_layers,
-                batch=spec["batch"], seq=spec["seq"], sizes=spec["sizes"],
-                tolerance=TP_TOL, checks=out,
+    def recorded_ssd(fn):
+        def inner(x, dt, a, b, c, **kw):
+            ssd_heads.append(x.shape[0] // b.shape[0])
+            return fn(x, dt, a, b, c, **kw)
+        return inner
+
+    def launched(before, after):
+        """The K4 and K5 launches between two readings of the counts."""
+        keys = ("flash_attention", "flash_attention_bwd", "ssd_chunk",
+                "ssd_chunk_bwd")
+        out = {k: after[k] - before[k] for k in keys}
+        for k in ("flash_fwd_routes", "flash_bwd_routes", "flash_noncausal",
+                  "flash_bwd_noncausal", "flash_window_routes",
+                  "flash_bwd_window_routes", "ssd_routes", "ssd_bwd_routes"):
+            out[k] = {r: after[k][r] - before[k][r] for r in after[k]}
+        return out
+
+    out, models = {}, {}
+    with _patched(L, {"blockwise_attention": recorded_attention}), \
+            _patched(ops, {"ssd_scan": recorded_ssd}):
+        for arch, spec in TP_LOCAL.items():
+            t1 = time.perf_counter()
+            full = get_config(arch)
+            cfg = dataclasses.replace(
+                full, num_layers=spec["layers"],
+                **({"encoder_layers": spec["encoder_layers"]}
+                   if "encoder_layers" in spec else {}))
+            model = build_model(cfg, seed=0, device=device)
+            gen = torch.Generator(device=device).manual_seed(0)
+            B, S = spec["batch"], spec["seq"]
+            frames = spec.get("frames", S)
+            h = torch.randn((B, S, cfg.d_model), generator=gen, device=device)
+            dy = torch.randn((B, S, cfg.d_model), generator=gen,
+                             device=device)
+            h_enc = torch.randn((B, frames, cfg.d_model), generator=gen,
+                                device=device)
+            dy_enc = torch.randn((B, frames, cfg.d_model), generator=gen,
+                                 device=device)
+            nheads = (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+                      if cfg.ssm_state else 0)
+            for name, dtype in (("fp32", torch.float32),
+                                ("bf16", torch.bfloat16)):
+                stacks = {
+                    "layers": [lay.tensors() for lay in model.layers],
+                    "enc_layers": [lay.tensors() for lay in
+                                   getattr(model, "enc_layers", [])],
+                    "shared": [model.top.tensors().get("shared")],
+                }
+                stacks = {k: [None if p is None else
+                              {n: t.to(dtype) for n, t in p.items()}
+                              for p in v] for k, v in stacks.items()}
+                for size in TP_SIZES:
+                    reset()
+                    worst, own, per_block = {}, {}, {}
+                    attn_heads.clear()
+                    ssd_heads.clear()
+                    want_attn, want_ssd = [], []
+                    hq, kv = _tp_heads(cfg.num_heads, cfg.num_kv_heads, size)
+                    for block in spec["blocks"]:
+                        _, _, stack = tp_local.BLOCKS[block]
+                        enc = block.startswith("enc_")
+                        # with replay: the block on the ranks' own
+                        # inputs first (reported, not held), then replayed
+                        held = not (spec.get("replay") and name == "fp32"
+                                    and "attention" in block)
+                        calls = [(i, params, replayed) for i, params in
+                                 enumerate(stacks[stack]) for replayed in
+                                 ((False,) if held else (False, True))]
+                        for i, params, replayed in calls:
+                            before = counts()
+                            replay.update(on=replayed, whole=None, rank=0)
+                            got = tp_local.check_block(
+                                model, i, block,
+                                (h_enc if enc else h).to(dtype),
+                                (dy_enc if enc else dy).to(dtype), size,
+                                params,
+                                memory=h_enc.to(dtype)
+                                if block == "cross_attention" else None)
+                            torch.cuda.synchronize()
+                            n = launched(before, counts())
+                            errs = dict(out=got["out"], dx=got["dx"],
+                                        grads=max(got["grads"].values()),
+                                        **({"dmem": got["dmem"]}
+                                           if "dmem" in got else {}))
+                            if replayed:
+                                errs["inputs"] = replay["input_err"]
+                                replay.update(on=False, input_err=0.0)
+                            if held or replayed:
+                                per_block[f"{block}:{i}"] = dict(
+                                    passes=got["passes"], **n)
+                            for k, e in errs.items():
+                                key = f"{block}_{k}"
+                                table = worst if held or replayed else own
+                                table[key] = max(table.get(key, 0.0), e)
+                            ranks = 1 + got["passes"] * size
+                            if "attention" in block:
+                                want_attn += [(cfg.num_heads,
+                                               cfg.num_kv_heads)] + [
+                                    (hq, kv)] * size
+                                _check_tp_attention(
+                                    arch, name, size, block, n, 1 + size,
+                                    causal=block not in ("enc_attention",
+                                                         "cross_attention"),
+                                    window=cfg.window > 0)
+                            elif block == "mamba":
+                                want_ssd += [nheads] + [nheads // size] * (
+                                    ranks - 1)
+                                check(n["ssd_chunk"] == n["ssd_chunk_bwd"]
+                                      == n["ssd_routes"]["wgmma"]
+                                      == n["ssd_bwd_routes"]["wgmma"]
+                                      == ranks and got["passes"] == 3,
+                                      f"tp_local {arch} {name} P={size} "
+                                      f"{block}: K5 launches {n}, want "
+                                      f"{ranks} on wgmma")
+                    rec = dict(errors=worst, heads_per_rank=[hq, kv],
+                               ssd_heads_per_rank=nheads // size
+                               if nheads else None, blocks=per_block,
+                               own_inputs_errors=own or None)
+                    out[f"{arch}:{name}:P{size}"] = rec
+                    check(max(worst.values()) <= TP_TOL[name],
+                          f"tp_local {arch} {name} P={size}: the ranks' sums "
+                          f"are not the whole block's: {worst}")
+                    check(attn_heads == want_attn,
+                          f"tp_local {arch} {name} P={size}: attention heads "
+                          f"{attn_heads}")
+                    check(ssd_heads == want_ssd,
+                          f"tp_local {arch} {name} P={size}: SSD heads "
+                          f"{ssd_heads}")
+                del stacks
+            models[arch] = dict(
+                layers=cfg.num_layers, published_layers=full.num_layers,
+                encoder_layers=cfg.encoder_layers, batch=spec["batch"],
+                seq=spec["seq"], frames=spec.get("frames"),
+                blocks=spec["blocks"], seconds=time.perf_counter() - t1)
+            del model, h, dy, h_enc, dy_enc
+            torch.cuda.empty_cache()
+    return dict(models=models, sizes=TP_SIZES, tolerance=TP_TOL, checks=out,
                 seconds=time.perf_counter() - t0)
+
+
+def _check_tp_attention(arch, name, size, block, n, ranks, causal, window):
+    """One attention block's K4 launches in tp_local: forward and
+    backward ``ranks`` times (the whole block, then each rank's heads) on
+    the route of the type, all non-causal where the block is not causal,
+    all windowed where the model's attention is."""
+    fwd, bwd = ("simt", "simt") if name == "fp32" else ("wgmma", "mma")
+    ok = (n["flash_attention"] == n["flash_attention_bwd"] == ranks
+          and n["flash_fwd_routes"][fwd] == n["flash_bwd_routes"][bwd]
+          == ranks
+          and n["flash_noncausal"][fwd] == n["flash_bwd_noncausal"][bwd]
+          == (0 if causal else ranks)
+          and n["flash_window_routes"][fwd]
+          == n["flash_bwd_window_routes"][bwd] == (ranks if window else 0))
+    check(ok, f"tp_local {arch} {name} P={size} {block}: K4 launches {n}, "
+              f"want {ranks} on {fwd} and {bwd}")
 
 
 def _sharded_matches_plain(torch, build_model, full, device="cuda") -> dict:
@@ -3588,7 +3920,8 @@ def main() -> int:
     emit(phase="train", **phase_train_example(torch, lm_counts, lm_reset))
     torch.cuda.empty_cache()
     # the sharded step's products split over "model": each rank's share
-    # of qwen3-4b's layers against the whole layers (TP_LOCAL)
+    # of qwen3-4b's, seamless-m4t-medium's and zamba2-7b's blocks against
+    # the whole blocks (TP_LOCAL)
     tpl = phase_tp_local(torch, build_model, get_config, lm_counts, lm_reset,
                          lm_layers)
     emit(phase="tp_local", **tpl)
@@ -3748,28 +4081,36 @@ def main() -> int:
         bound_by=rec["bound_by"], simt_bound_ms=rec["simt_bound_ms"],
         library_ms=rec["library_ms"],
     ))
-    # K4 and its backward on one rank's heads (TP_LOCAL): the bf16
-    # launches of the tp_local phase at that shape (one a layer and rank),
-    # beside its fp32 launches on the simt kernels
-    for size in TP_LOCAL["sizes"]:
-        for base in ("flash_attention", "flash_attention_bwd"):
-            name = f"{base}:{_tp_name(size)}"
-            rec = kern[name]
-            local = TP_LOCAL["layers"] * size
-            records.append(dict(
-                name=name, route="cuda", design=DESIGNS[base],
-                source=SOURCES[base], replaces=TPU_KERNELS[base],
-                launches=tpl["checks"][f"bf16:P{size}"][base]
-                - TP_LOCAL["layers"],
-                simt_launches=tpl["checks"][f"fp32:P{size}"][base]
-                - TP_LOCAL["layers"], launches_per_rank_layer=1,
-                max_abs_err=rec["max_abs_err"], ms=rec["ms"],
-                plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-                bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-                shape=rec["shape"],
-            ))
-            check(records[-1]["launches"] == local,
-                  f"{name}: {records[-1]['launches']} launches, want {local}")
+    # K4 and its backward, K5 and its backward, on one rank's heads of the
+    # tp_local models: the rank launches of the block that runs that shape
+    # in the bf16 checks of the tp_local phase at that P (one a layer, rank
+    # and pass), beside its fp32 launches (K4's on the simt kernels)
+    for key, (arch, block) in TP_RECORD_BLOCKS.items():
+        for size in TP_SIZES:
+            for base in KERNEL_BASES[block]:
+                name = f"{base}:{key}:tp{size}"
+                rec = kern[name]
+                runs = {t: [b for k, b in tpl["checks"][
+                    f"{arch}:{t}:P{size}"]["blocks"].items()
+                    if k.split(":")[0] == block] for t in ("bf16", "fp32")}
+                # the whole block launches once; the ranks the rest
+                local = {t: sum(b[base] - 1 for b in bs)
+                         for t, bs in runs.items()}
+                want = sum(b["passes"] * size for b in runs["bf16"])
+                records.append(dict(
+                    name=name, route="cuda", design=DESIGNS[base],
+                    source=SOURCES[base], replaces=TPU_KERNELS[base],
+                    launches=local["bf16"], simt_launches=local["fp32"]
+                    if base.startswith("flash") else None,
+                    fp32_launches=local["fp32"],
+                    launches_per_rank_layer=runs["bf16"][0]["passes"],
+                    max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+                    plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                    bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+                    shape=rec["shape"],
+                ))
+                check(local["bf16"] == local["fp32"] == want,
+                      f"{name}: {local} launches, want {want}")
     for name in BF16_ROUTES:
         rec = kern[f"{name}:bf16"]
         records.append(dict(

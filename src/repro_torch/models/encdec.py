@@ -40,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import layers as L
-from .lm import _mlp_defs, _promoted
+from .lm import _mlp_defs
 from .params import ParamDef, TrainableLM, param_modules
 
 
@@ -102,20 +102,6 @@ def cache_spec(cfg: ArchConfig, batch_size: int, max_len: int,
             "cross_k": kv(enc_len), "cross_v": kv(enc_len)}
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk", x, w)`` in the type the two promote to."""
-    B, S, D = x.shape
-    return (_promoted(x, w) @ w.reshape(D, -1)).reshape(B, S, *w.shape[1:])
-
-
-def _out(h: torch.Tensor, o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``h`` plus the attention output ``o`` (B, S, H, hd), cast to
-    ``h``'s type, through the output projection ``w`` (H, hd, D)."""
-    B, S = o.shape[:2]
-    o = _promoted(o.to(h.dtype).reshape(B, S, -1), w)
-    return h + o @ w.reshape(-1, w.shape[-1])
-
-
 class EncDecLM(TrainableLM):
     """Encoder-decoder transformer.  ``params`` is ``{"embed",
     "enc_norm", "final_norm", "head", "enc_layers": [...], "layers":
@@ -136,60 +122,68 @@ class EncDecLM(TrainableLM):
         return top["head"]
 
     # ------------------------------------------------------------ blocks
+    def _attend(self, p, x, *, names=("wq", "wk", "wv", "wo"), **kw):
+        """:func:`~repro_torch.models.layers.attention` of the normed
+        ``x`` through the weights ``names`` of ``p`` (the self-attention's
+        or the cross-attention's ``xq``/``xk``/``xv``/``xo``)."""
+        cfg = self.cfg
+        return L.attention(x, *(p[n] for n in names),
+                           num_heads=cfg.num_heads,
+                           num_kv_heads=cfg.num_kv_heads,
+                           rope_theta=cfg.rope_theta, eps=cfg.norm_eps, **kw)
+
     def _self_attn(self, p, h, positions, causal: bool, cache=None,
-                   pos=None):
+                   pos=None, tp=None):
         """Self-attention with RoPE.  Prefill (``cache is None``) returns
         the layer's (k, v); decode writes this token's k/v into the
-        preallocated ``cache`` at slot ``pos`` in place."""
-        cfg = self.cfg
-        x = L.rms_norm(h, p["ln_attn"], cfg.norm_eps)
-        q = L.apply_rope(_project(x, p["wq"]), positions, cfg.rope_theta)
-        k = L.apply_rope(_project(x, p["wk"]), positions, cfg.rope_theta)
-        v = _project(x, p["wv"])
-        if cache is None:
-            o = L.blockwise_attention(q, k, v, causal=causal)
-            kv = (k, v)
-        else:
-            k_cache, v_cache = cache
-            S = h.shape[1]
-            k_cache[:, pos:pos + S] = k
-            v_cache[:, pos:pos + S] = v
-            o = L.decode_attention(q, k_cache, v_cache, pos + S)
-            kv = None
-        return _out(h, o, p["wo"]), kv
+        preallocated ``cache`` at slot ``pos`` in place.  With ``tp`` (the
+        sharded step) on this rank's heads where it splits them."""
+        attend = None if cache is None else L.cache_attend(cache, pos)
+        x = L.rms_norm(h, p["ln_attn"], self.cfg.norm_eps)
+        y, kv = self._attend(p, x, positions=positions, causal=causal,
+                             attend=attend, tp=tp)
+        return h + y, (kv if cache is None else None)
 
-    def _cross_q(self, p, h):
+    def _cross_attn(self, p, h, mem_k, mem_v, attend=None, tp=None):
+        """Cross-attention to the memory's keys and values (this rank's
+        where ``tp`` splits the heads: :meth:`_mem_kv`), non-causal,
+        without RoPE; ``attend`` replaces the prefill attention (decode's
+        one query over every memory slot)."""
         x = L.rms_norm(h, p["ln_x"], self.cfg.norm_eps)
-        return _project(x, p["xq"])
+        y, _ = self._attend(p, x, names=("xq", "xk", "xv", "xo"),
+                            kv=(mem_k, mem_v), causal=False, attend=attend,
+                            tp=tp)
+        return h + y
 
-    def _cross_attn(self, p, h, mem_k, mem_v):
-        """Cross-attention to the memory's keys and values, non-causal,
-        without RoPE."""
-        o = L.blockwise_attention(self._cross_q(p, h), mem_k, mem_v,
-                                  causal=False)
-        return _out(h, o, p["xo"])
+    def _mem_kv(self, p, mem, tp=None):
+        """The memory's keys and values for one decoder layer, on the kv
+        heads of this rank's q heads where ``tp`` splits them: the memory
+        then passes ``tp_enter`` (it feeds every decoder layer, and each
+        layer's ranks hold partial gradients of it)."""
+        cfg = self.cfg
+        return L.attention_kv(mem, p["xk"], p["xv"], p["xq"].shape[1],
+                              cfg.num_heads, cfg.num_kv_heads, tp)
 
-    @staticmethod
-    def _mem_kv(p, mem):
-        """The memory's keys and values for one decoder layer."""
-        return _project(mem, p["xk"]), _project(mem, p["xv"])
-
-    def _mlp(self, p, h):
+    def _mlp(self, p, h, tp=None):
         x = L.rms_norm(h, p["ln_mlp"], self.cfg.norm_eps)
-        return h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        return h + L.ffn(x, p["w_gate"], p["w_up"], p["w_down"],
+                         self.cfg.d_ff, tp)
 
     def _enc_block(self, p, h, positions):
-        # each block gathers its layer first (the sharded step; the
-        # products run whole), inside the checkpoint when training
+        # each block gathers its layer first (the sharded step), inside
+        # the checkpoint when training, and computes on its "model" shard
+        # where the step splits the products
+        tp = self._tp
         p = self._gathered(p)
-        h, _ = self._self_attn(p, h, positions, causal=False)
-        return self._mlp(p, h)
+        h, _ = self._self_attn(p, h, positions, causal=False, tp=tp)
+        return self._mlp(p, h, tp)
 
     def _dec_block(self, p, h, positions, mem):
+        tp = self._tp
         p = self._gathered(p)
-        h, _ = self._self_attn(p, h, positions, causal=True)
-        h = self._cross_attn(p, h, *self._mem_kv(p, mem))
-        return self._mlp(p, h)
+        h, _ = self._self_attn(p, h, positions, causal=True, tp=tp)
+        h = self._cross_attn(p, h, *self._mem_kv(p, mem, tp), tp=tp)
+        return self._mlp(p, h, tp)
 
     @staticmethod
     def _positions(h: torch.Tensor) -> torch.Tensor:
@@ -223,7 +217,7 @@ class EncDecLM(TrainableLM):
         batch's process group) is unused: nothing is routed."""
         top = self.top.tensors()
         mem = self.encode(batch["embeds"], checkpointed=True)
-        h = self._gathered(top["embed"])[self._tokens(batch["tokens"])]
+        h = self._token_rows(top["embed"], self._tokens(batch["tokens"]))
         positions = self._positions(h)
         for layer in self.layers:
             h = checkpoint(self._dec_block, layer.tensors(), h, positions,
@@ -296,8 +290,9 @@ class EncDecLM(TrainableLM):
             h, _ = self._self_attn(p, h, positions, causal=True, pos=pos,
                                    cache=(cache["self_k"][i],
                                           cache["self_v"][i]))
-            o = L.decode_attention(self._cross_q(p, h), cache["cross_k"][i],
-                                   cache["cross_v"][i], enc_len)
-            h = self._mlp(p, _out(h, o, p["xo"]))
+            h = self._cross_attn(
+                p, h, cache["cross_k"][i], cache["cross_v"][i],
+                attend=lambda q, k, v: L.decode_attention(q, k, v, enc_len))
+            h = self._mlp(p, h)
         h = L.rms_norm(h, top["final_norm"], cfg.norm_eps)
         return (h[:, 0] @ top["head"]).float(), cache

@@ -122,51 +122,69 @@ class ZambaLM(TrainableLM):
         return None
 
     # ------------------------------------------------------------ blocks
-    def _shared_attn(self, sp, h, positions, cache=None, pos=None):
+    def _shared_attn(self, sp, h, positions, cache=None, pos=None, tp=None):
         """The shared block: windowed attention, then the MLP.  Prefill
         (``cache is None``) returns this application's (k, v); decode
         writes this token's k/v into ring slot ``pos % eff`` of
-        ``cache`` in place."""
+        ``cache`` in place.  With ``tp`` (the sharded step) both run on
+        this rank's heads and FFN columns where it splits them."""
         cfg = self.cfg
-        B, S, D = h.shape
-        hd = cfg.resolved_head_dim
-        x = L.rms_norm(h, sp["ln_attn"], cfg.norm_eps)
-        q = (x @ sp["wq"].reshape(D, -1)).reshape(B, S, cfg.num_heads, hd)
-        k = (x @ sp["wk"].reshape(D, -1)).reshape(B, S, cfg.num_kv_heads, hd)
-        v = (x @ sp["wv"].reshape(D, -1)).reshape(B, S, cfg.num_kv_heads, hd)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-        if cache is None:
-            o = L.blockwise_attention(q, k, v, causal=True, window=cfg.window)
-            kv = (k, v)
-        else:
-            k_ring, v_ring = cache
-            eff = k_ring.shape[1]
-            k_ring[:, pos % eff] = k[:, 0]
-            v_ring[:, pos % eff] = v[:, 0]
-            o = L.decode_attention(q, k_ring, v_ring, min(pos + 1, eff))
-            kv = None
-        h = h + o.to(h.dtype).reshape(B, S, -1) @ sp["wo"].reshape(-1, D)
+        attend = None
+        if cache is not None:
+            def attend(q, k, v):
+                k_ring, v_ring = cache
+                eff = k_ring.shape[1]
+                k_ring[:, pos % eff] = k[:, 0]
+                v_ring[:, pos % eff] = v[:, 0]
+                return L.decode_attention(q, k_ring, v_ring,
+                                          min(pos + 1, eff))
+        y, kv = self._attend(sp, h, positions, attend, tp)
+        h = h + y
         x = L.rms_norm(h, sp["ln_mlp"], cfg.norm_eps)
-        return h + L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"]), kv
+        h = h + L.ffn(x, sp["w_gate"], sp["w_up"], sp["w_down"], cfg.d_ff,
+                      tp)
+        return h, (kv if cache is None else None)
+
+    def _attend(self, sp, h, positions, attend=None, tp=None):
+        """The shared block's windowed attention (before the residual)
+        and its (k, v): :func:`~repro_torch.models.layers.attention`,
+        on this rank's heads where ``tp`` splits them."""
+        cfg = self.cfg
+        return L.attention(
+            L.rms_norm(h, sp["ln_attn"], cfg.norm_eps), sp["wq"], sp["wk"],
+            sp["wv"], sp["wo"], num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, positions=positions,
+            rope_theta=cfg.rope_theta, window=cfg.window, attend=attend,
+            tp=tp)
+
+    def _mamba(self, p, h):
+        """Mamba layer ``p`` in training: its blocks gathered here (the
+        sharded step), so that under a checkpoint nothing whole outlives
+        it, the mixer on this rank's heads where the step splits them."""
+        return mamba_block(self.cfg, self._gathered(p), h, tp=self._tp)[0]
+
+    def _shared(self, p, h, positions):
+        """One application of the shared block in training, gathered as
+        :meth:`_mamba` gathers a layer."""
+        return self._shared_attn(self._gathered(p), h, positions,
+                                 tp=self._tp)[0]
 
     # ------------------------------------------------------------ train
     def blocks(self, positions: torch.Tensor) -> list:
         """The residual stream's blocks in order, as ``(kind, fn,
         params)`` with ``h = fn(params, h)``: each mamba layer
-        (``"mamba"``), and the shared block (``"shared"``, at
-        ``positions`` (B, S)) after each group's last layer.  Each ``fn``
-        gathers its blocks first (the sharded step; the products run
-        whole), so that under a checkpoint nothing whole outlives it."""
-        cfg = self.cfg
+        (``"mamba"``, :meth:`_mamba`), and the shared block (``"shared"``,
+        :meth:`_shared` at ``positions`` (B, S)) after each group's last
+        layer.  Each ``fn`` gathers its blocks first and computes on this
+        rank's "model" shard where the sharded step splits the products
+        (the mixer's heads, the shared block's heads and FFN columns)."""
         shared = self.top.tensors()["shared"]
         out = []
         for j, layer in enumerate(self.layers):
-            out.append(("mamba", lambda p, h: mamba_block(
-                cfg, self._gathered(p), h)[0], layer.tensors()))
+            out.append(("mamba", self._mamba, layer.tensors()))
             if self._group_after(j) is not None:
-                out.append(("shared", lambda p, h: self._shared_attn(
-                    self._gathered(p), h, positions)[0], shared))
+                out.append(("shared", lambda p, h: self._shared(
+                    p, h, positions), shared))
         return out
 
     def hidden_states(self, batch: dict, group=None):
@@ -176,7 +194,7 @@ class ZambaLM(TrainableLM):
         attention through K4's).  ``group`` (the
         batch's process group) is unused: nothing is routed."""
         top = self.top.tensors()
-        h = self._gathered(top["embed"])[self._tokens(batch["tokens"])]
+        h = self._token_rows(top["embed"], self._tokens(batch["tokens"]))
         B, S = h.shape[:2]
         positions = torch.arange(S, device=h.device).expand(B, S)
         for _, fn, p in self.blocks(positions):

@@ -40,13 +40,36 @@ def wide(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
-    # fp32, or fp64 where either side is (a bf16 input meets fp64 weights
-    # in the fp64 oracle's first encoder or VLM layer)
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             tp=None):
+    """RMS norm over the last dimension, in fp32, or fp64 where either
+    side is (a bf16 input meets fp64 weights in the fp64 oracle's first
+    encoder or VLM layer).  With ``tp`` the last dimension of ``x`` and
+    ``scale`` is this rank's share of a dimension split over "model":
+    the mean of squares is the whole dimension's, its sum all-reduced
+    forward and backward (:func:`~repro_torch.parallel.sharding.
+    tp_sum`)."""
     xf = x.to(torch.promote_types(wide(x).dtype, scale.dtype))
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if tp is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        var = sharding.tp_sum(torch.sum(xf * xf, dim=-1, keepdim=True),
+                              tp) / (x.shape[-1] * tp.size)
     out = xf * torch.rsqrt(var + eps) * wide(scale)
     return out.to(x.dtype)
+
+
+def promoted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type the reference's ``einsum`` promotes ``x`` and
+    ``w`` to (bf16 embeds meet fp32 weights only in an fp32 model)."""
+    return x.to(torch.promote_types(x.dtype, w.dtype))
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)`` in the type the two promote
+    to."""
+    B, S, D = x.shape
+    return (promoted(x, w) @ w.reshape(D, -1)).reshape(B, S, *w.shape[1:])
 
 
 # ----------------------------------------------------------------------
@@ -161,6 +184,20 @@ def decode_attention(
     return o.reshape(B, 1, H, Dh).to(q.dtype)
 
 
+def cache_attend(cache: tuple, pos: int):
+    """An ``attend`` for :func:`attention` in a decode step: this step's
+    k/v written into the preallocated ``cache`` (k, v) at slot ``pos`` in
+    place (the reference pads its cache and writes with
+    ``dynamic_update_slice``, returning a new array), then one-query
+    attention over the filled slots."""
+    def attend(q, k, v):
+        k_cache, v_cache = cache
+        k_cache[:, pos:pos + q.shape[1]] = k
+        v_cache[:, pos:pos + q.shape[1]] = v
+        return decode_attention(q, k_cache, v_cache, pos + q.shape[1])
+    return attend
+
+
 def kv_heads_of(wk: torch.Tensor, wv: torch.Tensor, first: int, heads: int,
                 num_heads: int, tp):
     """``wk``/``wv`` (D, KV, hd) replicated over "model", reduced to the
@@ -179,6 +216,103 @@ def kv_heads_of(wk: torch.Tensor, wv: torch.Tensor, first: int, heads: int,
     idx = torch.tensor(want, device=wk.device)
     return (sharding.tp_enter(wk, tp).index_select(1, idx),
             sharding.tp_enter(wv, tp).index_select(1, idx))
+
+
+def attention_kv(src: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
+                 heads: int, num_heads: int, num_kv_heads: int, tp=None,
+                 entered: bool = False):
+    """Keys and values (B, Sk, kv heads, hd) of ``src`` (B, Sk, D) through
+    ``wk``/``wv`` (D, KV, hd), each product reading ``src`` promoted to its
+    weight's type, for the ``heads`` q heads of ``num_heads`` that this
+    rank holds.  Where ``tp`` splits the q heads, the keys are the rank's
+    kv heads where ``wk``'s are split too, else the ones its q heads read
+    (:func:`kv_heads_of`), and ``src`` passes :func:`~repro_torch.
+    parallel.sharding.tp_enter` unless it has (``entered``: the
+    self-attention's input): once, or for each product where the
+    promotion makes a copy of its own."""
+    split = tp is not None and tp.split(heads, num_heads)
+    if split:
+        if not tp.split(wk.shape[1], num_kv_heads):
+            wk, wv = kv_heads_of(wk, wv, tp.rank * heads, heads, num_heads,
+                                 tp)
+        if not entered and promoted(src, wk) is src:
+            src, entered = sharding.tp_enter(src, tp), True
+    reads = [promoted(src, w) for w in (wk, wv)]
+    if split and not entered:
+        reads = [sharding.tp_enter(t, tp) for t in reads]
+    return project(reads[0], wk), project(reads[1], wv)
+
+
+def attention(x: torch.Tensor, wq, wk, wv, wo, *, num_heads: int,
+              num_kv_heads: int, memory: torch.Tensor | None = None,
+              kv: tuple | None = None, positions=None, mrope_positions=None,
+              rope_theta: float = 1e4, q_norm=None, k_norm=None,
+              eps: float = 1e-6, causal: bool = True, window: int = 0,
+              attend=None, out_dtype=None, tp=None):
+    """One attention block of every family, from its normed input ``x``
+    (B, S, D): returns its output projection (B, S, D), before the
+    residual, and its (k, v).
+
+    Queries come from ``x`` through ``wq`` (D, H, hd); keys and values
+    from ``x`` (self-attention), from ``memory`` (B, Sk, D; the
+    encoder-decoder's cross-attention, sq ≠ sk) or as given in ``kv``
+    (this rank's, already projected: a cache).  Each product reads its
+    input promoted to its weight's type, as the reference's ``einsum``s
+    do (bf16 embeds meet wider weights only in an fp32 or fp64 model).
+    Computed keys take the q/k norms and the rotary phase
+    (``mrope_positions`` or ``positions``; neither for a
+    cross-attention).  ``attend(q, k, v)`` replaces the prefill
+    attention (:func:`blockwise_attention`, ``causal``, ``window``): a
+    decode step's cache write and one-query attention.  The attention's
+    output is rounded to ``out_dtype`` (default ``x``'s type) before the
+    output projection.
+
+    Where ``tp`` (the sharded step) splits the heads, ``wq`` (D, H/P, hd)
+    and ``wo`` (H/P, hd, D) are this rank's, the block runs on them and
+    its output is the ranks' sum (a row-parallel product,
+    :func:`~repro_torch.parallel.sharding.tp_leave`); ``x`` and
+    ``memory`` pass :func:`~repro_torch.parallel.sharding.tp_enter` (``x``
+    once, or for each product where the promotion copies it), and so do
+    the q/k norms, replicated and read inside the split region."""
+    B, S, _ = x.shape
+    out_dtype = out_dtype or x.dtype
+    heads = wq.shape[1]
+    split = tp is not None and tp.split(heads, num_heads)
+    entered = False
+    if split:
+        if promoted(x, wq) is x:
+            x, entered = sharding.tp_enter(x, tp), True
+        if q_norm is not None:
+            q_norm = sharding.tp_enter(q_norm, tp)
+            k_norm = sharding.tp_enter(k_norm, tp)
+    xq = promoted(x, wq)
+    if split and not entered:
+        xq = sharding.tp_enter(xq, tp)
+    q = project(xq, wq)
+    if kv is None:
+        src = x if memory is None else memory
+        k, v = attention_kv(src, wk, wv, heads, num_heads, num_kv_heads, tp,
+                            entered=entered and memory is None)
+        if q_norm is not None:
+            q = rms_norm(q, q_norm, eps)
+            k = rms_norm(k, k_norm, eps)
+        if mrope_positions is not None:
+            q = apply_mrope(q, mrope_positions, rope_theta)
+            k = apply_mrope(k, mrope_positions, rope_theta)
+        elif positions is not None:
+            q = apply_rope(q, positions, rope_theta)
+            k = apply_rope(k, positions, rope_theta)
+    else:
+        k, v = kv
+    if attend is None:
+        o = blockwise_attention(q, k, v, causal=causal, window=window)
+    else:
+        o = attend(q, k, v)
+    o = promoted(o.to(out_dtype).reshape(B, S, -1), wo)
+    y = o @ wo.reshape(-1, wo.shape[-1])
+    if split:
+        y = sharding.tp_leave(y, tp)
+    return y, (k, v)
 
 
 def embed_rows(w: torch.Tensor, ids: torch.Tensor, tp) -> torch.Tensor:
@@ -201,6 +335,17 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     u = x @ w_up
     h = F.silu(wide(g)).to(x.dtype) * u
     return h @ w_down
+
+
+def ffn(x: torch.Tensor, w_gate, w_up, w_down, width: int,
+        tp=None) -> torch.Tensor:
+    """A SwiGLU of ``width`` hidden columns, or of this rank's share of
+    them where ``tp`` splits ``w_gate``'s (column-parallel gate and up,
+    row-parallel down, one all-reduce): every family's MLP."""
+    if tp is None or not tp.split(w_gate.shape[1], width):
+        return swiglu(x, w_gate, w_up, w_down)
+    y = swiglu(sharding.tp_enter(x, tp), w_gate, w_up, w_down)
+    return sharding.tp_leave(y, tp)
 
 
 # ----------------------------------------------------------------------
@@ -376,6 +521,12 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state=None):
     return out.to(x.dtype), new_state
 
 
+# the parameters the sharded step's compute reads whole on every rank
+# although their logical "tp" dimension splits them when stored: B and C's
+# projection and convolution, which every head of the mixer reads
+WHOLE_ALONG_MODEL = frozenset({"w_bc", "conv_bc"})
+
+
 def mamba2_mix(
     x: torch.Tensor,  # (B, S, D)
     p: dict,
@@ -385,21 +536,43 @@ def mamba2_mix(
     expand: int,
     ssm_state=None,  # (B, nheads, d_state, head_dim) decode carry
     conv_state=None,  # ((B,K-1,d_inner), (B,K-1,2N)) decode carry
+    tp=None,
 ):
     """Mamba-2 mixer (SSD).  Returns (y, (ssm_state, conv_state)).  The
-    head axis stays explicit and B/C are head-free (ngroups = 1)."""
+    head axis stays explicit and B/C are head-free (ngroups = 1).
+
+    The widths are the weights': where ``tp`` (the sharded step) splits
+    ``d_inner`` over "model", ``p`` holds this rank's ``d_inner / P``
+    channels and ``nheads / P`` heads (``w_z``, ``w_x``, ``w_dt``,
+    ``conv_x``, ``dt_bias``, ``a_log``, ``norm``, the rows of ``w_out``)
+    and the mixer runs on them: ``x`` passes
+    :func:`~repro_torch.parallel.sharding.tp_enter`, the gated norm's
+    mean of squares is the whole ``d_inner``'s, and ``w_out``'s partial
+    product is summed over the ranks (``tp_leave``).  ``w_bc``/``conv_bc``
+    are whole on every rank (every head reads B and C) and pass
+    ``tp_enter``: each rank's gradient of them is its heads' share."""
     B, S, D = x.shape
-    d_inner = expand * D
-    nheads = d_inner // head_dim
+    d_inner = p["w_x"].shape[1]
+    nheads = p["w_dt"].shape[1]
+    w_bc, conv_bc = p["w_bc"], p["conv_bc"]
+    split = tp is not None and tp.split(d_inner, expand * D)
+    if split:
+        if not tp.split(nheads, expand * D // head_dim):
+            raise ValueError(f"d_inner {expand * D} splits over {tp.size} "
+                             f"ranks but its {expand * D // head_dim} heads "
+                             "do not")
+        x = sharding.tp_enter(x, tp)
+        w_bc, conv_bc = sharding.tp_enter(w_bc, tp), sharding.tp_enter(
+            conv_bc, tp)
     z = x @ p["w_z"]  # (B, S, d_inner)
     xs = x @ p["w_x"]  # (B, S, d_inner)
-    bc = x @ p["w_bc"]  # (B, S, 2N)
+    bc = x @ w_bc  # (B, S, 2N)
     dt = x @ p["w_dt"]  # (B, S, H)
 
     cs_x = conv_state[0] if conv_state is not None else None
     cs_bc = conv_state[1] if conv_state is not None else None
     xs, new_cs_x = causal_conv1d(xs, p["conv_x"], cs_x)
-    bc, new_cs_bc = causal_conv1d(bc, p["conv_bc"], cs_bc)
+    bc, new_cs_bc = causal_conv1d(bc, conv_bc, cs_bc)
     xs = F.silu(wide(xs)).to(x.dtype)
     bc = F.silu(wide(bc))
     b_mat = bc[..., :d_state]  # (B, S, N) head-free
@@ -427,8 +600,11 @@ def mamba2_mix(
     else:
         y, new_state = _ssd_seq(xh, dt, log_decay, b_mat, c_mat, ssm_state)
     y = y.reshape(B, S, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(wide(z)).to(x.dtype), p["norm"])
+    y = rms_norm(y * F.silu(wide(z)).to(x.dtype), p["norm"],
+                 tp=tp if split else None)
     out = y @ p["w_out"]
+    if split:
+        out = sharding.tp_leave(out, tp)
     return out, (new_state, (new_cs_x, new_cs_bc))
 
 

@@ -120,12 +120,6 @@ def cache_spec(cfg: ArchConfig, batch_size: int, max_len: int) -> dict:
     return spec
 
 
-def _promoted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x`` in the type the reference's ``einsum`` promotes ``x`` and
-    ``w`` to (bf16 embeds meet fp32 weights only in an fp32 model)."""
-    return x.to(torch.promote_types(x.dtype, w.dtype))
-
-
 class DecoderLM(TrainableLM):
     """Dense / MoE / VLM decoder-only transformer.  ``params`` is the
     nested dict ``{"embed", "final_norm", ["head"], "layers": [per-layer
@@ -155,75 +149,31 @@ class DecoderLM(TrainableLM):
         layer's (k, v); decode writes this token's k/v into the
         preallocated ``cache`` at slot ``pos`` in place.  With ``tp``
         (the sharded step) the heads may be this rank's share
-        (:meth:`_attend`), their partial output all-reduced."""
-        o, kv = self._attend(p, h, positions, cache, pos, mrope_positions,
+        (:meth:`_attend`)."""
+        y, kv = self._attend(p, h, positions, cache, pos, mrope_positions,
                              tp)
-        if tp is not None and tp.split(p["wo"].shape[0], self.cfg.num_heads):
-            o = L.sharding.tp_leave(o, tp)
-        return h + o, kv
+        return h + y, kv
 
     def _attend(self, p, h, positions, cache=None, pos=None,
                 mrope_positions=None, tp=None):
         """The attention block's output projection (before the residual)
-        and its (k, v).  Where ``wq``/``wo`` hold this rank's heads of
-        ``tp`` (``wq`` (D, H/P, hd)), the block runs on them: ``wk``/``wv``
-        are the rank's kv heads where their kv dimension is split, else
-        cut to the kv heads its q heads read (:func:`~repro_torch.models.
-        layers.kv_heads_of`); the output is the rank's partial sum over
-        its heads (a row-parallel product)."""
+        and its (k, v) (``None`` in decode): :func:`~repro_torch.models.
+        layers.attention`, on this rank's heads where ``tp`` splits
+        ``wq``/``wo``."""
         cfg = self.cfg
-        B, S, D = h.shape
-        hd = cfg.resolved_head_dim
-        heads = p["wq"].shape[1]
-        split = tp is not None and tp.split(heads, cfg.num_heads)
-        x = _promoted(L.rms_norm(h, p["ln_attn"], cfg.norm_eps), p["wq"])
-        wk, wv = p["wk"], p["wv"]
-        q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
-        if split:
-            x = L.sharding.tp_enter(x, tp)
-            if not tp.split(wk.shape[1], cfg.num_kv_heads):
-                wk, wv = L.kv_heads_of(wk, wv, tp.rank * heads, heads,
-                                       cfg.num_heads, tp)
-            if cfg.qk_norm:
-                q_norm = L.sharding.tp_enter(q_norm, tp)
-                k_norm = L.sharding.tp_enter(k_norm, tp)
-        kv_heads = wk.shape[1]
-        q = (x @ p["wq"].reshape(D, -1)).reshape(B, S, heads, hd)
-        k = (x @ wk.reshape(D, -1)).reshape(B, S, kv_heads, hd)
-        v = (x @ wv.reshape(D, -1)).reshape(B, S, kv_heads, hd)
-        if cfg.qk_norm:
-            q = L.rms_norm(q, q_norm, cfg.norm_eps)
-            k = L.rms_norm(k, k_norm, cfg.norm_eps)
-        if cfg.mrope and mrope_positions is not None:
-            q = L.apply_mrope(q, mrope_positions, cfg.rope_theta)
-            k = L.apply_mrope(k, mrope_positions, cfg.rope_theta)
-        else:
-            q = L.apply_rope(q, positions, cfg.rope_theta)
-            k = L.apply_rope(k, positions, cfg.rope_theta)
-        if cache is None:
-            o = L.blockwise_attention(q, k, v, causal=True, window=cfg.window)
-            kv = (k, v)
-        else:
-            k_cache, v_cache = cache
-            # the reference pads its cache and writes with
-            # dynamic_update_slice, returning a new array; here the cache
-            # was allocated once at max_len and slot ``pos`` is written in
-            # place
-            k_cache[:, pos:pos + S] = k
-            v_cache[:, pos:pos + S] = v
-            o = L.decode_attention(q, k_cache, v_cache, pos + S)
-            kv = None
-        o = _promoted(o.to(h.dtype).reshape(B, S, -1), p["wo"])
-        return o @ p["wo"].reshape(-1, D), kv
-
-    def _ffn(self, x, w_gate, w_up, w_down, width: int, tp=None):
-        """A SwiGLU of ``width`` hidden columns, or of this rank's share
-        of them where ``tp`` splits ``w_gate``'s (column-parallel gate
-        and up, row-parallel down, one all-reduce)."""
-        if tp is None or not tp.split(w_gate.shape[1], width):
-            return L.swiglu(x, w_gate, w_up, w_down)
-        y = L.swiglu(L.sharding.tp_enter(x, tp), w_gate, w_up, w_down)
-        return L.sharding.tp_leave(y, tp)
+        attend = None if cache is None else L.cache_attend(cache, pos)
+        # q, k and v read one copy of the input in the weights' type (an
+        # fp32 VLM's bf16 embeds promoted once), the output rounded to the
+        # residual's
+        x = L.promoted(L.rms_norm(h, p["ln_attn"], cfg.norm_eps), p["wq"])
+        y, kv = L.attention(
+            x, p["wq"], p["wk"], p["wv"], p["wo"], num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, positions=positions,
+            mrope_positions=mrope_positions if cfg.mrope else None,
+            rope_theta=cfg.rope_theta, q_norm=p.get("q_norm"),
+            k_norm=p.get("k_norm"), eps=cfg.norm_eps, window=cfg.window,
+            attend=attend, out_dtype=h.dtype, tp=tp)
+        return y, (kv if cache is None else None)
 
     def _mlp(self, p, h, moe: bool, group=None, tp=None):
         """The MLP block: SwiGLU, or the routed experts plus the shared
@@ -231,13 +181,13 @@ class DecoderLM(TrainableLM):
         (:func:`~repro_torch.models.layers.moe_layer`).  Returns (h, aux)
         with the MoE aux loss (0 for a dense layer).  With ``tp`` the
         SwiGLUs (the dense one, the shared experts) may run on the rank's
-        columns (:meth:`_ffn`); the routed experts run whole."""
+        columns (:func:`~repro_torch.models.layers.ffn`); the routed
+        experts run whole."""
         cfg = self.cfg
         x = L.rms_norm(h, p["ln_mlp"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if not moe:
-            y = self._ffn(x, p["w_gate"], p["w_up"], p["w_down"], cfg.d_ff,
-                          tp)
+            y = L.ffn(x, p["w_gate"], p["w_up"], p["w_down"], cfg.d_ff, tp)
         else:
             y, aux = L.moe_layer(
                 x, p["router"], p["e_gate"], p["e_up"], p["e_down"],
@@ -245,23 +195,18 @@ class DecoderLM(TrainableLM):
             )
             if cfg.num_shared_experts:
                 width = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
-                y = y + self._ffn(x, p["s_gate"], p["s_up"], p["s_down"],
-                                  width, tp)
+                y = y + L.ffn(x, p["s_gate"], p["s_up"], p["s_down"], width,
+                              tp)
         return h + y, aux
 
     def _embed(self, top: dict, tokens, embeds):
         """The first hidden states: ``embeds`` cast to bf16 whatever the
         model's type (the reference's stub frontend), else the embedding
-        rows of ``tokens`` (vocabulary-parallel where the sharded step
-        splits the table over "model")."""
+        rows of ``tokens`` (:meth:`_token_rows`)."""
         if embeds is not None:
             return torch.as_tensor(embeds, device=top["embed"].device).to(
                 torch.bfloat16)
-        w = self._gathered(top["embed"])
-        tp = self._tp
-        if tp is not None and tp.split(w.shape[0], self.cfg.vocab_size):
-            return L.embed_rows(w, tokens, tp)
-        return w[tokens]
+        return self._token_rows(top["embed"], tokens)
 
     # ------------------------------------------------------------ train
     def _block(self, p, h, positions, moe, mrope_positions, group=None):
@@ -357,7 +302,7 @@ class DecoderLM(TrainableLM):
             cv[:, :S] = v
             h, _ = self._mlp(p, h, i >= self.n_dense)
         h = L.rms_norm(h, top["final_norm"], cfg.norm_eps)
-        logits = _promoted(h[:, -1], top["embed"]) @ self.head_weights(top)
+        logits = L.promoted(h[:, -1], top["embed"]) @ self.head_weights(top)
         return cache, logits.float()
 
     @torch.inference_mode()

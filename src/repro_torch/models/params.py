@@ -200,6 +200,19 @@ class TrainableLM(nn.Module):
         over it (the sharded step), else ``None``."""
         return None if self.sharded is None else self.sharded.tp
 
+    def _token_rows(self, embed: torch.Tensor, tokens) -> torch.Tensor:
+        """The rows of ``embed`` (V, D) for ``tokens``, gathered for the
+        sharded step, and vocabulary-parallel where it splits the table's
+        rows over "model" (:func:`~repro_torch.models.layers.
+        embed_rows`)."""
+        from .layers import embed_rows
+
+        w = self._gathered(embed)
+        tp = self._tp
+        if tp is not None and tp.split(w.shape[0], self.cfg.vocab_size):
+            return embed_rows(w, tokens, tp)
+        return w[tokens]
+
     def train_mode(self, flag: bool = True):
         """Make every parameter trainable (``requires_grad``), or frozen
         again for serving.  Returns the model."""

@@ -41,14 +41,18 @@ def mamba_defs(cfg: ArchConfig) -> dict:
 
 
 def mamba_block(cfg: ArchConfig, p: dict, h: torch.Tensor, ssm_state=None,
-                conv_state=None):
+                conv_state=None, tp=None):
     """One Mamba-2 layer on the residual stream ``h``: pre-norm, the
     mixer, the residual add (the reference's ``_mix``, which its hybrid's
-    ``_mamba`` repeats).  Returns (h, ssm_state, (conv_x, conv_bc))."""
+    ``_mamba`` repeats).  Returns (h, ssm_state, (conv_x, conv_bc)).
+    With ``tp`` (the sharded step) the mixer runs on this rank's heads
+    where ``p`` holds them (:func:`~repro_torch.models.layers.
+    mamba2_mix`)."""
     x = L.rms_norm(h, p["ln"], cfg.norm_eps)
     y, (s2, c2) = L.mamba2_mix(
         x, p, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
         expand=cfg.ssm_expand, ssm_state=ssm_state, conv_state=conv_state,
+        tp=tp,
     )
     return h + y, s2, c2
 
@@ -107,15 +111,15 @@ class MambaLM(TrainableLM):
     # ------------------------------------------------------------ train
     def _block(self, p, h):
         # the layer's blocks gathered inside the checkpoint (the sharded
-        # step; the products run whole)
-        return mamba_block(self.cfg, self._gathered(p), h)[0]
+        # step), the mixer on this rank's heads where it splits them
+        return mamba_block(self.cfg, self._gathered(p), h, tp=self._tp)[0]
 
     def hidden_states(self, batch: dict, group=None):
         """Final-layer hidden states (B, S, D), normed, and aux 0.
         ``group`` (the batch's process group) is unused: nothing is
         routed."""
         top = self.top.tensors()
-        h = self._gathered(top["embed"])[self._tokens(batch["tokens"])]
+        h = self._token_rows(top["embed"], self._tokens(batch["tokens"]))
         for layer in self.layers:
             h = checkpoint(self._block, layer.tensors(), h,
                            use_reentrant=False)

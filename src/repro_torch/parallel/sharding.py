@@ -36,8 +36,9 @@ parameter's block over the dimensions the compute does not keep split
 other batch rows), and :class:`TensorParallel` carries a rank's place
 along "model" for the products split over it, with the two Megatron
 conjugates :func:`tp_enter` (identity forward, all-reduce backward) and
-:func:`tp_leave` (all-reduce forward, identity backward).  Only
-``all_gather`` on lists and ``all_reduce`` are used.
+:func:`tp_leave` (all-reduce forward, identity backward), and
+:func:`tp_sum` for a statistic over a split dimension (all-reduce both
+ways).  Only ``all_gather`` on lists and ``all_reduce`` are used.
 """
 
 from __future__ import annotations
@@ -415,6 +416,21 @@ class _Leave(torch.autograd.Function):
         return grad, None
 
 
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        x = x.contiguous().clone()
+        tp.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        ctx.tp.all_reduce(grad)
+        return grad, None
+
+
 def tp_enter(x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:
     """Megatron's ``f`` at the entry of a region split over "model":
     identity forward, all-reduce backward (the ranks' partial input
@@ -432,6 +448,18 @@ def tp_leave(x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:
     if tp is None or tp.group is None:
         return x
     return _Leave.apply(x, tp)
+
+
+def tp_sum(x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:
+    """A statistic summed over "model" inside a split region (the gated
+    norm's sum of squares over a split ``d_inner``): all-reduce forward,
+    and backward too, since every rank's output reads every rank's
+    input.  It goes through ``tp.all_reduce`` even without a group (the
+    identity there), so that ``parallel.tp_local`` can supply the other
+    ranks' share."""
+    if tp is None:
+        return x
+    return _Sum.apply(x, tp)
 
 
 class ShardedCompute:

@@ -16,16 +16,22 @@ tensor), by kind:
     gathered gradient once over each batch axis among its axes;
   * the gradient sums left: each parameter's block over the batch axes
     its gather did not sum (a replicated norm over "data", say);
-  * TP (``DecoderLM``, its products split over "model"): the attention's
-    row-parallel all-reduce at the forward and in the recomputation, the
-    MLP's at the forward only (the recomputation stops at the block's
-    last saved tensor, the down projection's input, before it); backward,
-    the column-parallel inputs' all-reduce per region, and that of each
-    replicated tensor read inside one (``wk``/``wv`` where the kv heads
-    do not divide "model", the q/k norms);
+  * TP (the products split over "model", in every family): each
+    attention block's row-parallel all-reduce at the forward and in the
+    recomputation, each SwiGLU's and each Mamba-2 mixer's at the forward
+    only (the recomputation stops at the block's last saved tensor, the
+    down or out projection's input, before it); backward, the
+    column-parallel inputs' all-reduce per region (the cross-attention's
+    memory too, in each decoder layer), and that of each replicated
+    tensor read inside one (``wk``/``wv`` where the kv heads do not
+    divide "model", the q/k norms, the mixer's ``w_bc``/``conv_bc``); the
+    mixer's gated norm's fp32 sum of squares per token, forward, in the
+    recomputation and backward; the shared block of the hybrid at each
+    of its applications;
   * the vocabulary: the embedding lookup's all-reduce, and per sequence
     chunk of the loss the row maximum, the sum of exponentials and the
-    gold logit (fp32), plus the head input's backward all-reduce;
+    gold logit (fp32, or fp64 in an fp64 step), plus the head input's
+    backward all-reduce;
   * the MoE routing over the batch's ranks (each MoE layer's top-k ids
     gathered, its counts and probability sums all-reduced, at the
     forward and in the recomputation), the clipping norm's per-leaf
@@ -48,17 +54,16 @@ from .. import tree
 from ..models import param_defs
 from ..models.params import is_def
 from ..parallel.sharding import resolve_spec, spec_axes
-from ..train.train_step import TP_FAMILIES
+from ..train.train_step import splits_model, tp_dims
 
 
 class _Param:
     """One parameter's collectives under its resolved spec."""
 
-    def __init__(self, d, mesh, recipe, tp: bool, batch: tuple, itemsize):
+    def __init__(self, d, mesh, recipe, keep: tuple, batch: tuple,
+                 itemsize):
         sizes = mesh.shape
         self.spec = resolve_spec(d.logical, mesh, d.shape, recipe)
-        keep = {i for i, ax in enumerate(d.logical) if ax == "tp"} if tp \
-            else set()
         splits = [(i, tuple(a for a in spec_axes(e) if sizes[a] > 1))
                   for i, e in enumerate(self.spec)]
         splits = [(i, axes) for i, axes in splits if axes]
@@ -120,20 +125,54 @@ def step_collectives(cfg, mesh, recipe: str, batch: int, seq: int,
         ("dp",), mesh, (batch,), recipe)[0]) if sizes[a] > 1)
     n_batch = math.prod(sizes[a] for a in batch_axes)
     rows = batch // n_batch
-    tp = (cfg.family in TP_FAMILIES and sizes.get("model", 1) > 1
-          and resolve_spec(("tp",), mesh, None, recipe)[0] == "model")
+    tp = splits_model(mesh, recipe)
     defs = param_defs(cfg)
     item = dtype.itemsize if dtype else None
-
-    def place(d):
-        return _Param(d, mesh, recipe, tp, batch_axes, item or d.dtype.itemsize)
-
-    places = tree.tree_map(place, defs, is_leaf=is_def)
+    places = tree.unflatten(defs, {
+        path: _Param(d, mesh, recipe, tp_dims(path, d.logical) if tp else (),
+                     batch_axes, item or d.dtype.itemsize)
+        for path, d in tree.flatten(defs, is_def)}, is_def)
     act = (item or 2) * rows * S * cfg.d_model  # the residual stream's rows
+    # a statistic's, a loss's or a norm's scalars: fp32, fp64 in an fp64
+    # step
+    wide = 8 if item == 8 else 4
     c = _Count()
     top = {k: v for k, v in places.items()
            if k not in ("layers", "enc_layers", "shared")}
     tokens = not cfg.embed_inputs or cfg.is_encdec
+
+    def attention(p, q="wq", k="wk", v="wv", norms=False, memory=0,
+                  reads=1):
+        """One attention block's: its row-parallel all-reduce (rerun in
+        the recomputation: a later block of its layer saves tensors);
+        backward its inputs' (``memory`` the bytes of a cross-attention's
+        memory; ``reads`` copies of its input where each product promotes
+        its own) and the replicated tensors' it reads."""
+        if not p[q].model_split(1):
+            return
+        c.ar(act, 2 if train else 1)
+        if train:
+            c.ar(reads * act + memory)
+            if not p[k].model_split(1):
+                c.ar(p[k].gathered + p[v].gathered)
+            if norms:
+                c.ar(p["q_norm"].gathered + p["k_norm"].gathered)
+
+    def ffn(p, gate="w_gate"):
+        """A SwiGLU's: forward once, and its input backward."""
+        if gate in p and p[gate].model_split(1):
+            c.ar(act, 2 if train else 1)
+
+    def mixer(p):
+        """A Mamba-2 mixer's: the norm's statistic (forward, again in the
+        recomputation, backward), the out projection's all-reduce, and
+        backward its input's and ``w_bc``/``conv_bc``'s."""
+        if not p["w_x"].model_split(1):
+            return
+        c.ar(wide * rows * S, 3 if train else 1)  # a token's sum of squares
+        c.ar(act, 2 if train else 1)
+        if train:
+            c.ar(p["w_bc"].gathered + p["conv_bc"].gathered)
 
     # the embedding lookup, vocabulary-parallel where its rows split
     if tokens:
@@ -141,31 +180,38 @@ def step_collectives(cfg, mesh, recipe: str, batch: int, seq: int,
         if tp and top["embed"].model_split(0):
             c.ar(act)
 
-    # the layers, each gathered inside its checkpointed block
-    for layer in places.get("enc_layers", []):
+    # the layers, each gathered inside its checkpointed block (the
+    # encoder runs only where the memory is not cached)
+    for i, layer in enumerate(places.get("enc_layers", [])
+                              if kind != "decode" else []):
         for p in tree.leaves(layer):
             c.gather(p, train)
+        if tp:
+            # the first layer reads the bf16 embeds: q, k and v each
+            # promote a copy of their own to wider weights
+            attention(layer, reads=3 if i == 0 and (item or 2) > 2 else 1)
+            ffn(layer)
     n_dense = (cfg.first_k_dense if cfg.num_experts else cfg.num_layers)
+    memory = (item or 2) * rows * seq * cfg.d_model  # frames = tokens
     for i, layer in enumerate(places["layers"]):
         for p in layer.values():
             c.gather(p, train)
         if not tp:
             continue
-        if layer["wq"].model_split(1):
-            c.ar(act, 2 if train else 1)  # the row-parallel wo
-            if train:
-                c.ar(act)  # the column-parallel input
-                if not layer["wk"].model_split(1):
-                    c.ar(layer["wk"].gathered + layer["wv"].gathered)
-                if cfg.qk_norm:
-                    c.ar(layer["q_norm"].gathered + layer["k_norm"].gathered)
-        ffn = "w_gate" if i < n_dense else "s_gate"
-        if ffn in layer and layer[ffn].model_split(1):
-            c.ar(act, 2 if train else 1)  # forward, and its input backward
+        if cfg.family in ("ssm", "hybrid"):
+            mixer(layer)
+            continue
+        attention(layer, norms=cfg.qk_norm)
+        if cfg.is_encdec:
+            attention(layer, "xq", "xk", "xv", memory=memory)
+        ffn(layer, "w_gate" if i < n_dense else "s_gate")
     if "shared" in places:
         for _ in range(cfg.num_layers // cfg.attn_every):
             for p in tree.leaves(places["shared"]):
                 c.gather(p, train)
+            if tp:
+                attention(places["shared"])
+                ffn(places["shared"])
 
     # the MoE routing over the batch's ranks (forward and recomputation)
     n_moe = cfg.num_layers - n_dense if cfg.num_experts else 0
@@ -181,7 +227,7 @@ def step_collectives(cfg, mesh, recipe: str, batch: int, seq: int,
     if train:
         if vocab_split:
             c.ar(act)  # the hidden states' backward
-            c.ar(3 * rows * S * 4)  # max, sum of exponentials, gold
+            c.ar(3 * rows * S * wide)  # max, sum of exponentials, gold
     elif vocab_split:
         c.ag(rows * cfg.vocab_size * 4)  # the last position's logits
     if not train:
@@ -192,9 +238,11 @@ def step_collectives(cfg, mesh, recipe: str, batch: int, seq: int,
     for p in leaves:
         c.ar(p.block, len(p.reduced))
     if math.prod(sizes.values()) > 1:
-        c.ar(4 * len(leaves))
+        c.ar(wide * len(leaves))
     if moment_dtype == "int8":
         c.ar(4 * 2 * sum(len(p.split_axes) for p in leaves))
     if n_batch > 1:
-        c.ar(4, 3)
+        # the loss, the cross-entropy and the aux loss (fp32 zeros without
+        # experts)
+        c.ar(2 * wide + (wide if cfg.num_experts else 4))
     return c.bytes

@@ -28,17 +28,22 @@ the optimizer its blocks of the moments, under their resolved specs
     and no layer's whole weights outlive it (``sharding.
     gather_for_compute``; its backward is this rank's block of the sum
     over "data");
-  * for ``DecoderLM`` (dense, MoE, the VLM backbone), computes every
-    product split over "model" on the rank's shard, as XLA's partitioner
-    computes the reference's: the heads of ``wq``/``wo`` (``wk``/``wv``
-    too where their kv heads divide "model", else the kv heads its q
-    heads read), the FFN columns of ``w_gate``/``w_up``/``w_down`` and of
-    the shared experts, the vocabulary of the embedding and the head,
-    with Megatron's conjugate all-reduces (``sharding.tp_enter``,
+  * wherever the recipe resolves "tp" to a "model" axis of size > 1,
+    computes every product split over it on the rank's shard, as XLA's
+    partitioner computes the reference's, in every family: the heads of
+    ``wq``/``wo`` (``wk``/``wv`` too where their kv heads divide "model",
+    else the kv heads its q heads read) in every attention block (the
+    encoder-decoder's encoder, decoder and cross-attention, whose memory
+    passes ``tp_enter`` in each decoder layer; the hybrid's shared
+    block at each application), the FFN columns of every SwiGLU and of
+    the shared experts, the Mamba-2 mixer's ``d_inner`` channels and
+    heads (its gated norm's mean of squares all-reduced, ``sharding.
+    tp_sum``; ``w_bc``/``conv_bc`` gathered whole, as every head reads B
+    and C), the vocabulary of the embedding and the head, with
+    Megatron's conjugate all-reduces (``sharding.tp_enter``,
     ``tp_leave``) and a vocabulary-parallel loss.  The routed experts
-    are gathered whole along "model"; the SSM, the hybrid and the
-    encoder-decoder gather every product whole along "model"
-    (:attr:`TrainLayout.compute_axes` states which, per family);
+    and ``layers.WHOLE_ALONG_MODEL`` are gathered whole along "model"
+    (:attr:`TrainLayout.compute_axes` states which axes do what);
   * sums each gradient over the ranks that hold other batch rows once
     (the gather's backward did it over "data"; ``Placement.reduce``
     over the batch axes left) and takes the mean (a rank's loss is a
@@ -65,7 +70,9 @@ import torch.distributed as dist
 
 from .. import tree
 from ..configs.base import ArchConfig
+from ..launch.mesh import MeshShape
 from ..models import param_defs
+from ..models.layers import WHOLE_ALONG_MODEL
 from ..models.params import abstract_params, param_specs
 from ..parallel.sharding import (
     Placement,
@@ -125,9 +132,25 @@ def state_logical(model_or_cfg, opt_cfg: opt.OptimizerConfig) -> TrainState:
                       ())
 
 
-# the families whose products the sharded step splits over "model" (the
-# others gather them whole along it)
-TP_FAMILIES = ("dense", "moe")
+def splits_model(mesh, recipe: str) -> bool:
+    """Whether the sharded step splits its products over "model" on
+    ``mesh`` (a live mesh or a description) under ``recipe``: where the
+    recipe resolves the logical "tp" to "model" and that axis is larger
+    than 1, whatever the family."""
+    if not isinstance(mesh, MeshShape):
+        mesh = describe(mesh)
+    return (resolve_spec(("tp",), mesh, None, recipe)[0] == "model"
+            and mesh.shape.get("model", 1) > 1)
+
+
+def tp_dims(path: str, logical: tuple) -> tuple[int, ...]:
+    """The dimensions of the parameter at ``path`` (its leaf name last)
+    that the compute keeps split where the step splits the products: its
+    logical "tp" ones, none for :data:`~repro_torch.models.layers.
+    WHOLE_ALONG_MODEL`."""
+    if path.rsplit("/", 1)[-1] in WHOLE_ALONG_MODEL:
+        return ()
+    return tuple(d for d, ax in enumerate(logical) if ax == "tp")
 
 
 class TrainLayout:
@@ -148,19 +171,15 @@ class TrainLayout:
                else model_or_cfg.cfg)
         self.batch_axes = batch_axes(mesh, recipe)
         sizes = describe(mesh).shape
-        tp_axes = resolve_spec(("tp",), describe(mesh), None, recipe)[0]
-        self.tp = (cfg.family in TP_FAMILIES and tp_axes == "model"
-                   and sizes["model"] > 1)
+        self.tp = splits_model(mesh, recipe)
         template = abstract_state(model_or_cfg, opt_cfg)
         logical = state_logical(model_or_cfg, opt_cfg)
         specs = flat_specs(template, logical, describe(mesh), recipe)
         logical = dict(tree.flatten(logical, is_logical))
         places = {}
         for path, _, spec in specs:
-            # a parameter's "tp" dimensions stay split in a TP family's
-            # compute
-            keep = tuple(d for d, ax in enumerate(logical[path])
-                         if ax == "tp") if (
+            # a parameter's "tp" dimensions stay split in the compute
+            keep = tp_dims(path, logical[path]) if (
                 self.tp and path.startswith("params/")) else ()
             places[path] = Placement(mesh, spec, keep, self.batch_axes)
         self.places = tree.unflatten(template, places)
@@ -181,9 +200,14 @@ class TrainLayout:
         """One line: which mesh axes split the batch, which the step
         gathers each layer over, and which split the products."""
         ax = self.compute_axes
-        split = (f"products split over {ax['split']} (heads, FFN columns, "
-                 "vocabulary)" if ax["split"]
-                 else "every product whole on each rank")
+        what = {"ssm": "mixer heads, vocabulary",
+                "hybrid": "mixer heads, shared block heads and FFN "
+                          "columns, vocabulary",
+                "encdec": "encoder, decoder and cross-attention heads, "
+                          "FFN columns, vocabulary"}.get(
+                              self.family, "heads, FFN columns, vocabulary")
+        split = (f"products split over {ax['split']} ({what})"
+                 if ax["split"] else "every product whole on each rank")
         return (f"{self.family} under {self.recipe!r}: batch over "
                 f"{ax['batch'] or '()'}, layers gathered over "
                 f"{ax['gathered'] or '()'}, {split}")
@@ -191,7 +215,7 @@ class TrainLayout:
     def compute(self, model) -> ShardedCompute:
         """The compute of ``model`` placed on this layout: each of its
         parameters' placement, and the rank's place along "model" where
-        the family's products split over it."""
+        the products split over it."""
         params = model.param_tree()
         places = {id(p): pl for p, pl in zip(tree.leaves(params),
                                              self.param_places(params))}

@@ -1,13 +1,17 @@
 """The products the sharded step splits over "model", in one process.
 
-``parallel.tp_local.check_block`` runs every rank's share of a
-``DecoderLM`` layer's attention and SwiGLU blocks alone (no group: each
-conjugate op the identity) and sums them, against the whole blocks on
-the same fp32 input and upstream gradient: outputs, input gradients and
-every weight's gradient within 1e-6 of max|whole| (they differ in the
-order of the sums only).  qwen3-4b's shrink has one kv head: on P ranks
+``parallel.tp_local.check_block`` runs every rank's share of a layer's
+blocks alone (no group: each conjugate op the identity) and sums them,
+against the whole blocks on the same fp32 input and upstream gradient:
+outputs, input gradients and every weight's gradient within 1e-6 of
+max|whole| (they differ in the order of the sums only).  ``DecoderLM``'s
+attention and SwiGLU: qwen3-4b's shrink has one kv head, so on P ranks
 ``wk``/``wv`` stay replicated and each rank's q heads read kv head 0;
-deepseek-7b's has four, split with the q heads.
+deepseek-7b's has four, split with the q heads.  The encoder-decoder's
+encoder, decoder and cross-attention blocks (seamless-m4t-medium), the
+hybrid's Mamba-2 mixer and shared block (zamba2-7b) and the SSM's mixer
+(mamba2-130m), whose gated norm's statistic the ranks replay from each
+other's sums.
 
 The vocabulary-parallel loss (``losses.chunked_cross_entropy`` with
 ``tp``) runs its P ranks as threads whose all-reduces meet at a barrier:
@@ -63,6 +67,76 @@ def test_local_blocks_sum_to_the_whole_block(arch, size, monkeypatch):
     kv = (cfg.num_kv_heads // size if cfg.num_kv_heads % size == 0 else 1)
     assert heads == [(cfg.num_heads, cfg.num_kv_heads)] + [
         (cfg.num_heads // size, kv)] * size
+
+
+# each family's blocks: the encoder-decoder's encoder and decoder
+# attention (the cross-attention on a memory of other length than the
+# queries') and SwiGLUs, the hybrid's mixer and shared block, the SSM's
+# mixer
+FAMILY_BLOCKS = {
+    "seamless-m4t-medium": ("enc_attention", "enc_mlp", "self_attention",
+                            "cross_attention", "mlp"),
+    "zamba2-7b": ("mamba", "shared_attention", "shared_mlp"),
+    "mamba2-130m": ("mamba",),
+}
+FRAMES = 96  # the cross-attention's memory length (sq = S = 128)
+
+
+@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("arch", list(FAMILY_BLOCKS))
+def test_family_blocks_sum_to_the_whole_block(arch, size, monkeypatch):
+    """The encoder-decoder's, the hybrid's and the SSM's blocks on P
+    ranks: each summed over the ranks within 1e-6 of the whole (the
+    memory's gradient too); each rank's attention on H/P q heads over
+    KV/P kv heads, its SSD on nheads/P heads; the mixer's ranks in three
+    passes (the norm's statistic replayed, forward then backward), the
+    other blocks in one.  The mixer runs in fp64 (the port's CPU oracle
+    type): in fp32 the gradients of ``dt_bias`` and ``a_log``, sums over
+    every token of the scan's decay derivatives, part from the whole
+    block's by 1.2e-6 to 3.7e-6 of max|whole| on this CPU (two fp32
+    evaluations in other orders, such as a rank's head subset), and by
+    5.4e-15 in fp64."""
+    model = _model(arch)
+    cfg = model.cfg
+    if "mamba" in FAMILY_BLOCKS[arch]:
+        wide = build_model(cfg, seed=0, device="cpu").to(torch.float64)
+    rng = np.random.default_rng(2)
+    h = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model)))
+    mem = torch.from_numpy(rng.standard_normal((B, FRAMES, cfg.d_model)))
+    heads, ssd_heads = [], []
+    plain_attn, plain_ssd = L.blockwise_attention, L.ops.ssd_scan
+
+    def attention(q, k, v, **kw):
+        heads.append((q.shape[2], k.shape[2]))
+        return plain_attn(q, k, v, **kw)
+
+    def ssd_scan(x, dt, a, b, c, **kw):
+        ssd_heads.append(x.shape[0] // b.shape[0])
+        return plain_ssd(x, dt, a, b, c, **kw)
+
+    monkeypatch.setattr(L, "blockwise_attention", attention)
+    monkeypatch.setattr(L.ops, "ssd_scan", ssd_scan)
+    nheads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    for block in FAMILY_BLOCKS[arch]:
+        heads.clear()
+        ssd_heads.clear()
+        dy = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model)))
+        mixer = block == "mamba"
+        t = torch.float64 if mixer else torch.float32
+        got = tp_local.check_block(
+            wide if mixer else model, 1, block, h.to(t), dy.to(t), size,
+            memory=mem.float() if block == "cross_attention" else None)
+        errs = [got["out"], got["dx"], *got["grads"].values()]
+        if block == "cross_attention":
+            errs.append(got["dmem"])
+        assert max(errs) <= TOL, (block, got)
+        assert got["passes"] == (3 if mixer else 1), (block, got)
+        if mixer:
+            assert ssd_heads == [nheads] + [nheads // size] * size * 3
+            assert set(got["grads"]) >= {"w_bc", "conv_bc", "norm", "ln"}
+        elif "attention" in block:
+            assert heads == [(cfg.num_heads, cfg.num_kv_heads)] + [
+                (cfg.num_heads // size, cfg.num_kv_heads // size)] * size
 
 
 class _Barrier(sharding.TensorParallel):
