@@ -271,14 +271,17 @@ points at full width:
                  layers, 2 x 512 tokens; seamless-m4t-medium, 1 encoder
                  and 1 decoder layer, 2 x 512 tokens on 1024 frames;
                  zamba2-7b, 1 mamba layer and the shared block, 1 x
-                 8192.  For P in 2, 4, 8, 16 each rank's blocks
+                 8192; deepseek-moe-16b, its dense and first MoE layer,
+                 2 x 512 tokens.  For P in 2, 4, 8, 16 each rank's blocks
                  (parallel.tp_local.BLOCKS: every attention on its H/P
                  q heads and its kv heads or the one its q heads read —
                  2 on 1 at P = 16 for qwen3-4b —, the encoder's
                  non-causal, the decoder's causal, the cross-attention's
                  sq 512 on sk 1024, the shared block's windowed at d
                  112; every SwiGLU on F/P columns; the Mamba-2 mixer on
-                 112/P SSD heads) run alone (no group: each conjugate
+                 112/P SSD heads; the MoE layer's MLP on 64/P routed
+                 experts and 2816/P shared columns, the routing whole
+                 on each rank) run alone (no group: each conjugate
                  all-reduce the identity; the mixer's norm statistic
                  replayed from the ranks' sums, its ranks in three
                  passes), their outputs, input gradients (the memory's
@@ -575,7 +578,9 @@ ONE_RANK = ((1, 1), ("data", "model"))  # the train phase's live mesh
 # 512, the cross-attention's 512 queries on 1024 keys; F/P columns);
 # zamba2-7b, 1 mamba layer and the shared block, 1 x 8192 (the mixer on
 # 112/P SSD heads, 3 passes of its ranks; the shared block's windowed
-# attention on 32/P heads of 112, F/P columns).  With ``replay`` the fp32
+# attention on 32/P heads of 112, F/P columns); deepseek-moe-16b, its
+# dense layer and its first MoE layer, 2 x 512 tokens (the MoE layer's
+# MLP on 64/P routed experts and F/P shared columns).  With ``replay`` the fp32
 # checks feed each rank's attention the whole block's q, k and v of its
 # heads (the rank's own held to them at 1e-5 apart; gradients flow to the
 # rank's projections), as the train phase's agreements replay attention
@@ -595,6 +600,10 @@ TP_LOCAL = {
     "zamba2-7b": dict(layers=1, batch=1, seq=8192,
                       blocks=("mamba", "shared_attention", "shared_mlp"),
                       replay=True),
+    # one dense layer and one MoE layer: the MoE layer's MLP (64 routed
+    # experts, 6 a token, 2 shared) on each rank's 64/P experts and its
+    # shared experts' 2816/P columns, the routing whole on every rank
+    "deepseek-moe-16b": dict(layers=2, batch=2, seq=512, blocks=("moe",)),
 }
 TP_SIZES = (2, 4, 8, 16)
 TP_TOL = {"fp32": 1e-5, "bf16": 3e-2}
@@ -2217,14 +2226,16 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
     backward launched once for the whole block and once for each rank's
     heads, on the route of the type (fp32 simt, bf16 wgmma/mma; non-causal
     and windowed where the block is), each mixer's K5 and its backward
-    once for the whole and once for each rank in each pass, on wgmma.
-    The counts are zeroed before each model, type and P and read after;
-    each block's launches are kept apart."""
+    once for the whole and once for each rank in each pass, on wgmma;
+    each MoE block's expert products on all the experts for the whole
+    block and on E/P for each rank.  The counts are zeroed before each
+    model, type and P and read after; each block's launches and seconds
+    are kept apart."""
     from repro_torch.kernels import ops
     from repro_torch.parallel import tp_local
 
     t0 = time.perf_counter()
-    attn_heads, ssd_heads = [], []
+    attn_heads, ssd_heads, experts = [], [], []
     # the attention inputs replayed into the ranks' calls: the whole
     # block's (its first call), the next rank, the rank's own inputs'
     # largest distance from them
@@ -2257,6 +2268,12 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
             return fn(x, dt, a, b, c, **kw)
         return inner
 
+    def recorded_experts(fn):
+        def inner(x, w_gate, w_up, w_down):
+            experts.append(x.shape[0])
+            return fn(x, w_gate, w_up, w_down)
+        return inner
+
     def launched(before, after):
         """The K4 and K5 launches between two readings of the counts."""
         keys = ("flash_attention", "flash_attention_bwd", "ssd_chunk",
@@ -2269,7 +2286,8 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
         return out
 
     out, models = {}, {}
-    with _patched(L, {"blockwise_attention": recorded_attention}), \
+    with _patched(L, {"blockwise_attention": recorded_attention,
+                      "expert_ffn": recorded_experts}), \
             _patched(ops, {"ssd_scan": recorded_ssd}):
         for arch, spec in TP_LOCAL.items():
             t1 = time.perf_counter()
@@ -2307,7 +2325,8 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                     worst, own, per_block = {}, {}, {}
                     attn_heads.clear()
                     ssd_heads.clear()
-                    want_attn, want_ssd = [], []
+                    experts.clear()
+                    want_attn, want_ssd, want_experts = [], [], []
                     hq, kv = _tp_heads(cfg.num_heads, cfg.num_kv_heads, size)
                     for block in spec["blocks"]:
                         _, _, stack = tp_local.BLOCKS[block]
@@ -2317,11 +2336,15 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                         held = not (spec.get("replay") and name == "fp32"
                                     and "attention" in block)
                         calls = [(i, params, replayed) for i, params in
-                                 enumerate(stacks[stack]) for replayed in
+                                 enumerate(stacks[stack])
+                                 if params is None
+                                 or tp_local.holds(block, params)
+                                 for replayed in
                                  ((False,) if held else (False, True))]
                         for i, params, replayed in calls:
                             before = counts()
                             replay.update(on=replayed, whole=None, rank=0)
+                            t2 = time.perf_counter()
                             got = tp_local.check_block(
                                 model, i, block,
                                 (h_enc if enc else h).to(dtype),
@@ -2330,6 +2353,7 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                                 memory=h_enc.to(dtype)
                                 if block == "cross_attention" else None)
                             torch.cuda.synchronize()
+                            seconds = time.perf_counter() - t2
                             n = launched(before, counts())
                             errs = dict(out=got["out"], dx=got["dx"],
                                         grads=max(got["grads"].values()),
@@ -2340,7 +2364,8 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                                 replay.update(on=False, input_err=0.0)
                             if held or replayed:
                                 per_block[f"{block}:{i}"] = dict(
-                                    passes=got["passes"], **n)
+                                    passes=got["passes"], seconds=seconds,
+                                    **n)
                             for k, e in errs.items():
                                 key = f"{block}_{k}"
                                 table = worst if held or replayed else own
@@ -2365,9 +2390,25 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                                       f"tp_local {arch} {name} P={size} "
                                       f"{block}: K5 launches {n}, want "
                                       f"{ranks} on wgmma")
-                    rec = dict(errors=worst, heads_per_rank=[hq, kv],
+                            elif block == "moe":
+                                want_experts += [cfg.num_experts] + [
+                                    cfg.num_experts // size] * size
+                                check(got["passes"] == 1 and not any(
+                                    n[k] for k in ("flash_attention",
+                                                   "flash_attention_bwd",
+                                                   "ssd_chunk",
+                                                   "ssd_chunk_bwd")),
+                                      f"tp_local {arch} {name} P={size} "
+                                      f"{block}: {got['passes']} passes, "
+                                      f"launches {n}")
+                    attends = any("attention" in b for b in spec["blocks"])
+                    rec = dict(errors=worst,
+                               heads_per_rank=[hq, kv] if attends else None,
                                ssd_heads_per_rank=nheads // size
-                               if nheads else None, blocks=per_block,
+                               if nheads else None,
+                               experts_per_rank=cfg.num_experts // size
+                               if cfg.num_experts else None,
+                               blocks=per_block,
                                own_inputs_errors=own or None)
                     out[f"{arch}:{name}:P{size}"] = rec
                     check(max(worst.values()) <= TP_TOL[name],
@@ -2379,6 +2420,9 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                     check(ssd_heads == want_ssd,
                           f"tp_local {arch} {name} P={size}: SSD heads "
                           f"{ssd_heads}")
+                    check(experts == want_experts,
+                          f"tp_local {arch} {name} P={size}: routed experts "
+                          f"{experts}")
                 del stacks
             models[arch] = dict(
                 layers=cfg.num_layers, published_layers=full.num_layers,
@@ -3920,8 +3964,8 @@ def main() -> int:
     emit(phase="train", **phase_train_example(torch, lm_counts, lm_reset))
     torch.cuda.empty_cache()
     # the sharded step's products split over "model": each rank's share
-    # of qwen3-4b's, seamless-m4t-medium's and zamba2-7b's blocks against
-    # the whole blocks (TP_LOCAL)
+    # of qwen3-4b's, seamless-m4t-medium's, zamba2-7b's and
+    # deepseek-moe-16b's blocks against the whole blocks (TP_LOCAL)
     tpl = phase_tp_local(torch, build_model, get_config, lm_counts, lm_reset,
                          lm_layers)
     emit(phase="tp_local", **tpl)

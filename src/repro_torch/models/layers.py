@@ -338,14 +338,35 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
 
 
 def ffn(x: torch.Tensor, w_gate, w_up, w_down, width: int,
-        tp=None) -> torch.Tensor:
+        tp=None, leave: bool = True, entered: bool = False) -> torch.Tensor:
     """A SwiGLU of ``width`` hidden columns, or of this rank's share of
     them where ``tp`` splits ``w_gate``'s (column-parallel gate and up,
-    row-parallel down, one all-reduce): every family's MLP."""
-    if tp is None or not tp.split(w_gate.shape[1], width):
+    row-parallel down, one all-reduce): every family's MLP.  ``x``
+    passes :func:`~repro_torch.parallel.sharding.tp_enter` unless the
+    caller entered it (``entered``: one entry shared with another split
+    branch).  Without ``leave`` a split SwiGLU returns the rank's partial
+    output, for the caller to sum with another branch's
+    (:func:`tp_combine`)."""
+    if not sharding.splits(tp, w_gate.shape[1], width):
         return swiglu(x, w_gate, w_up, w_down)
-    y = swiglu(sharding.tp_enter(x, tp), w_gate, w_up, w_down)
-    return sharding.tp_leave(y, tp)
+    y = swiglu(x if entered else sharding.tp_enter(x, tp), w_gate, w_up,
+               w_down)
+    return sharding.tp_leave(y, tp) if leave else y
+
+
+def tp_combine(parts, tp) -> torch.Tensor:
+    """The sum of a block's branches, ``(y, partial)`` pairs in order:
+    the partial ones (a rank's share of a product split over "model")
+    summed and all-reduced by one :func:`~repro_torch.parallel.sharding.
+    tp_leave`, then the whole ones added (without a partial one, the
+    branches' sum in order)."""
+    partial = [y for y, part in parts if part]
+    out = (sharding.tp_leave(sum(partial[1:], partial[0]), tp) if partial
+           else None)
+    for y, part in parts:
+        if not part:
+            out = y if out is None else out + y
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -419,7 +440,8 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
 
 def expert_ffn(h: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     """Every expert's SwiGLU on its rows: ``h`` (E, cap, D) through three
-    batched products over the experts, SiLU in fp32 cast back."""
+    batched products over the experts, SiLU in fp32 cast back (``E`` a
+    rank's experts where the sharded step splits them)."""
     gates = torch.bmm(h, w_gate)
     ups = torch.bmm(h, w_up)
     act = F.silu(wide(gates)).to(h.dtype) * ups
@@ -437,6 +459,8 @@ def moe_layer(
     capacity_factor: float = 1.25,
     dispatch: str = "sort",
     group=None,
+    tp=None,
+    rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k token-choice routing with per-expert capacity (tokens over
     capacity are dropped, Switch/GShard semantics): the reference's
@@ -463,7 +487,23 @@ def moe_layer(
     all-reduced over the group.  Its value is the global one on every
     rank, its gradient the group's size times this rank's share of the
     global one, so that the mean of the ranks' gradients (the sharded
-    train step's reduction) is the global gradient."""
+    train step's reduction) is the global gradient.
+
+    Where ``tp`` (the sharded step) splits the experts over "model"
+    (expert parallelism), ``w_gate``/``w_up``/``w_down`` hold this rank's
+    ``E/P`` experts ``[r·E/P, (r+1)·E/P)``.  The routing and the aux loss
+    are computed whole on every rank, outside the split region (the
+    ranks of "model" hold the same rows), so the aux loss's gradient
+    reaches the router once.  Only what the rank's products read enters
+    the region (:func:`~repro_torch.parallel.sharding.tp_enter`): ``x``'s
+    rows and the gates, whose gradients are then summed over the ranks
+    (``rows``: ``x`` as the caller entered it already, one entry shared
+    with another split branch that reads it).
+    The rank's buffer holds its experts' ``(E/P)·cap`` rows; the slots
+    of the other ranks' experts go to the trash row, as dropped slots
+    do, and the rank's output is its own slots' sum: a partial output,
+    for the caller to sum over the ranks with the shared experts' one
+    (:func:`tp_combine`)."""
     B, S, D = x.shape
     E = router_w.shape[1]
     T = B * S
@@ -487,10 +527,21 @@ def moe_layer(
         aux = E * torch.mean(f_e * p_e)
 
     xf = x.reshape(T, D)
+    n = w_gate.shape[0]  # the experts this rank runs
+    split = sharding.splits(tp, n, E)
+    if split:
+        # this rank's experts' rows of the buffer: its slots keep their
+        # positions, the others' go to the trash row
+        first = tp.rank * n * cap
+        keep = keep & (dest >= first) & (dest < first + n * cap)
+        dest = torch.where(keep, dest - first, torch.full_like(dest, n * cap))
+        xf = (sharding.tp_enter(xf, tp) if rows is None
+              else rows.reshape(T, D))
+        gate = sharding.tp_enter(gate, tp)
     xin = xf[:, None].expand(T, top_k, D).reshape(T * top_k, D)  # slot rows
-    buf = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=x.device)
-    h = buf.index_copy(0, dest, xin)[: E * cap].reshape(E, cap, D)
-    out = expert_ffn(h, w_gate, w_up, w_down).reshape(E * cap, D)
+    buf = torch.zeros((n * cap + 1, D), dtype=x.dtype, device=x.device)
+    h = buf.index_copy(0, dest, xin)[: n * cap].reshape(n, cap, D)
+    out = expert_ffn(h, w_gate, w_up, w_down).reshape(n * cap, D)
     out = torch.cat([out, out.new_zeros(1, D)], 0)
     scale = (keep * gate.reshape(-1))[:, None].to(x.dtype)
     y = (out[dest] * scale).reshape(T, top_k, D).sum(dim=1)

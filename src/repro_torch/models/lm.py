@@ -25,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..parallel import sharding
 from . import layers as L
 from .params import ParamDef, TrainableLM, param_modules
 
@@ -176,28 +177,45 @@ class DecoderLM(TrainableLM):
         return y, (kv if cache is None else None)
 
     def _mlp(self, p, h, moe: bool, group=None, tp=None):
-        """The MLP block: SwiGLU, or the routed experts plus the shared
-        ones, routed over the batch's process ``group`` where one is given
-        (:func:`~repro_torch.models.layers.moe_layer`).  Returns (h, aux)
-        with the MoE aux loss (0 for a dense layer).  With ``tp`` the
-        SwiGLUs (the dense one, the shared experts) may run on the rank's
-        columns (:func:`~repro_torch.models.layers.ffn`); the routed
-        experts run whole."""
+        """The MLP block with its residual: (h, aux) (:meth:`_mlp_out`)."""
+        y, aux = self._mlp_out(p, h, moe, group, tp)
+        return h + y, aux
+
+    def _mlp_out(self, p, h, moe: bool, group=None, tp=None):
+        """The MLP block's output before the residual: SwiGLU, or the
+        routed experts plus the shared ones, routed over the batch's
+        process ``group`` where one is given (:func:`~repro_torch.models.
+        layers.moe_layer`), and the MoE aux loss (0 for a dense layer).
+        With ``tp`` (the sharded step) the SwiGLUs (the dense one, the
+        shared experts) may run on the rank's columns (:func:`~repro_torch.
+        models.layers.ffn`) and the routed experts on the rank's experts,
+        the routing whole on every rank; where both split, the input
+        enters the region once for both, and their partial outputs are
+        summed over the ranks by one all-reduce (:func:`~repro_torch.
+        models.layers.tp_combine`)."""
         cfg = self.cfg
         x = L.rms_norm(h, p["ln_mlp"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if not moe:
-            y = L.ffn(x, p["w_gate"], p["w_up"], p["w_down"], cfg.d_ff, tp)
-        else:
-            y, aux = L.moe_layer(
-                x, p["router"], p["e_gate"], p["e_up"], p["e_down"],
-                top_k=cfg.experts_per_token, group=group,
-            )
-            if cfg.num_shared_experts:
-                width = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
-                y = y + L.ffn(x, p["s_gate"], p["s_up"], p["s_down"], width,
-                              tp)
-        return h + y, aux
+            return L.ffn(x, p["w_gate"], p["w_up"], p["w_down"], cfg.d_ff,
+                         tp), aux
+        width = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
+        routed = sharding.splits(tp, p["e_gate"].shape[0], cfg.num_experts)
+        shared = bool(width) and sharding.splits(tp, p["s_gate"].shape[1],
+                                                 width)
+        # where both branches split, x enters the region once for both
+        rows = sharding.tp_enter(x, tp) if routed and shared else None
+        y, aux = L.moe_layer(
+            x, p["router"], p["e_gate"], p["e_up"], p["e_down"],
+            top_k=cfg.experts_per_token, group=group, tp=tp, rows=rows,
+        )
+        parts = [(y, routed)]
+        if width:
+            parts.append((L.ffn(x if rows is None else rows, p["s_gate"],
+                                p["s_up"], p["s_down"], width, tp,
+                                leave=False, entered=rows is not None),
+                          shared))
+        return L.tp_combine(parts, tp), aux
 
     def _embed(self, top: dict, tokens, embeds):
         """The first hidden states: ``embeds`` cast to bf16 whatever the

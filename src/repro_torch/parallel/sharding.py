@@ -246,7 +246,7 @@ class Placement:
     collective.
 
     For a parameter, ``keep`` names the dimensions the sharded step's
-    compute keeps split (those of the logical "tp" in a family whose
+    compute keeps split (those of the logical "tp" and "ep" where its
     products are split over "model"); :func:`gather_for_compute` gathers
     the others, and over those of ``batch_axes`` among their axes its
     backward sums already (:attr:`summed`)."""
@@ -355,7 +355,7 @@ def gather_for_compute(block: torch.Tensor, place: Placement) -> torch.Tensor:
     dimensions the compute does not keep split, as autograd sees it: the
     backward is this rank's block of the gradient's sum over the batch
     axes among them (the ranks that hold other rows; along an axis whose
-    ranks hold the same rows, as "model" for the routed experts, the
+    ranks hold the same rows, as "model" for the mixer's ``w_bc``, the
     gradients are equal and the block is taken).  ``block`` itself where
     nothing is gathered here."""
     if not place.gathered:
@@ -429,6 +429,13 @@ class _Sum(torch.autograd.Function):
         grad = grad.contiguous().clone()
         ctx.tp.all_reduce(grad)
         return grad, None
+
+
+def splits(tp: TensorParallel | None, local: int, whole: int) -> bool:
+    """Whether ``tp`` splits a dimension of ``whole`` entries that this
+    rank holds ``local`` of (:meth:`TensorParallel.split`; never without
+    ``tp``)."""
+    return tp is not None and tp.split(local, whole)
 
 
 def tp_enter(x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:

@@ -2,25 +2,33 @@
 against the whole blocks.
 
 The sharded step (``train.train_step``) runs every family's attention
-blocks on a rank's heads, its SwiGLUs on a rank's FFN columns and the
-Mamba-2 mixer on a rank's ``d_inner`` channels and heads, with
-Megatron's conjugate all-reduces around them.  Here every rank
-``r < P`` of such a split runs in one process, on its local weights
-(each cut along the dimensions the compute keeps split, those its
-logical "tp" axis resolves to "model" on a mesh of P, as the sharded
-step holds them) and with a :class:`~repro_torch.parallel.sharding.
-TensorParallel` of no group, so each conjugate is the identity and a
-block returns the rank's partial output and, backward, its partial
-input gradient.  What the step's all-reduces compute is then their sum
-over the ranks, held against the whole block on the same input and
-upstream gradient:
+blocks on a rank's heads, its SwiGLUs on a rank's FFN columns, the
+Mamba-2 mixer on a rank's ``d_inner`` channels and heads and the MoE
+layer's routed experts on a rank's experts, with Megatron's conjugate
+all-reduces around them.  Here every rank ``r < P`` of such a split runs
+in one process, on its local weights (each cut along the dimensions the
+compute keeps split, those its logical "tp" or "ep" axis resolves to
+"model" on a mesh of P, as the sharded step holds them) and with a
+:class:`~repro_torch.parallel.sharding.TensorParallel` of no group, so
+each conjugate is the identity and a block returns the rank's partial
+output and, backward, its partial input gradient.  What the step's
+all-reduces compute is then their sum over the ranks, held against the
+whole block on the same input and upstream gradient:
 
   * the output (the row-parallel product's partial sums);
   * the input gradient (the column-parallel products' partial sums),
     and the cross-attention's memory's;
   * each weight's gradient: a split weight's blocks side by side, a
     replicated one's (the norms, ``wk``/``wv`` where the kv heads do not
-    divide P, the mixer's ``w_bc``/``conv_bc``) summed over the ranks.
+    divide P, the mixer's ``w_bc``/``conv_bc``, the MoE router) summed
+    over the ranks.
+
+The MoE layer's routing is computed whole on every rank, outside the
+split region, and only its rows and gates enter it: the router's
+gradient from the ranks' partial gates sums to the whole's (the block's
+output is the routed and shared experts' partial sums together, before
+the residual; the aux loss, whole on each rank, is not in its
+objective).
 
 The mixer's gated norm reads the whole ``d_inner``'s mean of squares
 inside the region (``sharding.tp_sum``), so its ranks cannot run with an
@@ -33,8 +41,9 @@ the previous one did: its outputs are the true ranks'.  A block with no
 statistic runs one pass.
 
 ``chip_smoke.py`` runs it on the card at qwen3-4b's, seamless-m4t-
-medium's and zamba2-7b's published widths (K4, K5 and their backward on
-each rank's heads); ``tests/test_torch_tp.py`` on the CPU.
+medium's, zamba2-7b's and deepseek-moe-16b's published widths (K4, K5
+and their backward on each rank's heads; the routed experts' products
+on each rank's experts); ``tests/test_torch_tp.py`` on the CPU.
 """
 
 from __future__ import annotations
@@ -98,6 +107,10 @@ def _cross_attention(model, p, x, tp):
                          tp=tp)[0]
 
 
+def _moe(model, p, x, tp):
+    return model._mlp_out(p, x["h"], True, tp=tp)[0]
+
+
 def _mamba(model, p, x, tp):
     cfg = model.cfg
     return L.mamba2_mix(L.rms_norm(x["h"], p["ln"], cfg.norm_eps), p,
@@ -115,6 +128,10 @@ BLOCKS = {
     "attention": (_attention, _ATTN, "layers"),
     # the SwiGLU of every family
     "mlp": (_mlp, _MLP, "layers"),
+    # DecoderLM's MoE layer: its pre-norm, the routing (whole on every
+    # rank), the rank's routed experts and its shared experts' columns
+    "moe": (_moe, ("ln_mlp", "router", "e_gate", "e_up", "e_down",
+                   "s_gate", "s_up", "s_down"), "layers"),
     # EncDecLM: the encoder's non-causal self-attention and SwiGLU, the
     # decoder's causal self-attention and its cross-attention (the
     # memory's keys and values on the rank's kv heads, sq != sk)
@@ -132,6 +149,13 @@ BLOCKS = {
     "shared_attention": (_attention, _ATTN, "shared"),
     "shared_mlp": (_mlp, _MLP, "shared"),
 }
+
+
+def holds(block: str, params: dict) -> bool:
+    """Whether a layer's ``params`` hold ``block``: its first weight
+    after the pre-norm among them (an MoE layer holds "moe", not
+    "mlp")."""
+    return BLOCKS[block][1][1] in params
 
 
 class _Replayed(TensorParallel):

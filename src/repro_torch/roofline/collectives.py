@@ -18,16 +18,19 @@ tensor), by kind:
     its gather did not sum (a replicated norm over "data", say);
   * TP (the products split over "model", in every family): each
     attention block's row-parallel all-reduce at the forward and in the
-    recomputation, each SwiGLU's and each Mamba-2 mixer's at the forward
-    only (the recomputation stops at the block's last saved tensor, the
-    down or out projection's input, before it); backward, the
+    recomputation, each SwiGLU's, each MoE layer's (one for the routed
+    and shared experts' partial outputs) and each Mamba-2 mixer's at the
+    forward only (the recomputation stops at the block's last saved
+    tensor, the down or out projection's input, before it); backward, the
     column-parallel inputs' all-reduce per region (the cross-attention's
-    memory too, in each decoder layer), and that of each replicated
-    tensor read inside one (``wk``/``wv`` where the kv heads do not
-    divide "model", the q/k norms, the mixer's ``w_bc``/``conv_bc``); the
-    mixer's gated norm's fp32 sum of squares per token, forward, in the
-    recomputation and backward; the shared block of the hybrid at each
-    of its applications;
+    memory too, in each decoder layer; an MoE layer's input once for its
+    routed and shared experts, and the gates where "ep" splits the
+    experts over "model"), and that of each replicated tensor read
+    inside one (``wk``/``wv`` where the kv heads do not divide "model",
+    the q/k norms, the mixer's ``w_bc``/``conv_bc``); the mixer's gated
+    norm's fp32 sum of squares per token, forward, in the recomputation
+    and backward; the shared block of the hybrid at each of its
+    applications;
   * the vocabulary: the embedding lookup's all-reduce, and per sequence
     chunk of the loss the row maximum, the sum of exponentials and the
     gold logit (fp32, or fp64 in an fp64 step), plus the head input's
@@ -158,10 +161,22 @@ def step_collectives(cfg, mesh, recipe: str, batch: int, seq: int,
             if norms:
                 c.ar(p["q_norm"].gathered + p["k_norm"].gathered)
 
-    def ffn(p, gate="w_gate"):
+    def ffn(p):
         """A SwiGLU's: forward once, and its input backward."""
-        if gate in p and p[gate].model_split(1):
+        if p["w_gate"].model_split(1):
             c.ar(act, 2 if train else 1)
+
+    def moe(p):
+        """An MoE layer's MLP: one all-reduce of the routed and shared
+        experts' partial outputs (forward once); backward its input's,
+        entered once for both branches, and the routed experts' gates'
+        (a token's ``k`` gates, fp32 or fp64 as the router)."""
+        routed = p["e_gate"].model_split(0)
+        shared = "s_gate" in p and p["s_gate"].model_split(1)
+        if routed or shared:
+            c.ar(act, 2 if train else 1)
+        if train and routed:
+            c.ar(rows * S * cfg.experts_per_token * wide)
 
     def mixer(p):
         """A Mamba-2 mixer's: the norm's statistic (forward, again in the
@@ -204,7 +219,10 @@ def step_collectives(cfg, mesh, recipe: str, batch: int, seq: int,
         attention(layer, norms=cfg.qk_norm)
         if cfg.is_encdec:
             attention(layer, "xq", "xk", "xv", memory=memory)
-        ffn(layer, "w_gate" if i < n_dense else "s_gate")
+        if i < n_dense:
+            ffn(layer)
+        else:
+            moe(layer)
     if "shared" in places:
         for _ in range(cfg.num_layers // cfg.attn_every):
             for p in tree.leaves(places["shared"]):

@@ -41,8 +41,13 @@ the optimizer its blocks of the moments, under their resolved specs
     tp_sum``; ``w_bc``/``conv_bc`` gathered whole, as every head reads B
     and C), the vocabulary of the embedding and the head, with
     Megatron's conjugate all-reduces (``sharding.tp_enter``,
-    ``tp_leave``) and a vocabulary-parallel loss.  The routed experts
-    and ``layers.WHOLE_ALONG_MODEL`` are gathered whole along "model"
+    ``tp_leave``) and a vocabulary-parallel loss; and wherever it
+    resolves "ep" to that axis, the routed experts, each rank holding and
+    running its ``E/P`` of them (expert parallelism: the ranks of
+    "model" hold the same rows and route them alike, so no dispatch
+    crosses ranks; a rank runs its experts' slots, and one all-reduce
+    sums the routed and shared experts' partial outputs).  Only
+    ``layers.WHOLE_ALONG_MODEL`` is gathered whole along "model"
     (:attr:`TrainLayout.compute_axes` states which axes do what);
   * sums each gradient over the ranks that hold other batch rows once
     (the gather's backward did it over "data"; ``Placement.reduce``
@@ -132,25 +137,33 @@ def state_logical(model_or_cfg, opt_cfg: opt.OptimizerConfig) -> TrainState:
                       ())
 
 
+# the logical axes whose dimensions the compute keeps split over "model":
+# tensor parallelism's and expert parallelism's
+MODEL_SPLIT = ("tp", "ep")
+
+
 def splits_model(mesh, recipe: str) -> bool:
     """Whether the sharded step splits its products over "model" on
     ``mesh`` (a live mesh or a description) under ``recipe``: where the
-    recipe resolves the logical "tp" to "model" and that axis is larger
-    than 1, whatever the family."""
+    recipe resolves the logical "tp" or "ep" to "model" and that axis is
+    larger than 1, whatever the family."""
     if not isinstance(mesh, MeshShape):
         mesh = describe(mesh)
-    return (resolve_spec(("tp",), mesh, None, recipe)[0] == "model"
-            and mesh.shape.get("model", 1) > 1)
+    return mesh.shape.get("model", 1) > 1 and any(
+        resolve_spec((ax,), mesh, None, recipe)[0] == "model"
+        for ax in MODEL_SPLIT)
 
 
 def tp_dims(path: str, logical: tuple) -> tuple[int, ...]:
     """The dimensions of the parameter at ``path`` (its leaf name last)
     that the compute keeps split where the step splits the products: its
-    logical "tp" ones, none for :data:`~repro_torch.models.layers.
-    WHOLE_ALONG_MODEL`."""
+    logical "tp" ones (heads, FFN columns, channels, vocabulary) and
+    "ep" ones (the routed experts), none for :data:`~repro_torch.models.
+    layers.WHOLE_ALONG_MODEL`.  The one rule for the step's placements,
+    the dry run's collective count and ``parallel.tp_local``."""
     if path.rsplit("/", 1)[-1] in WHOLE_ALONG_MODEL:
         return ()
-    return tuple(d for d, ax in enumerate(logical) if ax == "tp")
+    return tuple(d for d, ax in enumerate(logical) if ax in MODEL_SPLIT)
 
 
 class TrainLayout:
@@ -178,7 +191,8 @@ class TrainLayout:
         logical = dict(tree.flatten(logical, is_logical))
         places = {}
         for path, _, spec in specs:
-            # a parameter's "tp" dimensions stay split in the compute
+            # a parameter's "tp" and "ep" dimensions stay split in the
+            # compute
             keep = tp_dims(path, logical[path]) if (
                 self.tp and path.startswith("params/")) else ()
             places[path] = Placement(mesh, spec, keep, self.batch_axes)
@@ -187,25 +201,34 @@ class TrainLayout:
         gathered = {a for path, pl in places.items()
                     if path.startswith("params/")
                     for _, axes in pl.gathered for a in axes}
+        # the axes the routed experts' dimension stays split over
+        experts = {a for path, pl in places.items()
+                   if path.startswith("params/") and path.endswith("e_gate")
+                   for d, axes in pl.splits if d == 0 for a in axes}
         # the mesh axes of size > 1 by their role in the compute
         self.compute_axes = {
             "batch": tuple(a for a in self.batch_axes if sizes[a] > 1),
             "gathered": tuple(a for a in describe(mesh).axis_names
                               if a in gathered),
             "split": ("model",) if self.tp else (),
+            "experts": tuple(a for a in describe(mesh).axis_names
+                             if a in experts and self.tp),
         }
         self.family = cfg.family
 
     def describe_compute(self) -> str:
         """One line: which mesh axes split the batch, which the step
-        gathers each layer over, and which split the products."""
+        gathers each layer over, and which split the products (the routed
+        experts among them where "ep" splits them)."""
         ax = self.compute_axes
         what = {"ssm": "mixer heads, vocabulary",
                 "hybrid": "mixer heads, shared block heads and FFN "
                           "columns, vocabulary",
                 "encdec": "encoder, decoder and cross-attention heads, "
                           "FFN columns, vocabulary"}.get(
-                              self.family, "heads, FFN columns, vocabulary")
+                              self.family, "heads, FFN columns, "
+                              + ("routed experts, " if ax["experts"]
+                                 else "") + "vocabulary")
         split = (f"products split over {ax['split']} ({what})"
                  if ax["split"] else "every product whole on each rank")
         return (f"{self.family} under {self.recipe!r}: batch over "

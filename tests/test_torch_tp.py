@@ -13,10 +13,16 @@ hybrid's Mamba-2 mixer and shared block (zamba2-7b) and the SSM's mixer
 (mamba2-130m), whose gated norm's statistic the ranks replay from each
 other's sums.
 
+The MoE layer (deepseek-moe-16b's shrink, on inputs that lean to the
+same experts, so that the capacity drops slots): each rank's routed experts are its E/P, its
+shared experts' columns F/P, the routing whole on each rank.
+
 The vocabulary-parallel loss (``losses.chunked_cross_entropy`` with
 ``tp``) runs its P ranks as threads whose all-reduces meet at a barrier:
 the loss and the gradients of the hidden states and of the head against
-the whole loss's, at 1e-6.
+the whole loss's, at 1e-6.  So does the MoE layer with its aux loss in
+the objective: the router's gradient on every rank is the whole's (the
+aux loss's share counted once).
 """
 
 import threading
@@ -27,7 +33,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, smoke_shrink  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, param_defs  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.losses import chunked_cross_entropy  # noqa: E402
 from repro_torch.parallel import sharding, tp_local  # noqa: E402
@@ -139,6 +145,56 @@ def test_family_blocks_sum_to_the_whole_block(arch, size, monkeypatch):
                 (cfg.num_heads // size, cfg.num_kv_heads // size)] * size
 
 
+MOE = "deepseek-moe-16b"
+MOE_EXPERTS = smoke_shrink(get_config(MOE)).num_experts
+MOE_SIZES = [s for s in (2, 4) if MOE_EXPERTS % s == 0]
+SKEW = 1.0  # added to every input: the routing leans and drops slots
+
+
+def _moe_input(cfg, seed):
+    """An MoE layer's input (B, S, D) and upstream gradient, the input
+    offset by ``SKEW`` so that its tokens lean to the same experts."""
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((B, S, cfg.d_model)) + SKEW
+    dy = rng.standard_normal((B, S, cfg.d_model))
+    return torch.from_numpy(h).float(), torch.from_numpy(dy).float()
+
+
+@pytest.mark.parametrize("size", MOE_SIZES)
+def test_moe_block_sums_to_the_whole_block(size, monkeypatch):
+    """The MoE layer's MLP on P ranks, each on its E/P routed experts and
+    F/P shared columns (no group): the summed outputs, input gradients
+    and every weight's gradient within 1e-6 of max|whole|, in one pass;
+    each rank's expert products on E/P experts; slots dropped for
+    capacity (the same ones on every rank: the routing is whole)."""
+    model = _model(MOE)
+    cfg = model.cfg
+    layer = cfg.first_k_dense
+    p = model.layers[layer].tensors()
+    assert tp_local.holds("moe", p) and not tp_local.holds("mlp", p)
+    h, dy = _moe_input(cfg, 3)
+    experts, drops = [], []
+    plain_ffn, plain_route = L.expert_ffn, L.moe_route
+
+    def expert_ffn(x, w_gate, w_up, w_down):
+        experts.append(x.shape[0])
+        return plain_ffn(x, w_gate, w_up, w_down)
+
+    def moe_route(*a, **k):
+        out = plain_route(*a, **k)
+        drops.append(int((~out[3]).sum()))
+        return out
+
+    monkeypatch.setattr(L, "expert_ffn", expert_ffn)
+    monkeypatch.setattr(L, "moe_route", moe_route)
+    got = tp_local.check_block(model, layer, "moe", h, dy, size)
+    assert max(got["out"], got["dx"], *got["grads"].values()) <= TOL, got
+    assert set(got["grads"]) == set(tp_local.BLOCKS["moe"][1]), got
+    assert got["passes"] == 1
+    assert experts == [cfg.num_experts] + [cfg.num_experts // size] * size
+    assert drops[0] > 0 and drops == [drops[0]] * (1 + size), drops
+
+
 class _Barrier(sharding.TensorParallel):
     """A rank of ``size`` threads whose all-reduces meet at a barrier."""
 
@@ -196,3 +252,65 @@ def test_vocab_parallel_loss_matches_whole(size):
                                    atol=TOL * float(hw.grad.abs().max()))
     np.testing.assert_allclose(torch.cat(dw, 1), ww.grad, rtol=0,
                                atol=TOL * float(ww.grad.abs().max()))
+
+
+@pytest.mark.parametrize("size", MOE_SIZES)
+def test_moe_aux_loss_reaches_the_router_once(size):
+    """The MoE layer's MLP on P threads whose all-reduces meet at a
+    barrier, the objective its output against an upstream gradient plus
+    the aux loss: on every rank the output, the aux loss and the
+    gradients of the input, the router and the pre-norm are the whole
+    layer's (the aux loss's share of them counted once: the routing runs
+    outside the split region), and the ranks' expert and shared-column
+    gradients side by side are the whole's, within 1e-6 of max|whole|."""
+    model = _model(MOE)
+    cfg = model.cfg
+    layer = cfg.first_k_dense
+    p = {k: v for k, v in model.layers[layer].tensors().items()
+         if k in tp_local.BLOCKS["moe"][1]}
+    defs = param_defs(cfg)["layers"][layer]
+    h, dy = _moe_input(cfg, 4)
+
+    def run(weights, tp=None):
+        w = {k: v.detach().clone().requires_grad_() for k, v in
+             weights.items()}
+        x = h.clone().requires_grad_()
+        y, aux = model._mlp_out(w, x, True, tp=tp)
+        ((y * dy).sum() + aux).backward()
+        return (y.detach(), float(aux.detach()), x.grad,
+                {k: v.grad for k, v in w.items()})
+
+    want = run(p)
+    shared = ([None] * size, threading.Barrier(size))
+    got, errors = [None] * size, []
+
+    def rank(r):
+        try:
+            got[r] = run(tp_local.local_params(defs, p, r, size),
+                         _Barrier(r, size, shared))
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+            shared[1].abort()
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(size)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+
+    def close(a, b):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=TOL * float(b.abs().max()))
+
+    y, aux, dx, grads = want
+    for r in range(size):
+        assert got[r][1] == pytest.approx(aux, rel=TOL)
+        close(got[r][0], y)
+        close(got[r][2], dx)
+        for name in ("router", "ln_mlp"):
+            close(got[r][3][name], grads[name])
+    for name, dims in (("e_gate", 0), ("e_up", 0), ("e_down", 0),
+                       ("s_gate", 1), ("s_up", 1), ("s_down", 0)):
+        assert got[0][3][name].shape[dims] * size == grads[name].shape[dims]
+        close(torch.cat([g[3][name] for g in got], dims), grads[name])

@@ -29,15 +29,17 @@ started with the reference's subprocesses.
 On (2, 2) the step computes as the reference's ``default`` recipe: each
 layer gathered over "data" inside its checkpointed block, the heads, FFN
 columns (the MoE's shared experts') and vocabulary split over "model"
-(qwen3-4b's one kv head replicated, each rank's two q heads reading it;
-the MoE's routed experts gathered whole), in the encoder-decoder every
+(qwen3-4b's one kv head replicated, each rank's two q heads reading it)
+and the routed experts ("ep": each rank holds and runs E/P of them, the
+routing whole on each), in the encoder-decoder every
 attention block (its cross-attention's memory entered in each decoder
 layer) and in the hybrid the Mamba-2 mixer's heads and the shared
 block's.  The recorded runs show each rank's attention on H/P q heads
 and the hybrid's SSD on nheads/P, the gathered weights alive at each
 block's entry (weak references to what the gathers returned) never
-above one layer's plus the top-level tensors', and the bytes of every
-collective of each (2, 2) step equal to the dry run's count
+above one layer's plus the top-level tensors', each rank's expert
+products on E/P experts with its experts' weights alone, and the bytes
+of every collective of each (2, 2) step equal to the dry run's count
 (``roofline.collectives.step_collectives``).
 """
 
@@ -150,7 +152,9 @@ def _ref_params(arch) -> dict:
 # what a run records: each step's metrics (through make_train_step) and
 # the bytes of its collectives by kind (a gather's result, a reduce's
 # tensor), each routing call's dropped slots on this rank (through
-# moe_route), each attention call's (q, kv) heads, and at each block's
+# moe_route), each expert products call's weight shape (expert_ffn's
+# w_gate: the rank's experts), each attention call's (q, kv) heads, and
+# at each block's
 # entry the bytes of the gathered weights still alive, beside each
 # block's and each step's top-level gathers; and a case's launcher
 # arguments (its moment type goes in through the launcher's optimizer
@@ -185,12 +189,13 @@ def recording(runs):
     # patch the port to record into runs[-1]; returns a function that
     # puts every patched attribute back
     plain = [(launcher, "make_train_step"), (launcher, "opt"),
-             (launcher, "build_model"), (L, "moe_route"),
+             (launcher, "build_model"), (L, "moe_route"), (L, "expert_ffn"),
              (L, "blockwise_attention"), (ops, "ssd_scan"),
              (sharding, "gather_for_compute"), (dist, "all_gather"),
              (dist, "all_reduce"), *BLOCKS]
     plain = [(obj, name, getattr(obj, name)) for obj, name in plain]
     plain_step, plain_route = launcher.make_train_step, L.moe_route
+    plain_experts = L.expert_ffn
     plain_attn, plain_gather = L.blockwise_attention, sharding.gather_for_compute
     plain_ssd = ops.ssd_scan
     plain_ag, plain_ar = dist.all_gather, dist.all_reduce
@@ -214,6 +219,10 @@ def recording(runs):
         out = plain_route(*a, **k)
         runs[-1]["drops"].append(int((~out[3]).sum()))
         return out
+
+    def expert_ffn(h, w_gate, w_up, w_down):
+        runs[-1]["experts"].append(list(w_gate.shape))
+        return plain_experts(h, w_gate, w_up, w_down)
 
     def blockwise_attention(q, k, v, **kw):
         runs[-1]["heads"].append([q.shape[2], k.shape[2]])
@@ -258,6 +267,7 @@ def recording(runs):
         return plain_ar(x, *a, **k)
 
     launcher.make_train_step, L.moe_route = make_train_step, moe_route
+    L.expert_ffn = expert_ffn
     L.blockwise_attention, ops.ssd_scan = blockwise_attention, ssd_scan
     sharding.gather_for_compute = gather_for_compute
     for cls, name in BLOCKS:
@@ -270,7 +280,8 @@ def recording(runs):
     return restore
 
 def new_run(case):
-    return {"case": case, "metrics": [], "drops": [], "heads": [],
+    return {"case": case, "metrics": [], "drops": [], "experts": [],
+            "heads": [],
             "ssd_heads": [], "alive": [], "layer_bytes": [],
             "top_bytes": [], "collectives": []}
 """
@@ -569,6 +580,25 @@ def test_each_rank_attends_with_its_heads(runs, case):
             nheads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
             assert rec["ssd_heads"] and set(rec["ssd_heads"]) == {
                 nheads // size}, rec["ssd_heads"][:4]
+
+
+@pytest.mark.parametrize("case", [c for c, v in CASES.items()
+                                  if v[0] == "deepseek-moe-16b"])
+def test_each_rank_runs_its_experts(runs, case):
+    """Every expert products call of a rank (forward and recomputation,
+    each MoE layer) runs on E/P routed experts of a "model" axis of P
+    (E/2 on (2, 2), E on (2, 1)), with its experts' weights gathered
+    over "data" alone: (E/P, D, F), as the one-process run's (E, D, F)
+    cut along the experts."""
+    one, sharded, _ = runs
+    arch, (_, size), *_ = CASES[case]
+    cfg = smoke_shrink(get_config(arch))
+    whole = [cfg.num_experts, cfg.d_model, cfg.moe_d_ff]
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    assert one[case]["experts"] == [whole] * (2 * n_moe * STEPS)
+    for rec in _sharded(sharded, case):
+        assert rec["experts"] == [[cfg.num_experts // size, *whole[1:]]] * (
+            2 * n_moe * STEPS), rec["experts"][:4]
 
 
 @pytest.mark.parametrize("case", list(CASES))
