@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --plain-peak ARCH  # PLAIN_TRAIN_PEAK's bytes
 
 Builds the kernels from ``src/repro_torch/kernels/csrc`` and drives the
 simulator's main path and the LM serving path through their public entry
 points at full width:
 
   1. build     — one nvcc per source for sm_90a, all started together;
-                 build seconds and the card's name and power limit;
+                 build seconds, the card's name and power limit, and the
+                 host's MemTotal and CPU count;
      sass      — the wgmma kernels (tiled_gemm's TMA and in-place
                  kernels, fused_gemm, flash_attention's bf16 kernel,
                  ssd_chunk's and ssd_chunk_bwd's wgmma kernels) must hold
@@ -53,8 +55,9 @@ points at full width:
                  whole within 2^-8, a carry's bf16 rounding apart),
                  bounded at the bf16 rate; then
                  flash_attention at the prefill shapes of qwen3-4b,
-                 deepseek-moe-16b (MHA, bh 64) and qwen2-vl-72b (bh 256
-                 on 32 kv heads), batch 4 x 512, and of zamba2-7b (bh 32
+                 deepseek-moe-16b (MHA, bh 64), qwen2-vl-72b (bh 256
+                 on 32 kv heads) and llama4-scout-17b-a16e (bh 160 on
+                 32: GQA group 5), batch 4 x 512, and of zamba2-7b (bh 32
                  on 32, 1 x 8192, head dim 112, window 4096: the bound
                  counts only the pairs the window leaves; SDPA takes the
                  band as a boolean mask), and seamless-m4t-medium's
@@ -68,8 +71,9 @@ points at full width:
                  overflowing decay through the wgmma route); the backward
                  kernels at the training shapes, each route: flash_attention_bwd
                  at qwen3-4b's (bf16, bh 64 on 16 kv heads, s 512, d 128,
-                 causal) and at seamless-m4t-medium's encoder (bh 64 on
-                 64, s 512, d 64, non-causal) (<= 2e-2 of max|plain| per
+                 causal), at seamless-m4t-medium's encoder (bh 64 on
+                 64, s 512, d 64, non-causal) and at qwen2-vl-72b's (bh
+                 128 on 16: GQA group 8) (<= 2e-2 of max|plain| per
                  gradient; its mma
                  route, which bf16 takes, beside its simt route forced on
                  the same inputs and SDPA's autograd backward) and
@@ -172,18 +176,27 @@ points at full width:
                  launch of its serve the windowed wgmma kernel, of its
                  fp32 agreement the windowed FFMA kernel, every
                  ssd_chunk launch wgmma); for qwen2-vl-72b
-                 (80 layers, 145 GB in bf16) its published widths at 16
+                 (80 layers, 145 GB in bf16) its published widths at 8
                  layers through the same steps (decode_demo's
                  prompt_inputs, with the stub frontend's embeddings and
-                 M-RoPE positions, then generate); batch 4, prompt 512,
+                 M-RoPE positions, then generate), and for
+                 llama4-scout-17b-a16e (48 layers, 215 GB) its published
+                 widths at 8 layers likewise (16 routed experts, top 1,
+                 1 shared; every K4 launch the wgmma kernel at bh 160 on
+                 32 kv heads; the prefill's dropped slots at 160 slots
+                 an expert recorded, layer by layer; its agreement's
+                 CPU run takes the card's routing decisions and
+                 attention inputs, its own and a free CPU run's logits
+                 reported); batch 4, prompt 512,
                  32 tokens, finite logits of the right shapes, peak
                  device memory, the decode step beside its weights'
                  bound; the card's prefill logits against the port's own
                  CPU run on the same weights and prompt, at full width:
                  in bf16 at 2 layers <= 3e-2 of max|logit| (the bf16
                  attention tolerance of the JAX suite), in fp32 (the
-                 attention models at 2 layers, an MoE model's layer 0
-                 dense and layer 1 MoE; mamba2-130m whole) <= 1e-3, with
+                 attention models at 2 layers, deepseek-moe-16b's layer
+                 0 dense and layer 1 MoE, llama4-scout-17b-a16e's both
+                 MoE; mamba2-130m whole) <= 1e-3, with
                  the MoE layer's routing decisions that differ between
                  the card and the CPU counted; the encoder-decoder at
                  2 + 2 layers, 256 frames and 128 tokens, then 4 decode
@@ -219,8 +232,14 @@ points at full width:
                  two steps run again from the same seed for the same
                  bits, and zamba2-7b at full width and 7 layers (one
                  group of 6 and the shared block, one tail layer), 1 x
-                 8192 (twice its window), and seamless-m4t-medium whole
-                 (4 x 512 frames and tokens), 4 steps each: finite losses,
+                 8192 (twice its window), seamless-m4t-medium whole
+                 (4 x 512 frames and tokens), and qwen2-vl-72b at full
+                 width and 2 of its 80 layers, 2 x 512, on the stub
+                 frontend's embeds and (3, B, S) M-RoPE positions (its
+                 loss on a batch again the same bits and with the
+                 height and width positions shifted another loss; every
+                 K4 backward on mma, GQA group 8), 4 steps each: finite
+                 losses,
                  the first within 0.1 of ln V + d s^2 / 2 (s the head's
                  init std: the logits of a random head have variance
                  d s^2), each parameter block the model's own tensor
@@ -241,7 +260,12 @@ points at full width:
                  steps 2-4 (a report); the
                  card's first two steps of each at 2 layers against the
                  port's CPU run of the same weights and batch (loss and
-                 grad norm: fp32 <= 1e-3, bf16 <= 3e-2 relative; for the
+                 grad norm: fp32 <= 1e-3, bf16 <= 3e-2 relative; a
+                 step whose state no check reads, a run's last or one the
+                 card's state replaces, computes them without the update;
+                 qwen2-vl-72b at 1 layer, fp32 2
+                 steps and bf16 1, its 2 layers' fp32 state not fitting
+                 the card (TRAIN_AGREE_CUT, stated in the record); for the
                  MoE each step from the card's state, the CPU taking the
                  card's routing decisions, and a free CPU run with its
                  routing flips reported; the encoder-decoder likewise,
@@ -272,7 +296,10 @@ points at full width:
                  and 1 decoder layer, 2 x 512 tokens on 1024 frames;
                  zamba2-7b, 1 mamba layer and the shared block, 1 x
                  8192; deepseek-moe-16b, its dense and first MoE layer,
-                 2 x 512 tokens.  For P in 2, 4, 8, 16 each rank's blocks
+                 2 x 512 tokens; qwen2-vl-72b, 1 layer, 2 x 512 tokens,
+                 its attention on M-RoPE positions of an image of 16 x
+                 16 patches and text (4 q heads on the kv head they
+                 read at P = 16).  For P in 2, 4, 8, 16 each rank's blocks
                  (parallel.tp_local.BLOCKS: every attention on its H/P
                  q heads and its kv heads or the one its q heads read —
                  2 on 1 at P = 16 for qwen3-4b —, the encoder's
@@ -287,11 +314,13 @@ points at full width:
                  passes), their outputs, input gradients (the memory's
                  too) and weight gradients summed (or laid side by side)
                  against the whole blocks' in fp32 (1e-5 of max|whole|)
-                 and bf16 (3e-2) — in fp32 seamless-m4t-medium's and
-                 zamba2-7b's attention blocks run on the ranks' own
+                 and bf16 (3e-2) — in fp32 seamless-m4t-medium's,
+                 zamba2-7b's and qwen2-vl-72b's attention blocks run on
+                 the ranks' own
                  inputs (reported) and then with the whole block's
                  q, k and v replayed into each rank (held, the ranks'
-                 own within 1e-5 of them); K4 and its backward launched
+                 own within 1e-5 of them), qwen2-vl-72b's in bf16 too
+                 (within 3e-2); K4 and its backward launched
                  once for each whole attention and once for each rank's
                  in each run, on the type's route (fp32 simt, bf16 wgmma
                  and mma) and
@@ -317,14 +346,17 @@ points at full width:
                  its design (wgmma-bf16, 3xtf32-wgmma, cluster-simt-fp32),
                  and the bf16 routes of tiled_gemm and fused_gemm
                  with their launches in the precision phase, and
-                 flash_attention at deepseek-moe-16b's, qwen2-vl-72b's
-                 and zamba2-7b's shapes with their launches serving
-                 those models, at seamless-m4t-medium's encoder and
+                 flash_attention at deepseek-moe-16b's, qwen2-vl-72b's,
+                 zamba2-7b's and llama4-scout-17b-a16e's shapes with
+                 their launches serving those models, at
+                 seamless-m4t-medium's encoder and
                  cross-attention shapes with the non-causal launches of
                  each serving it, flash_attention_bwd's non-causal record
-                 with its non-causal launches training seamless-m4t-medium
-                 and its windowed record with its launches training
-                 zamba2-7b, and flash_attention and flash_attention_bwd
+                 with its non-causal launches training seamless-m4t-medium,
+                 its windowed record with its launches training
+                 zamba2-7b and its group-8 record with its launches
+                 training qwen2-vl-72b, and flash_attention and
+                 flash_attention_bwd
                  on one rank's heads of qwen3-4b, of seamless-m4t-medium's
                  encoder and cross-attention and of zamba2-7b's shared
                  block, and ssd_chunk and ssd_chunk_bwd on one rank's
@@ -443,17 +475,34 @@ SOURCES = {
 CHAIN_CLUSTERS = (1, 2, 4, 8, 16)  # K3's cluster sizes timed
 SERVE = dict(batch=4, prompt_len=512, gen_tokens=32, seed=0)
 # the served models, each with its cut of depth (None: the published
-# depth; qwen2-vl-72b's 80 layers hold 145 GB in bf16, 16 of them 33 GB)
-# and the depth of its traces (None: the served depth; qwen3-4b's per
-# layer the same at 2 layers)
+# depth; qwen2-vl-72b's 80 layers hold 145 GB in bf16, 8 of them 20 GB,
+# cut from 16 for the smoke's time once it also trains the model;
+# llama4-scout-17b-a16e's 48 hold 215 GB, 8 of them 39.4 GB) and the
+# depth of its traces (None: the served depth; qwen3-4b's per layer the
+# same at 2 layers)
 # zamba2-7b serves its own prompt: one sequence of 8192 tokens, twice its
 # window of 4096, so the window binds in prefill and decode wraps the ring
 # (8192 % 4096 == 0: the reference's own ring layout agrees there)
+# replay: the agreement's CPU run takes the card's routing decisions and
+# attention inputs (``_replayed``: the encoder-decoder's always does, and
+# holds its logits only), holds its own attention inputs against the
+# card's at the type's tolerance, and reports a free CPU run's logits
+# beside them.  llama4-scout-17b-a16e routes each token to one expert of
+# 16, so one decision flipped by a rounding swaps the token's whole routed
+# output, and its attention is as hard as the encoder-decoder's at the
+# reference's init (scores of std ~128: no q/k norm): on the H100 its bf16
+# prefill logits read 3.37e-2 of max|logit| from the CPU's free run and
+# with the routing alone replayed (11 decisions of its last layer
+# flipped, none of the last token's), 4.65e-3 with the attention inputs
+# replayed too (their own 6.4e-3 apart)
 SERVE_MODELS = {
     "qwen3-4b": dict(layers=None, trace_layers=2),
     "mamba2-130m": dict(layers=None, trace_layers=None),
     "deepseek-moe-16b": dict(layers=None, trace_layers=None),
-    "qwen2-vl-72b": dict(layers=16, trace_layers=None),
+    "qwen2-vl-72b": dict(layers=8, trace_layers=None),
+    # 40 query heads on 8 kv heads (K4 at GQA group 5), 16 routed
+    # experts, top 1, and 1 shared expert in every layer, V 202 048
+    "llama4-scout-17b-a16e": dict(layers=8, trace_layers=None, replay=True),
     "zamba2-7b": dict(layers=None, trace_layers=None, batch=1,
                       prompt_len=8192),
     # the encoder-decoder whole (12 + 12 layers); its frames are the
@@ -477,13 +526,18 @@ K4_SHAPES = {
                                                 causal=False),
     "flash_attention:seamless-m4t-medium:cross": dict(H=16, KV=16, d=64,
                                                       Sk=1024, causal=False),
+    # GQA group 5: bh 160 on 32 kv heads
+    "flash_attention:llama4-scout-17b-a16e": dict(H=40, KV=8),
 }
 # K4's backward records beside qwen3-4b's: seamless-m4t-medium's encoder
-# shape at training (4 x 512, non-causal)
+# shape at training (4 x 512, non-causal), and qwen2-vl-72b's training
+# shape (2 x 512, 64 query heads on 8 kv heads: GQA group 8, bh 128 on 16)
 K4_BWD_SHAPES = {
     "flash_attention_bwd": dict(B=2, H=32, KV=8, S=512, d=128, causal=True),
     "flash_attention_bwd:seamless-m4t-medium": dict(B=4, H=16, KV=16, S=512,
                                                     d=64, causal=False),
+    "flash_attention_bwd:qwen2-vl-72b": dict(B=2, H=64, KV=8, S=512, d=128,
+                                             causal=True),
 }
 # the hybrid's card-against-CPU agreement: 2 layers hold no attention (the
 # shared block follows every 6th mamba layer), so it runs 7 of the 81:
@@ -522,7 +576,9 @@ K4_BWD_WINDOW = dict(B=1, H=32, KV=32, S=8192, d=112, window=4096)
 # (2.85 B, ~34 GB).  zamba2-7b trains one group of 6 mamba layers and the
 # shared block, then one tail layer (2 layers hold no attention), on one
 # sequence of 8192 tokens, twice its window, so the window binds in the
-# backward too
+# backward too.  qwen2-vl-72b trains 2 of its 80 layers (4.247 B
+# parameters, ~51 GB of state; the embedding and the untied head hold
+# 1.246 B each) on the stub frontend's embeds with M-RoPE positions
 TRAIN = {
     "qwen3-4b": dict(batch=2, seq=512),
     "mamba2-130m": dict(batch=4, seq=512),
@@ -531,6 +587,7 @@ TRAIN = {
     # whole (977.8 M parameters, ~11.7 GB of state), 512 frames and 512
     # tokens a sequence
     "seamless-m4t-medium": dict(batch=4, seq=512),
+    "qwen2-vl-72b": dict(batch=2, seq=512, layers=2),
 }
 TRAIN_STEPS = 4
 MOE_REPEAT = 2  # an MoE model's first steps, run twice for the same bits
@@ -540,6 +597,21 @@ MOE_REPEAT = 2  # an MoE model's first steps, run twice for the same bits
 # so that it binds (the record states it as window_cut)
 TRAIN_AGREE = dict(batch=1, seq=128, steps=2, layers=2, lr=1e-4)
 HYBRID_TRAIN_AGREE = dict(batch=1, seq=256, layers=7, window=64)
+# a model's own cut of TRAIN_AGREE, and why (the record states both):
+# qwen2-vl-72b's 2 layers hold 4.247 B parameters, 68 GB of fp32 state
+# (weights, gradients, two moments) on the card before the update's
+# temporaries and as much on the host, so its agreement runs 1 layer
+# (3.369 B, 53.9 GB on each side) at the published widths; its CPU half
+# (steps over the 1.246 B-row embedding and head on the host) is most of
+# the phase's time (PERF.md §6), so bf16 runs one step and fp32 keeps
+# both, so that the update is held once
+TRAIN_AGREE_CUT = {
+    "qwen2-vl-72b": dict(
+        layers=1, bf16_steps=1,
+        reason="2 layers hold 68 GB of fp32 training state on the card and "
+               "on the host; the CPU half is most of the phase's time, so "
+               "bf16 runs one step (fp32 two: the update is held once)"),
+}
 TRAIN_TOL = {"fp32": 1e-3, "bf16": 3e-2}
 EXAMPLE_STEPS = 100  # the llama3-100m twin, seq 128
 # the learning gate: the synthetic stream (next = prev + delta mod V) is
@@ -552,8 +624,9 @@ EXAMPLE_STEPS = 100  # the llama3-100m twin, seq 128
 LEARN = dict(arch="llama3.2-3b", steps=200, batch=4, seq=128, lr=5e-3)
 # the train phase's peak device memory of each model through the plain
 # step, as this script measured it before the steps went through the
-# sharded one (NVIDIA H100 80GB HBM3 at 700 W; the same bytes in two
-# calls): the sharded step on one rank must stay within PEAK_SAME of it,
+# sharded one, or with --plain-peak (NVIDIA H100 80GB HBM3 at 700 W; the
+# same bytes in two calls): the sharded step on one rank must stay within
+# PEAK_SAME of it,
 # its blocks being the model's own tensors.  The bytes are that run's
 # PyTorch and allocator's: another version may move them with no change
 # here (the storage itself is checked block by block)
@@ -563,6 +636,8 @@ PLAIN_TRAIN_PEAK = {
     "deepseek-moe-16b": 37617935872,
     "zamba2-7b": 15025669632,
     "seamless-m4t-medium": 20416514048,
+    # --plain-peak qwen2-vl-72b (torch 2.11.0+cu128)
+    "qwen2-vl-72b": 70959735296,
 }
 PEAK_SAME = 0.01
 ONE_RANK = ((1, 1), ("data", "model"))  # the train phase's live mesh
@@ -580,31 +655,45 @@ ONE_RANK = ((1, 1), ("data", "model"))  # the train phase's live mesh
 # 112/P SSD heads, 3 passes of its ranks; the shared block's windowed
 # attention on 32/P heads of 112, F/P columns); deepseek-moe-16b, its
 # dense layer and its first MoE layer, 2 x 512 tokens (the MoE layer's
-# MLP on 64/P routed experts and F/P shared columns).  With ``replay`` the fp32
-# checks feed each rank's attention the whole block's q, k and v of its
-# heads (the rank's own held to them at 1e-5 apart; gradients flow to the
-# rank's projections), as the train phase's agreements replay attention
+# MLP on 64/P routed experts and F/P shared columns).  With ``replay`` the
+# checks of the types it names feed each rank's attention the whole
+# block's q, k and v of its heads (the rank's own held to them at the
+# type's tolerance; gradients flow to the rank's projections), as the
+# train phase's agreements replay attention
 # inputs: without q/k norms the reference's init makes these attentions
 # near hard (scores of std ~64 and ~112), and a rank's own q and k, one
 # rounding from the whole's (cuBLAS takes other kernels for other product
 # widths), move the summed blocks by ~1e-4 of max|whole| where the
 # projections and SwiGLUs read 1e-6: those runs on the ranks' own inputs
 # go first and are reported (``own_inputs_errors``), not held.  bf16 runs
-# each rank on its own inputs, held
+# each rank on its own inputs, held, unless ``replay`` names it
 TP_LOCAL = {
     "qwen3-4b": dict(layers=2, batch=2, seq=512, blocks=("attention", "mlp")),
     "seamless-m4t-medium": dict(
         layers=1, encoder_layers=1, batch=2, seq=512, frames=1024,
         blocks=("enc_attention", "enc_mlp", "self_attention",
-                "cross_attention", "mlp"), replay=True),
+                "cross_attention", "mlp"), replay=("fp32",)),
     "zamba2-7b": dict(layers=1, batch=1, seq=8192,
                       blocks=("mamba", "shared_attention", "shared_mlp"),
-                      replay=True),
+                      replay=("fp32",)),
     # one dense layer and one MoE layer: the MoE layer's MLP (64 routed
     # experts, 6 a token, 2 shared) on each rank's 64/P experts and its
     # shared experts' 2816/P columns, the routing whole on every rank
     "deepseek-moe-16b": dict(layers=2, batch=2, seq=512, blocks=("moe",)),
+    # one layer: its attention on 64/P q heads (4 on the one kv head they
+    # read at P = 16) with M-RoPE positions (VLM_GRID), its SwiGLU on
+    # 29 568/P columns (1848 at P = 16); its attention replayed in bf16
+    # too: its scores (std ~128 at the reference's init) make it harder
+    # still, and a rank's own bf16 q and k, one rounding from the whole's,
+    # read up to 0.16 of max|whole| in dx on the H100
+    "qwen2-vl-72b": dict(layers=1, batch=2, seq=512,
+                         blocks=("attention", "mlp"),
+                         replay=("fp32", "bf16")),
 }
+# the VLM's M-RoPE positions in tp_local: an image of 16 x 16 patches
+# (temporal 0, height its row, width its column), then text, all three
+# axes from 16 on, as Qwen2-VL numbers a prompt that opens with an image
+VLM_GRID = 16
 TP_SIZES = (2, 4, 8, 16)
 TP_TOL = {"fp32": 1e-5, "bf16": 3e-2}
 # K4 and its backward, K5 and its backward, on one rank's heads of the
@@ -651,6 +740,17 @@ def check(ok: bool, msg: str) -> None:
 
 def emit(**kw) -> None:
     print(json.dumps(kw, default=float), flush=True)
+
+
+def _mem_total() -> str | None:
+    """The host's ``MemTotal`` line of /proc/meminfo (the CPU halves of
+    the agreements hold tens of GB there)."""
+    try:
+        with open("/proc/meminfo") as fh:
+            return next((line.split(":", 1)[1].strip() for line in fh
+                         if line.startswith("MemTotal:")), None)
+    except OSError:
+        return None
 
 
 def nvidia_smi() -> str:
@@ -1582,6 +1682,27 @@ def _spans(torch):
     return {n: wrap(span) for n, span in MOE_SPANS.items()}
 
 
+def _serve_recorder(routes: list, shapes: list):
+    """Wrappers of ``moe_route``, appending each call's dropped slots (a
+    count left on the device: no sync), slots and capacity to ``routes``,
+    and of ``blockwise_attention`` (K4's forward), appending each call's
+    (bh, bh_kv, sq, sk, d) to ``shapes``."""
+    def route(fn):
+        def inner(*a, **kw):
+            out = fn(*a, **kw)
+            routes.append(((~out[3]).sum(), out[3].numel(), out[5]))
+            return out
+        return inner
+
+    def attention(fn):
+        def inner(q, k, v, **kw):
+            B, Sq, H, d = q.shape
+            shapes.append((B * H, B * k.shape[2], Sq, k.shape[1], d))
+            return fn(q, k, v, **kw)
+        return inner
+    return {"moe_route": route, "blockwise_attention": attention}
+
+
 def _route_recorder(routes: list):
     """A wrapper of ``moe_route`` that appends each call's (ids, keep) to
     ``routes`` on the host."""
@@ -1745,11 +1866,14 @@ def _serve_checked(torch, checks: dict):
 
 
 def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
-                layers=None, trace_layers=None, **shape):
+                layers=None, trace_layers=None, replay=False, **shape):
     """One served model: its config (the published depth, or ``layers``
     of it) through decode_demo's serve path at SERVE's shape (``shape``
-    overrides its batch and prompt length), then the card's prefill
-    against the port's CPU run on the same weights and prompt, then
+    overrides its batch and prompt length), with K4's shapes and an MoE
+    prefill's dropped slots recorded, then the card's prefill against the
+    port's CPU run on the same weights and prompt (with
+    ``replay`` the CPU taking the card's routing and attention inputs,
+    their own distance from the card's held at the type's tolerance), then
     traces at ``trace_layers`` (default the served depth)."""
     import dataclasses
 
@@ -1768,7 +1892,9 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
     # after the serve, the served model's parameters and a cache of its
     # batch and length against their abstract trees (world size 1)
     ws1 = {}
-    with _patched(dd, _serve_checked(torch, ws1)):
+    routes, shapes = [], []
+    with _patched(dd, _serve_checked(torch, ws1)), \
+            _patched(L, _serve_recorder(routes, shapes)):
         if layers is None:
             with _cross_counted(counts, cross) if encdec else \
                     contextlib.nullcontext():
@@ -1789,6 +1915,18 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
           f"{arch}: the world-size-1 checks did not run: {ws1}")
     torch.cuda.synchronize()
     launched = counts()
+    # the prefill's routing: its first calls, one a MoE layer (the decode
+    # steps' follow)
+    n_moe = served.num_layers - served.first_k_dense if full.num_experts else 0
+    prefill_drops = None
+    if n_moe:
+        check(len(routes) == n_moe * serve_shape["gen_tokens"],
+              f"{arch}: {len(routes)} routing calls for {n_moe} MoE layers "
+              f"and {serve_shape['gen_tokens']} forward passes")
+        prefill_drops = dict(
+            tokens=serve_shape["batch"] * serve_shape["prompt_len"],
+            slots=routes[0][1], capacity=routes[0][2],
+            dropped=[int(d) for d, _, _ in routes[:n_moe]])
     if encdec:
         launched["cross_noncausal"] = cross[0]
     logits = r["prefill_logits"]
@@ -1814,7 +1952,8 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
 
     # the fp32 agreement and the traces: attention models at full width
     # and 2 layers (the CPU half holds their weights in fp32; an MoE
-    # model's layer 0 dense, layer 1 MoE), mamba2-130m whole, the hybrid
+    # model's first_k_dense layers dense, the rest MoE), mamba2-130m
+    # whole, the hybrid
     # at HYBRID_AGREE's 7 layers (bf16 too), its fp32 prompt past the
     # window and decode steps after it; the encoder-decoder at 2 + 2
     # layers on ENCDEC_AGREE's tokens and AGREE's frames, with decode
@@ -1865,11 +2004,12 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
 
         model = build_model(cfg, cast, device="cuda")
         card_routes, host_routes = [], []
-        card_attn, host_attn = [], []
+        # the calls whose values the CPU run takes from the card's
+        card_log, host_replay = [], []
         reset()
         with _patched(L, _route_recorder(card_routes)), \
-                _replayed(torch, L, card_attn) if encdec else \
-                contextlib.nullcontext():
+                _replayed(torch, L, card_log) if encdec or replay \
+                else contextlib.nullcontext():
             card, card_steps = run(model)
         torch.cuda.synchronize()
         if name == "fp32":
@@ -1882,22 +2022,25 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
         t0 = time.perf_counter()
         with _patched(L, _route_recorder(host_routes)), \
                 _hybrid_blocks(hybrid, host_log, record_inputs=True), \
-                _replayed(torch, L, host_attn, card_attn) if encdec else \
-                contextlib.nullcontext():
+                _replayed(torch, L, host_replay, card_log) \
+                if encdec or replay else contextlib.nullcontext():
             host, host_steps = run(cpu_model)
         runs[name] = dict(card=card, host=host, layers=n, prompt_len=S,
                           card_steps=card_steps, host_steps=host_steps,
                           cpu_s=time.perf_counter() - t0)
-        if encdec:
-            # the CPU's own run, free of the card's attention inputs:
-            # reported (the reference's init makes the attention near
-            # hard, and an fp32 model's first encoder layer rounds to
-            # bf16, so one rounding moves a score by units)
+        if encdec or replay:
+            # the CPU's own run, free of the card's values: reported (the
+            # reference's init makes the attention near hard, and an fp32
+            # encoder-decoder's first encoder layer rounds to bf16, so one
+            # rounding moves a score by units; a flipped top-1 routing
+            # decision swaps a token's routed output), and how far its own
+            # values of the replayed calls were from the card's
             free, free_steps = run(cpu_model)
-            runs[name].update(frames=inputs["embeds"].shape[1],
-                              free=free, free_steps=free_steps,
-                              replayed=_replay_differs(card_attn, host_attn))
-            del card_attn, host_attn
+            runs[name].update(free=free, free_steps=free_steps,
+                              replayed=_replay_differs(card_log, host_replay))
+        if encdec:
+            runs[name]["frames"] = inputs["embeds"].shape[1]
+        del card_log, host_replay
         if hybrid:
             # each block on the card from the CPU's input to it, its
             # output against the CPU's (the gate: the reference's random
@@ -1995,9 +2138,18 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
             check(max(blocks[name]) <= tol, f"{arch}: {name} blocks: {seen}")
     else:
         check(err32 <= SERVE_TOL_FP32,
-              f"{arch}: fp32 card vs CPU prefill {err32} (routing {routing})")
+              f"{arch}: fp32 card vs CPU prefill {err32} (routing {routing}; "
+              f"free CPU run {free})")
         check(err16 <= SERVE_TOL,
-              f"{arch}: bf16 card vs CPU prefill {err16} (routing {routing})")
+              f"{arch}: bf16 card vs CPU prefill {err16} (routing {routing}; "
+              f"free CPU run {free})")
+        if replay:
+            # the card's q, k and v, which the CPU took, held against the
+            # CPU's own at the type's tolerance
+            for name, tol in (("fp32", SERVE_TOL_FP32), ("bf16", SERVE_TOL)):
+                err = free[name]["replayed"]["attention_inputs_rel_err"]
+                check(err <= tol, f"{arch}: {name} card's attention inputs "
+                                  f"{err} from the CPU's: {free}")
     step_ms = 1e3 * r["decode_s"] / (serve_shape["gen_tokens"] - 1)
     if layers is not None:
         cut = f"depth {layers} of {full.num_layers} layers, published widths"
@@ -2028,8 +2180,9 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
                        rel_err_fp32=err32,
                        rel_err_fp32_decode_steps=err32_steps,
                        rel_err_bf16_decode_steps=err16_steps,
-                       **({"frames": runs["fp32"]["frames"],
-                           "free_cpu_run": free} if encdec else {}),
+                       **({"frames": runs["fp32"]["frames"]} if encdec
+                          else {}),
+                       **({"free_cpu_run": free} if free else {}),
                        routing=routing,
                        blocks={k: dict(n=len(v), max=max(v), each=v)
                                for k, v in blocks.items()},
@@ -2040,6 +2193,7 @@ def phase_serve(torch, arch, dd, build_model, get_config, counts, reset, L,
                            **prefill_trace),
         decode_trace=dict(layers=trace_cfg.num_layers,
                           batch=serve_shape["batch"], **decode_trace),
+        k4_shapes=sorted(set(shapes)), prefill_drops=prefill_drops,
         launches=launched,
     )
 
@@ -2075,6 +2229,47 @@ def _train_steps(torch, model, ocfg, batches, layout=None):
     return losses, norms, secs, state, step
 
 
+def _train_inputs(get_config, arch, batch, seq, layers=None):
+    """The train phase's config of ``arch`` (its published config and its
+    cut), TRAIN_STEPS + 1 batches of batch x seq (the reference
+    launcher's: embeds and M-RoPE positions for the VLM) and its
+    optimizer's config."""
+    from repro_torch.launch.train import train_batch, train_dataset
+    from repro_torch.train import optimizer as opt
+
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    ds = train_dataset(cfg, seq, batch, seed=0)
+    batches = [train_batch(cfg, ds, i) for i in range(TRAIN_STEPS + 1)]
+    ocfg = opt.OptimizerConfig(learning_rate=1e-3, warmup_steps=2,
+                               total_steps=100)
+    return full, cfg, batches, ocfg
+
+
+def plain_train_peak(torch, arch, build_model, get_config) -> dict:
+    """``arch``'s peak device memory over TRAIN_STEPS steps at TRAIN's
+    shapes and depth through the plain step (``make_train_step`` with no
+    layout): the bytes PLAIN_TRAIN_PEAK records, which the train phase's
+    sharded step on one rank is held to (``--plain-peak ARCH``)."""
+    spec = TRAIN[arch]
+    _, cfg, batches, ocfg = _train_inputs(get_config, arch, spec["batch"],
+                                          spec["seq"], spec.get("layers"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg, seed=0, device="cuda")
+    losses, norms, secs, state, step = _train_steps(
+        torch, model, ocfg, batches[:TRAIN_STEPS])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del model, state, step
+    torch.cuda.empty_cache()
+    return dict(arch=arch, **{**spec, "layers": cfg.num_layers},
+                peak_bytes=peak, recorded_bytes=PLAIN_TRAIN_PEAK.get(arch),
+                losses=losses, grad_norms=norms, step_s=secs)
+
+
 def phase_train(torch, arch, build_model, get_config, counts, reset, L,
                 batch, seq, layers=None) -> dict:
     """One model trained on the card at full width, at its published depth
@@ -2089,18 +2284,12 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
     from repro_torch.launch.train import train_batch, train_dataset
     from repro_torch.models import param_defs
     from repro_torch.models.params import count_params
-    from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import abstract_state, state_logical
 
-    full = get_config(arch)
-    cfg = full if layers is None else dataclasses.replace(full,
-                                                          num_layers=layers)
+    full, cfg, batches, ocfg = _train_inputs(get_config, arch, batch, seq,
+                                             layers)
     moe = full.family == "moe"
     hybrid = full.family == "hybrid"
-    ds = train_dataset(cfg, seq, batch, seed=0)
-    batches = [train_batch(cfg, ds, i) for i in range(TRAIN_STEPS + 1)]
-    ocfg = opt.OptimizerConfig(learning_rate=1e-3, warmup_steps=2,
-                               total_steps=100)
     layout = _layout(cfg, ocfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2120,6 +2309,8 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
     check(set(blocks) == set(own) and not copies,
           f"{arch}: {len(copies)} parameter blocks on the one-rank mesh "
           f"are not the model's own tensors: {copies[:4]}")
+    n_blocks = len(blocks)
+    del own, blocks  # the weights leave the card with the state below
     want_peak = PLAIN_TRAIN_PEAK[arch]
     check(abs(peak - want_peak) <= PEAK_SAME * want_peak,
           f"{arch}: the sharded step's peak {peak} is not within "
@@ -2131,6 +2322,8 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
     with _patched(L, _spans(torch) if moe else {}):
         trace = profile(torch, lambda: float(
             step(state, layout.rows(batches[TRAIN_STEPS]))[1]["loss"]))
+    positions = _positions_reach(torch, model, layout.rows(
+        batches[TRAIN_STEPS])) if full.mrope else None
     del state, step, model
     torch.cuda.empty_cache()
     check(all(math.isfinite(x) for x in losses + norms),
@@ -2151,7 +2344,7 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
         # seed give the same bits
         model = build_model(cfg, seed=0, device="cuda")
         again = _train_steps(torch, model, ocfg, batches[:MOE_REPEAT],
-                             layout)
+                             layout)[:2]
         del model
         torch.cuda.empty_cache()
         repeat = dict(steps=MOE_REPEAT, losses=again[0], grad_norms=again[1])
@@ -2163,7 +2356,8 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
     sharded = _sharded_matches_plain(torch, build_model, full)
 
     # the card against the CPU on the same weights and batches
-    spec = HYBRID_TRAIN_AGREE if hybrid else TRAIN_AGREE
+    spec = (HYBRID_TRAIN_AGREE if hybrid
+            else {**TRAIN_AGREE, **TRAIN_AGREE_CUT.get(arch, {})})
     small = dataclasses.replace(full, num_layers=spec["layers"])
     if hybrid:
         small = dataclasses.replace(small, window=spec["window"])
@@ -2187,7 +2381,8 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
             for i in range(spec["steps"])]
         agree = _train_agreement(torch, L, build_model, small, params,
                                  agree_batches, counts, reset,
-                                 replay=moe or full.is_encdec)
+                                 replay=moe or full.is_encdec,
+                                 bf16_steps=spec.get("bf16_steps"))
     del params
     tokens = batch * seq
     if layers is None:
@@ -2205,15 +2400,36 @@ def phase_train(torch, arch, build_model, get_config, counts, reset, L,
         sharded=dict(mesh=list(ONE_RANK[0]), axes=list(ONE_RANK[1]),
                      recipe=cfg.sharding_recipe,
                      batch_axes=list(layout.batch_axes),
-                     own_blocks=len(blocks), plain_peak_bytes=want_peak,
+                     own_blocks=n_blocks, plain_peak_bytes=want_peak,
                      peak_vs_plain=peak / want_peak, against_plain=sharded),
         step_roofline=_roofline(cfg, "train", batch, seq,
                                 sum(secs[1:]) / (len(secs) - 1), n_params),
         peak_bytes=peak, step_trace=trace, repeat=repeat,
+        mrope_positions=positions,
         agreement=dict(**spec, **({"window_cut": spec["window"]} if hybrid
                                   else {}), **agree),
         launches=launched,
     )
+
+
+def _positions_reach(torch, model, batch: dict) -> dict:
+    """The M-RoPE positions reach the trained model: its loss on
+    ``batch`` (no step: the state stays) twice, the same bits, and with
+    the height and width positions shifted by each token's index (their
+    distances doubled, the temporal ones kept), another loss.  A uniform
+    shift of an axis would not do: the rotary phase is relative."""
+    shifted = dict(batch, positions=batch["positions"].clone())
+    S = shifted["positions"].shape[-1]
+    shifted["positions"][1:] += torch.arange(S, dtype=shifted[
+        "positions"].dtype)
+    with torch.no_grad():
+        same = [float(model.loss(batch)[0]) for _ in range(2)]
+        other = float(model.loss(shifted)[0])
+    check(same[0] == same[1] and other != same[0],
+          f"{model.cfg.name}: the M-RoPE positions do not reach the loss: "
+          f"{same} and {other} shifted")
+    return dict(loss=same[0], again=same[1], shifted_loss=other,
+                shift="height and width + token index")
 
 
 def phase_tp_local(torch, build_model, get_config, counts, reset, L,
@@ -2249,8 +2465,15 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                     replay["whole"] = (q.detach(), k.detach(), v.detach())
                 else:
                     r, replay["rank"] = replay["rank"], replay["rank"] + 1
-                    subs = [w[:, :, r * t.shape[2]:(r + 1) * t.shape[2]]
-                            for w, t in zip(replay["whole"], (q, k, v))]
+                    # rank r's q heads, and the kv heads they read: its
+                    # own where the kv heads split, else the one its q
+                    # heads share (q head h reads kv head h // group)
+                    wq, wk, _ = replay["whole"]
+                    group = wq.shape[2] // wk.shape[2]
+                    first = (r * q.shape[2], r * q.shape[2] // group,
+                             r * q.shape[2] // group)
+                    subs = [w[:, :, f:f + t.shape[2]] for w, t, f in
+                            zip(replay["whole"], (q, k, v), first)]
                     replay["input_err"] = max(
                         replay["input_err"],
                         *(float((t.detach() - w).abs().max()
@@ -2307,6 +2530,8 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                                 device=device)
             dy_enc = torch.randn((B, frames, cfg.d_model), generator=gen,
                                  device=device)
+            positions = (_vlm_positions(torch, B, S, device) if cfg.mrope
+                         else None)
             nheads = (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
                       if cfg.ssm_state else 0)
             for name, dtype in (("fp32", torch.float32),
@@ -2333,7 +2558,7 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                         enc = block.startswith("enc_")
                         # with replay: the block on the ranks' own
                         # inputs first (reported, not held), then replayed
-                        held = not (spec.get("replay") and name == "fp32"
+                        held = not (name in spec.get("replay", ())
                                     and "attention" in block)
                         calls = [(i, params, replayed) for i, params in
                                  enumerate(stacks[stack])
@@ -2351,7 +2576,9 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                                 (dy_enc if enc else dy).to(dtype), size,
                                 params,
                                 memory=h_enc.to(dtype)
-                                if block == "cross_attention" else None)
+                                if block == "cross_attention" else None,
+                                positions=positions
+                                if block == "attention" else None)
                             torch.cuda.synchronize()
                             seconds = time.perf_counter() - t2
                             n = launched(before, counts())
@@ -2428,11 +2655,27 @@ def phase_tp_local(torch, build_model, get_config, counts, reset, L,
                 layers=cfg.num_layers, published_layers=full.num_layers,
                 encoder_layers=cfg.encoder_layers, batch=spec["batch"],
                 seq=spec["seq"], frames=spec.get("frames"),
+                mrope_positions=f"an image of {VLM_GRID} x {VLM_GRID} "
+                f"patches, then text" if cfg.mrope else None,
                 blocks=spec["blocks"], seconds=time.perf_counter() - t1)
             del model, h, dy, h_enc, dy_enc
             torch.cuda.empty_cache()
     return dict(models=models, sizes=TP_SIZES, tolerance=TP_TOL, checks=out,
                 seconds=time.perf_counter() - t0)
+
+
+def _vlm_positions(torch, B: int, S: int, device):
+    """M-RoPE positions (3, B, S) of a prompt that opens with an image of
+    VLM_GRID x VLM_GRID patches (temporal 0, height its row, width its
+    column) and goes on in text (all three axes VLM_GRID, VLM_GRID + 1,
+    ...), each batch row the same."""
+    n = min(S, VLM_GRID * VLM_GRID)
+    i = torch.arange(n)
+    text = VLM_GRID + torch.arange(S - n)
+    pos = torch.stack([torch.cat([torch.zeros(n, dtype=torch.long), text]),
+                       torch.cat([i // VLM_GRID, text]),
+                       torch.cat([i % VLM_GRID, text])])
+    return pos[:, None].expand(3, B, S).to(device)
 
 
 def _check_tp_attention(arch, name, size, block, n, ranks, causal, window):
@@ -2475,11 +2718,15 @@ def _sharded_matches_plain(torch, build_model, full, device="cuda") -> dict:
     for how, layout in (("plain", None),
                         ("sharded", _layout(small, ocfg, device))):
         model = build_model(small, seed=1, device=device)
-        losses, norms, _, state, _ = _train_steps(torch, model, ocfg, batches,
-                                                  layout)
-        runs[how] = (losses, norms, [t.clone() for t in
+        losses, norms, _, state, step = _train_steps(torch, model, ocfg,
+                                                     batches, layout)
+        # on the host, and nothing of a run left on the card for the
+        # next: qwen2-vl-72b's 8.5 GB of bf16 weights twice beside its
+        # 51 GB of state would not fit
+        runs[how] = (losses, norms, [t.cpu() for t in
                                      tree.leaves(state.params)])
-        del model, state
+        del model, state, step
+        torch.cuda.empty_cache()
     same = [torch.equal(a, b) for a, b in zip(runs["plain"][2],
                                                runs["sharded"][2])]
     out = dict(layers=small.num_layers, steps=TRAIN_AGREE["steps"],
@@ -2492,10 +2739,12 @@ def _sharded_matches_plain(torch, build_model, full, device="cuda") -> dict:
 
 
 def _train_agreement(torch, L, build_model, small, params, batches, counts,
-                     reset, replay: bool) -> dict:
+                     reset, replay: bool,
+                     bf16_steps: int | None = None) -> dict:
     """TRAIN_AGREE's steps of ``small`` from ``params`` on the card and on
-    the CPU, in fp32 and in bf16: losses and grad norms, gated at
-    TRAIN_TOL.  An MoE model is chaotic in two places, where one rounding
+    the CPU, in fp32 and in bf16 (the first ``bf16_steps`` of ``batches``
+    where it is given): losses and grad norms, gated at TRAIN_TOL.  An
+    MoE model is chaotic in two places, where one rounding
     flips a discrete outcome or near one: a routing decision on a near
     tie, and its attention, near hard at the reference's init (wq and wk
     drawn with the head count as fan-in), where the backward's
@@ -2507,7 +2756,10 @@ def _train_agreement(torch, L, build_model, small, params, batches, counts,
     ``_copy_state``; how far its own were is reported); a second CPU run
     from the same weights runs free, and its distance from the card and
     its routing decisions that differ are reported, as the serve phase
-    reports them."""
+    reports them.  A step whose state no check reads computes its
+    metrics without the update (``_metrics_only``): each run's last, and
+    every step of the gated CPU run that takes the card's state before
+    the next."""
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import init_state, make_train_step
 
@@ -2526,18 +2778,23 @@ def _train_agreement(torch, L, build_model, small, params, batches, counts,
         wall = {w: 0.0 for w in models}
         logs = {w: [] for w in models}
         reset()
-        for i, b in enumerate(batches):
+        run = batches if name == "fp32" else batches[:bf16_steps]
+        for i, b in enumerate(run):
             card_calls = len(logs["cuda"])
+            last = i + 1 == len(run)
             for w in models:
                 t0 = time.perf_counter()
+                unread = last or (replay and w == "cpu")
                 with (_replayed(torch, L, logs[w], logs["cuda"][card_calls:]
                                 if w == "cpu" else None)
-                      if replay else contextlib.nullcontext()):
+                      if replay else contextlib.nullcontext()), \
+                        (_patched(opt, {"update": _metrics_only(opt)})
+                         if unread else contextlib.nullcontext()):
                     states[w], met = steps[w](states[w], b)
                 runs[w][0].append(float(met["loss"]))
                 runs[w][1].append(float(met["grad_norm"]))
                 wall[w] += time.perf_counter() - t0
-            if replay and i + 1 < len(batches):
+            if replay and not last:
                 _copy_state(torch, states["cpu"], states["cuda"])
         torch.cuda.synchronize()
         launched = counts()
@@ -2568,6 +2825,20 @@ def _train_agreement(torch, L, build_model, small, params, batches, counts,
         check(max(gated) <= TRAIN_TOL[name],
               f"{small.name}: {name} card vs CPU training {agree[name]}")
     return agree
+
+
+def _metrics_only(opt):
+    """A wrapper of the optimizer's ``update`` for a run's last step: the
+    metrics it returns (the clipping norm of the gradients, the learning
+    rate at the step's count), the same functions on the same values,
+    and the parameters and moments left as they are."""
+    def outer(update):
+        def inner(cfg, grads, state, params, placements=None):
+            return params, state, {
+                "grad_norm": opt.global_norm(grads, placements),
+                "lr": opt.schedule(cfg, state["count"] + 1)}
+        return inner
+    return outer
 
 
 def _copy_state(torch, dst, src) -> None:
@@ -3623,9 +3894,17 @@ def phase_multihost(torch, cg, amp_plan, amp_arrays, amp_report, amp: complex,
     )
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "GPU (module docstring).")
+    ap.add_argument("--plain-peak", metavar="ARCH", choices=sorted(TRAIN),
+                    help="only build the kernels and print ARCH's train "
+                    "phase peak through the plain step (PLAIN_TRAIN_PEAK)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -3682,6 +3961,7 @@ def main() -> int:
     info = build.build_all()
     emit(phase="build", seconds=time.perf_counter() - t0, card=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
+         host_mem_total=_mem_total(), cpus=os.cpu_count(),
          libraries={k: v["path"] for k, v in info.items()})
     print(smi, flush=True)
     hgmma = {name: build.kernels_with(lib, kernel, "HGMMA")
@@ -3698,6 +3978,11 @@ def main() -> int:
     for name in BF16_INSTANCES:
         bf16 = [k for k in hgmma[name] if k.endswith("Lb1EEv9FusedArgs")]
         check(len(bf16) == 4, f"{name}: bf16 instantiations {bf16}")
+    if args.plain_peak:
+        emit(phase="plain_train_peak", **plain_train_peak(
+            torch, args.plain_peak, build_model, get_config))
+        print(smi, flush=True)
+        return 0
 
     # 1a. the dry-run matrix on the meta device (nothing on the card)
     emit(phase="dryrun", **phase_dryrun(torch))
@@ -3898,11 +4183,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. LM serving at full width, each model's own launches ----------
+    k4_shapes = {}
     for arch, cut in SERVE_MODELS.items():
         t0 = time.perf_counter()
         rec = phase_serve(torch, arch, decode_demo, build_model, get_config,
                           lm_counts, lm_reset, lm_layers, **cut)
         launches[f"serve:{arch}"] = rec["launches"]
+        k4_shapes[arch] = rec["k4_shapes"]
         if arch == "zamba2-7b":
             zamba_agree = rec["agreement"]
         if arch == "seamless-m4t-medium":
@@ -3949,6 +4236,15 @@ def main() -> int:
           and ea["flash_fwd_routes"]["simt"] == ea["flash_attention"] == 6,
           f"seamless-m4t-medium's fp32 agreement did not run the FFMA K4 "
           f"non-causal: {ea}")
+    # llama4-scout-17b-a16e: one prefill launch a layer, every one the
+    # wgmma kernel at bh 160 on 32 kv heads (GQA group 5)
+    arch = "llama4-scout-17b-a16e"
+    ll = launches[f"serve:{arch}"]
+    check(ll["flash_attention"] == SERVE_MODELS[arch]["layers"]
+          and ll["flash_fwd_routes"] == {"wgmma": ll["flash_attention"],
+                                         "simt": 0}
+          and k4_shapes[arch] == [(160, 32, 512, 512, 128)],
+          f"{arch}'s K4 launches: {ll}, shapes {k4_shapes[arch]}")
 
     # 6a. LM training at full width (each model's depth in TRAIN), each
     # model's own launches
@@ -3996,6 +4292,13 @@ def main() -> int:
     for arch in ("deepseek-moe-16b", "zamba2-7b"):
         check(launches[f"train:{arch}"]["flash_attention_bwd"] > 0,
               f"flash_attention_bwd was not launched training {arch}")
+    # qwen2-vl-72b: every K4 backward of its bf16 steps on mma (GQA group
+    # 8); its M-RoPE positions reached the loss (phase_train)
+    vt = launches["train:qwen2-vl-72b"]
+    check(vt["flash_attention_bwd"] > 0
+          and vt["flash_bwd_routes"] == {"mma": vt["flash_attention_bwd"],
+                                         "simt": 0},
+          f"qwen2-vl-72b's K4 backward launches not all mma: {vt}")
     # zamba2-7b: every K4 backward of its bf16 run windowed on mma, of its
     # fp32 agreement windowed on simt; every ssd_chunk_bwd launch wgmma
     zt = launches["train:zamba2-7b"]
@@ -4041,6 +4344,8 @@ def main() -> int:
         el["flash_noncausal"]["wgmma"] - el["cross_noncausal"])
     total["flash_attention_bwd:seamless-m4t-medium"] = launches[
         "train:seamless-m4t-medium"]["flash_bwd_noncausal"]["mma"]
+    total["flash_attention_bwd:qwen2-vl-72b"] = launches[
+        "train:qwen2-vl-72b"]["flash_bwd_routes"]["mma"]
     total["ssd_chunk"] = launches["serve:mamba2-130m"]["ssd_chunk"]
     total["flash_attention_bwd"] = launches["train:qwen3-4b"]["flash_attention_bwd"]
     total["ssd_chunk_bwd"] = launches["train:mamba2-130m"]["ssd_chunk_bwd"]
@@ -4092,22 +4397,23 @@ def main() -> int:
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
         ))
-    # K4's non-causal backward at seamless-m4t-medium's encoder shape,
-    # with the non-causal backward launches of that model's training run
-    # (24 a step: 12 encoder layers, 12 cross-attentions)
-    rec = kern["flash_attention_bwd:seamless-m4t-medium"]
-    records.append(dict(
-        name="flash_attention_bwd:seamless-m4t-medium", route="cuda",
-        design=DESIGNS["flash_attention_bwd"],
-        source=SOURCES["flash_attention_bwd"],
-        replaces=TPU_KERNELS["flash_attention_bwd"],
-        launches=total["flash_attention_bwd:seamless-m4t-medium"],
-        launches_per_step=total["flash_attention_bwd:seamless-m4t-medium"]
-        / TRAIN_STEPS,
-        max_abs_err=rec["max_abs_err"], ms=rec["ms"], simt_ms=rec["simt_ms"],
-        plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-        bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-    ))
+    # K4's backward at seamless-m4t-medium's encoder shape, with the
+    # non-causal backward launches of that model's training run (24 a
+    # step: 12 encoder layers, 12 cross-attentions), and at qwen2-vl-72b's
+    # training shape (GQA group 8), with its training run's (2 a step)
+    for name in ("flash_attention_bwd:seamless-m4t-medium",
+                 "flash_attention_bwd:qwen2-vl-72b"):
+        rec = kern[name]
+        records.append(dict(
+            name=name, route="cuda", design=DESIGNS["flash_attention_bwd"],
+            source=SOURCES["flash_attention_bwd"],
+            replaces=TPU_KERNELS["flash_attention_bwd"],
+            launches=total[name], launches_per_step=total[name] / TRAIN_STEPS,
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            simt_ms=rec["simt_ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec["library_ms"],
+        ))
     # K4's windowed backward at zamba2-7b's training shape, with the
     # launches of that model's training run (one a step: one shared-block
     # application at 7 layers)

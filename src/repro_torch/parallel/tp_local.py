@@ -40,10 +40,11 @@ the second the backward's, and the passes stop when one records what
 the previous one did: its outputs are the true ranks'.  A block with no
 statistic runs one pass.
 
-``chip_smoke.py`` runs it on the card at qwen3-4b's, seamless-m4t-
-medium's, zamba2-7b's and deepseek-moe-16b's published widths (K4, K5
-and their backward on each rank's heads; the routed experts' products
-on each rank's experts); ``tests/test_torch_tp.py`` on the CPU.
+``chip_smoke.py`` runs it on the card at qwen3-4b's, qwen2-vl-72b's
+(its M-RoPE positions given), seamless-m4t-medium's, zamba2-7b's and
+deepseek-moe-16b's published widths (K4, K5 and their backward on each
+rank's heads; the routed experts' products on each rank's experts);
+``tests/test_torch_tp.py`` on the CPU.
 """
 
 from __future__ import annotations
@@ -81,8 +82,9 @@ def _positions(h):
     return torch.arange(S, device=h.device).expand(B, S)
 
 
-def _attention(model, p, x, tp):
-    return model._attend(p, x["h"], _positions(x["h"]), tp=tp)[0]
+def _attention(model, p, x, tp, positions=None):
+    mrope = {} if positions is None else {"mrope_positions": positions}
+    return model._attend(p, x["h"], _positions(x["h"]), tp=tp, **mrope)[0]
 
 
 def _mlp(model, p, x, tp):
@@ -124,7 +126,8 @@ _MLP = ("ln_mlp", "w_gate", "w_up", "w_down")
 # reads, where they are in the model's declarations: a layer of
 # "layers" or "enc_layers", or the hybrid's "shared" block)
 BLOCKS = {
-    # DecoderLM (dense, MoE, VLM): causal, the model's window
+    # DecoderLM (dense, MoE, VLM): causal, the model's window; the VLM's
+    # M-RoPE positions (3, B, S) where check_block is given them
     "attention": (_attention, _ATTN, "layers"),
     # the SwiGLU of every family
     "mlp": (_mlp, _MLP, "layers"),
@@ -177,12 +180,14 @@ class _Replayed(TensorParallel):
             x.copy_(self.sums[call])
 
 
-def _run(fn, model, p: dict, inputs: dict, dy: torch.Tensor, tp):
+def _run(fn, model, p: dict, inputs: dict, dy: torch.Tensor, tp,
+         static: dict):
     """``fn``'s output, its inputs' gradients and its weights' gradients
-    under the upstream gradient ``dy``."""
+    under the upstream gradient ``dy`` (``static``: its keyword inputs
+    that take no gradient)."""
     p = {k: v.detach().requires_grad_() for k, v in p.items()}
     x = {k: v.detach().requires_grad_() for k, v in inputs.items()}
-    out = fn(model, p, x, tp)
+    out = fn(model, p, x, tp, **static)
     out.backward(dy)
     return (out.detach(), {k: v.grad for k, v in x.items()},
             {k: v.grad for k, v in p.items()})
@@ -195,7 +200,7 @@ def _err(got: torch.Tensor, want: torch.Tensor) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
-def _ranks(fn, model, defs, p, inputs, dy, size):
+def _ranks(fn, model, defs, p, inputs, dy, size, static):
     """Every rank's run (their local weights), in passes until one
     records the statistics the previous pass did (module docstring):
     the last pass's runs and the number of passes."""
@@ -203,7 +208,8 @@ def _ranks(fn, model, defs, p, inputs, dy, size):
     for passes in range(1, 8):
         seen: dict = {}
         runs = [_run(fn, model, local_params(defs, p, r, size), inputs, dy,
-                     _Replayed(r, size, sums, seen)) for r in range(size)]
+                     _Replayed(r, size, sums, seen), static)
+                for r in range(size)]
         new = {k: torch.stack(v).sum(0) for k, v in seen.items()}
         if new.keys() == sums.keys() and all(
                 torch.equal(new[k], sums[k]) for k in new):
@@ -214,7 +220,8 @@ def _ranks(fn, model, defs, p, inputs, dy, size):
 
 def check_block(model, layer: int, block: str, h: torch.Tensor,
                 dy: torch.Tensor, size: int, params: dict | None = None,
-                memory: torch.Tensor | None = None) -> dict:
+                memory: torch.Tensor | None = None,
+                positions: torch.Tensor | None = None) -> dict:
     """The whole ``block`` (a name of :data:`BLOCKS`) of ``model``'s
     layer ``layer`` of its stack (ignored for the shared block) on ``h``
     (B, S, D), and on the cross-attention's ``memory`` (B, Sk, D),
@@ -223,7 +230,10 @@ def check_block(model, layer: int, block: str, h: torch.Tensor,
     gradients (``dx``, and the memory's ``dmem``) and weight gradients
     (``grads``, by name), and the ``passes`` the ranks ran.  ``params``
     (default: the layer's own tensors) gives the weights, in their type
-    (an fp32 copy of a bf16 model's, say)."""
+    (an fp32 copy of a bf16 model's, say).  ``positions`` (3, B, S) are
+    the M-RoPE positions of an ``"attention"`` block of a model that
+    takes them (the VLM backbone's), the whole block's and every
+    rank's."""
     fn, names, stack = BLOCKS[block]
     defs = param_defs(model.cfg)[stack]
     if stack == "shared":
@@ -235,13 +245,19 @@ def check_block(model, layer: int, block: str, h: torch.Tensor,
         src = params
     p = {k: v for k, v in src.items() if k in names}
     inputs = {"h": h} if memory is None else {"h": h, "mem": memory}
-    out, dx, grads = _run(fn, model, p, inputs, dy, None)
+    static = {}
+    if positions is not None:
+        if block != "attention" or not model.cfg.mrope:
+            raise ValueError(f"M-RoPE positions for block {block!r} of "
+                             f"{model.cfg.name}")
+        static["positions"] = positions
+    out, dx, grads = _run(fn, model, p, inputs, dy, None, static)
     acc_out = torch.zeros_like(out, dtype=torch.float64)
     acc_dx = {k: torch.zeros_like(d, dtype=torch.float64)
               for k, d in dx.items()}
     acc = {k: torch.zeros_like(g, dtype=torch.float64)
            for k, g in grads.items()}
-    runs, passes = _ranks(fn, model, defs, p, inputs, dy, size)
+    runs, passes = _ranks(fn, model, defs, p, inputs, dy, size, static)
     for r, (o, d, g) in enumerate(runs):
         acc_out += o.double()
         for k, dk in d.items():

@@ -443,6 +443,8 @@ def _rel(got, want) -> float:
     (4, 4, 128, 256, 128, False, 0),    # full attention, group 4
     (64, 1, 512, 512, 128, True, 0),    # deepseek-moe-16b's serve prefill (MHA)
     (256, 8, 512, 512, 128, True, 0),   # qwen2-vl-72b's serve prefill, group 8
+    (160, 5, 512, 512, 128, True, 0),   # llama4-scout-17b-a16e's, group 5
+    (10, 5, 128, 384, 64, True, 256),   # group 5, chunk with q_offset
     (64, 1, 512, 512, 64, False, 0),    # seamless-m4t-medium's encoder
     (64, 1, 512, 1024, 64, False, 0),   # its cross-attention, sq != sk
 ])
@@ -584,6 +586,8 @@ FLASH_BWD_CASES = [
     (4, 1, 64, 256, 16, True, 0),       # keys no query sees: zero dK/dV
     (64, 1, 512, 512, 64, False, 0),    # seamless-m4t-medium's encoder
     (64, 1, 512, 1024, 64, False, 0),   # its cross-attention, sq != sk
+    (128, 8, 512, 512, 128, True, 0),   # qwen2-vl-72b's training, group 8
+    (40, 5, 512, 512, 128, True, 0),    # llama4-scout-17b-a16e's group 5
 ]
 
 

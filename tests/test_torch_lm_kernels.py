@@ -100,12 +100,16 @@ def test_flash_plain_matches_pallas_kernel(dtype, causal):
 
 @pytest.mark.parametrize("group,q_offset,sq,sk", [
     (1, 0, 256, 256), (4, 0, 128, 128), (2, 128, 128, 256), (4, 256, 128, 384),
+    # llama4-scout-17b-a16e's 40 q heads on 8 kv heads, qwen2-vl-72b's 64
+    # on 8
+    (5, 0, 128, 128), (5, 128, 128, 256), (8, 0, 128, 128),
 ])
 def test_flash_gqa_index_matches_head_repeat(group, q_offset, sq, sk):
     """Query head bh reads kv head bh // group: the same function as the
-    Pallas kernel on head-repeated k/v, with its q_offset."""
+    Pallas kernel on head-repeated k/v, with its q_offset (two kv heads
+    at group 5)."""
     rng = np.random.default_rng(group + q_offset)
-    bh, d = 8, 32
+    bh, d = (8 if 8 % group == 0 else 2 * group), 32
     q = rng.normal(size=(bh, sq, d)).astype(np.float32)
     k = rng.normal(size=(bh // group, sk, d)).astype(np.float32)
     v = rng.normal(size=(bh // group, sk, d)).astype(np.float32)
@@ -490,6 +494,46 @@ def test_flash_bwd_plain_gradcheck(bh, group, sq, sk, causal, q_offset):
                                        lse, do, causal=causal, q_offset=q_offset)
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("group,sq,sk,q_offset", [
+    (5, 128, 128, 0), (5, 64, 192, 128), (8, 128, 128, 0)])
+def test_flash_bwd_plain_matches_reference_on_repeated_heads(group, sq, sk,
+                                                             q_offset):
+    """The plain backward at llama4-scout-17b-a16e's GQA group (5) and
+    qwen2-vl-72b's (8), two kv heads, against ``jax.vjp`` of the
+    reference's ``blockwise_attention`` on head-repeated k/v (its dK/dV
+    summed over each group by the repeat's vjp), the same numpy inputs:
+    rtol 1e-5."""
+    rng = np.random.default_rng(group + sq + q_offset)
+    kv, d = 2, 32
+    q = rng.normal(size=(1, sq, kv * group, d)).astype(np.float32)
+    k = rng.normal(size=(1, sk, kv, d)).astype(np.float32)
+    v = rng.normal(size=(1, sk, kv, d)).astype(np.float32)
+    do = rng.normal(size=(1, sq, kv * group, d)).astype(np.float32)
+
+    def repeated(q, k, v):
+        return jL.blockwise_attention(q, jnp.repeat(k, group, axis=2),
+                                      jnp.repeat(v, group, axis=2),
+                                      causal=True, q_offset=q_offset)
+
+    want_o, vjp = jax.vjp(repeated, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+
+    def heads(x):  # (1, S, H, d) -> (H, S, d): head h is row h
+        return _t(np.ascontiguousarray(x[0].transpose(1, 0, 2)))
+
+    o, lse = fa.flash_attention_plain(heads(q), heads(k), heads(v),
+                                      causal=True, q_offset=q_offset,
+                                      return_lse=True)
+    got = fa.flash_attention_bwd_plain(heads(q), heads(k), heads(v), o, lse,
+                                       heads(do), causal=True,
+                                       q_offset=q_offset)
+    np.testing.assert_allclose(_np(o), _np(heads(np.asarray(want_o))),
+                               rtol=1e-5, atol=1e-5)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(heads(np.asarray(w))),
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("G,lo,hi", [(4, 0.01, 0.5), (1, 0.01, 0.5), (2, 0.5, 2.0)])

@@ -49,23 +49,35 @@ def _model(arch):
 
 
 @pytest.mark.parametrize("size", [2, 4])
-@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-7b", "qwen2-vl-72b"])
 def test_local_blocks_sum_to_the_whole_block(arch, size, monkeypatch):
+    """``DecoderLM``'s attention and SwiGLU; the VLM backbone's attention
+    on M-RoPE positions (3, B, S), each axis its own (random) positions,
+    which reach every rank's rotary phase as the whole block's."""
     model = _model(arch)
     cfg = model.cfg
     rng = np.random.default_rng(0)
     h = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))).float()
-    heads = []
-    plain = L.blockwise_attention
+    positions = (torch.from_numpy(rng.integers(0, S, (3, B, S)))
+                 if cfg.mrope else None)
+    heads, rotated = [], []
+    plain, plain_mrope = L.blockwise_attention, L.apply_mrope
 
     def recorded(q, k, v, **kw):
         heads.append((q.shape[2], k.shape[2]))
         return plain(q, k, v, **kw)
 
+    def mrope(x, pos, *a, **kw):
+        rotated.append(pos)
+        return plain_mrope(x, pos, *a, **kw)
+
     monkeypatch.setattr(L, "blockwise_attention", recorded)
+    monkeypatch.setattr(L, "apply_mrope", mrope)
     for block in ("attention", "mlp"):
         dy = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))).float()
-        got = tp_local.check_block(model, 0, block, h, dy, size)
+        got = tp_local.check_block(
+            model, 0, block, h, dy, size,
+            positions=positions if block == "attention" else None)
         assert got["out"] <= TOL and got["dx"] <= TOL, (block, got)
         assert max(got["grads"].values()) <= TOL, (block, got)
     # the whole block, then each rank on H/P q heads, over the kv heads
@@ -73,6 +85,10 @@ def test_local_blocks_sum_to_the_whole_block(arch, size, monkeypatch):
     kv = (cfg.num_kv_heads // size if cfg.num_kv_heads % size == 0 else 1)
     assert heads == [(cfg.num_heads, cfg.num_kv_heads)] + [
         (cfg.num_heads // size, kv)] * size
+    # q and k rotated by the given positions: the whole block's, then
+    # each rank's
+    assert len(rotated) == (2 * (1 + size) if cfg.mrope else 0)
+    assert all(torch.equal(p, positions) for p in rotated)
 
 
 # each family's blocks: the encoder-decoder's encoder and decoder
@@ -314,3 +330,59 @@ def test_moe_aux_loss_reaches_the_router_once(size):
                        ("s_gate", 1), ("s_up", 1), ("s_down", 0)):
         assert got[0][3][name].shape[dims] * size == grads[name].shape[dims]
         close(torch.cat([g[3][name] for g in got], dims), grads[name])
+
+
+def test_smoke_tp_local_replays_the_kv_head_a_rank_reads(monkeypatch):
+    """``chip_smoke.phase_tp_local`` on qwen2-vl-72b at its GQA group of 8
+    (16 q heads on 2 kv heads, narrowed; 64 tokens), its M-RoPE
+    positions given, on the CPU: at every P of ``TP_SIZES`` the ranks'
+    sums within ``TP_TOL`` of the whole blocks, each rank on H/P q heads
+    and one kv head (its own at P = 2, else the one its q heads read),
+    and the checks that replay the whole block's q, k and v into each
+    rank (fp32 and, for this model, bf16) giving rank r of P = 16 kv
+    head r // 8, the one its q head reads (its own inputs read 0 from
+    them here, where the plain attention takes the same sums)."""
+    import dataclasses
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b"), d_model=64,
+                              num_heads=16, num_kv_heads=2, head_dim=16,
+                              d_ff=128, vocab_size=512)
+    monkeypatch.setattr(cs, "TP_LOCAL", {cfg.name: {
+        **cs.TP_LOCAL[cfg.name], "seq": 64}})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    attention = []  # K4's launches are the card's: the blocks checked
+    monkeypatch.setattr(cs, "_check_tp_attention",
+                        lambda *a, **k: attention.append(a[1:4]))
+
+    def counts():
+        return {**fa.LAUNCHES, **ssd.LAUNCHES,
+                **{k: {"wgmma": 0, "mma": 0, "simt": 0} for k in (
+                    "flash_fwd_routes", "flash_bwd_routes", "flash_noncausal",
+                    "flash_bwd_noncausal", "flash_window_routes",
+                    "flash_bwd_window_routes", "ssd_routes",
+                    "ssd_bwd_routes")}}
+
+    out = cs.phase_tp_local(
+        torch, lambda c, seed, device: build_model(c, seed=seed,
+                                                   device=device),
+        lambda arch: cfg, counts, lambda: None, L, device="cpu")
+    for size in cs.TP_SIZES:
+        for name in ("fp32", "bf16"):
+            rec = out["checks"][f"{cfg.name}:{name}:P{size}"]
+            assert max(rec["errors"].values()) <= cs.TP_TOL[name], rec
+            assert rec["heads_per_rank"] == [16 // size, 1], rec
+            assert rec["errors"]["attention_inputs"] == 0.0, rec
+    # each P and type: the attention checked twice, on the ranks' own
+    # inputs, then with the whole's replayed
+    assert sorted(attention) == sorted(
+        [(t, s, "attention") for s in cs.TP_SIZES for t in
+         ("fp32", "fp32", "bf16", "bf16")])
